@@ -7,23 +7,38 @@
 Written for the NVIDIA H100: it builds the port's CUDA kernels from
 `src/repro_torch/csrc/` with nvcc (sm_90a), holds each kernel against its
 plain PyTorch version on the card, checks full-width f32 logits and greedy
-tokens between the kernel path and the dense path, then serves greedy
-requests through `Engine` in bf16 on the served model, Qwen3-0.6B wrapped
-with AltUp K=2 (recycled), at its full width and depth, with seeded random
-weights. Phases:
+tokens between the kernel path, the paged kernel path and the dense path,
+then serves greedy requests through `Engine` in bf16 on the served model,
+Qwen3-0.6B wrapped with AltUp K=2 (recycled), at its full width and depth,
+with seeded random weights: once over contiguous slot caches and once
+over a paged KV pool with prefix reuse. Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
-  (c) kernels  each kernel vs its plain version at the served shapes:
-               max error; device ms per call (torch.profiler) of the
-               kernel, its plain version and the library yardstick; the
-               wrapper's ms per call (CUDA events); the bytes bound
-  (d) parity   full-width f32 decode_step logits, kernels vs dense path,
-               over a chunked prefill and 16 greedy steps for 4 slots
+  (c) kernels  each kernel vs its plain version at the shapes the serve
+               phases give it (and at a spread of depths from 0 to
+               2048): max error; device ms per call (torch.profiler) of
+               the kernel, its plain version and the library yardstick;
+               the wrapper's ms per call (CUDA events); the bytes bound.
+               c-paged also holds the paged kernel bitwise against the
+               contiguous one on the same rows, through a permuted table
+  (d) parity   full-width f32 decode_step logits over a chunked prefill
+               and 16 greedy steps for 4 slots: the kernel path and the
+               paged kernel path (permuted block table) vs the dense path
   (e) serve    8 greedy bf16 requests (prompts of 32-512 tokens, 64 new
-               tokens each) through Engine(n_slots=8, max_len=2048); the
-               kernels' launch counts of that run show the path used them
-  (f) profile  (--profile only) device busy share of pure decode steps
+               tokens each) through Engine(n_slots=8, max_len=2048,
+               prefix_cache=False); the kernels' launch counts of that run
+               show the path used them
+  (g) paged    16 greedy bf16 requests sharing a 250-token system prompt
+               through Engine(paged=True, n_slots=16, n_pages=512), the
+               prefix cache on: hits, page aliasing, a boundary-page copy
+               per hit, over-commit of the pool, and the paged kernel's
+               launch counts of that run
+      g-spill  the host spill tier: a prefix spilled to the host and
+               restored serves the same tokens as the resident prefix;
+               every copy, spill and restore held bitwise on the card
+  (f) profile  (--profile only) device busy share of pure decode steps,
+               of the (e) engine and (f-profile-paged) of the (g) engine
 
 Every phase prints one line; any failure raises and exits non-zero. The
 second-to-last line is the per-kernel JSON record; the last line is
@@ -33,6 +48,7 @@ fails when the repository's `src/repro_torch` is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -144,15 +160,14 @@ def check_altup(torch, ops, ref, dtype, T, K=2, d=1024, seed=0):
             "bytes": nbytes, "tol": tol}
 
 
-def check_ragged(torch, ops, ref, dtype, B=8, Hk=8, rep=2, Dh=128, T=2048,
-                 seed=1):
+def check_ragged(torch, ops, ref, dtype, lens_host, Hk=8, rep=2, Dh=128,
+                 T=2048, seed=1):
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    H = Hk * rep
+    B, H = len(lens_host), Hk * rep
     q = torch.randn(B, 1, H, Dh, generator=gen, device=DEV).to(dtype)
     k = torch.randn(B, T, Hk, Dh, generator=gen, device=DEV).to(dtype)
     v = torch.randn(B, T, Hk, Dh, generator=gen, device=DEV).to(dtype)
-    lens_host = [0, T, 1, 517, 1024, 77, T - 49, 300][:B]
     lens = torch.tensor(lens_host, dtype=torch.int32, device=DEV)
     qg = q[:, 0].reshape(B, Hk, rep, Dh)
 
@@ -165,8 +180,9 @@ def check_ragged(torch, ops, ref, dtype, B=8, Hk=8, rep=2, Dh=128, T=2048,
     torch.cuda.synchronize()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, want, **tol)
-    if not bool((got[0] == 0).all()):
-        raise AssertionError("empty slot (length 0) is not exact zeros")
+    for b in range(B):
+        if lens_host[b] == 0 and not bool((got[b] == 0).all()):
+            raise AssertionError(f"empty slot {b} is not exact zeros")
     name = "float32" if dtype == torch.float32 else "bfloat16"
     esz = q.element_size()
     rows = sum(lens_host)
@@ -184,7 +200,8 @@ def check_ragged(torch, ops, ref, dtype, B=8, Hk=8, rep=2, Dh=128, T=2048,
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                               enable_gqa=True)
     lib = library()
-    lib_err = max_err(torch, lib[1:].permute(0, 2, 1, 3), want[1:])
+    live = lens > 0                  # SDPA gives NaN on an all-masked row
+    lib_err = max_err(torch, lib[live].permute(0, 2, 1, 3), want[live])
     return {"dtype": name, "B": B, "Hk": Hk, "rep": rep, "Dh": Dh, "T": T,
             "lengths": lens_host,
             "max_abs_err": max_err(torch, got, want),
@@ -197,12 +214,115 @@ def check_ragged(torch, ops, ref, dtype, B=8, Hk=8, rep=2, Dh=128, T=2048,
             "bytes": nbytes, "tol": tol}
 
 
+def pages_for(rows, page):
+    return -(-rows // page)
+
+
+def paged_table(torch, gen, reserve, n_shared, n_pages, npg):
+    """(B, npg) int32 block table over a seeded random permutation of the
+    pool's pages, laid out as PagePool lays it out: slot b holds
+    reserve[b] pages, the first n_shared of them the same pages for every
+    slot (an aliased prompt prefix), the rest its own; an idle slot
+    (reserve 0) and the entries past a slot's reservation are 0."""
+    perm = torch.randperm(n_pages, generator=gen).tolist()
+    if n_shared + sum(max(r - n_shared, 0) for r in reserve) > n_pages:
+        raise ValueError("the pool cannot hold these reservations")
+    bt = torch.zeros(len(reserve), npg, dtype=torch.int32)
+    nxt = n_shared
+    for b, r in enumerate(reserve):
+        if r:
+            own = perm[nxt:nxt + r - n_shared]
+            nxt += r - n_shared
+            bt[b, :r] = torch.tensor(perm[:n_shared] + own)
+    return bt.to(DEV)
+
+
+def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
+                n_pages=1024, Hk=8, rep=2, Dh=128, T=2048, t_max=2048,
+                page=16, seed=4):
+    """The paged kernel over a random pool of n_pages pages plus the sink,
+    through the block table of paged_table (T // page entries per slot)
+    with the read bound t_max, against its plain version and, bitwise,
+    against the contiguous kernel on the same rows gathered into
+    contiguous caches."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    B, H, npg = len(lens_host), Hk * rep, T // page
+    R = (n_pages + 1) * page
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=DEV).to(dtype)
+    kp = torch.randn(R, Hk, Dh, generator=gen, device=DEV).to(dtype)
+    vp = torch.randn(R, Hk, Dh, generator=gen, device=DEV).to(dtype)
+    lens = torch.tensor(lens_host, dtype=torch.int32, device=DEV)
+    bt = paged_table(torch, torch.Generator().manual_seed(seed), reserve,
+                     n_shared, n_pages, npg)
+    grows = (bt.long()[:, :, None] * page
+             + torch.arange(page, device=DEV)).reshape(B, T)
+    # the contiguous read slice of the same rows: (B, t_max, Hk, Dh)
+    k, v = kp[grows[:, :t_max]], vp[grows[:, :t_max]]
+    qg = q[:, 0].reshape(B, Hk, rep, Dh)
+
+    def launch():
+        return ops.paged_ragged_decode_attn(q, kp, vp, lens, bt, page=page,
+                                            t_max=t_max)
+
+    def plain():
+        return ref.paged_ragged_decode_ref(qg, kp, vp, lens, bt, page=page,
+                                           t_max=t_max)
+    got, want = launch(), plain().reshape(B, 1, H, Dh)
+    contiguous = ops.ragged_decode_attn(q, k, v, lens)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, want, **tol)
+    for b in range(B):
+        if lens_host[b] == 0 and not bool((got[b] == 0).all()):
+            raise AssertionError(f"empty slot {b} is not exact zeros")
+    if not torch.equal(got, contiguous):
+        raise AssertionError(
+            f"paged kernel differs from the contiguous kernel on the same "
+            f"rows: max abs {max_err(torch, got, contiguous)}")
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    esz = q.element_size()
+    # bytes: each pool row that some slot reads, once (an aliased page is
+    # one input however many slots read it), q, out, lengths, table entries
+    rows = torch.cat([grows[b, :n] for b, n in enumerate(lens_host)])
+    distinct = int(rows.unique().numel())
+    table = sum(pages_for(n, page) for n in lens_host)
+    nbytes = (distinct * Hk * Dh * 2 * esz + 2 * B * H * Dh * esz + 4 * B
+              + 4 * table)
+    nops = sum(lens_host) * Hk * rep * Dh * 4
+    b_ms, b_by = bound_ms(nbytes, nops, name)
+    # no single PyTorch call reads through a block table; SDPA on rows
+    # gathered beforehand is printed beside it, labelled as such
+    qs = q.permute(0, 2, 1, 3)
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (torch.arange(t_max, device=DEV)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+
+    def sdpa_gathered():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+    return {"dtype": name, "B": B, "Hk": Hk, "rep": rep, "Dh": Dh,
+            "page": page, "pool_pages": n_pages, "table_pages": npg,
+            "t_max": t_max,
+            "lengths": lens_host, "shared_pages": n_shared,
+            "distinct_rows_read": distinct,
+            "max_abs_err": max_err(torch, got, want),
+            "bitwise_equal_contiguous": True,
+            "ms": device_ms(torch, launch, "paged_ragged_decode_kernel"),
+            "plain_ms": device_ms(torch, plain),
+            "wrapper_ms": time_ms(torch, launch),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
+            "bytes": nbytes, "tol": tol}
+
+
 # ---------------------------------------------------------------------------
-# (d) full-width f32 parity, kernel path vs dense path
+# (d) full-width f32 parity: kernel path and paged kernel path vs dense path
 # ---------------------------------------------------------------------------
 
 def parity_f32(torch):
-    from repro_torch.models.decode import decode_step, init_cache
+    from repro_torch.models.decode import (decode_step, init_cache,
+                                           init_paged_cache)
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import kv_bucket
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -212,16 +332,24 @@ def parity_f32(torch):
     cfg_d = cfg.replace(ragged_decode_attn=False, fused_decode_altup=False)
     params = init_params(cfg, seed=0, device=DEV)
     perturb_altup(torch, params, seed=10)
-    B, T, C, n_dec = 4, 1024, 64, 16
+    B, T, C, n_dec, page = 4, 1024, 64, 16, 16
     gen = torch.Generator(device=DEV).manual_seed(2)
     plens = [37, 180, 5, 300]
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device=DEV) for n in plens]
+    n_pages = B * T // page
     caches = {"k": init_cache(cfg_k, B, T, device=DEV),
+              "p": init_paged_cache(cfg_k, B, T, n_pages=n_pages, page=page,
+                                    device=DEV),
               "d": init_cache(cfg_d, B, T, device=DEV)}
-    cfgs = {"k": cfg_k, "d": cfg_d}
+    cfgs = {"k": cfg_k, "p": cfg_k, "d": cfg_d}
+    # the paged side reads through a seeded permutation of the pool
+    bt = torch.randperm(n_pages, generator=gen, device=DEV).reshape(
+        B, T // page).to(torch.int32)
+    pkw = {"k": {}, "d": {}, "p": {"block_table": bt, "page_size": page}}
+    sides = ("k", "p", "d")
     pos = [0] * B
-    worst = 0.0
+    worst = {"k": 0.0, "p": 0.0}
     last = {}
     # chunked prefill: every slot feeds up to C prompt tokens per step
     while any(pos[b] < plens[b] for b in range(B)):
@@ -231,48 +359,55 @@ def parity_f32(torch):
             toks[b, :nval[b]] = prompts[b][pos[b]:pos[b] + nval[b]]
         kv_len = kv_bucket(max(p + n for p, n in zip(pos, nval)), 32, T)
         out = {}
-        for side in ("k", "d"):
+        for side in sides:
             out[side], _ = decode_step(
                 params, cfgs[side], caches[side], toks,
                 torch.tensor(pos, device=DEV),
-                n_valid=torch.tensor(nval, device=DEV), kv_len=kv_len)
+                n_valid=torch.tensor(nval, device=DEV), kv_len=kv_len,
+                **pkw[side])
         for b in range(B):
             if nval[b]:
-                rows_k = out["k"][b, :nval[b], :cfg.vocab_size]
-                rows_d = out["d"][b, :nval[b], :cfg.vocab_size]
-                torch.testing.assert_close(rows_k, rows_d, **PARITY_TOL)
-                worst = max(worst, max_err(torch, rows_k, rows_d))
+                rows = {s: out[s][b, :nval[b], :cfg.vocab_size]
+                        for s in sides}
+                for s in ("k", "p"):
+                    torch.testing.assert_close(rows[s], rows["d"],
+                                               **PARITY_TOL)
+                    worst[s] = max(worst[s],
+                                   max_err(torch, rows[s], rows["d"]))
                 if pos[b] + nval[b] == plens[b]:
-                    last[b] = (rows_k[-1], rows_d[-1])
+                    last[b] = {s: rows[s][-1] for s in sides}
         pos = [p + n for p, n in zip(pos, nval)]
-    tok = {s: torch.stack([last[b][i].argmax() for b in range(B)])
-           for i, s in enumerate(("k", "d"))}
-    streams = {"k": [tok["k"].tolist()], "d": [tok["d"].tolist()]}
+    tok = {s: torch.stack([last[b][s].argmax() for b in range(B)])
+           for s in sides}
+    streams = {s: [tok[s].tolist()] for s in sides}
     min_gap = math.inf
     for _ in range(n_dec):
         kv_len = kv_bucket(max(pos) + 1, 32, T)
-        logits = {}
-        for side in ("k", "d"):
-            logits[side], _ = decode_step(
+        lg = {}
+        for side in sides:
+            logits, _ = decode_step(
                 params, cfgs[side], caches[side], tok[side][:, None],
-                torch.tensor(pos, device=DEV), kv_len=kv_len)
-        lk = logits["k"][:, 0, :cfg.vocab_size]
-        ld = logits["d"][:, 0, :cfg.vocab_size]
-        torch.testing.assert_close(lk, ld, **PARITY_TOL)
-        worst = max(worst, max_err(torch, lk, ld))
-        top2 = ld.topk(2, dim=-1).values
+                torch.tensor(pos, device=DEV), kv_len=kv_len,
+                **pkw[side])
+            lg[side] = logits[:, 0, :cfg.vocab_size]
+        for s in ("k", "p"):
+            torch.testing.assert_close(lg[s], lg["d"], **PARITY_TOL)
+            worst[s] = max(worst[s], max_err(torch, lg[s], lg["d"]))
+        top2 = lg["d"].topk(2, dim=-1).values
         min_gap = min(min_gap, float((top2[:, 0] - top2[:, 1]).min()))
-        for side, lg in (("k", lk), ("d", ld)):
-            tok[side] = lg.argmax(dim=-1)
+        for side in sides:
+            tok[side] = lg[side].argmax(dim=-1)
             streams[side].append(tok[side].tolist())
         pos = [p + 1 for p in pos]
-    if streams["k"] != streams["d"]:
-        raise AssertionError(f"greedy tokens differ between the kernel and "
-                             f"dense paths: {streams}")
+    if not streams["k"] == streams["p"] == streams["d"]:
+        raise AssertionError(f"greedy tokens differ between the kernel, "
+                             f"paged kernel and dense paths: {streams}")
     del params, caches
     torch.cuda.empty_cache()
     return {"slots": B, "prompt_lens": plens, "decode_steps": n_dec,
-            "max_abs_logit_err": worst, "tol": PARITY_TOL,
+            "max_abs_logit_err": worst["k"],
+            "paged_max_abs_logit_err": worst["p"], "page": page,
+            "tol": PARITY_TOL,
             "greedy_tokens_identical": True,
             "tokens_checked": B * (n_dec + 1),
             "min_top2_gap_dense": min_gap,
@@ -284,6 +419,8 @@ def parity_f32(torch):
 # (e) serve: the main path, through the entry points a user calls
 # ---------------------------------------------------------------------------
 
+E_PROMPTS, E_NEW = (32, 96, 160, 224, 288, 352, 416, 512), 64
+
 def serve_bf16(torch, ops, profile=False):
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Engine
@@ -292,17 +429,18 @@ def serve_bf16(torch, ops, profile=False):
     params = init_params(cfg, seed=1, device=DEV)
     perturb_altup(torch, params, seed=11)
     eng = Engine(cfg, params, max_len=2048, n_slots=8, prefill_chunk=64,
-                 device=DEV)
+                 prefix_cache=False, device=DEV)
     gen = torch.Generator().manual_seed(3)
-    plens = [32, 96, 160, 224, 288, 352, 416, 512]
+    plens = list(E_PROMPTS)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
                for n in plens]
-    n_new = 64
+    n_new = E_NEW
     # warm-up request (cuBLAS handles, allocator) outside the counted run
     eng.submit(prompts[0][:16], sampling=SamplingParams(max_new=4))
     eng.run()
     eng.reset_stats()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()     # the peak of this run only
     ops.reset_launch_counts()                # counts start at 0 right here
     t_run = time.perf_counter()
     rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
@@ -334,7 +472,8 @@ def serve_bf16(torch, ops, profile=False):
     # one launch per layer per step: fused AltUp on every step, ragged
     # attention on the pure-decode (S=1) steps
     if counts["altup_predict_correct"] != n_layers * steps or \
-            counts["ragged_decode_attention"] != n_layers * len(decode_ms):
+            counts["ragged_decode_attention"] != n_layers * len(decode_ms) \
+            or counts["paged_ragged_decode_attention"] != 0:
         raise AssertionError(f"launch counts {counts} do not match {steps} "
                              f"steps, {len(decode_ms)} decode steps")
     st = eng.stats
@@ -355,6 +494,226 @@ def serve_bf16(torch, ops, profile=False):
     del eng, params
     torch.cuda.empty_cache()
     return res, counts, prof
+
+
+# ---------------------------------------------------------------------------
+# (g) paged serve with prefix reuse: the paged path, through Engine
+# ---------------------------------------------------------------------------
+
+# phase (g)'s traffic: a system prompt that is not a whole number of pages
+# (so every hit aliases its full pages and copies its boundary page), then
+# requests of that prompt plus a tail, on 16 slots over a pool of 4
+# full-length requests' worth of pages
+G_SYSTEM, G_REQUESTS, G_NEW = 250, 15, 64
+G_SLOTS, G_PAGES, G_PAGE = 16, 512, 16
+
+
+def paged_traffic(torch, vocab):
+    """Phase (g)'s system prompt, tail lengths and prompts, from seed 5."""
+    gen = torch.Generator().manual_seed(5)
+    system = torch.randint(0, vocab, (G_SYSTEM,), generator=gen).tolist()
+    tails = torch.randint(32, 257, (G_REQUESTS,), generator=gen).tolist()
+    prompts = [system + torch.randint(0, vocab, (n,), generator=gen).tolist()
+               for n in tails]
+    return system, tails, prompts
+
+
+@contextlib.contextmanager
+def page_ops(torch, check):
+    """Count the engine's boundary-page copies, spills and restores made
+    inside the block; with `check`, hold each one bitwise against the
+    pool rows it read or wrote (one host sync each)."""
+    import repro_torch.serve.engine as E
+    real = {n: getattr(E, n)
+            for n in ("copy_pages", "scatter_pages", "_spill_entry")}
+    n = {"copies": 0, "copied_pages": 0, "spills": 0, "restores": 0}
+
+    def same(a, b):                          # two gather_pages blobs
+        return all(torch.equal(a[s][k], b[s][k].to(a[s][k].device))
+                   for s in a for k in a[s])
+
+    def copy_pages(caches, dst, src, *, page):
+        out = real["copy_pages"](caches, dst, src, page=page)
+        n["copies"] += 1
+        n["copied_pages"] += len(dst)
+        if check and not same(E.gather_pages(caches, dst, page=page),
+                              E.gather_pages(caches, src, page=page)):
+            raise AssertionError("a copied page differs from its source")
+        return out
+
+    def scatter_pages(caches, blob, pages, *, page):
+        out = real["scatter_pages"](caches, blob, pages, page=page)
+        n["restores"] += 1
+        if check:
+            rows = len(pages) * page     # pooled k/v: (n, rows, Hk, Dh)
+            want = {s: {k: t[:, :rows] for k, t in leaves.items()}
+                    for s, leaves in blob.items()}
+            if not same(E.gather_pages(caches, pages, page=page), want):
+                raise AssertionError("restored pages differ from the blob")
+        return out
+
+    def spill_entry(caches, page, entry):
+        blob = real["_spill_entry"](caches, page, entry)
+        n["spills"] += 1
+        if check and not same(E.gather_pages(caches, entry.pages, page=page),
+                              blob):
+            raise AssertionError("a spilled blob differs from its pages")
+        return blob
+    E.copy_pages, E.scatter_pages, E._spill_entry = (copy_pages,
+                                                     scatter_pages,
+                                                     spill_entry)
+    try:
+        yield n
+    finally:
+        for name, fn in real.items():
+            setattr(E, name, fn)
+
+
+def serve_paged_bf16(torch, ops, profile=False):
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = served_config()                              # bf16
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=11)
+    eng = Engine(cfg, params, max_len=2048, n_slots=G_SLOTS, prefill_chunk=64,
+                 paged=True, page_size=G_PAGE, n_pages=G_PAGES, device=DEV)
+    system, tails, prompts = paged_traffic(torch, cfg.vocab_size)
+    n_new = G_NEW
+    # the warm request puts the system prompt in the prefix cache (and
+    # warms cuBLAS and the allocator) outside the counted run
+    eng.submit(system, sampling=SamplingParams(max_new=n_new))
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with page_ops(torch, check=False) as pops:
+        ops.reset_launch_counts()            # counts start at 0 right here
+        t_run = time.perf_counter()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
+                for p in prompts]
+        decode_ms, steps = [], 0
+        while eng.has_work:
+            pf0 = eng.stats["prefill_tokens"]
+            t0 = time.perf_counter()
+            eng.step()                       # ends in the ids' device->host
+            dt = time.perf_counter() - t0
+            steps += 1
+            if eng.stats["prefill_tokens"] == pf0:
+                decode_ms.append(1e3 * dt)
+        wall = time.perf_counter() - t_run
+        counts = ops.launch_counts()         # read right after the run
+    out = eng.collect()
+    if sorted(out) != sorted(rids):
+        raise AssertionError(f"not every request completed: {sorted(out)}")
+    for rid in rids:
+        c = out[rid]
+        if len(c.tokens) != n_new or c.finish_reason != "length" or \
+                not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            raise AssertionError(f"request {rid}: {c.finish_reason}, "
+                                 f"{len(c.tokens)} tokens")
+    st, ps = eng.stats, eng.paged_stats
+    hits = st["prefix_hits"]
+    if hits < 1 or ps["alias_acquisitions"] <= 0:
+        raise AssertionError(f"no prefix reuse: {st}, {ps}")
+    # every hit aliases the system prompt's full pages and copies its
+    # boundary page (the warm request aliased nothing)
+    if ps["alias_acquisitions"] != hits * (G_SYSTEM // G_PAGE) or \
+            pops["copies"] != hits or pops["copied_pages"] != hits:
+        raise AssertionError(f"{hits} hits, {pops}, {ps}: not one boundary "
+                             f"copy and {G_SYSTEM // G_PAGE} aliased pages "
+                             f"each")
+    if st["concurrency_peak"] <= 4 or ps["pages_in_use_peak"] > G_PAGES:
+        raise AssertionError(f"pool not over-committed as expected: {st}, "
+                             f"{ps}")
+    n_layers = cfg.n_layers
+    if counts["paged_ragged_decode_attention"] != n_layers * len(decode_ms) \
+            or counts["ragged_decode_attention"] != 0 \
+            or counts["altup_predict_correct"] != n_layers * steps:
+        raise AssertionError(f"launch counts {counts} do not match {steps} "
+                             f"steps, {len(decode_ms)} decode steps")
+    decode_ms.sort()
+    res = {"requests": len(rids), "system_prompt": len(system),
+           "tails": tails, "new_tokens": n_new, "steps": steps,
+           "decode_steps": len(decode_ms), "launches": counts,
+           "prefix_hits": hits, "boundary_copies": pops["copies"],
+           "prefill_tokens_saved": st["prefill_tokens_saved"],
+           "concurrency_peak": st["concurrency_peak"],
+           "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+           "decode_step_ms_p80": decode_ms[int(0.8 * len(decode_ms))],
+           "decode_step_ms_min": decode_ms[0],
+           "wall_s": wall, "paged_stats": ps,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    prof = profile_decode(torch, eng, prompts) if profile else None
+    del eng, params
+    torch.cuda.empty_cache()
+    return res, counts, prof
+
+
+def serve_spill_bf16(torch):
+    """The host spill tier on the card. One slot over a 64-page pool (one
+    max_len=1024 request's worth) serves requests of 508 tokens (a 500-
+    token prefix, not a whole number of pages) and 16 new tokens, in
+    order. Request x shares a's prefix. Served after a alone, x hits a's
+    retained pages (alias + boundary copy); served after a and b, it hits
+    a's blob, which b's admission spilled to the host, and restores it
+    into fresh pages. The two x must give the same tokens, and every
+    copy, spill and restore is held bitwise against the pool."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = served_config()                              # bf16
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=11)
+    page, n_pages, n_new = 16, 64, 16
+    gen = torch.Generator().manual_seed(6)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+    pre_a, pre_b = ids(500), ids(500)
+    a, b, x = pre_a + ids(8), pre_b + ids(8), pre_a + ids(8)
+
+    def serve(prompts):
+        eng = Engine(cfg, params, max_len=1024, n_slots=1, prefill_chunk=64,
+                     paged=True, page_size=page, n_pages=n_pages,
+                     host_spill_pages=2 * n_pages, device=DEV)
+        t0 = time.perf_counter()
+        with page_ops(torch, check=True) as pops:
+            rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
+                    for p in prompts]
+            out = eng.run()
+        wall = time.perf_counter() - t0
+        toks = [out[r].tokens for r in rids]
+        if any(len(t) != n_new for t in toks):
+            raise AssertionError(f"a request fell short: {toks}")
+        return {"tokens": toks, "stats": dict(eng.stats),
+                "paged_stats": eng.paged_stats, "page_ops": pops,
+                "wall_s": wall}
+    resident = serve([a, x])
+    spilled = serve([a, b, x])
+    r, s = resident, spilled
+    if r["stats"]["prefix_hits"] != 1 or r["page_ops"]["copies"] != 1 or \
+            r["page_ops"]["spills"] or r["page_ops"]["restores"]:
+        raise AssertionError(f"x did not hit a's resident pages: {r}")
+    if s["stats"]["prefix_hits"] != 1 or s["page_ops"]["restores"] != 1 or \
+            s["page_ops"]["spills"] < 1 or s["page_ops"]["copies"] or \
+            s["paged_stats"]["spills"] < 1 or \
+            s["paged_stats"]["restores"] != 1:
+        raise AssertionError(f"x did not hit a's spilled blob: {s}")
+    if r["tokens"][0] != s["tokens"][0] or r["tokens"][-1] != s["tokens"][-1]:
+        raise AssertionError(f"restored prefix serves other tokens than the "
+                             f"resident one: {r['tokens']} vs {s['tokens']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"prompt_lens": [len(a), len(b), len(x)], "prefix": len(pre_a),
+            "page": page, "n_pages": n_pages, "new_tokens": n_new,
+            "x_tokens_identical": True,
+            "resident": {k: r[k] for k in ("page_ops", "paged_stats",
+                                           "wall_s")},
+            "spilled": {k: s[k] for k in ("page_ops", "paged_stats",
+                                          "wall_s")}}
 
 
 def _device_kernels(prof):
@@ -386,7 +745,7 @@ def device_ms(torch, fn, name_part=None, iters=50):
 
 def profile_decode(torch, eng, prompts, n_steps=8):
     """Device busy share of pure decode steps at the served shapes: the
-    same 8 prompts, prefilled, then `n_steps` decode steps under
+    phase's own prompts, prefilled, then `n_steps` decode steps under
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.sampling import SamplingParams
@@ -455,15 +814,43 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     altup = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for T in (8, 64, 512):   # decode; chunk 8 and 64 x 8 slots
+        # tokens per step: decode and prefill steps of (e) (8 slots, chunk
+        # 64) and of (g) (16 slots), and a chunk of 8
+        for T in (8, 16, 64, 512, 1024):
             r = check_altup(torch, ops, ref, dtype, T)
             altup[(r["dtype"], T)] = r
             line("c-altup", **r)
+    # attention: the depths of a decode step halfway through (e), read
+    # through the engine's kv-len bucket, then a spread of depths from
+    # empty to full
+    from repro_torch.serve.engine import kv_bucket
+    e_lens = [n + E_NEW // 2 for n in E_PROMPTS]
+    spread = [0, 2048, 1, 517, 1024, 77, 1999, 300]
     ragged = {}
     for dtype in (torch.bfloat16, torch.float32):
-        r = check_ragged(torch, ops, ref, dtype)
-        ragged[r["dtype"]] = r
-        line("c-ragged", **r)
+        for case, lens_host in (("e", e_lens), ("spread", spread)):
+            r = check_ragged(torch, ops, ref, dtype, lens_host,
+                             T=kv_bucket(max(lens_host), 32, 2048))
+            ragged[(r["dtype"], case)] = r
+            line("c-ragged", case=case, **r)
+    # paged: the spread through a full pool of 1024 pages, then a step of
+    # (g) halfway through: slot 0 idle (a zero table row), 15 slots that
+    # share the system prompt's full pages, each its own after them
+    _, tails, _ = paged_traffic(torch, served_config().vocab_size)
+    g_lens = [0] + [G_SYSTEM + t + G_NEW // 2 for t in tails]
+    g_reserve = [0] + [pages_for(G_SYSTEM + t + G_NEW, G_PAGE)
+                       for t in tails]
+    paged = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, kw in (
+                ("g", dict(lens_host=g_lens, reserve=g_reserve,
+                           n_shared=G_SYSTEM // G_PAGE, n_pages=G_PAGES,
+                           t_max=kv_bucket(max(g_lens), 32, 2048))),
+                ("spread", dict(lens_host=spread, reserve=[2048 // 16] * 8,
+                                n_pages=1024))):
+            r = check_paged(torch, ops, ref, dtype, **kw)
+            paged[(r["dtype"], case)] = r
+            line("c-paged", case=case, **r)
 
     # (d) full-width f32 parity of the two paths
     line("d-parity", **parity_f32(torch))
@@ -474,8 +861,17 @@ def main(argv) -> int:
     if prof is not None:
         line("f-profile", **prof)
 
-    main_altup = altup[("bfloat16", 8)]      # the decode-step shape
-    main_ragged = ragged["bfloat16"]
+    # (g) the paged path: bf16 serving from a page pool with prefix reuse
+    res_g, counts_g, prof_g = serve_paged_bf16(torch, ops, profile=profile)
+    line("g-paged-serve", **res_g)
+    if prof_g is not None:
+        line("f-profile-paged", **prof_g)
+    line("g-spill", **serve_spill_bf16(torch))
+
+    # each kernel at the shape of the run its launches are counted in
+    main_altup = altup[("bfloat16", 8)]      # (e)'s decode step
+    main_ragged = ragged[("bfloat16", "e")]
+    main_paged = paged[("bfloat16", "g")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -489,6 +885,11 @@ def main(argv) -> int:
          "replaces": "src/repro/kernels/ragged_decode_attention.py:210",
          "launches": counts["ragged_decode_attention"],
          **{k: main_ragged[k] for k in keys}},
+        {"name": "paged_ragged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/ragged_decode_attention.cu",
+         "replaces": "src/repro/kernels/ragged_decode_attention.py:122",
+         "launches": counts_g["paged_ragged_decode_attention"],
+         **{k: main_paged[k] for k in keys}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,26 @@
-// Length-aware single-token GQA decode attention over slot caches, for
-// Hopper.
+// Length-aware single-token GQA decode attention over slot caches or a
+// paged row pool, for Hopper.
 //
-// Replaces the TPU kernel
-// repro/kernels/ragged_decode_attention.py::ragged_decode_attention
-// (Pallas body `_kernel`, unquantized). For slot b and kv head h, with
-// len = lengths[b] and the `rep` query heads h*rep .. h*rep+rep-1 that read
-// kv head h (the q[:, 0].reshape(B, Hk, rep, Dh) grouping):
+// Replaces two TPU kernels of repro/kernels/ragged_decode_attention.py
+// (Pallas body `_kernel`, unquantized):
+//   ragged_decode_attention        (:210) over contiguous slot caches, and
+//   paged_ragged_decode_attention  (:122) over batchless row pools read
+//                                  through a per-slot block table.
+// For slot b and kv head h, with len = lengths[b] and the `rep` query heads
+// h*rep .. h*rep+rep-1 that read kv head h (the q[:, 0].reshape(B, Hk, rep,
+// Dh) grouping):
 //
 //   out[b, h, r] = softmax_t(q[b, h, r] . k[b, t, h] * scale) @ v[b, t, h],
 //                  over rows t < len only; len = 0 gives exact zeros.
 //
+// In the paged pool, row t of slot b lives at physical row
+// bt[b, t / page] * page + t % page.
+//
 // What bounds it on the H100: bytes. Each visited kv row is read once for
 // all `rep` queries (2*Dh*rep flops per Dh elements read), so the least time
-// is sum_b len_b * Hk * Dh * 2 (k and v) * bytes / 3.35 TB/s. Rows at or
-// past a slot's length are never read, which is the point of the kernel:
+// is sum_b len_b * Hk * Dh * 2 (k and v) * bytes / 3.35 TB/s, for both entry
+// points (the paged one adds ceil(len_b / page) int32 table entries). Rows at
+// or past a slot's length are never read, which is the point of the kernel:
 // the dense path reads the whole cache slice.
 //
 // Design, simple first: grid (B, Hk), 128 threads (4 warps) per block.
@@ -26,14 +33,22 @@
 //      factor, exponentials written back over the scores, denominator;
 //   3. values: thread i owns output features i and i+128 for every query,
 //      so each v element is loaded once, coalesced across the warp.
-// The cache is read in place through its batch and row strides (the last
+// The body `attend` is one template over how row t's offset from the
+// (slot, head) base is found: SlotRows steps by the cache's row stride,
+// reading the cache in place through its batch and row strides (the last
 // two dims must be contiguous), so the (B, Tb) read slice of a layer cache
-// is never copied.
+// is never copied; PagedRows looks the row's page up in the slot's
+// block-table row, which the block stages in shared memory once: the
+// ceil(len/page) entries it needs and no more, since entries past those are
+// 0 and alias a live page of another slot. Both entry points therefore run
+// the same arithmetic in the same order, and the paged result on the same
+// rows is bitwise equal to the contiguous one. Offsets are 64-bit.
 //
 // Known limit: the grid has only B*Hk blocks (64 at 8 slots x 8 kv heads
 // on 132 SMs), and each block walks its rows serially. A split-K
 // (flash-decoding) grid that spreads one slot's rows over several blocks
-// and merges their partial softmax states is the later redesign.
+// and merges their partial softmax states is the later redesign, for both
+// entry points.
 
 #include <stdint.h>
 
@@ -47,33 +62,60 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;
 constexpr int kMaxRep = 8;
 constexpr int kMaxDh = 256;
+constexpr int kMaxTablePages = 2048;
 constexpr int kDimsPerLane = kMaxDh / 32;
 constexpr int kDimsPerThread = kMaxDh / kThreads;
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v,
-                         const int* __restrict__ lengths, T* __restrict__ out,
-                         int Hk, int rep, int Dh, int T_rows, long long k_sb,
-                         long long k_st, long long v_sb, long long v_st,
-                         float scale) {
+// Element offsets of row t in a contiguous slot cache.
+struct SlotRows {
+  long long k_st, v_st;
+  __device__ __forceinline__ long long k_off(int t) const {
+    return (long long)t * k_st;
+  }
+  __device__ __forceinline__ long long v_off(int t) const {
+    return (long long)t * v_st;
+  }
+};
+
+// Element offsets of logical row t in a paged row pool.
+struct PagedRows {
+  long long k_st, v_st;
+  const int* table;  // the slot's block-table row, in shared memory
+  int page;
+  __device__ __forceinline__ long long phys(int t) const {
+    return (long long)table[t / page] * page + t % page;
+  }
+  __device__ __forceinline__ long long k_off(int t) const {
+    return phys(t) * k_st;
+  }
+  __device__ __forceinline__ long long v_off(int t) const {
+    return phys(t) * v_st;
+  }
+};
+
+// The online-softmax body of one (slot, kv head) block. q and out point at
+// the block's `rep` grouped queries and outputs, kb and vb at row 0 of its
+// kv head; rows 0..len-1 are visited. Any shared state the Rows object
+// reads must be written before the call: the body's first barrier orders
+// it before the first row access.
+template <typename T, typename Rows>
+__device__ __forceinline__ void attend(const T* __restrict__ q,
+                                       const T* __restrict__ kb,
+                                       const T* __restrict__ vb, Rows rows,
+                                       int len, T* __restrict__ out, int rep,
+                                       int Dh, float scale) {
   __shared__ float q_s[kMaxRep * kMaxDh];
   __shared__ float s_s[kMaxRep][kTile];
   __shared__ float m_s[kMaxRep];
   __shared__ float l_s[kMaxRep];
   __shared__ float a_s[kMaxRep];
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int len = max(0, min(lengths[b], T_rows));
 
-  const long long qo = ((long long)b * Hk + h) * rep * Dh;
-  for (int i = tid; i < rep * Dh; i += kThreads) q_s[i] = to_f32(q[qo + i]);
+  for (int i = tid; i < rep * Dh; i += kThreads) q_s[i] = to_f32(q[i]);
   if (tid < kMaxRep) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -84,8 +126,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kDimsPerThread; ++i) acc[r][i] = 0.f;
   }
-  const T* kb = k + (long long)b * k_sb + (long long)h * Dh;
-  const T* vb = v + (long long)b * v_sb + (long long)h * Dh;
   __syncthreads();
 
   for (int t0 = 0; t0 < len; t0 += kTile) {
@@ -93,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // 1. scores of this tile's rows against every grouped query
     for (int row = warp; row < n; row += kWarps) {
-      const T* kr = kb + (long long)(t0 + row) * k_st;
+      const T* kr = kb + rows.k_off(t0 + row);
       float kv[kDimsPerLane];
 #pragma unroll
       for (int e = 0; e < kDimsPerLane; ++e) {
@@ -156,7 +196,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
-      const T* vr = vb + (long long)(t0 + j) * v_st;
+      const T* vr = vb + rows.v_off(t0 + j);
 #pragma unroll
       for (int i = 0; i < kDimsPerThread; ++i) {
         const int dd = tid + kThreads * i;
@@ -179,23 +219,57 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kDimsPerThread; ++i) {
         const int dd = tid + kThreads * i;
-        if (dd < Dh) out[qo + r * Dh + dd] = from_f32<T>(acc[r][i] * inv);
+        if (dd < Dh) out[r * Dh + dd] = from_f32<T>(acc[r][i] * inv);
       }
     }
   }
 }
 
 template <typename T>
-void launch(const void* q, const void* k, const void* v, const void* lengths,
-            void* out, int B, int Hk, int rep, int Dh, int T_rows,
-            long long k_sb, long long k_st, long long v_sb, long long v_st,
-            float scale, cudaStream_t stream) {
-  const dim3 grid(B, Hk);
-  ragged_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Hk, rep, Dh, T_rows, k_sb, k_st, v_sb, v_st,
-      scale);
+__global__ void __launch_bounds__(kThreads)
+    ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const int* __restrict__ lengths, T* __restrict__ out,
+                         int Hk, int rep, int Dh, int T_rows, long long k_sb,
+                         long long k_st, long long v_sb, long long v_st,
+                         float scale) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int len = max(0, min(lengths[b], T_rows));
+  const long long qo = ((long long)b * Hk + h) * rep * Dh;
+  attend(q + qo, k + (long long)b * k_sb + (long long)h * Dh,
+         v + (long long)b * v_sb + (long long)h * Dh, SlotRows{k_st, v_st},
+         len, out + qo, rep, Dh, scale);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    paged_ragged_decode_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k_pool,
+                               const T* __restrict__ v_pool,
+                               const int* __restrict__ lengths,
+                               const int* __restrict__ table,
+                               T* __restrict__ out, int Hk, int rep, int Dh,
+                               int t_max, int page, long long table_sb,
+                               long long k_st, long long v_st, float scale) {
+  __shared__ int table_s[kMaxTablePages];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int len = max(0, min(lengths[b], t_max));
+  // the entries rows 0..len-1 need, and no more (later ones alias pages
+  // of other slots); ordered before use by the body's first barrier
+  const int n_pages = (len + page - 1) / page;
+  const int* bt = table + (long long)b * table_sb;
+  for (int i = threadIdx.x; i < n_pages; i += kThreads) table_s[i] = bt[i];
+  const long long qo = ((long long)b * Hk + h) * rep * Dh;
+  attend(q + qo, k_pool + (long long)h * Dh, v_pool + (long long)h * Dh,
+         PagedRows{k_st, v_st, table_s, page}, len, out + qo, rep, Dh,
+         scale);
+}
+
+bool bad_shape(int B, int Hk, int rep, int Dh) {
+  return B < 0 || Hk < 1 || rep < 1 || rep > kMaxRep || Dh < 1 ||
+         Dh > kMaxDh || Hk > 65535;
 }
 
 }  // namespace
@@ -211,17 +285,60 @@ extern "C" int ragged_decode_attention_launch(
     long long k_st, long long v_sb, long long v_st, float scale, int dtype,
     void* stream) {
   using namespace repro_torch;
-  if (B < 0 || Hk < 1 || rep < 1 || rep > kMaxRep || Dh < 1 ||
-      Dh > kMaxDh || T_rows < 0 || Hk > 65535)
+  if (bad_shape(B, Hk, rep, Dh) || T_rows < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, Hk);
   if (dtype == kFloat32) {
-    launch<float>(q, k, v, lengths, out, B, Hk, rep, Dh, T_rows, k_sb, k_st,
-                  v_sb, v_st, scale, s);
+    ragged_decode_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const int*>(lengths),
+        static_cast<float*>(out), Hk, rep, Dh, T_rows, k_sb, k_st, v_sb, v_st,
+        scale);
   } else if (dtype == kBFloat16) {
-    launch<__nv_bfloat16>(q, k, v, lengths, out, B, Hk, rep, Dh, T_rows, k_sb,
-                          k_st, v_sb, v_st, scale, s);
+    using bf16 = __nv_bfloat16;
+    ragged_decode_kernel<bf16><<<grid, kThreads, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const int*>(lengths),
+        static_cast<bf16*>(out), Hk, rep, Dh, T_rows, k_sb, k_st, v_sb, v_st,
+        scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// q (B, Hk, rep, Dh) contiguous; k_pool, v_pool (R, Hk, Dh) with row
+// strides k_st/v_st in elements, heads and features contiguous; lengths (B,)
+// int32; table (B, npages) int32 with row stride table_sb, npages >=
+// ceil(t_max / page), at most 2048 of them read; out (B, Hk, rep, Dh)
+// contiguous. Returns the CUDA error code of the launch (0 = success).
+extern "C" int paged_ragged_decode_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* lengths, const void* table, void* out, int B, int Hk,
+    int rep, int Dh, int t_max, int page, long long table_sb, long long k_st,
+    long long v_st, float scale, int dtype, void* stream) {
+  using namespace repro_torch;
+  if (bad_shape(B, Hk, rep, Dh) || t_max < 0 || page < 1 ||
+      (t_max + page - 1) / page > kMaxTablePages)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, Hk);
+  if (dtype == kFloat32) {
+    paged_ragged_decode_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pool),
+        static_cast<const float*>(v_pool), static_cast<const int*>(lengths),
+        static_cast<const int*>(table), static_cast<float*>(out), Hk, rep, Dh,
+        t_max, page, table_sb, k_st, v_st, scale);
+  } else if (dtype == kBFloat16) {
+    using bf16 = __nv_bfloat16;
+    paged_ragged_decode_kernel<bf16><<<grid, kThreads, 0, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
+        static_cast<const bf16*>(v_pool), static_cast<const int*>(lengths),
+        static_cast<const int*>(table), static_cast<bf16*>(out), Hk, rep, Dh,
+        t_max, page, table_sb, k_st, v_st, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

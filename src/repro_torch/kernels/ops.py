@@ -67,12 +67,45 @@ def ragged_decode_attn(q, k, v, lengths):
 ragged_decode_attn.launches = 0
 
 
+def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table, *,
+                             page, t_max):
+    """Paged-pool variant of `ragged_decode_attn`.
+
+    q: (B, 1, H, dh) single-token queries; k_pool, v_pool: (R, Hk, dh)
+    batchless row pools; block_table: (B, npages) int32 physical page of
+    each logical page; lengths: (B,) fill depths; t_max: the logical read
+    bound (the kv bucket). The kernel follows the block table itself: no
+    gathered copy of the cache is made. Returns (B, 1, H, dh)."""
+    B, S, H, dh = q.shape
+    if S != 1:
+        raise ValueError("paged ragged decode attention is single-token "
+                         f"(S=1) only, got S={S}")
+    Hk = k_pool.shape[1]
+    rep = H // Hk
+    qg = q[:, 0].reshape(B, Hk, rep, dh)
+    if q.device.type == "cpu":
+        o = ref.paged_ragged_decode_ref(qg, k_pool, v_pool, lengths,
+                                        block_table, page=page, t_max=t_max)
+    else:
+        o = ragged_mod.paged_ragged_decode_attention(
+            qg.contiguous(), k_pool, v_pool, lengths, block_table,
+            page=page, t_max=t_max)
+        paged_ragged_decode_attn.launches += 1
+    return o.reshape(B, 1, H, dh)
+
+
+paged_ragged_decode_attn.launches = 0
+
+_COUNTED = {"altup_predict_correct": altup_predict_correct,
+            "ragged_decode_attention": ragged_decode_attn,
+            "paged_ragged_decode_attention": paged_ragged_decode_attn}
+
+
 def launch_counts() -> dict:
-    """{kernel: launches} of the two kernels since the last reset."""
-    return {"altup_predict_correct": altup_predict_correct.launches,
-            "ragged_decode_attention": ragged_decode_attn.launches}
+    """{kernel: launches} of every kernel since the last reset."""
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    altup_predict_correct.launches = 0
-    ragged_decode_attn.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0

@@ -1,12 +1,21 @@
-"""Launcher of the length-aware S=1 GQA decode-attention CUDA kernel.
+"""Launchers of the length-aware S=1 GQA decode-attention CUDA kernels.
 
-Source: `repro_torch/csrc/ragged_decode_attention.cu`, which replaces the
-TPU kernel `repro/kernels/ragged_decode_attention.py::
-ragged_decode_attention` (unquantized). It is bound by the bytes of the
-rows it visits, Σ_b len_b·Hk·Dh·2 elements, and reads the slot cache in
-place through its batch and row strides. Its plain version is
-`ref.ragged_decode_ref`; the model reaches it through
-`ops.ragged_decode_attn`, which counts the launches.
+Source: `repro_torch/csrc/ragged_decode_attention.cu`, one templated body
+behind two entry points:
+
+* `ragged_decode_attention` over contiguous slot caches, which replaces
+  the TPU kernel `repro/kernels/ragged_decode_attention.py::
+  ragged_decode_attention` (unquantized) and reads the slot cache in
+  place through its batch and row strides;
+* `paged_ragged_decode_attention` over batchless row pools read through
+  a per-slot block table, which replaces `paged_ragged_decode_attention`
+  of the same file (unquantized).
+
+Both are bound by the bytes of the rows they visit, Σ_b len_b·Hk·Dh·2
+elements. Their plain versions are `ref.ragged_decode_ref` and
+`ref.paged_ragged_decode_ref`; the model reaches them through
+`ops.ragged_decode_attn` and `ops.paged_ragged_decode_attn`, which count
+the launches.
 """
 from __future__ import annotations
 
@@ -20,40 +29,35 @@ from repro_torch.kernels import build
 
 MAX_REP = 8
 MAX_DH = 256
+MAX_TABLE_PAGES = 2048     # block-table entries a block stages in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launcher():
-    fn = build.load("ragged_decode_attention").ragged_decode_attention_launch
+def _library():
+    lib = build.load("ragged_decode_attention")
+    vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    fn = lib.ragged_decode_attention_launch
     if fn.argtypes is None:
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, ll, ll, ll, ll,
-                       ctypes.c_float, i, vp]
-        fn.restype = ctypes.c_int
-    return fn
+                       f, i, vp]
+        fn.restype = i
+    fn = lib.paged_ragged_decode_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ll, ll, ll,
+                       f, i, vp]
+        fn.restype = i
+    return lib
 
 
-def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, lengths: torch.Tensor, *,
-                            scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel. q: (B, Hk, rep, Dh) grouped queries; k, v:
-    (B, T, Hk, Dh) slot caches, any batch and row strides but heads and
-    features contiguous; lengths: (B,) valid-row counts (clamped to
-    [0, T] in the kernel). Returns (B, Hk, rep, Dh) in q's dtype.
-
-    Takes CUDA tensors only, of one dtype (float32 or bfloat16), with
-    rep <= 8 and Dh <= 256, and raises on anything else. Raises
-    RuntimeError if the launch fails."""
+def _check(q, k, v, lengths, kv_name):
+    """Checks shared by both launchers; returns (B, Hk, rep, dh)."""
     if q.device.type != "cuda":
         raise ValueError(f"ragged decode kernel needs CUDA tensors, got "
                          f"{q.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("want q (B, Hk, rep, Dh) and k, v (B, T, Hk, Dh)")
+    if q.dim() != 4:
+        raise ValueError(f"want q (B, Hk, rep, Dh), got {tuple(q.shape)}")
     B, Hk, rep, dh = q.shape
-    T = k.shape[1]
-    if k.shape != (B, T, Hk, dh) or v.shape != k.shape:
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
     if not 1 <= rep <= MAX_REP or not 1 <= dh <= MAX_DH:
         raise ValueError(f"ragged decode kernel takes rep <= {MAX_REP} and "
                          f"Dh <= {MAX_DH}, got rep={rep}, Dh={dh}")
@@ -65,24 +69,105 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
     if any(t.device != q.device for t in (k, v, lengths)):
         raise ValueError("q, k, v and lengths lie on different devices")
     for name, t in (("k", k), ("v", v)):
-        if t.stride(3) != 1 or t.stride(2) != dh:
-            raise ValueError(f"{name} needs contiguous (Hk, Dh) trailing "
-                             f"dims, got strides {t.stride()}")
+        if t.stride(-1) != 1 or t.stride(-2) != dh:
+            raise ValueError(f"{name} {kv_name} needs contiguous (Hk, Dh) "
+                             f"trailing dims, got strides {t.stride()}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     if lengths.shape != (B,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != ({B},)")
+    return B, Hk, rep, dh
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lengths: torch.Tensor, *,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the contiguous kernel. q: (B, Hk, rep, Dh) grouped queries;
+    k, v: (B, T, Hk, Dh) slot caches, any batch and row strides but heads
+    and features contiguous; lengths: (B,) valid-row counts (clamped to
+    [0, T] in the kernel). Returns (B, Hk, rep, Dh) in q's dtype.
+
+    Takes CUDA tensors only, of one dtype (float32 or bfloat16), with
+    rep <= 8 and Dh <= 256, and raises on anything else. Raises
+    RuntimeError if the launch fails."""
+    B, Hk, rep, dh = _check(q, k, v, lengths, "cache")
+    if k.dim() != 4 or v.dim() != 4:
+        raise ValueError("want k, v (B, T, Hk, Dh)")
+    T = k.shape[1]
+    if k.shape != (B, T, Hk, dh) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
     lengths = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
-    fn = _launcher()
+    fn = _library().ragged_decode_attention_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  lengths.data_ptr(), out.data_ptr(), B, Hk, rep, dh, T,
                  k.stride(0), k.stride(1), v.stride(0), v.stride(1),
                  float(scale), _DTYPE_CODES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ragged_decode_attention kernel launch failed: "
-                           f"CUDA error {err}")
+    _raise_on(err, "ragged_decode_attention")
+    return out
+
+
+def paged_ragged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  lengths: torch.Tensor,
+                                  block_table: torch.Tensor, *, page: int,
+                                  t_max: int,
+                                  scale: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """Launch the paged kernel. q: (B, Hk, rep, Dh) grouped queries;
+    k_pool, v_pool: (R, Hk, Dh) row pools, any row stride but heads and
+    features contiguous; block_table: (B, npages) int32, logical page j of
+    slot b at physical page block_table[b, j]; lengths: (B,) fill depths,
+    clamped to [0, t_max] in the kernel, which follows only the table
+    entries below ceil(len_b / page). Returns (B, Hk, rep, Dh) in q's
+    dtype.
+
+    Takes CUDA tensors only, under the contiguous launcher's rules, plus
+    an int32 block table on the same device with at least
+    ceil(t_max / page) <= 2048 entries per row and page >= 1; raises on
+    anything else, and RuntimeError if the launch fails."""
+    B, Hk, rep, dh = _check(q, k_pool, v_pool, lengths, "pool")
+    if k_pool.dim() != 3 or v_pool.dim() != 3:
+        raise ValueError("want k_pool, v_pool (R, Hk, Dh)")
+    if k_pool.shape[1:] != (Hk, dh) or v_pool.shape != k_pool.shape:
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} / v_pool "
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if page < 1 or t_max < 0:
+        raise ValueError(f"want page >= 1 and t_max >= 0, got page={page}, "
+                         f"t_max={t_max}")
+    n_read = -(-t_max // page)
+    if block_table.dtype != torch.int32 or block_table.dim() != 2 or \
+            block_table.shape[0] != B or block_table.device != q.device:
+        raise ValueError(f"block_table must be a ({B}, npages) int32 tensor "
+                         f"on {q.device}, got {block_table.dtype} "
+                         f"{tuple(block_table.shape)} on "
+                         f"{block_table.device}")
+    if not n_read <= min(block_table.shape[1], MAX_TABLE_PAGES):
+        raise ValueError(f"t_max={t_max} reads {n_read} pages of {page} "
+                         f"rows; the table has {block_table.shape[1]} and "
+                         f"the kernel takes at most {MAX_TABLE_PAGES}")
+    if block_table.stride(1) != 1:
+        raise ValueError("block_table rows must be contiguous")
+    lengths = lengths.to(torch.int32).contiguous()
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    fn = _library().paged_ragged_decode_attention_launch
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 lengths.data_ptr(), block_table.data_ptr(), out.data_ptr(),
+                 B, Hk, rep, dh, t_max, page, block_table.stride(0),
+                 k_pool.stride(0), v_pool.stride(0), float(scale),
+                 _DTYPE_CODES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "paged_ragged_decode_attention")
     return out

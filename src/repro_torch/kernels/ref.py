@@ -46,3 +46,21 @@ def ragged_decode_ref(q, k, v, lengths, *, scale=None):
     p = torch.where(mask, p, torch.zeros_like(p))   # all-masked rows -> 0
     out = torch.einsum("bhrt,bthd->bhrd", p, v.to(f32))
     return out.to(q.dtype)
+
+
+def paged_ragged_decode_ref(q, k_pool, v_pool, lengths, block_table, *,
+                            page, t_max, scale=None):
+    """Plain version of the paged ragged decode kernel.
+
+    q: (B, Hk, rep, Dh) grouped single-token queries; k_pool, v_pool:
+    (R, Hk, Dh) row pools shared by all slots; block_table: (B, npages)
+    physical page of each logical page; lengths: (B,) fill depths; t_max:
+    the logical read bound. Gathers logical rows 0..t_max-1 of every slot
+    through the table (row t at bt[b, t // page] * page + t % page), then
+    applies `ragged_decode_ref`'s arithmetic, so rows >= length (and past
+    t_max) are masked and empty slots give exact zeros."""
+    rows = torch.arange(t_max, device=k_pool.device)
+    bt = block_table.to(device=k_pool.device, dtype=torch.long)
+    phys = bt[:, rows // page] * page + rows % page        # (B, t_max)
+    return ragged_decode_ref(q, k_pool[phys], v_pool[phys], lengths,
+                             scale=scale)

@@ -1,10 +1,11 @@
-"""Single- and multi-token decode with per-layer slot caches.
+"""Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the contiguous, unquantized, attention-only parts of
-`repro/models/decode.py`. One cache dict per segment, stacked over the
-segment's layers:
+Port of the unquantized, attention-only parts of `repro/models/decode.py`.
+One cache dict per segment, stacked over the segment's layers:
 
-  attn : k, v  (n, B, T, Hk, Dh)   post-RoPE keys
+  attn : k, v  (n, B, T, Hk, Dh)   contiguous slot caches, post-RoPE keys
+  attn : k, v  (n, R + page, Hk, Dh)  paged row pools (init_paged_cache),
+               addressed through a per-slot (B, npages) block table
 
 `pos` is a scalar (uniform static batch) or a per-slot (B,) tensor, so B
 sequences at different depths decode in one step (continuous batching).
@@ -20,12 +21,20 @@ place: `_update_at` assigns into the layer's cache view, which is a view
 of the stacked segment cache, and `decode_step` returns the same cache
 dict it was given.
 
+Paged caches (serve/paging.py) share one row pool between all slots:
+writes translate logical rows through the block table (`_paged_rows`),
+S=1 reads go through the paged ragged kernel, which follows the table
+itself, and S>1 reads gather logical rows 0..Tb-1 in order and run the
+dense path. The page-granular helpers (copy_pages, gather_pages,
+scatter_pages) and the contiguous copy_prefix carry the prefix cache's
+hits.
+
 Caches are built from the ACTIVE d-wide sub-block only, so the widened
 (K*d) stream adds zero bytes to the KV cache (paper Sec. 3.2).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -67,6 +76,87 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
         caches[f"seg{si}"] = {"k": torch.zeros(shape, dtype=kd, device=dev),
                               "v": torch.zeros(shape, dtype=kd, device=dev)}
     return caches
+
+
+def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
+                     page: int, dtype=None,
+                     device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """Zero PAGED caches on `device`: the attention k/v leaves drop the
+    per-slot batch axis and pool their rows, (n, R + page, Hk, Dh) per
+    segment with R = n_pages * page, shared by every slot through a
+    (B, ceil(T/page)) block table (serve/paging.PagePool). Logical row q
+    of slot b lives at physical row bt[b, q // page] * page + q % page.
+    B and T size nothing here (they would size per-slot recurrent state,
+    which the port does not serve yet).
+
+    Deviation from the reference: one SINK page follows the R real rows.
+    No one allocates or reads it. The reference drops a padded or idle
+    slot's write by aiming it at row R, out of range, under mode="drop";
+    PyTorch indexing has no drop mode, and the contiguous trick of
+    `_update_at` (a spare row of the slot's own cache) does not carry
+    over to a shared pool, where an idle slot's all-zero table row would
+    aim it into page 0, a live page of another request. Here row R is the
+    sink's first row, so such writes land where nothing is read."""
+    dev = resolve_device(device)
+    kd = dtype or kv_store_dtype(cfg)
+    dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
+    rows = (n_pages + 1) * page
+    caches = {}
+    for si, seg in enumerate(layer_plan(cfg)):
+        shape = (seg.n, rows, hk, dh)
+        caches[f"seg{si}"] = {"k": torch.zeros(shape, dtype=kd, device=dev),
+                              "v": torch.zeros(shape, dtype=kd, device=dev)}
+    return caches
+
+
+def _paged_row_axis(name: str, ndim: int) -> Optional[int]:
+    """Physical-row axis of a PAGED cache leaf, None for leaves that are
+    not row-pooled. Paged k/v are (n, R + page, Hk, Dh) stacked |
+    (R + page, Hk, Dh) for one layer."""
+    if name in ("k", "v"):
+        return 1 if ndim == 4 else 0
+    return None
+
+
+def _paged_rows(block_table, widx, page: int, Tc: int, R: int):
+    """Translate logical write rows through the block table.
+
+    widx: (B|1, S) logical rows from decode_positions, with the
+    padded-token drop marker == Tc. Returns (B, S) PHYSICAL pool rows;
+    dropped writes map to R, the first row of the sink page. The lookup
+    page is clamped to Tc - 1 first so the drop marker itself cannot
+    index past the block table when Tc is page-aligned."""
+    bt = block_table
+    B = bt.shape[0]
+    w = widx.to(torch.long).expand(B, widx.shape[-1])
+    lp = torch.clamp(w, max=Tc - 1) // page
+    phys = torch.gather(bt.to(torch.long), 1, lp) * page + w % page
+    return phys.masked_fill(w >= Tc, R)
+
+
+def _gather_rows(block_table, page: int, Tb: int):
+    """(B, Tb) physical pool rows backing logical rows 0..Tb-1 of every
+    slot. The gather keeps logical row order, so a paged read slice holds
+    the values of the contiguous cache_k[:, :Tb] slice; unassigned table
+    entries alias page 0, whose rows are masked like unwritten rows."""
+    rows = torch.arange(Tb, device=block_table.device)
+    return block_table[:, rows // page].to(torch.long) * page + rows % page
+
+
+def _paged_positions(pinfo, block_table, page: int, pool_rows: int,
+                     kernel_read: bool):
+    """Add the paged row translation to a decode_positions dict, once per
+    segment: `prows` (B, S) physical write rows, `kernel_read` (the step
+    reads through the paged kernel), and otherwise `grows` (B, Tb)
+    physical read rows for the gather (S > 1, or the kernel flag off)."""
+    Tc = block_table.shape[1] * page
+    # R = pool_rows - page, the first row of the sink page
+    pinfo["prows"] = _paged_rows(block_table, pinfo["widx"], page, Tc,
+                                 pool_rows - page)
+    pinfo["kernel_read"] = kernel_read
+    if not kernel_read:
+        pinfo["grows"] = _gather_rows(block_table, page, pinfo["Tb"])
+    return pinfo
 
 
 def _update_at(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
@@ -168,21 +258,36 @@ def _decode_ffn(p_l, cfg: ModelConfig, x):
 
 
 def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
-                pinfo=None, n_valid=None, kv_len=None, use_ragged=False):
+                pinfo=None, n_valid=None, kv_len=None, use_ragged=False,
+                paged=None):
     """One decode layer: attention over + write into the cache slice, then
     the FFN.
 
     x: (B, S, d) — S is 1 for decode ticks, the chunk size during chunked
     prefill. cache_k/cache_v: this layer's (B, T, Hk, Dh) cache views,
     written IN PLACE. pinfo: hoisted decode_positions dict. use_ragged:
-    route S=1 attention through the length-aware kernel wrapper. Returns
-    (x, {"k": cache_k, "v": cache_v})."""
-    T = cache_k.shape[1]
+    route S=1 attention through the length-aware kernel wrapper.
+
+    paged: optional (block_table, page, Tc) — the caches are then this
+    layer's (R + page, Hk, Dh) row pools, and pinfo (with the segment's
+    _paged_positions translation) is required. Writes land at the
+    translated physical rows (dropped ones in the sink page); an S=1 step
+    with use_ragged reads through the paged kernel, which follows the
+    block table itself; any other step gathers logical rows 0..Tb-1 in
+    order and runs the dense path. Returns (x, {"k": cache_k, "v":
+    cache_v})."""
     if int(window) > 0:
         raise NotImplementedError("ring caches are not ported yet")
-    if pinfo is None:
-        pinfo = decode_positions(pos, x.shape[1], T, False, n_valid=n_valid,
-                                 kv_len=kv_len, device=x.device)
+    if paged is not None:
+        if pinfo is None:
+            raise ValueError("a paged decode_attn needs the segment's "
+                             "pinfo (decode_segment builds it)")
+        block_table, page, _ = paged
+    elif pinfo is None:
+        pinfo = decode_positions(pos, x.shape[1], cache_k.shape[1], False,
+                                 n_valid=n_valid, kv_len=kv_len,
+                                 device=x.device)
+    kernel_read = paged is not None and pinfo["kernel_read"]
     q_pos, widx, k_pos, Tb = (pinfo["q_pos"], pinfo["widx"], pinfo["k_pos"],
                               pinfo["Tb"])
     h = L.rms_norm(x, p_l["ln_attn"], cfg.logical_norm_eps)
@@ -192,32 +297,60 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     if cfg.qk_norm:
         k_new = L.rms_norm(k_new, p_l["attn"]["k_norm"])
     k_new = L.apply_rope(k_new, q_pos, cfg.rope_theta)
-    _update_at(cache_k, k_new, widx)
-    _update_at(cache_v, v_new, widx)
     lengths = (pinfo["lengths"].expand(x.shape[0]) if use_ragged else None)
-    # read slice: O(bucket) rows, not O(T); a view, never a copy
-    kr = cache_k[:, :Tb] if Tb < T else cache_k
-    vr = cache_v[:, :Tb] if Tb < T else cache_v
-    a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
-                             q_pos=q_pos, k_pos=k_pos, kv=(kr, vr),
-                             ragged_lengths=lengths)
+    if paged is not None:
+        # kept writes of two slots never share a row (aliased pages lie
+        # below every sharer's first write); dropped ones meet in the sink
+        rows = pinfo["prows"]
+        cache_k.index_put_((rows,), k_new.to(cache_k.dtype))
+        cache_v.index_put_((rows,), v_new.to(cache_v.dtype))
+    else:
+        _update_at(cache_k, k_new, widx)
+        _update_at(cache_v, v_new, widx)
+    if kernel_read:
+        a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
+                                 q_pos=q_pos, k_pos=k_pos,
+                                 kv=(cache_k, cache_v),
+                                 ragged_lengths=lengths,
+                                 paged_kv=(block_table, page, Tb))
+    else:
+        if paged is not None:
+            # logical rows 0..Tb-1 in order: the contiguous read slice
+            grows = pinfo["grows"]
+            kr, vr = cache_k[grows], cache_v[grows]
+        else:
+            # read slice: O(bucket) rows, not O(T); a view, never a copy
+            kr, vr = cache_k[:, :Tb], cache_v[:, :Tb]
+        a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
+                                 q_pos=q_pos, k_pos=k_pos, kv=(kr, vr),
+                                 ragged_lengths=lengths)
     x = x + a
     return _decode_ffn(p_l, cfg, x), {"k": cache_k, "v": cache_v}
 
 
 def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    n_valid=None, kv_len=None, use_ragged=False,
-                   use_fused=False):
+                   use_fused=False, paged=None):
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
-    place."""
+    place. paged: optional (block_table, page) — the segment's caches are
+    row pools and the logical capacity Tc is the table's row span."""
     K = cfg.altup.K
     S = x.shape[1]
-    Tc = cache["k"].shape[2]
+    pg_seg = None
+    if paged is not None:
+        bt, pg = paged
+        Tc = bt.shape[1] * pg
+        pg_seg = (bt, pg, Tc)
+    else:
+        Tc = cache["k"].shape[2]
     # the position/index machinery is the same for every layer of the
     # segment: build it once here
     pinfo = decode_positions(pos, S, Tc, int(seg.window) > 0,
                              n_valid=n_valid, kv_len=kv_len,
                              device=x.device)
+    if paged is not None:
+        _paged_positions(pinfo, bt, pg, cache["k"].shape[1],
+                         kernel_read=use_ragged and S == 1)
     sels = None
     if cfg.altup.enabled:
         # built on the host and moved in one copy at the top of the step,
@@ -232,7 +365,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
         def layer_fn(xa, p_l=p_l, i=i):
             out, _ = decode_attn(p_l, cfg, xa, cache["k"][i], cache["v"][i],
                                  pos, seg.window, pinfo=pinfo,
-                                 use_ragged=use_ragged)
+                                 use_ragged=use_ragged, paged=pg_seg)
             return out
 
         if cfg.altup.enabled:
@@ -244,7 +377,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
-                n_valid=None, kv_len=None):
+                n_valid=None, kv_len=None, block_table=None, page_size=0):
     """Advance every sequence by its next token(s).
 
     tokens: (B, S) int — S is 1 for decode ticks; chunked prefill feeds
@@ -253,9 +386,20 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     batching). n_valid: optional (B,) count of real tokens per slot —
     padded tokens neither write the cache nor produce usable logits.
     kv_len: optional static read-slice bucket (>= max fill depth).
+    block_table/page_size: PAGED mode — caches are init_paged_cache row
+    pools and block_table is the (B, ceil(max_len/page)) int32 per-slot
+    page map on the caches' device; pos must be a per-slot (B,) tensor.
     Returns (logits (B, S, V_pad), caches), the caches written in place.
     """
     dev = tokens.device
+    paged = None
+    if block_table is not None:
+        if int(page_size) < 1:
+            raise ValueError(f"paged decode needs a page_size >= 1, got "
+                             f"{page_size}")
+        if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
+            raise ValueError("paged decode needs per-slot (B,) positions")
+        paged = (block_table, int(page_size))
     use_ragged = resolve_kernel_flag(cfg.ragged_decode_attn, dev)
     use_fused = cfg.altup.enabled and \
         resolve_kernel_flag(cfg.fused_decode_altup, dev)
@@ -263,22 +407,26 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     for si, seg in enumerate(layer_plan(cfg)):
         x, _ = decode_segment(params[f"seg{si}"], caches[f"seg{si}"], seg,
                               cfg, x, pos, n_valid=n_valid, kv_len=kv_len,
-                              use_ragged=use_ragged, use_fused=use_fused)
+                              use_ragged=use_ragged, use_fused=use_fused,
+                              paged=paged)
     return unembed(params, cfg, x), caches
 
 
 def decode_sample_step(params, caches, seen, tokens, pos, n_valid, sparams,
                        *, cfg: ModelConfig, kv_len=None, want_logprobs=False,
-                       any_sampled=False):
+                       any_sampled=False, block_table=None, page_size=0):
     """Decode + on-device sampling — the serving hot path's step.
 
     Runs decode_step, gathers each slot's sampled logits row (row
     n_valid-1, vocab-truncated) on the device, folds this step's fed
     tokens into the repetition-penalty `seen` table (in place), and
-    samples per slot (serve/sampling.sample_rows). Returns (ids,
-    logprobs|None, caches, seen)."""
+    samples per slot (serve/sampling.sample_rows). block_table/page_size:
+    paged mode, as decode_step. Returns (ids, logprobs|None, caches,
+    seen)."""
     logits, caches = decode_step(params, cfg, caches, tokens, pos,
-                                 n_valid=n_valid, kv_len=kv_len)
+                                 n_valid=n_valid, kv_len=kv_len,
+                                 block_table=block_table,
+                                 page_size=page_size)
     B = tokens.shape[0]
     rows = logits[torch.arange(B, device=logits.device),
                   torch.clamp(n_valid.to(torch.long) - 1, min=0),
@@ -304,3 +452,84 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None):
     for t in range(S):
         logits, caches = step_fn(params, caches, tokens[:, t:t + 1], t)
     return logits, caches
+
+
+# --------------------------------------------------------------------------
+# prefix-cache copies: slot to slot (contiguous) and page to page (paged)
+# --------------------------------------------------------------------------
+
+def copy_prefix(caches, dst: int, src: int, p: int):
+    """Clone the first `p` cache rows of slot `src` into slot `dst`, IN
+    PLACE, across every attention k/v leaf: the slot-to-slot copy behind
+    the contiguous engine's prefix-cache hits. src == dst is a no-op (the
+    self-donor path reuses the rows in place). Returns the caches."""
+    if dst == src or p <= 0:
+        return caches
+    for seg in caches.values():
+        for name in ("k", "v"):
+            leaf = seg[name]                          # (n, B, T, Hk, Dh)
+            n = min(p, leaf.shape[2])
+            leaf[:, dst, :n] = leaf[:, src, :n]
+    return caches
+
+
+# The page helpers take the real page lists: the reference pads them to a
+# fixed width with -1 so that one jit covers every page count, which eager
+# PyTorch does not need.
+
+def _page_rows(pages: Sequence[int], page: int, device) -> torch.Tensor:
+    """Page ids -> (len(pages) * page,) pool row ids, page by page."""
+    base = torch.as_tensor(list(pages), dtype=torch.long,
+                           device=device) * page
+    offs = torch.arange(page, dtype=torch.long, device=device)
+    return (base[:, None] + offs[None]).reshape(-1)
+
+
+def _row_leaves(caches):
+    """(segment, name, leaf, row axis) of every row-pooled leaf."""
+    for si, seg in caches.items():
+        for name, leaf in seg.items():
+            ax = _paged_row_axis(name, leaf.ndim)
+            if ax is not None:
+                yield si, name, leaf, ax
+
+
+def copy_pages(caches, dst_pages: Sequence[int], src_pages: Sequence[int],
+               *, page: int):
+    """Clone whole physical pages src -> dst, IN PLACE, across every
+    row-pooled leaf: the copy of a paged hit's partial boundary page
+    (aliased full pages never copy). Returns the caches."""
+    if len(dst_pages) != len(src_pages):
+        raise ValueError(f"{len(dst_pages)} destination pages for "
+                         f"{len(src_pages)} source pages")
+    if not dst_pages:
+        return caches
+    for _, _, leaf, ax in _row_leaves(caches):
+        src = _page_rows(src_pages, page, leaf.device)
+        dst = _page_rows(dst_pages, page, leaf.device)
+        leaf.index_copy_(ax, dst, leaf.index_select(ax, src))
+    return caches
+
+
+def gather_pages(caches, pages: Sequence[int], *, page: int):
+    """The given pages of every row-pooled leaf as a compact blob
+    {segment: {name: tensor}} (blob page i == pages[i]), on the caches'
+    device: the device half of a host-tier spill."""
+    blob: Dict[str, Dict[str, torch.Tensor]] = {}
+    for si, name, leaf, ax in _row_leaves(caches):
+        rows = _page_rows(pages, page, leaf.device)
+        blob.setdefault(si, {})[name] = leaf.index_select(ax, rows)
+    return blob
+
+
+def scatter_pages(caches, blob, pages: Sequence[int], *, page: int):
+    """Scatter a gather_pages blob (on any device) back into `pages`, IN
+    PLACE: blob page i lands in pages[i]; blob pages past len(pages) are
+    not restored. The restore half of the host spill tier. Returns the
+    caches."""
+    n = len(pages) * page
+    for si, name, leaf, ax in _row_leaves(caches):
+        rows = _page_rows(pages, page, leaf.device)
+        vals = blob[si][name].narrow(ax, 0, n)
+        leaf.index_copy_(ax, rows, vals.to(leaf.device, leaf.dtype))
+    return caches

@@ -142,9 +142,10 @@ def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos,
 def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                     k_pos, kv: Optional[tuple] = None,
                     causal: Optional[bool] = None,
-                    ragged_lengths: Optional[torch.Tensor] = None):
+                    ragged_lengths: Optional[torch.Tensor] = None,
+                    paged_kv: Optional[tuple] = None):
     """Full attention sub-block (no residual, no pre-norm — caller owns
-    those). Non-banded, unquantized, unpaged paths only.
+    those). Non-banded, unquantized paths only.
 
     Returns (out, (k, v)) so callers can populate KV caches. kv: a
     precomputed (k, v) (the decode path with a cache). ragged_lengths:
@@ -153,6 +154,10 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     of the dense masked sdpa. The caller guarantees row t of the cache is
     valid iff t < length, which subsumes causal and per-slot-depth
     masking, so no positions reach the kernel.
+    paged_kv: (block_table, page, t_max) — `kv` is then a batchless page
+    POOL ((R, Hk, Dh) each) and attention must take the paged kernel
+    path: a pool has no dense (B, T, ...) layout for sdpa, so anything
+    else raises.
     """
     if cfg.use_rel_pos_bias:
         raise NotImplementedError(
@@ -173,8 +178,17 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
         k, v = kv
     use_ragged = (ragged_lengths is not None and q.shape[1] == 1
                   and kv is not None and causal)
-    if use_ragged:
+    if use_ragged and paged_kv is not None:
+        bt, page, t_max = paged_kv
+        out = kops.paged_ragged_decode_attn(q, k, v, ragged_lengths, bt,
+                                            page=page, t_max=t_max)
+    elif use_ragged:
         out = kops.ragged_decode_attn(q, k, v, ragged_lengths)
+    elif paged_kv is not None:
+        raise ValueError(
+            "paged_kv requires the ragged decode path (S == 1, kv cache, "
+            "causal, ragged_lengths given): a paged pool has no dense "
+            "(B, T, ...) layout for sdpa")
     else:
         out = sdpa(q, k, v, causal=causal, window=window, q_pos=q_pos,
                    k_pos=k_pos)

@@ -1,8 +1,8 @@
-"""Serving engine: continuous batching over contiguous slot KV caches.
+"""Serving engine: continuous batching over slot KV caches or a page pool.
 
-Port of `repro/serve/engine.py` for greedy requests, without prefix
-reuse, speculative decoding or paging (later slices). Two decode surfaces
-share one sampler (serve/sampling.sample_rows):
+Port of `repro/serve/engine.py` for greedy requests, with prefix reuse
+and paging, without speculative decoding (a later slice). Two decode
+surfaces share one sampler (serve/sampling.sample_rows):
 
 * submit()/step()/collect()/stream()/run() — continuous batching. Requests
   are admitted into cache slots by serve/scheduler.SlotScheduler; every
@@ -13,17 +13,35 @@ share one sampler (serve/sampling.sample_rows):
   recycled.
 
 * generate() — static batch (one-token prefill + scalar-pos decode loop),
-  the oracle the continuous path must match token for token.
+  the oracle the continuous path must match token for token. It always
+  runs on contiguous caches.
+
+Prefix reuse (prefix_cache=True, the default): admission matches each
+request against the scheduler's PrefixIndex. A contiguous hit copies the
+donor slot's first p rows (models/decode.copy_prefix); a paged hit
+aliases the donor's full pages and copies its boundary page
+(copy_pages) or restores a spilled blob (scatter_pages). Either way the
+slot's repetition-penalty seen row is seeded from the prefix ids and only
+the prompt suffix is prefilled.
+
+Paging (paged=True): the slot caches become one row pool of `n_pages`
+pages of `page_size` rows (models/decode.init_paged_cache) shared through
+a per-slot block table (serve/paging.py). Admission reserves a request's
+worst-case pages, so n_slots may over-commit the pool; retained prefixes
+hold pages, not slots, and spill to a host tier of `host_spill_pages`
+pages when the pool runs short.
 
 The engine runs eager PyTorch (the reference jits its step; there is no
 counterpart here). Each step hands the attention layers the per-slot
 depths: cache reads are sliced to a power-of-two `kv-len bucket` >= the
 deepest slot, and on the card S=1 attention runs through the ragged
-decode kernel, which also skips rows past each slot's own depth. Only the
-(B,) sampled ids (and (B,) logprobs when asked for) leave the device.
+decode kernel (its paged variant under paging), which also skips rows
+past each slot's own depth. Only the (B,) sampled ids (and (B,) logprobs
+when asked for) leave the device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -31,11 +49,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
-from repro_torch.models.decode import (decode_sample_step, decode_step,
-                                       init_cache, prefill)
+from repro_torch.models.decode import (copy_pages, copy_prefix,
+                                       decode_sample_step, decode_step,
+                                       gather_pages, init_cache,
+                                       init_paged_cache, prefill,
+                                       scatter_pages)
 from repro_torch.serve.sampling import (Completion, SamplingParams,
                                         blank_slot_params, fill_slot_params,
                                         sample_rows, update_seen)
+from repro_torch.serve.paging import PagePool, PagedScheduler
 from repro_torch.serve.scheduler import SlotScheduler, serve_clock
 
 
@@ -57,19 +79,39 @@ def kv_bucket(needed: int, lo: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _spill_entry(caches, page: int,
+                 entry) -> Dict[str, Dict[str, torch.Tensor]]:
+    """PagedScheduler spill_fn: gather a retained entry's pages on the
+    device, then copy the blob to the host, BEFORE the scheduler releases
+    the pages."""
+    blob = gather_pages(caches, entry.pages, page=page)
+    return {si: {n: t.cpu() for n, t in leaves.items()}
+            for si, leaves in blob.items()}
+
+
 class Engine:
-    """Greedy serving engine over `n_slots` contiguous slot caches of
-    `max_len` rows on `device` ("cuda" by default; raises without a card).
+    """Greedy serving engine over `n_slots` slots of `max_len` rows on
+    `device` ("cuda" by default; raises without a card).
     prefill_chunk: prompt tokens a prefilling slot feeds per step;
-    kv_buckets/kv_bucket_min: the power-of-two read-slice policy."""
+    kv_buckets/kv_bucket_min: the power-of-two read-slice policy;
+    prefix_cache: reuse shared prompt prefixes (retired requests stay
+    matchable until evicted). paged: a page pool instead of contiguous
+    slot caches; page_size: rows per page; n_pages: pool size (None = full
+    capacity, n_slots full-length requests; smaller over-commits the
+    slots, admission-limited); host_spill_pages: host tier for evicted
+    prefix pages (0 = off)."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int, *,
                  n_slots: int = 8, prefill_chunk: int = 8,
                  kv_buckets: bool = True, kv_bucket_min: int = 32,
-                 device="cuda"):
+                 prefix_cache: bool = True, paged: bool = False,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 host_spill_pages: int = 0, device="cuda"):
         if kv_bucket_min < 1:
             raise ValueError(
                 f"kv_bucket_min must be >= 1, got {kv_bucket_min}")
+        if paged and page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.device = resolve_device(device)
         emb = params["embed"]
         if emb.device.type != self.device.type:
@@ -81,21 +123,51 @@ class Engine:
         self._kv_buckets = kv_buckets
         self._kv_bucket_min = kv_bucket_min
         self._chunk = max(1, prefill_chunk)
+        self._prefix_cache = prefix_cache
+        self._paged = bool(paged)
+        self._page_size = int(page_size)
+        self._n_pages = n_pages
+        self._host_spill_pages = int(host_spill_pages)
         self._sched: Optional[SlotScheduler] = None
         self._caches = None
         self._seen = None
+        self._bt = None             # device block table of the paged step
+        self._bt_stale = True       # admit/retire changed the host table
         self._events: List[Tuple[int, int]] = []      # last step's deltas
         # (B, n) chosen-token logprobs of the most recent generate() run
         # with sampling.logprobs=True; None otherwise
         self.last_logprobs = None
         # prefill/decode split: step time is attributed proportionally to
-        # the tokens each phase consumed in that step
+        # the tokens each phase consumed in that step. prefix_hits /
+        # prefill_tokens_saved count prefix reuse (saved tokens arrived by
+        # copy or aliasing instead of prefill); concurrency_peak is the
+        # most slots active in one step
         self.stats = {"steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+                      "prefill_s": 0.0, "decode_s": 0.0,
+                      "prefix_hits": 0, "prefill_tokens_saved": 0,
+                      "concurrency_peak": 0}
 
     def reset_stats(self) -> None:
         for k in self.stats:
             self.stats[k] = type(self.stats[k])()
+
+    @property
+    def paged_stats(self) -> Optional[Dict[str, object]]:
+        """Page-pool counters (None unless paged=True): occupancy,
+        aliased vs fresh page acquisitions, and the spill tier's traffic.
+        Lifetime counters, not reset by reset_stats."""
+        if not self._paged or self._sched is None:
+            return None
+        pool = self._pool
+        return {"page_size": pool.page, "n_pages": pool.n_pages,
+                "pages_in_use": pool.pages_in_use,
+                "pages_in_use_peak": pool.pages_in_use_peak,
+                "alias_acquisitions": pool.alias_acquisitions,
+                "fresh_acquisitions": pool.fresh_acquisitions,
+                "page_share_rate": pool.page_share_rate,
+                "spills": pool.spills, "restores": pool.restores,
+                "host_dropped": pool.host_dropped,
+                "host_pages_used": self._sched.host_pages_used}
 
     def _bucket(self, needed: int) -> int:
         if not self._kv_buckets:
@@ -109,14 +181,91 @@ class Engine:
     # continuous batching: submit / step / collect / stream
     # ------------------------------------------------------------------
 
+    # The scheduler's hooks hold no reference to the engine: a bound
+    # method would close a cycle engine -> scheduler -> engine, and a
+    # dropped engine's device caches would then wait for Python's cyclic
+    # collector instead of being freed at once.
+
+    @staticmethod
+    def _prefix_usable_len(p: int, depth: int) -> int:
+        """Model-kind validity of a prefix match, contiguous or paged
+        (scheduler hook; p is already capped to min(LCP, donor depth,
+        prompt_len - 1)). The reference refuses recurrent donors that
+        decoded past p (and gives recurrent plans no paged reuse) and ring
+        donors that wrapped over the prefix, which is where its contiguous
+        and paged rules differ; the port's plans have neither segment kind
+        yet, so one rule serves both layouts and every p is usable."""
+        return p if p > 0 else 0
+
     def _ensure_slots(self):
         if self._sched is not None:
             return
-        self._sched = SlotScheduler(self.n_slots, self.max_len)
-        self._caches = init_cache(self.cfg, self.n_slots, self.max_len,
-                                  device=self.device)
+        if self._paged:
+            P = self._page_size
+            npages_max = -(-self.max_len // P)
+            n_pages = (self._n_pages if self._n_pages is not None
+                       else self.n_slots * npages_max)
+            # the step writes this dict in place and never replaces it
+            self._caches = init_paged_cache(
+                self.cfg, self.n_slots, self.max_len, n_pages=n_pages,
+                page=P, device=self.device)
+            self._pool = PagePool(n_pages, P, self.n_slots, self.max_len)
+            self._sched = PagedScheduler(
+                self.n_slots, self.max_len, pool=self._pool,
+                prefix_cache=self._prefix_cache,
+                prefix_usable_len=self._prefix_usable_len,
+                spill_fn=functools.partial(_spill_entry, self._caches, P),
+                host_budget=self._host_spill_pages)
+        else:
+            self._sched = SlotScheduler(
+                self.n_slots, self.max_len,
+                prefix_cache=self._prefix_cache,
+                prefix_usable_len=self._prefix_usable_len)
+            self._caches = init_cache(self.cfg, self.n_slots, self.max_len,
+                                      device=self.device)
         self._seen = torch.zeros((self.n_slots, self.cfg.vocab_size),
                                  dtype=torch.bool, device=self.device)
+
+    def _admit(self) -> None:
+        """Admit queued requests and land each one's prefix rows, in
+        admission order: an earlier admission may own (or be) a later
+        one's source rows, and its copy must land first."""
+        for st in self._sched.admit():
+            self._bt_stale = True
+            hit = st.prefix_len > 0
+            if self._paged:
+                # aliased pages need nothing: they ARE the donor's rows
+                acts = st.paged or {}
+                if "blob" in acts:
+                    scatter_pages(self._caches, acts["blob"],
+                                  acts["blob_dst"], page=self._page_size)
+                elif "copy_src" in acts:
+                    copy_pages(self._caches, acts["copy_dst"],
+                               acts["copy_src"], page=self._page_size)
+            elif hit:
+                # a self-donor hit (src == dst) reuses its rows in place
+                copy_prefix(self._caches, st.slot, st.prefix_src,
+                            st.prefix_len)
+            # the seen row carries the previous occupant's tokens: clear
+            # it (in place); a hit seeds it with the prefix ids, the row
+            # cold prefill would have built
+            self._seen[st.slot] = False
+            if hit:
+                ids = self._tensor(np.asarray(
+                    st.request.prompt[:st.prefix_len], np.int64))
+                self._seen[st.slot, ids] = True
+                self.stats["prefix_hits"] += 1
+                self.stats["prefill_tokens_saved"] += st.prefix_len
+            self._sched.release_donor(st)
+
+    def _block_table(self) -> torch.Tensor:
+        """The step's device block table. Page assignments are static per
+        request life, so the (n_slots, npages_max) int32 table moves to
+        the device only after admit() or retire() changed it."""
+        if self._bt_stale:
+            self._bt = self._tensor(self._pool.block_table())
+            self._bt_stale = False
+        return self._bt
 
     def submit(self, prompt, *, sampling: SamplingParams) -> int:
         """Enqueue one request. prompt: 1-D sequence of token ids. Returns
@@ -140,14 +289,15 @@ class Engine:
         slots that were active this step."""
         if self._sched is None:
             return 0
-        for st in self._sched.admit():
-            # the repetition-penalty seen row carries the previous
-            # occupant's tokens: clear it (in place)
-            self._seen[st.slot] = False
+        self._admit()
         active = dict(self._sched.active)
         self._events = []
         if not active:
             return 0
+        self.stats["concurrency_peak"] = max(
+            self.stats["concurrency_peak"], len(active))
+        pkw = ({"block_table": self._block_table(),
+                "page_size": self._page_size} if self._paged else {})
         B = self.n_slots
         # pure-decode steps stay (B, 1); the chunk width only when a
         # prefilling slot can use it
@@ -182,7 +332,7 @@ class Engine:
         ids, lps, self._caches, self._seen = decode_sample_step(
             self.params, self._caches, self._seen, self._tensor(tokens),
             self._tensor(pos), self._tensor(nval), sp_dev, cfg=self.cfg,
-            kv_len=kv_len, want_logprobs=want_lp, any_sampled=False)
+            kv_len=kv_len, want_logprobs=want_lp, any_sampled=False, **pkw)
         ids = ids.cpu().numpy()               # (B,) — the only per-step
         lps = lps.cpu().numpy() if want_lp else None   # device->host pulls
         now = serve_clock()
@@ -205,6 +355,7 @@ class Engine:
             self._events.append((st.request.rid, tok))
             if st.should_retire():
                 self._sched.retire(st.slot)
+                self._bt_stale = True
         return len(active)
 
     def stream(self) -> Iterator[Tuple[int, int]]:
@@ -264,7 +415,8 @@ class Engine:
     def generate(self, prompt_tokens, n_new: Optional[int] = None, *,
                  sampling: Optional[SamplingParams] = None) -> torch.Tensor:
         """prompt_tokens: (B, S). Returns (B, n) generated ids (int32, on
-        the engine's device). Greedy: sampling=None means greedy with
+        the engine's device), through contiguous caches of its own even
+        when the engine is paged. Greedy: sampling=None means greedy with
         n_new tokens; a SamplingParams must be greedy, and n defaults to
         its max_new (an explicit n_new is capped at it). The static batch
         always emits the full n tokens per row; eos/stops are scheduler

@@ -12,6 +12,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.altup_fused import altup_predict_correct as jaltup_raw
 from repro.kernels.ragged_decode_attention import (
+    paged_ragged_decode_attention as jpaged_raw)
+from repro.kernels.ragged_decode_attention import (
     ragged_decode_attention as jragged_raw)
 from repro_torch.kernels import altup_fused, ops, ref
 from repro_torch.kernels import ragged_decode_attention as ragged_mod
@@ -41,7 +43,8 @@ def _counts_stay_zero():
     ops.reset_launch_counts()
     yield
     assert ops.launch_counts() == {"altup_predict_correct": 0,
-                                   "ragged_decode_attention": 0}
+                                   "ragged_decode_attention": 0,
+                                   "paged_ragged_decode_attention": 0}
 
 
 @pytest.mark.parametrize("T,K,d", [(8, 2, 128), (5, 2, 64), (64, 4, 256),
@@ -125,6 +128,76 @@ def test_ragged_wrapper_matches_jax_wrapper(H, Hk):
     np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
+def _paged_pool_of(k, page, perm):
+    """Scatter contiguous (B, T, Hk, dh) rows into a (R, Hk, dh) page pool
+    under a permuted page assignment; returns (pool, block_table)."""
+    B, T = k.shape[0], k.shape[1]
+    npp = T // page
+    pool = np.zeros((len(perm) * page,) + k.shape[2:], k.dtype)
+    bt = np.asarray(perm[: B * npp], np.int32).reshape(B, npp)
+    for b in range(B):
+        for j in range(npp):
+            pool[bt[b, j] * page:(bt[b, j] + 1) * page] = \
+                k[b, j * page:(j + 1) * page]
+    return pool, bt
+
+
+@pytest.mark.parametrize("B,T,Hk,rep,dh,page,t_max", [
+    (3, 16, 2, 2, 8, 4, 16),     # GQA 2:1, the whole table read
+    (4, 32, 2, 1, 16, 8, 24),    # t_max inside the table, not page-aligned
+    (2, 24, 1, 4, 32, 8, 16),    # GQA 4:1, a full slot clamped to t_max
+])
+def test_paged_ragged_ref_matches_jax(B, T, Hk, rep, dh, page, t_max):
+    """The paged plain version against the reference's paged Pallas
+    kernel in interpret mode, through a permuted block table with an
+    empty and a full slot; and against the contiguous plain version on
+    the same rows, bitwise."""
+    rng = np.random.default_rng(B * 100 + T)
+    q = rng.standard_normal((B, Hk, rep, dh)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hk, dh)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hk, dh)).astype(np.float32)
+    lens = _lengths(B, T, seed=B + 1)
+    perm = rng.permutation(B * (T // page) + 3).tolist()
+    kp, bt = _paged_pool_of(k, page, perm)
+    vp, _ = _paged_pool_of(v, page, perm)
+    got = ref.paged_ragged_decode_ref(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(lens), torch.from_numpy(bt), page=page,
+        t_max=t_max)
+    assert torch.all(got[0] == 0)             # empty slot: exact zeros
+    want = jpaged_raw(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(lens), jnp.asarray(bt), page=page,
+                      t_max=t_max, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+    contiguous = ref.ragged_decode_ref(
+        torch.from_numpy(q), torch.from_numpy(k[:, :t_max]),
+        torch.from_numpy(v[:, :t_max]), torch.from_numpy(lens))
+    assert torch.equal(got, contiguous)
+
+
+def test_paged_ragged_wrapper_matches_jax_wrapper():
+    """ops.paged_ragged_decode_attn groups (B, 1, H, dh) queries as the
+    reference's wrapper does; on CPU tensors it runs the plain version."""
+    B, T, H, Hk, dh, page = 3, 16, 4, 2, 8, 4
+    rng = np.random.default_rng(23)
+    q = rng.standard_normal((B, 1, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hk, dh)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hk, dh)).astype(np.float32)
+    lens = np.asarray([5, 16, 0], np.int32)
+    perm = rng.permutation(B * (T // page) + 2).tolist()
+    kp, bt = _paged_pool_of(k, page, perm)
+    vp, _ = _paged_pool_of(v, page, perm)
+    got = ops.paged_ragged_decode_attn(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(lens), torch.from_numpy(bt), page=page, t_max=T)
+    want = jops.paged_ragged_decode_attn(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(lens),
+        jnp.asarray(bt), page=page, t_max=T)
+    assert got.shape == (B, 1, H, dh)
+    np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
+    assert np.all(_np(got)[2] == 0.0)
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     """The CUDA launchers take CUDA tensors only: a CPU tensor is an
     error, never a silent plain-version run."""
@@ -137,6 +210,11 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ragged_mod.ragged_decode_attention(
             torch.zeros(2, 1, 1, 8), torch.zeros(2, 4, 1, 8),
             torch.zeros(2, 4, 1, 8), torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        ragged_mod.paged_ragged_decode_attention(
+            torch.zeros(2, 1, 1, 8), torch.zeros(8, 1, 8),
+            torch.zeros(8, 1, 8), torch.zeros(2, dtype=torch.int32),
+            torch.zeros(2, 2, dtype=torch.int32), page=4, t_max=8)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -98,7 +98,7 @@ def test_continuous_matches_jax_engine(flags):
     want = _run_staggered(jeng, prompts, [JSP(**r) for r in reqs])
     tp = bridge.params_from_numpy(tree, device="cpu")
     teng = TEngine(tc, tp, max_len=MAX_LEN, n_slots=2, prefill_chunk=4,
-                   device="cpu")
+                   prefix_cache=False, device="cpu")
     ops.reset_launch_counts()
     got = _run_staggered(teng, prompts, [TSP(**r) for r in reqs])
     assert [c.tokens for c in got] == [c.tokens for c in want]
@@ -114,7 +114,8 @@ def test_continuous_matches_jax_engine(flags):
         assert g.prompt_len == w.prompt_len
         assert g.submitted_at <= g.first_token_at <= g.finished_at
     assert ops.launch_counts() == {"altup_predict_correct": 0,
-                                   "ragged_decode_attention": 0}
+                                   "ragged_decode_attention": 0,
+                                   "paged_ragged_decode_attention": 0}
 
 
 def test_generate_matches_jax_and_continuous():
