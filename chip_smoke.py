@@ -11,7 +11,9 @@ tokens between the kernel path, the paged kernel path and the dense path,
 then serves greedy requests through `Engine` in bf16 on the served model,
 Qwen3-0.6B wrapped with AltUp K=2 (recycled), at its full width and depth,
 with seeded random weights: once over contiguous slot caches and once
-over a paged KV pool with prefix reuse. Phases:
+over a paged KV pool with prefix reuse. It then does the same for the
+second served family, RWKV-6 "Finch" 1.6B wrapped with AltUp K=2, whose
+recurrence runs through the WKV kernel. Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
@@ -21,7 +23,10 @@ over a paged KV pool with prefix reuse. Phases:
                the kernel, its plain version and the library yardstick;
                the wrapper's ms per call (CUDA events); the bytes bound.
                c-paged also holds the paged kernel bitwise against the
-               contiguous one on the same rows, through a permuted table
+               contiguous one on the same rows, through a permuted table;
+               c-wkv holds the WKV kernel at (i)'s decode step, (h)'s
+               forward, an odd length and a zero state (bitwise equal to
+               no state)
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
@@ -37,8 +42,18 @@ over a paged KV pool with prefix reuse. Phases:
       g-spill  the host spill tier: a prefix spilled to the host and
                restored serves the same tokens as the resident prefix;
                every copy, spill and restore held bitwise on the card
+  (h) parity   rwkv6-1.6b + AltUp K=2 at full width, f32: forward logits
+               on 2 prompts of 64 tokens, then a token-by-token prefill
+               and 16 greedy decode_steps, the kernel path vs the dense
+               path
+  (i) rwkv     8 greedy bf16 requests (prompts of 32-256 tokens, 32 new
+               tokens) through Engine(n_slots=8, max_len=512) with the
+               prefix cache on: a max_new=1 donor over a prefix, then a
+               request extending it hits and serves a cold engine's
+               tokens; the WKV kernel launches 24 times per step
   (f) profile  (--profile only) device busy share of pure decode steps,
-               of the (e) engine and (f-profile-paged) of the (g) engine
+               of the (e) engine, (f-profile-paged) of the (g) engine
+               and (f-profile-rwkv) of the (i) engine
 
 Every phase prints one line; any failure raises and exits non-zero. The
 second-to-last line is the per-kernel JSON record; the last line is
@@ -67,11 +82,20 @@ def served_config(**kw):
     return get_config("qwen3-0.6b", altup_k=2).replace(**kw)
 
 
+def rwkv_config(**kw):
+    """RWKV-6 1.6B wrapped with AltUp K=2 (not recycled: vocab 65536)."""
+    from repro_torch.configs import get_config
+    return get_config("rwkv6-1.6b", altup_k=2).replace(**kw)
+
+
 # NVIDIA H100 SXM data sheet (dense rates, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)     # kernel vs plain, f32 in and out
+# WKV kernel vs plain, f32: sums over Dh in another order, FMA-contracted,
+# carried through up to 512 recurrent steps, on values of order 10
+WKV_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)    # outputs rounded to bf16 (1 ulp)
 PARITY_TOL = dict(atol=1e-3, rtol=1e-3)  # 28-layer f32 logits, two paths
 
@@ -105,6 +129,26 @@ def bound_ms(nbytes, nops, dtype_name):
 
 def max_err(torch, a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def perturb_rwkv(torch, params, cfg, seed):
+    """Seeded values for the RWKV-6 leaves the reference starts at zero
+    (ts_b, w_b, u) and a spread of decay bases, then AltUp p/g. Scales
+    follow the fan-in so that w_base + lora(x) stays below ~1.5, where
+    the reference's chunked form keeps 1/A inside f32 (16 steps)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rw = cfg.rwkv
+    with torch.no_grad():
+        p = params["seg0"]["rwkv"]
+        for leaf, scale in (("ts_b", 1.0 / math.sqrt(rw.token_shift_lora)),
+                            ("w_b", 0.4 / math.sqrt(rw.decay_lora)),
+                            ("u", 0.5)):
+            t = p[leaf]
+            t.copy_(scale * torch.randn(t.shape, generator=gen, device=DEV))
+        wb = p["w_base"]
+        wb.copy_(-4.0 + 3.5 * torch.rand(wb.shape, generator=gen,
+                                         device=DEV))
+    perturb_altup(torch, params, seed + 1)
 
 
 def perturb_altup(torch, params, seed):
@@ -314,6 +358,86 @@ def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
             "bytes": nbytes, "tol": tol}
+
+
+def check_wkv(torch, ops, ref, dtype, B, H, Dh, S, state, seed=7):
+    """The WKV kernel through ops.rwkv6_wkv on (B, S, H, Dh) inputs, u
+    (H, Dh) and a random state updated in place (state="random") or none
+    (state=None), against its plain version on the same rows. Inputs:
+    r, k, v ~ N(0, 1), w = exp(-exp(N(0, 1) - 1)), state ~ N(0, 1)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    r, k, v = (rnd(B, S, H, Dh).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(B, S, H, Dh) - 1)).to(dtype)
+    u = rnd(H, Dh).to(dtype)
+    s0 = rnd(B, H, Dh, Dh) if state == "random" else None
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * H, S, Dh)
+    want_o, want_s = ref.rwkv6_wkv_ref(fold(r), fold(k), fold(v), fold(w),
+                                       u, None if s0 is None
+                                       else s0.reshape(B * H, Dh, Dh))
+    want_o = want_o.reshape(B, H, S, Dh).transpose(1, 2)
+    st = None if s0 is None else s0.clone()
+    got_o, got_s = ops.rwkv6_wkv(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    if st is not None and got_s is not st:
+        raise AssertionError("the WKV kernel did not update the state in "
+                             "place")
+    tol = WKV_F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got_o, want_o, **tol)
+    torch.testing.assert_close(got_s, want_s.reshape(B, H, Dh, Dh),
+                               **WKV_F32_TOL)
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    esz = r.element_size()
+    BH = B * H
+    # each input once (the state if given), out and the final state once
+    nbytes = (5 * BH * S * Dh * esz + H * Dh * esz
+              + (2 if s0 is not None else 1) * BH * Dh * Dh * 4)
+    # per step and head: out (Σᵢ rᵢ Sᵢⱼ, 2 per element) and the state
+    # update (wᵢ Sᵢⱼ + kᵢ vⱼ, 3 per element), all f32
+    nops = 5 * BH * S * Dh * Dh
+    b_ms, b_by = bound_ms(nbytes, nops, "float32")
+
+    def launch():
+        return ops.rwkv6_wkv(r, k, v, w, u, st)
+
+    def plain():
+        return ref.rwkv6_wkv_ref(fold(r), fold(k), fold(v), fold(w), u,
+                                 None if s0 is None
+                                 else s0.reshape(BH, Dh, Dh))
+    return {"dtype": name, "B": B, "H": H, "Dh": Dh, "S": S,
+            "state": state or "none", "in_place": st is not None,
+            "max_abs_err": max_err(torch, got_o, want_o),
+            "state_max_abs_err": max_err(torch, got_s,
+                                         want_s.reshape(B, H, Dh, Dh)),
+            "ms": device_ms(torch, launch, "rwkv6_wkv_kernel"),
+            "plain_ms": device_ms(torch, plain, iters=5),
+            "wrapper_ms": time_ms(torch, launch),
+            "bound_ms": b_ms, "bound_by": b_by, "library": "none",
+            "library_ms": None, "bytes": nbytes, "flop": nops, "tol": tol}
+
+
+def check_wkv_zero_state(torch, ops, dtype, B=8, H=32, Dh=64, seed=8):
+    """S = 1 from an all-zero state must equal the no-state case bitwise,
+    output and final state."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    r, k, v, w = (torch.rand(B, 1, H, Dh, generator=gen, device=DEV)
+                  .to(dtype) for _ in range(4))
+    u = torch.randn(H, Dh, generator=gen, device=DEV).to(dtype)
+    o_none, s_none = ops.rwkv6_wkv(r, k, v, w, u)
+    zero = torch.zeros(B, H, Dh, Dh, device=DEV)
+    o_zero, s_zero = ops.rwkv6_wkv(r, k, v, w, u, zero)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_none, o_zero) and torch.equal(s_none, s_zero)):
+        raise AssertionError(
+            f"zero state differs from no state: out "
+            f"{max_err(torch, o_none, o_zero)}, state "
+            f"{max_err(torch, s_none, s_zero)}")
+    return {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
+            "B": B, "H": H, "Dh": Dh, "S": 1, "bitwise_equal": True}
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +840,189 @@ def serve_spill_bf16(torch):
                                           "wall_s")}}
 
 
+# ---------------------------------------------------------------------------
+# (h) rwkv6-1.6b full-width f32 parity: WKV kernel path vs dense path
+# ---------------------------------------------------------------------------
+
+def rwkv_parity_f32(torch):
+    from repro_torch.models.decode import decode_step, init_cache
+    from repro_torch.models.transformer import forward, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = rwkv_config(dtype="float32", param_dtype="float32")
+    cfgs = {"k": cfg.replace(fused_decode_altup=None),
+            "d": cfg.replace(fused_decode_altup=False)}
+    wkv = {"k": None, "d": False}               # None: the kernel on CUDA
+    params = init_params(cfg, seed=0, device=DEV)
+    perturb_rwkv(torch, params, cfg, seed=20)
+    B, S, n_dec = 2, 64, 16
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEV)
+    fwd = {s: forward(params, cfgs[s], prompts, wkv_kernel=wkv[s])
+           [..., :cfg.vocab_size] for s in "kd"}
+    torch.testing.assert_close(fwd["k"], fwd["d"], **PARITY_TOL)
+    worst_fwd = max_err(torch, fwd["k"], fwd["d"])
+    caches = {s: init_cache(cfgs[s], B, S + n_dec, device=DEV) for s in "kd"}
+    worst = 0.0
+    for t in range(S):                   # token-by-token prefill
+        lg = {}
+        for s in "kd":
+            out, _ = decode_step(params, cfgs[s], caches[s],
+                                 prompts[:, t:t + 1], t, wkv_kernel=wkv[s])
+            lg[s] = out[:, 0, :cfg.vocab_size]
+        torch.testing.assert_close(lg["k"], lg["d"], **PARITY_TOL)
+        worst = max(worst, max_err(torch, lg["k"], lg["d"]))
+    # the prefill's last logits are the forward's
+    torch.testing.assert_close(lg["d"], fwd["d"][:, -1], **PARITY_TOL)
+    tok = {s: lg[s].argmax(-1) for s in "kd"}
+    streams = {s: [tok[s].tolist()] for s in "kd"}
+    min_gap = math.inf
+    for t in range(S, S + n_dec):
+        for s in "kd":
+            out, _ = decode_step(params, cfgs[s], caches[s], tok[s][:, None],
+                                 t, wkv_kernel=wkv[s])
+            lg[s] = out[:, 0, :cfg.vocab_size]
+        torch.testing.assert_close(lg["k"], lg["d"], **PARITY_TOL)
+        worst = max(worst, max_err(torch, lg["k"], lg["d"]))
+        top2 = lg["d"].topk(2, dim=-1).values
+        min_gap = min(min_gap, float((top2[:, 0] - top2[:, 1]).min()))
+        for s in "kd":
+            tok[s] = lg[s].argmax(-1)
+            streams[s].append(tok[s].tolist())
+    if streams["k"] != streams["d"]:
+        raise AssertionError(f"greedy tokens differ between the WKV kernel "
+                             f"path and the dense path: {streams}")
+    state_err = max_err(torch, caches["k"]["seg0"]["wkv"],
+                        caches["d"]["seg0"]["wkv"])
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"prompts": B, "prompt_len": S, "decode_steps": n_dec,
+            "forward_max_abs_logit_err": worst_fwd,
+            "decode_max_abs_logit_err": worst,
+            "final_wkv_state_max_abs_err": state_err, "tol": PARITY_TOL,
+            "greedy_tokens_identical": True,
+            "tokens_checked": B * (n_dec + 1),
+            "min_top2_gap_dense": min_gap,
+            "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32]}
+
+
+# ---------------------------------------------------------------------------
+# (i) rwkv6-1.6b bf16 serve with prefix reuse, through Engine
+# ---------------------------------------------------------------------------
+
+# phase (i)'s traffic: a donor of a 64-token prefix (max_new=1, so it stops
+# at the prefix boundary, the recurrent validity rule), then 7 requests in
+# one batch: the prefix plus 32 tokens, and 6 prompts of their own
+I_PREFIX, I_EXTEND, I_NEW = 64, 32, 32
+I_PROMPTS = (32, 128, 160, 192, 224, 256)
+I_SLOTS, I_MAX_LEN = 8, 512
+
+
+def rwkv_traffic(torch, vocab):
+    """Phase (i)'s donor prompt and its batch (the extender first), from
+    seed 9."""
+    gen = torch.Generator().manual_seed(9)
+
+    def ids(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+    donor = ids(I_PREFIX)
+    batch = [donor + ids(I_EXTEND)] + [ids(n) for n in I_PROMPTS]
+    return donor, batch
+
+
+def serve_rwkv_bf16(torch, ops, profile=False):
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = rwkv_config()                                # bf16
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_rwkv(torch, params, cfg, seed=22)
+    donor, batch = rwkv_traffic(torch, cfg.vocab_size)
+
+    def engine(**kw):
+        return Engine(cfg, params, max_len=I_MAX_LEN, n_slots=I_SLOTS,
+                      device=DEV, **kw)
+    eng = engine()
+    # warm-up request (cuBLAS handles, allocator) outside the counted run
+    eng.submit(batch[1][:8], sampling=SamplingParams(max_new=4))
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()     # the peak of this run only
+    ops.reset_launch_counts()                # counts start at 0 right here
+    t_run = time.perf_counter()
+    decode_ms, steps = [], 0
+
+    def drive():
+        nonlocal steps
+        while eng.has_work:
+            pf0 = eng.stats["prefill_tokens"]
+            t0 = time.perf_counter()
+            eng.step()                       # ends in the ids' device->host
+            dt = time.perf_counter() - t0
+            steps += 1
+            if eng.stats["prefill_tokens"] == pf0:
+                decode_ms.append(1e3 * dt)
+    r_donor = eng.submit(donor, sampling=SamplingParams(max_new=1))
+    drive()                                  # the donor retires at depth 64
+    rids = [eng.submit(p, sampling=SamplingParams(max_new=I_NEW))
+            for p in batch]
+    drive()
+    wall = time.perf_counter() - t_run
+    counts = ops.launch_counts()             # read right after the run
+    out = eng.collect()
+    if sorted(out) != sorted([r_donor] + rids):
+        raise AssertionError(f"not every request completed: {sorted(out)}")
+    for rid in rids:
+        c = out[rid]
+        if len(c.tokens) != I_NEW or c.finish_reason != "length" or \
+                not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            raise AssertionError(f"request {rid}: {c.finish_reason}, "
+                                 f"{len(c.tokens)} tokens")
+    st = dict(eng.stats)
+    if st["prefix_hits"] != 1 or st["prefill_tokens_saved"] != I_PREFIX:
+        raise AssertionError(f"not one prefix hit at the donor's depth: "
+                             f"{st}")
+    n_layers = cfg.n_layers
+    if counts["rwkv6_wkv"] != n_layers * steps or \
+            counts["altup_predict_correct"] <= 0 or \
+            counts["ragged_decode_attention"] != 0 or \
+            counts["paged_ragged_decode_attention"] != 0:
+        raise AssertionError(f"launch counts {counts} do not match "
+                             f"{steps} steps of {n_layers} layers")
+    hit_tokens = list(out[rids[0]].tokens)
+    decode_ms.sort()
+    res = {"requests": 1 + len(rids), "donor_prompt": len(donor),
+           "prompt_lens": [len(p) for p in batch], "new_tokens": I_NEW,
+           "steps": steps, "decode_steps": len(decode_ms),
+           "launches": counts,
+           "wkv_launches_per_step": counts["rwkv6_wkv"] / steps,
+           "prefix_hits": st["prefix_hits"],
+           "prefill_tokens_saved": st["prefill_tokens_saved"],
+           "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+           "decode_step_ms_p80": decode_ms[int(0.8 * len(decode_ms))],
+           "decode_step_ms_min": decode_ms[0],
+           "wall_s": wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    prof = profile_decode(torch, eng, batch[1:]) if profile else None
+    del eng
+    # the extender served cold, alone, on an engine of the same shape
+    cold = engine(prefix_cache=False)
+    rid = cold.submit(batch[0], sampling=SamplingParams(max_new=I_NEW))
+    cold_tokens = list(cold.run()[rid].tokens)
+    if cold_tokens != hit_tokens:
+        raise AssertionError(f"the prefix hit serves other tokens than a "
+                             f"cold engine: {hit_tokens} vs {cold_tokens}")
+    res["hit_tokens_equal_cold"] = True
+    del cold, params
+    torch.cuda.empty_cache()
+    return res, counts, prof
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -774,7 +1081,13 @@ def profile_decode(torch, eng, prompts, n_steps=8):
             "kernels_per_step": sum(e.count for e in kern) / n_steps,
             "top_kernels": [[e.key[:70], e.count / n_steps,
                              e.self_device_time_total / 1e3 / n_steps]
-                            for e in kern[:10]]}
+                            for e in kern[:10]],
+            # the port's own kernels, each with its launches and device ms
+            # per step and its share of the step's device time
+            "port_kernels": [[e.key[:70], e.count / n_steps,
+                              e.self_device_time_total / 1e3 / n_steps,
+                              e.self_device_time_total / dev_us]
+                             for e in kern if "repro_torch::" in e.key]}
 
 
 def main(argv) -> int:
@@ -852,6 +1165,23 @@ def main(argv) -> int:
             paged[(r["dtype"], case)] = r
             line("c-paged", case=case, **r)
 
+    # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
+    # place), (h)'s forward (no state, 512 steps), an odd length with a
+    # state, and the zero state against none
+    wkv = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, kw in (("i-decode", dict(B=8, H=32, Dh=64, S=1,
+                                           state="random")),
+                         ("h-forward", dict(B=4, H=32, Dh=64, S=512,
+                                            state=None)),
+                         ("odd", dict(B=3, H=5, Dh=16, S=77,
+                                      state="random"))):
+            r = check_wkv(torch, ops, ref, dtype, **kw)
+            wkv[(r["dtype"], case)] = r
+            line("c-wkv", case=case, **r)
+        line("c-wkv", case="zero-state",
+             **check_wkv_zero_state(torch, ops, dtype))
+
     # (d) full-width f32 parity of the two paths
     line("d-parity", **parity_f32(torch))
 
@@ -868,10 +1198,20 @@ def main(argv) -> int:
         line("f-profile-paged", **prof_g)
     line("g-spill", **serve_spill_bf16(torch))
 
+    # (h) rwkv6-1.6b: full-width f32 parity of the WKV kernel path
+    line("h-parity", **rwkv_parity_f32(torch))
+
+    # (i) rwkv6-1.6b: bf16 serving through Engine with prefix reuse
+    res_i, counts_i, prof_i = serve_rwkv_bf16(torch, ops, profile=profile)
+    line("i-rwkv-serve", **res_i)
+    if prof_i is not None:
+        line("f-profile-rwkv", **prof_i)
+
     # each kernel at the shape of the run its launches are counted in
     main_altup = altup[("bfloat16", 8)]      # (e)'s decode step
     main_ragged = ragged[("bfloat16", "e")]
     main_paged = paged[("bfloat16", "g")]
+    main_wkv = wkv[("bfloat16", "i-decode")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -890,6 +1230,11 @@ def main(argv) -> int:
          "replaces": "src/repro/kernels/ragged_decode_attention.py:122",
          "launches": counts_g["paged_ragged_decode_attention"],
          **{k: main_paged[k] for k in keys}},
+        {"name": "rwkv6_wkv", "route": "cuda",
+         "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:53",
+         "launches": counts_i["rwkv6_wkv"],
+         **{k: main_wkv[k] for k in keys}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

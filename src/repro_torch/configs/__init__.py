@@ -12,6 +12,7 @@ from repro_torch.config import AltUpConfig, ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

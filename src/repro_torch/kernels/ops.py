@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import altup_fused, ref
 from repro_torch.kernels import ragged_decode_attention as ragged_mod
+from repro_torch.kernels import rwkv6_wkv as wkv_mod
 
 
 def altup_predict_correct(x_wide, x_tilde, sel, p, g):
@@ -96,9 +97,45 @@ def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table, *,
 
 paged_ragged_decode_attn.launches = 0
 
+def rwkv6_wkv(r, k, v, w, u, state=None):
+    """The RWKV-6 WKV recurrence over a sequence.
+
+    r, k, v, w: (B, S, H, Dh), folded to (B·H, S, Dh) rows as the
+    reference's wrapper folds them; u: (H, Dh); state: optional
+    (B, H, Dh, Dh) float32 initial state, None for zeros. Returns out
+    (B, S, H, Dh) in r's dtype and the final state (B, H, Dh, Dh) float32.
+    A given state is overwritten IN PLACE with the final state and is the
+    tensor returned (the decode step's cache leaf, updated without a
+    copy); on the CPU the plain version's result is copied into it."""
+    B, S, H, Dh = r.shape
+    if state is not None and not state.is_contiguous():
+        raise ValueError("rwkv6_wkv updates the state in place: it must be "
+                         "contiguous")
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * H, S, Dh)
+    s_rows = None if state is None else state.view(B * H, Dh, Dh)
+    if r.device.type == "cpu":
+        out, s_new = ref.rwkv6_wkv_ref(fold(r), fold(k), fold(v), fold(w),
+                                       u, s_rows)
+        if state is not None:
+            state.copy_(s_new.view(B, H, Dh, Dh))
+    else:
+        out, s_new = wkv_mod.rwkv6_wkv(
+            fold(r).contiguous(), fold(k).contiguous(),
+            fold(v).contiguous(), fold(w).contiguous(), u.contiguous(),
+            s_rows)
+        rwkv6_wkv.launches += 1
+    s_new = state if state is not None else s_new.view(B, H, Dh, Dh)
+    return out.view(B, H, S, Dh).transpose(1, 2), s_new
+
+
+rwkv6_wkv.launches = 0
+
 _COUNTED = {"altup_predict_correct": altup_predict_correct,
             "ragged_decode_attention": ragged_decode_attn,
-            "paged_ragged_decode_attention": paged_ragged_decode_attn}
+            "paged_ragged_decode_attention": paged_ragged_decode_attn,
+            "rwkv6_wkv": rwkv6_wkv}
 
 
 def launch_counts() -> dict:

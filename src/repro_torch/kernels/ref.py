@@ -64,3 +64,32 @@ def paged_ragged_decode_ref(q, k_pool, v_pool, lengths, block_table, *,
     phys = bt[:, rows // page] * page + rows % page        # (B, t_max)
     return ragged_decode_ref(q, k_pool[phys], v_pool[phys], lengths,
                              scale=scale)
+
+
+def rwkv6_wkv_ref(r, k, v, w, u, state=None):
+    """Plain version of the RWKV-6 WKV recurrence kernel.
+
+    r, k, v, w: (BH, S, Dh); u: (U, Dh) bonus rows, row bh % U for head
+    row bh (U = BH is the TPU kernel's (BH, Dh); U = H serves a (B·H)
+    fold of (B, S, H, Dh) inputs); state: optional (BH, Dh, Dh) initial
+    state, None for zeros (the TPU kernel's contract). Per step, in f32:
+
+        out_t[j] = Σᵢ rᵢ (S_ij + uᵢ kᵢ v_j),   S_ij ← wᵢ S_ij + kᵢ v_j
+
+    Returns out (BH, S, Dh) in r's dtype and the final state (BH, Dh, Dh)
+    in f32. The given state is not modified."""
+    f32 = torch.float32
+    BH, S, Dh = r.shape
+    if BH % u.shape[0]:
+        raise ValueError(f"u has {u.shape[0]} rows, which do not divide "
+                         f"BH={BH}")
+    rf, kf, vf, wf = (t.to(f32) for t in (r, k, v, w))
+    uf = u.to(device=r.device, dtype=f32).repeat(BH // u.shape[0], 1)
+    s = (torch.zeros((BH, Dh, Dh), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    out = torch.empty((BH, S, Dh), dtype=f32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]          # (BH, Dh, Dh)
+        out[:, t] = ((s + uf[:, :, None] * kv) * rf[:, t, :, None]).sum(1)
+        s = wf[:, t, :, None] * s + kv
+    return out.to(r.dtype), s

@@ -1,20 +1,27 @@
 """Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the unquantized, attention-only parts of `repro/models/decode.py`.
-One cache dict per segment, stacked over the segment's layers:
+Port of the unquantized attention and RWKV-6 parts of
+`repro/models/decode.py`. One cache dict per segment, stacked over the
+segment's layers:
 
   attn : k, v  (n, B, T, Hk, Dh)   contiguous slot caches, post-RoPE keys
   attn : k, v  (n, R + page, Hk, Dh)  paged row pools (init_paged_cache),
                addressed through a per-slot (B, npages) block table
+  rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
+               tails shift_tm, shift_cm (n, B, d) in the activation dtype
 
 `pos` is a scalar (uniform static batch) or a per-slot (B,) tensor, so B
 sequences at different depths decode in one step (continuous batching).
 Steps may carry S > 1 tokens per slot (chunked prefill; padded tokens are
 kept out of the cache by `n_valid`), and cache reads are sliced to the
 static `kv_len` bucket the engine derives from the deepest active slot.
-S=1 attention goes through the ragged decode kernel and the layer loop
-through the fused AltUp predict+correct kernel when the dispatch rule
-(kernels.resolve_kernel_flag) says so.
+S=1 attention goes through the ragged decode kernel, the RWKV-6
+recurrence through the WKV kernel (which updates the state leaf in place)
+and the layer loop through the fused AltUp predict+correct kernel when
+the dispatch rule (kernels.resolve_kernel_flag) says so. An rwkv segment
+needs no positions: its state has no position axis, and `n_valid` does
+not mask it (as in the reference, whose engine feeds recurrent plans one
+token per step and resets a slot's state at admission).
 
 Where the reference rebuilds caches functionally, the port writes them in
 place: `_update_at` assigns into the layer's cache view, which is a view
@@ -45,7 +52,7 @@ from repro_torch.kernels import resolve_kernel_flag
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (Segment, act_dtype, embed_tokens,
                                             layer_plan, layer_slice,
-                                            torch_dtype, unembed)
+                                            rwkv_layer, torch_dtype, unembed)
 from repro_torch.serve.sampling import sample_rows, update_seen
 
 
@@ -64,15 +71,31 @@ def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
         f"ported yet: it arrives with ROADMAP A7")
 
 
+# per-slot recurrent state leaves (stacked (n, B, ...), batch axis 1)
+RECURRENT_LEAVES = ("wkv", "shift_tm", "shift_cm")
+
+
 def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
                device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Zero caches for a max sequence length T on `device`."""
+    """Zero caches for a max sequence length T on `device`. dtype: the
+    k/v storage and token-shift dtype (default: the activation dtype);
+    the rwkv state is f32 whatever it is."""
     dev = resolve_device(device)
     kd = dtype or kv_store_dtype(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
-        shape = (seg.n, B, T, hk, dh)
+        n = seg.n
+        if seg.kind == "rwkv":
+            d, rdh = cfg.d_model, cfg.rwkv.head_dim
+            ad = dtype or act_dtype(cfg)
+            caches[f"seg{si}"] = {
+                "wkv": torch.zeros((n, B, d // rdh, rdh, rdh),
+                                   dtype=torch.float32, device=dev),
+                "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
+                "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
+            continue
+        shape = (n, B, T, hk, dh)
         caches[f"seg{si}"] = {"k": torch.zeros(shape, dtype=kd, device=dev),
                               "v": torch.zeros(shape, dtype=kd, device=dev)}
     return caches
@@ -96,7 +119,14 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     `_update_at` (a spare row of the slot's own cache) does not carry
     over to a shared pool, where an idle slot's all-zero table row would
     aim it into page 0, a live page of another request. Here row R is the
-    sink's first row, so such writes land where nothing is read."""
+    sink's first row, so such writes land where nothing is read.
+
+    Recurrent (rwkv) plans have no paged layout in the port yet: it
+    arrives with the paged recurrent serving item of ROADMAP A8."""
+    if any(seg.kind != "attn" for seg in layer_plan(cfg)):
+        raise NotImplementedError(
+            "paged caches for recurrent (rwkv) segments are not ported "
+            "yet: they arrive with ROADMAP A8")
     dev = resolve_device(device)
     kd = dtype or kv_store_dtype(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -328,29 +358,55 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     return _decode_ffn(p_l, cfg, x), {"k": cache_k, "v": cache_v}
 
 
+def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
+                wkv_kernel: Optional[bool] = None):
+    """One RWKV-6 decode layer: layer i's recurrent leaves of the segment
+    cache are its state, written IN PLACE (the WKV kernel updates the
+    "wkv" leaf itself; the dense path's new state is copied in). x:
+    (B, S, d). Returns the layer's output."""
+    state = {name: cache[name][i] for name in RECURRENT_LEAVES}
+    out, new = rwkv_layer(p_l, cfg, x, state, wkv_kernel=wkv_kernel)
+    for name, leaf in state.items():
+        if new[name] is not leaf:
+            leaf.copy_(new[name])
+    return out
+
+
 def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    n_valid=None, kv_len=None, use_ragged=False,
-                   use_fused=False, paged=None):
+                   use_fused=False, paged=None,
+                   wkv_kernel: Optional[bool] = None):
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
     place. paged: optional (block_table, page) — the segment's caches are
-    row pools and the logical capacity Tc is the table's row span."""
+    row pools and the logical capacity Tc is the table's row span. An
+    rwkv segment reads and writes only its recurrent state leaves."""
     K = cfg.altup.K
     S = x.shape[1]
-    pg_seg = None
-    if paged is not None:
-        bt, pg = paged
-        Tc = bt.shape[1] * pg
-        pg_seg = (bt, pg, Tc)
+    if seg.kind == "rwkv":
+        def run_layer(i, p_l, xa):
+            return decode_rwkv(p_l, cfg, xa, cache, i, wkv_kernel)
     else:
-        Tc = cache["k"].shape[2]
-    # the position/index machinery is the same for every layer of the
-    # segment: build it once here
-    pinfo = decode_positions(pos, S, Tc, int(seg.window) > 0,
-                             n_valid=n_valid, kv_len=kv_len,
-                             device=x.device)
-    if paged is not None:
-        _paged_positions(pinfo, bt, pg, cache["k"].shape[1],
-                         kernel_read=use_ragged and S == 1)
+        pg_seg = None
+        if paged is not None:
+            bt, pg = paged
+            Tc = bt.shape[1] * pg
+            pg_seg = (bt, pg, Tc)
+        else:
+            Tc = cache["k"].shape[2]
+        # the position/index machinery is the same for every layer of the
+        # segment: build it once here
+        pinfo = decode_positions(pos, S, Tc, int(seg.window) > 0,
+                                 n_valid=n_valid, kv_len=kv_len,
+                                 device=x.device)
+        if paged is not None:
+            _paged_positions(pinfo, bt, pg, cache["k"].shape[1],
+                             kernel_read=use_ragged and S == 1)
+
+        def run_layer(i, p_l, xa):
+            out, _ = decode_attn(p_l, cfg, xa, cache["k"][i], cache["v"][i],
+                                 pos, seg.window, pinfo=pinfo,
+                                 use_ragged=use_ragged, paged=pg_seg)
+            return out
     sels = None
     if cfg.altup.enabled:
         # built on the host and moved in one copy at the top of the step,
@@ -363,10 +419,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
         p_l = layer_slice(p_seg, i)
 
         def layer_fn(xa, p_l=p_l, i=i):
-            out, _ = decode_attn(p_l, cfg, xa, cache["k"][i], cache["v"][i],
-                                 pos, seg.window, pinfo=pinfo,
-                                 use_ragged=use_ragged, paged=pg_seg)
-            return out
+            return run_layer(i, p_l, xa)
 
         if cfg.altup.enabled:
             x = alt.altup_layer(layer_fn, x, sels[i], p_l["altup_p"],
@@ -377,7 +430,8 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
 
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
-                n_valid=None, kv_len=None, block_table=None, page_size=0):
+                n_valid=None, kv_len=None, block_table=None, page_size=0,
+                wkv_kernel: Optional[bool] = None):
     """Advance every sequence by its next token(s).
 
     tokens: (B, S) int — S is 1 for decode ticks; chunked prefill feeds
@@ -389,7 +443,9 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     block_table/page_size: PAGED mode — caches are init_paged_cache row
     pools and block_table is the (B, ceil(max_len/page)) int32 per-slot
     page map on the caches' device; pos must be a per-slot (B,) tensor.
-    Returns (logits (B, S, V_pad), caches), the caches written in place.
+    wkv_kernel: the RWKV-6 recurrence through the WKV kernel wrapper
+    (resolve_kernel_flag; None = on CUDA tensors). Returns (logits
+    (B, S, V_pad), caches), the caches written in place.
     """
     dev = tokens.device
     paged = None
@@ -408,7 +464,7 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
         x, _ = decode_segment(params[f"seg{si}"], caches[f"seg{si}"], seg,
                               cfg, x, pos, n_valid=n_valid, kv_len=kv_len,
                               use_ragged=use_ragged, use_fused=use_fused,
-                              paged=paged)
+                              paged=paged, wkv_kernel=wkv_kernel)
     return unembed(params, cfg, x), caches
 
 
@@ -458,18 +514,55 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None):
 # prefix-cache copies: slot to slot (contiguous) and page to page (paged)
 # --------------------------------------------------------------------------
 
-def copy_prefix(caches, dst: int, src: int, p: int):
+def copy_prefix(caches, dst: int, src: int, p: int, *,
+                copy_recurrent: bool = False):
     """Clone the first `p` cache rows of slot `src` into slot `dst`, IN
     PLACE, across every attention k/v leaf: the slot-to-slot copy behind
-    the contiguous engine's prefix-cache hits. src == dst is a no-op (the
+    the contiguous engine's prefix-cache hits. Recurrent leaves have no
+    position axis; copy_recurrent=True clones the whole slot state, which
+    is exact only when the donor stopped at the prefix boundary (depth ==
+    p, the engine's recurrent validity rule). src == dst is a no-op (the
     self-donor path reuses the rows in place). Returns the caches."""
-    if dst == src or p <= 0:
+    if dst == src:
         return caches
     for seg in caches.values():
-        for name in ("k", "v"):
-            leaf = seg[name]                          # (n, B, T, Hk, Dh)
-            n = min(p, leaf.shape[2])
-            leaf[:, dst, :n] = leaf[:, src, :n]
+        for name, leaf in seg.items():
+            if name in ("k", "v"):                    # (n, B, T, Hk, Dh)
+                n = min(p, leaf.shape[2])
+                if n > 0:
+                    leaf[:, dst, :n] = leaf[:, src, :n]
+            elif name in RECURRENT_LEAVES and copy_recurrent:
+                leaf[:, dst] = leaf[:, src]
+    return caches
+
+
+def save_recurrent(caches, slots: torch.Tensor):
+    """Copies of the recurrent leaves of `slots` ((k,) long tensor on the
+    caches' device), {(segment, name): (n, k, ...)}: for
+    `restore_recurrent` after a step that must not move them."""
+    return {(si, name): leaf.index_select(1, slots)
+            for si, seg in caches.items() for name, leaf in seg.items()
+            if name in RECURRENT_LEAVES}
+
+
+def restore_recurrent(caches, saved, slots: torch.Tensor):
+    """Write `save_recurrent`'s copies back into `slots`, IN PLACE.
+    Returns the caches."""
+    for (si, name), vals in saved.items():
+        caches[si][name].index_copy_(1, slots, vals)
+    return caches
+
+
+def reset_slot(caches, slot: int):
+    """Zero slot `slot`'s recurrent state (the rwkv leaves) in every
+    segment, IN PLACE: a recycled slot's state would otherwise carry the
+    previous request's tokens. Attention caches are left as they are:
+    per-slot positions keep their stale rows unread. Returns the
+    caches."""
+    for seg in caches.values():
+        for name, leaf in seg.items():
+            if name in RECURRENT_LEAVES:
+                leaf[:, slot].zero_()
     return caches
 
 

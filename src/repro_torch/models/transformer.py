@@ -7,14 +7,15 @@ shape (n, d, H, dh)), owned by a `ParamTree` module, so the weight bridge
 is a rename and not a reshuffle. Layers run in a Python loop where the
 reference scans.
 
-Only `family="dense"` with full attention (`window_size == 0`) is ported;
-other families and sliding windows raise NotImplementedError naming the
-ROADMAP item that brings them.
+Ported: `family="dense"` with full attention (`window_size == 0`) and
+`family="rwkv6"` (one segment of RWKV-6 layers, `models/rwkv.py`); other
+families and sliding windows raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -23,6 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as rwkv_lib
 
 VOCAB_PAD = 256
 
@@ -98,18 +100,21 @@ def layer_slice(tree, i: int) -> Dict:
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str            # attn (the only kind this port runs)
+    kind: str            # attn | rwkv
     n: int               # number of layers in this segment
-    ffn: str             # dense
+    ffn: str             # dense | none (rwkv carries its channel mix)
     layer_offset: int    # zero-based global index of the first layer
     window: int = 0      # static attention window (0 = full)
 
 
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
+    if cfg.family == "rwkv6":
+        return [Segment("rwkv", cfg.n_layers, "none", 0)]
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the port serves "
-            f"family='dense'; the other families arrive with ROADMAP A9")
+            f"family='dense' and 'rwkv6'; the other families arrive with "
+            f"ROADMAP A9")
     if cfg.window_size > 0:
         raise NotImplementedError(
             "sliding-window attention (ring caches) is not ported yet: it "
@@ -128,12 +133,19 @@ def init_segment(seg: Segment, cfg: ModelConfig, generator,
     d = cfg.d_model
     layers = []
     for _ in range(seg.n):
-        p: Dict = {
-            "ln_attn": L.init_rms_norm(d, pd, device),
-            "attn": L.init_attention(cfg, pd, generator, device),
-            "ln_ffn": L.init_rms_norm(d, pd, device),
-            "ffn": L.init_ffn(d, cfg.d_ff, pd, generator, device),
-        }
+        if seg.kind == "rwkv":
+            p: Dict = {
+                "ln_tm": L.init_rms_norm(d, pd, device),
+                "ln_cm": L.init_rms_norm(d, pd, device),
+                "rwkv": rwkv_lib.init_rwkv_block(cfg, pd, generator, device),
+            }
+        else:
+            p = {
+                "ln_attn": L.init_rms_norm(d, pd, device),
+                "attn": L.init_attention(cfg, pd, generator, device),
+                "ln_ffn": L.init_rms_norm(d, pd, device),
+                "ffn": L.init_ffn(d, cfg.d_ff, pd, generator, device),
+            }
         if cfg.altup.enabled:
             K = cfg.altup.K
             p["altup_p"] = torch.eye(K, dtype=torch.float32, device=device)
@@ -191,6 +203,21 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos):
     return x + L.ffn_block(p["ffn"], h, cfg.ffn_activation)
 
 
+def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
+               wkv_kernel: Optional[bool] = None):
+    """One pre-norm RWKV-6 layer (time mix, then channel mix) on the ACTIVE
+    d-wide block. state (decode): {"wkv", "shift_tm", "shift_cm"}. Returns
+    (x, new state); on the kernel path the "wkv" state is updated in place
+    (rwkv.rwkv_time_mix)."""
+    h = L.rms_norm(x, p["ln_tm"], cfg.logical_norm_eps)
+    a, st_tm = rwkv_lib.rwkv_time_mix(p["rwkv"], cfg, h, state,
+                                      wkv_kernel=wkv_kernel)
+    x = x + a
+    h = L.rms_norm(x, p["ln_cm"], cfg.logical_norm_eps)
+    c, st_cm = rwkv_lib.rwkv_channel_mix(p["rwkv"], cfg, h, state)
+    return x + c, {**st_tm, **st_cm}
+
+
 # --------------------------------------------------------------------------
 # forward (the decode oracle)
 # --------------------------------------------------------------------------
@@ -208,13 +235,16 @@ def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
 
 
 def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
-                  k_pos):
-    """Run a full-sequence segment. x: (B, S, [K,] d)."""
+                  k_pos, wkv_kernel: Optional[bool] = None):
+    """Run a full-sequence segment. x: (B, S, [K,] d). An rwkv segment
+    starts every layer's recurrence from a zero state."""
     K = cfg.altup.K
     for i in range(seg.n):
         p_l = layer_slice(p_seg, i)
 
         def layer_fn(xa, p_l=p_l):
+            if seg.kind == "rwkv":
+                return rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
             return attn_ffn_layer(p_l, cfg, xa, window=seg.window,
                                   q_pos=q_pos, k_pos=k_pos)
 
@@ -228,18 +258,20 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
     return x
 
 
-def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+def forward(params, cfg: ModelConfig, tokens, *,
+            wkv_kernel: Optional[bool] = None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V_pad).
 
     The oracle the decode path is held against, not a training path. (The
-    reference also returns an MoE aux loss, which the dense family does
-    not have.)"""
+    reference also returns an MoE aux loss, which the dense and rwkv6
+    families do not have.) wkv_kernel: the RWKV-6 recurrence through the
+    kernel wrapper (resolve_kernel_flag; None = on CUDA tensors)."""
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
         x = apply_segment(params[f"seg{si}"], seg, cfg, x, q_pos=q_pos,
-                          k_pos=q_pos)
+                          k_pos=q_pos, wkv_kernel=wkv_kernel)
     return unembed(params, cfg, x)
 
 

@@ -31,6 +31,18 @@ worst-case pages, so n_slots may over-commit the pool; retained prefixes
 hold pages, not slots, and spill to a host tier of `host_spill_pages`
 pages when the pool runs short.
 
+Recurrent plans (rwkv segments), as in the reference: prefill feeds one
+token per step (the state advances token by token), admission zeroes the
+slot's state (models/decode.reset_slot) unless the slot is its own donor,
+and a prefix hit is valid only when the donor stopped at the prefix
+boundary (depth == p), its state then copied with the rows. They have no
+paged layout yet (ROADMAP A8). Deviation from the reference: every step
+runs all slots, idle ones on a dummy token, and a retained donor's state
+would drift with them; the reference lets it drift, so a hit on a donor
+retired a few steps earlier serves other tokens than a cold prefill. The
+port saves the retained slots' state before each step and restores it
+after.
+
 The engine runs eager PyTorch (the reference jits its step; there is no
 counterpart here). Each step hands the attention layers the per-slot
 depths: cache reads are sliced to a power-of-two `kv-len bucket` >= the
@@ -53,7 +65,9 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        decode_sample_step, decode_step,
                                        gather_pages, init_cache,
                                        init_paged_cache, prefill,
-                                       scatter_pages)
+                                       reset_slot, restore_recurrent,
+                                       save_recurrent, scatter_pages)
+from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
                                         blank_slot_params, fill_slot_params,
                                         sample_rows, update_seen)
@@ -99,7 +113,8 @@ class Engine:
     slot caches; page_size: rows per page; n_pages: pool size (None = full
     capacity, n_slots full-length requests; smaller over-commits the
     slots, admission-limited); host_spill_pages: host tier for evicted
-    prefix pages (0 = off)."""
+    prefix pages (0 = off). Recurrent plans prefill one token per step
+    whatever prefill_chunk says, and take no paged=True yet."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int, *,
                  n_slots: int = 8, prefill_chunk: int = 8,
@@ -112,6 +127,11 @@ class Engine:
                 f"kv_bucket_min must be >= 1, got {kv_bucket_min}")
         if paged and page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self._has_recurrent = any(s.kind == "rwkv" for s in layer_plan(cfg))
+        if paged and self._has_recurrent:
+            raise NotImplementedError(
+                "paged serving of recurrent (rwkv) plans is not ported yet: "
+                "it arrives with ROADMAP A8")
         self.device = resolve_device(device)
         emb = params["embed"]
         if emb.device.type != self.device.type:
@@ -122,7 +142,8 @@ class Engine:
         self.n_slots = n_slots
         self._kv_buckets = kv_buckets
         self._kv_bucket_min = kv_bucket_min
-        self._chunk = max(1, prefill_chunk)
+        # recurrent state advances token by token: chunk-1 prefill
+        self._chunk = 1 if self._has_recurrent else max(1, prefill_chunk)
         self._prefix_cache = prefix_cache
         self._paged = bool(paged)
         self._page_size = int(page_size)
@@ -187,19 +208,25 @@ class Engine:
     # collector instead of being freed at once.
 
     @staticmethod
-    def _prefix_usable_len(p: int, depth: int) -> int:
+    def _prefix_usable_len(p: int, depth: int, *, recurrent: bool) -> int:
         """Model-kind validity of a prefix match, contiguous or paged
-        (scheduler hook; p is already capped to min(LCP, donor depth,
-        prompt_len - 1)). The reference refuses recurrent donors that
-        decoded past p (and gives recurrent plans no paged reuse) and ring
-        donors that wrapped over the prefix, which is where its contiguous
-        and paged rules differ; the port's plans have neither segment kind
-        yet, so one rule serves both layouts and every p is usable."""
-        return p if p > 0 else 0
+        (scheduler hook, bound to the plan's `recurrent` flag; p is
+        already capped to min(LCP, donor depth, prompt_len - 1)). A
+        recurrent donor's state reflects ALL its `depth` fed tokens, so
+        reuse is exact only when it stopped at the prefix boundary
+        (depth == p). The reference also refuses ring donors that wrapped
+        over the prefix and gives recurrent plans no paged reuse; the
+        port has no ring segments and no paged recurrent plans, so one
+        rule serves both layouts."""
+        if p <= 0 or (recurrent and depth != p):
+            return 0
+        return p
 
     def _ensure_slots(self):
         if self._sched is not None:
             return
+        usable = functools.partial(self._prefix_usable_len,
+                                   recurrent=self._has_recurrent)
         if self._paged:
             P = self._page_size
             npages_max = -(-self.max_len // P)
@@ -213,14 +240,14 @@ class Engine:
             self._sched = PagedScheduler(
                 self.n_slots, self.max_len, pool=self._pool,
                 prefix_cache=self._prefix_cache,
-                prefix_usable_len=self._prefix_usable_len,
+                prefix_usable_len=usable,
                 spill_fn=functools.partial(_spill_entry, self._caches, P),
                 host_budget=self._host_spill_pages)
         else:
             self._sched = SlotScheduler(
                 self.n_slots, self.max_len,
                 prefix_cache=self._prefix_cache,
-                prefix_usable_len=self._prefix_usable_len)
+                prefix_usable_len=usable)
             self._caches = init_cache(self.cfg, self.n_slots, self.max_len,
                                       device=self.device)
         self._seen = torch.zeros((self.n_slots, self.cfg.vocab_size),
@@ -242,10 +269,17 @@ class Engine:
                 elif "copy_src" in acts:
                     copy_pages(self._caches, acts["copy_dst"],
                                acts["copy_src"], page=self._page_size)
-            elif hit:
-                # a self-donor hit (src == dst) reuses its rows in place
-                copy_prefix(self._caches, st.slot, st.prefix_src,
-                            st.prefix_len)
+            else:
+                # a recycled slot's recurrent state carries the previous
+                # request: zero it, except on a self-donor hit (src ==
+                # dst), whose state IS the prefix it reuses in place
+                self_donor = hit and st.prefix_src == st.slot
+                if self._has_recurrent and not self_donor:
+                    reset_slot(self._caches, st.slot)
+                if hit:
+                    copy_prefix(self._caches, st.slot, st.prefix_src,
+                                st.prefix_len,
+                                copy_recurrent=self._has_recurrent)
             # the seen row carries the previous occupant's tokens: clear
             # it (in place); a hit seeds it with the prefix ids, the row
             # cold prefill would have built
@@ -329,10 +363,17 @@ class Engine:
         kv_len = self._bucket(needed)
         sp_dev = {"rep_pen": self._tensor(sparams["rep_pen"])}
         t0 = serve_clock()
+        # retained recurrent donors keep the state they retired with
+        kept = (self._tensor(np.asarray(sorted(self._sched.retained),
+                                        np.int64))
+                if self._has_recurrent and self._sched.retained else None)
+        saved = None if kept is None else save_recurrent(self._caches, kept)
         ids, lps, self._caches, self._seen = decode_sample_step(
             self.params, self._caches, self._seen, self._tensor(tokens),
             self._tensor(pos), self._tensor(nval), sp_dev, cfg=self.cfg,
             kv_len=kv_len, want_logprobs=want_lp, any_sampled=False, **pkw)
+        if saved is not None:
+            restore_recurrent(self._caches, saved, kept)
         ids = ids.cpu().numpy()               # (B,) — the only per-step
         lps = lps.cpu().numpy() if want_lp else None   # device->host pulls
         now = serve_clock()

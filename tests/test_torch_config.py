@@ -41,12 +41,14 @@ def test_config_fields_and_defaults_match_reference(name):
                                 dict(altup_k=2), dict(altup_k=4),
                                 dict(altup_k=2, recycled=False),
                                 dict(smoke=True, altup_k=2)])
-def test_get_config_matches_reference(kw):
-    got = dataclasses.asdict(tconfigs.get_config("qwen3-0.6b", **kw))
-    want = dataclasses.asdict(jconfigs.get_config("qwen3-0.6b", **kw))
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_get_config_matches_reference(arch, kw):
+    got = dataclasses.asdict(tconfigs.get_config(arch, **kw))
+    want = dataclasses.asdict(jconfigs.get_config(arch, **kw))
     assert got == want
     if kw == dict(altup_k=2):
-        assert got["altup"]["recycled"]       # vocab > 100k
+        # recycled by default only above 100k tokens of vocabulary
+        assert got["altup"]["recycled"] == (arch == "qwen3-0.6b")
 
 
 def test_get_config_unported_arch_raises():
@@ -118,3 +120,21 @@ def test_bridge_npz_matches_jax_tree(tmp_path, param_dtype):
         key = ".".join(p.key for p in path)
         np.testing.assert_array_equal(a[key].float().numpy(),
                                       np.asarray(leaf, np.float32))
+
+
+def test_bridge_carries_rwkv_tree():
+    """params_from_numpy carries the reference's rwkv6 pytree (SMOKE,
+    AltUp K=2) across leaf for leaf: names, shapes and values."""
+    cfg = jconfigs.get_config("rwkv6-1.6b", smoke=True, altup_k=2)
+    params = jax_init_params(jax.random.PRNGKey(5), cfg)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    got = bridge.params_from_numpy(tree, device="cpu").state_dict()
+    flat = jax.tree_util.tree_leaves_with_path(params)
+    assert sorted(got) == sorted(".".join(p.key for p in path)
+                                 for path, _ in flat)
+    for path, leaf in flat:
+        key = ".".join(p.key for p in path)
+        assert tuple(got[key].shape) == leaf.shape, key
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(leaf))
+    assert "seg0.rwkv.twk" in got and "seg0.ln_tm" in got
+    assert got["seg0.rwkv.u"].shape == (3, 4, 16)

@@ -44,7 +44,8 @@ def _counts_stay_zero():
     yield
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
-                                   "paged_ragged_decode_attention": 0}
+                                   "paged_ragged_decode_attention": 0,
+                                   "rwkv6_wkv": 0}
 
 
 @pytest.mark.parametrize("T,K,d", [(8, 2, 128), (5, 2, 64), (64, 4, 256),
@@ -228,7 +229,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["altup_fused"])
     assert set(build.sources()) == {"altup_fused",
-                                    "ragged_decode_attention"}
+                                    "ragged_decode_attention", "rwkv6_wkv"}
 
 
 def test_kernel_library_is_keyed_on_its_sources(monkeypatch, tmp_path):

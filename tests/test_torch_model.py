@@ -119,7 +119,8 @@ def test_decode_step_matches_jax(name, flags):
                                _np(jcache["seg0"]["k"]), **TOL)
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
-                                   "paged_ragged_decode_attention": 0}
+                                   "paged_ragged_decode_attention": 0,
+                                   "rwkv6_wkv": 0}
 
 
 def test_scalar_pos_prefill_and_decode_match_forward():

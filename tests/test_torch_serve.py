@@ -115,7 +115,8 @@ def test_continuous_matches_jax_engine(flags):
         assert g.submitted_at <= g.first_token_at <= g.finished_at
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
-                                   "paged_ragged_decode_attention": 0}
+                                   "paged_ragged_decode_attention": 0,
+                                   "rwkv6_wkv": 0}
 
 
 def test_generate_matches_jax_and_continuous():
