@@ -27,6 +27,19 @@ recurrence runs through the WKV kernel. Phases:
                c-wkv holds the WKV kernel at (i)'s decode step, (h)'s
                forward, an odd length and a zero state (bitwise equal to
                no state)
+      c-flash  the flash-attention kernel through ops.mha_flash, which no
+               served path calls (as in the reference): Qwen3-0.6B's
+               attention at full width as a causal prefill (B=4,
+               S=T=2048), non-causal, with T > S, with int8 and fp8
+               codes from quant.quantize; gemma3-4b's local layer (dh
+               320, window 1024); untimed edge shapes; the causal over
+               non-causal time (fully masked tiles are skipped)
+      c-flash-paged  ops.mha_flash_paged over a 512-page pool of 16 rows
+               with garbage in the free and tail pages: causal, window
+               256 and int8, bitwise equal to the contiguous kernel on
+               the same rows. The checked call of case 1 (bf16) and of
+               the paged causal case runs with the launch counts set to
+               0 just before and read just after: the slice's path
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
@@ -438,6 +451,281 @@ def check_wkv_zero_state(torch, ops, dtype, B=8, H=32, Dh=64, seed=8):
             f"{max_err(torch, s_none, s_zero)}")
     return {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
             "B": B, "H": H, "Dh": Dh, "S": 1, "bitwise_equal": True}
+
+
+# ---------------------------------------------------------------------------
+# (c-flash) the flash-attention kernel, reached through ops.mha_flash and
+# ops.mha_flash_paged (no served path calls it, as in the reference)
+# ---------------------------------------------------------------------------
+
+def flash_pairs(S, T, causal, window):
+    """Visible (query, key) pairs of one head: the work the kernel does
+    once fully masked tiles are skipped (and the partly masked ones are
+    not counted)."""
+    total = 0
+    for i in range(S):
+        hi = min(T - 1, i) if causal else T - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound(torch, q, k, k_scale, causal, window):
+    """Bytes: q and out once, the kv rows some query sees once (rows past
+    S are never visible under a causal mask), scales once. Operations:
+    4·dh per visible pair, at the peak rate of the type the products
+    run in (bf16 tensor cores for bf16 q, f32 for f32 q)."""
+    B, S, H, dh = q.shape
+    T, Hk = k.shape[1], k.shape[2]
+    rows = min(T, S) if causal else T
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * B * rows * Hk * dh * k.element_size()
+              + (2 * B * rows * Hk * 4 if k_scale is not None else 0))
+    nops = 4 * dh * B * H * flash_pairs(S, T, causal, window)
+    name = "float32" if q.dtype == torch.float32 else "bfloat16"
+    return nbytes, nops, bound_ms(nbytes, nops, name)
+
+
+def flash_kernel_name(torch, dtype):
+    return "flash_f32_kernel" if dtype == torch.float32 else \
+        "flash_tc_kernel"
+
+
+def flash_qkv(torch, B, S, T, H, Hk, dh, dtype, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn(B, S, H, dh, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(B, T, Hk, dh, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(B, T, Hk, dh, generator=gen, device=DEV).to(dtype)
+    return q, k, v
+
+
+def window_mask(torch, S, T, causal, window):
+    """(S, T) bool mask of visible keys, for SDPA's attn_mask."""
+    i = torch.arange(S, device=DEV)[:, None]
+    j = torch.arange(T, device=DEV)[None, :]
+    m = torch.ones(S, T, dtype=torch.bool, device=DEV)
+    if causal:
+        m &= i >= j
+    if window > 0:
+        m &= i - j < window
+    return m
+
+
+def counted_call(torch, ops, launch, name, counted):
+    """launch() once, synchronised. counted: every launch count is set to
+    0 just before and read just after, and `name` must show exactly this
+    one launch; returns (output, launches or None)."""
+    if counted:
+        ops.reset_launch_counts()
+    out = launch()
+    torch.cuda.synchronize()
+    if not counted:
+        return out, None
+    counts = ops.launch_counts()
+    if counts[name] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"launch counts {counts}: want one {name}")
+    return out, counts[name]
+
+
+def check_flash(torch, ops, ref, dtype, B, S, T, H, Hk, dh, causal=True,
+                window=0, quant=None, timed=True, counted=False, seed=20):
+    """ops.mha_flash on a CUDA tensor (the kernel) against ref.mha_ref on
+    the same inputs; quant="int8"|"fp8" gives k/v as codes and scales from
+    the port's quant.quantize on the card. Timed cases add device ms per
+    call of the kernel, the plain version and SDPA (enable_gqa; an
+    explicit mask for a window; on the dequantized k/v for codes, which
+    SDPA cannot read), the wrapper's ms and the bound. counted: the
+    checked call is the slice's path, run with every launch count set to
+    0 just before and read just after."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import quant as Q
+    q, k, v = flash_qkv(torch, B, S, T, H, Hk, dh, dtype, seed)
+    ks = vs = None
+    if quant is not None:
+        spec = Q.resolve_kv_spec(quant, dtype)
+        k, ks = Q.quantize(k, spec)
+        v, vs = Q.quantize(v, spec)
+    kw = dict(causal=causal, window=window)
+    # block_q / block_k only validate the call: S and T pass as one block
+    blocks = dict(block_q=S, block_k=T)
+
+    def launch():
+        return ops.mha_flash(q, k, v, ks, vs, **blocks, **kw)
+
+    def plain():
+        return ref.mha_ref(q, k, v, ks, vs, **kw)
+    got, launches = counted_call(torch, ops, launch, "flash_attention",
+                                 counted)
+    want = plain()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, want, **tol)
+    res = {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
+           "B": B, "S": S, "T": T, "H": H, "Hk": Hk, "dh": dh,
+           "causal": causal, "window": window, "quant": quant,
+           "max_abs_err": max_err(torch, got, want), "tol": tol,
+           "launches": launches}
+    if not timed:
+        return res
+    nbytes, nops, (b_ms, b_by) = flash_bound(torch, q, k, ks, causal,
+                                             window)
+    kd = k if ks is None else ref.dequant_ref(k, ks, dtype)
+    vd = v if vs is None else ref.dequant_ref(v, vs, dtype)
+    qs, kt, vt = (t.transpose(1, 2) for t in (q, kd, vd))
+    mask = None
+    if window > 0:
+        mask = window_mask(torch, S, T, causal, window)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qs, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    lib = library().transpose(1, 2)
+    sdpa_ms = device_ms(torch, library)
+    res.update({
+        "ms": device_ms(torch, launch, flash_kernel_name(torch, dtype)),
+        "plain_ms": device_ms(torch, plain, iters=10),
+        "wrapper_ms": time_ms(torch, launch, iters=20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # SDPA reads no codes: on codes it is timed on the dequantized k/v
+        # and is no library call of the same function
+        "library_ms": sdpa_ms if quant is None else None,
+        "sdpa_on_dequantized_ms": sdpa_ms if quant is not None else None,
+        "library_max_abs_err": max_err(torch, lib, want),
+        "bytes": nbytes, "flop": nops})
+    return res
+
+
+# c-flash's timed cases: qwen3-0.6b's attention at full width (16 q / 8 kv
+# heads of 128) as a causal prefill, non-causal, with T > S and with int8
+# and fp8 codes; gemma3-4b's local layer at full width (8 q / 4 kv heads
+# of 320, window 1024), bf16 only
+FLASH_CASES = (
+    ("prefill", dict(B=4, S=2048, T=2048, H=16, Hk=8, dh=128)),
+    ("non-causal", dict(B=4, S=512, T=512, H=16, Hk=8, dh=128,
+                        causal=False)),
+    ("t-gt-s", dict(B=4, S=512, T=2048, H=16, Hk=8, dh=128)),
+    ("prefill-int8", dict(B=4, S=2048, T=2048, H=16, Hk=8, dh=128,
+                          quant="int8")),
+    ("prefill-fp8", dict(B=4, S=2048, T=2048, H=16, Hk=8, dh=128,
+                         quant="fp8")),
+    ("gemma3-4b-local", dict(B=1, S=4096, T=4096, H=8, Hk=4, dh=320,
+                             window=1024)),
+)
+# untimed shapes at the edges: every padded head width (64, 256, 320), rep
+# 1, 3 (a block's 64 rows not filled) and 4, windows that cut tiles, T < S
+# and T > S, a window without the causal mask (future keys visible)
+FLASH_ODD = (
+    ("dh8-rep1", dict(B=2, S=100, T=100, H=2, Hk=2, dh=8)),
+    ("dh40-rep3-window-only", dict(B=2, S=96, T=160, H=6, Hk=2, dh=40,
+                                   causal=False, window=40)),
+    ("dh240-rep4-window", dict(B=1, S=192, T=256, H=8, Hk=2, dh=240,
+                               window=48)),
+    ("dh320-fp8-window", dict(B=1, S=256, T=256, H=8, Hk=4, dh=320,
+                              window=64, quant="fp8")),
+    ("dh64-int8-t-lt-s", dict(B=2, S=128, T=64, H=4, Hk=4, dh=64,
+                              quant="int8")),
+)
+
+
+def flash_skip_ratio(torch, ops, dtype, B=4, S=2048, H=16, Hk=8, dh=128):
+    """Causal over non-causal device ms at case 1's shape: the TPU
+    design skips the tiles above the diagonal, about half of them."""
+    q, k, v = flash_qkv(torch, B, S, S, H, Hk, dh, dtype, seed=21)
+    name = flash_kernel_name(torch, dtype)
+    ms = {c: device_ms(torch, lambda: ops.mha_flash(q, k, v, causal=c),
+                       name, iters=20)
+          for c in (True, False)}
+    return {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
+            "causal_ms": ms[True], "non_causal_ms": ms[False],
+            "causal_over_non_causal": ms[True] / ms[False],
+            "visible_pair_ratio": flash_pairs(S, S, True, 0)
+            / flash_pairs(S, S, False, 0)}
+
+
+# (c-flash-paged): 4 sequences of 1024 rows in a pool of 512 pages of 16
+# rows (phase g's page), through a permuted table with one more page per
+# sequence, a tail page of garbage past the valid rows; the other pool
+# pages hold garbage too
+FP_B, FP_S, FP_PAGES, FP_PAGE = 4, 1024, 512, 16
+
+
+def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
+                      quant=None, counted=False, H=16, Hk=8, dh=128,
+                      seed=22):
+    """ops.mha_flash_paged on a CUDA pool (the kernel) against
+    ref.paged_attention_ref, and bitwise against the contiguous kernel
+    (ops.mha_flash) on the same rows gathered through the table; counted
+    as in check_flash."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import quant as Q
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    B, S, page = FP_B, FP_S, FP_PAGE
+    nk = S // page + 1                               # the tail page
+    R = FP_PAGES * page
+    q = torch.randn(B, S, H, dh, generator=gen, device=DEV).to(dtype)
+    # garbage: 100x the scale of the valid rows, so a leak shows
+    kp = 100 * torch.randn(R, Hk, dh, generator=gen, device=DEV)
+    vp = 100 * torch.randn(R, Hk, dh, generator=gen, device=DEV)
+    perm = torch.randperm(FP_PAGES, generator=torch.Generator()
+                          .manual_seed(seed))[:B * nk]
+    bt = perm.reshape(B, nk).to(torch.int32).to(DEV)
+    rows = (bt.long()[:, :, None] * page
+            + torch.arange(page, device=DEV)).reshape(B, nk * page)
+    valid = rows[:, :S].reshape(-1)
+    kp[valid] = torch.randn(valid.numel(), Hk, dh, generator=gen, device=DEV)
+    vp[valid] = torch.randn(valid.numel(), Hk, dh, generator=gen, device=DEV)
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    ks = vs = None
+    if quant is not None:
+        spec = Q.resolve_kv_spec(quant, dtype)
+        kp, ks = Q.quantize(kp, spec)
+        vp, vs = Q.quantize(vp, spec)
+    kw = dict(causal=causal, window=window)
+
+    def launch():
+        return ops.mha_flash_paged(q, kp, vp, bt, ks, vs, page=page, **kw)
+
+    def plain():
+        return ref.paged_attention_ref(q, kp, vp, bt, ks, vs, page=page,
+                                       **kw)
+    got, launches = counted_call(torch, ops, launch, "flash_attention_paged",
+                                 counted)
+    want = plain()
+    gk, gv = kp[rows], vp[rows]                      # (B, nk·page, Hk, dh)
+    gks = None if ks is None else ks[rows]
+    gvs = None if vs is None else vs[rows]
+    contiguous = ops.mha_flash(q, gk, gv, gks, gvs, block_k=page, **kw)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got, want, **tol)
+    if not torch.equal(got, contiguous):
+        raise AssertionError(
+            f"paged flash kernel differs from the contiguous kernel on the "
+            f"same rows: max abs {max_err(torch, got, contiguous)}")
+    nbytes, nops, (b_ms, b_by) = flash_bound(torch, q, gk, gks, causal,
+                                             window)
+    nbytes += 4 * bt.numel()
+    qs, kt, vt = (t.transpose(1, 2) for t in (
+        q, gk if ks is None else ref.dequant_ref(gk, gks, dtype),
+        gv if vs is None else ref.dequant_ref(gv, gvs, dtype)))
+    mask = window_mask(torch, S, nk * page, causal, window)
+
+    def sdpa_gathered():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    res = {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
+           "B": B, "S": S, "H": H, "Hk": Hk, "dh": dh, "page": page,
+           "pool_pages": FP_PAGES, "table_pages": nk, "causal": causal,
+           "window": window, "quant": quant,
+           "max_abs_err": max_err(torch, got, want),
+           "bitwise_equal_contiguous": True, "launches": launches,
+           "ms": device_ms(torch, launch, flash_kernel_name(torch, dtype)),
+           "plain_ms": device_ms(torch, plain, iters=10),
+           "wrapper_ms": time_ms(torch, launch, iters=20),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
+           "bytes": nbytes, "flop": nops, "tol": tol}
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1035,16 +1323,22 @@ def device_ms(torch, fn, name_part=None, iters=50):
     """Device time per call of fn(): the summed time of the kernels it ran
     (only those whose name holds `name_part`, if given), from
     torch.profiler over `iters` calls. Free of the host time between
-    launches, which CUDA events around a loop of calls would include."""
+    launches, which CUDA events around a loop of calls would include.
+    Now and then a profiler session on the card records no device
+    activity at all (once in the ~110 sessions of one run); such a
+    session is run again, three sessions at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in _device_kernels(prof)
-            if name_part is None or name_part in e.key]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = _device_kernels(prof)
+        if kernels:
+            break
+    hits = [e for e in kernels if name_part is None or name_part in e.key]
     if not hits:
         raise AssertionError(f"no kernel {name_part!r} in the profile")
     return sum(e.self_device_time_total for e in hits) / 1e3 / iters
@@ -1182,6 +1476,38 @@ def main(argv) -> int:
         line("c-wkv", case="zero-state",
              **check_wkv_zero_state(torch, ops, dtype))
 
+    # flash attention through ops.mha_flash / mha_flash_paged: the timed
+    # full-width cases, the edge shapes, the skip ratio, then the paged
+    # entry point over a permuted pool with garbage, bitwise vs contiguous
+    flash = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, kw in FLASH_CASES:
+            if kw["dh"] > 128 and dtype == torch.float32:
+                continue
+            # case 1 in bf16 is the slice's path, counted from 0
+            main = case == "prefill" and dtype == torch.bfloat16
+            r = check_flash(torch, ops, ref, dtype, counted=main, **kw)
+            flash[(r["dtype"], case)] = r
+            line("c-flash", case=case, **r)
+        for case, kw in FLASH_ODD:
+            line("c-flash", case=case,
+                 **check_flash(torch, ops, ref, dtype, timed=False, **kw))
+        line("c-flash", case="skip-ratio",
+             **flash_skip_ratio(torch, ops, dtype))
+    flash_paged = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, kw in (("causal", {}), ("window-256", dict(window=256)),
+                         ("int8", dict(quant="int8"))):
+            if kw.get("quant") and dtype == torch.float32:
+                continue
+            main = case == "causal" and dtype == torch.bfloat16
+            r = check_flash_paged(torch, ops, ref, dtype, counted=main, **kw)
+            flash_paged[(r["dtype"], case)] = r
+            line("c-flash-paged", case=case, **r)
+    main_flash = flash[("bfloat16", "prefill")]
+    main_flash_paged = flash_paged[("bfloat16", "causal")]
+    torch.cuda.empty_cache()
+
     # (d) full-width f32 parity of the two paths
     line("d-parity", **parity_f32(torch))
 
@@ -1235,6 +1561,16 @@ def main(argv) -> int:
          "replaces": "src/repro/kernels/rwkv6_scan.py:53",
          "launches": counts_i["rwkv6_wkv"],
          **{k: main_wkv[k] for k in keys}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:120",
+         "launches": main_flash["launches"],
+         **{k: main_flash[k] for k in keys}},
+        {"name": "flash_attention_paged", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:120",
+         "launches": main_flash_paged["launches"],
+         **{k: main_flash_paged[k] for k in keys}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,11 @@
 
 Each kernel has a wrapper in `ops.py`, a plain PyTorch version in
 `ref.py` and a CUDA source under `repro_torch/csrc/`, compiled by
-`build.py` at first use.
+`build.py` at first use. The model calls the AltUp, decode-attention and
+WKV wrappers; `ops.mha_flash` and `ops.mha_flash_paged` (flash attention
+over contiguous or paged k/v, optionally int8/fp8 codes made by
+`quant.quantize`) are entry points of their own, as in the reference,
+where no model path reaches them.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ raises.
 from __future__ import annotations
 
 from repro_torch.kernels import altup_fused, ref
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ragged_decode_attention as ragged_mod
 from repro_torch.kernels import rwkv6_wkv as wkv_mod
 
@@ -132,10 +133,79 @@ def rwkv6_wkv(r, k, v, w, u, state=None):
 
 rwkv6_wkv.launches = 0
 
+def _check_flash(q, k_scale, v_scale, block_q):
+    """The reference's own checks, shared by both flash wrappers."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    S = q.shape[1]
+    if S and S % min(block_q, S):
+        raise ValueError(f"S={S} is not a multiple of block_q={block_q}")
+
+
+def mha_flash(q, k, v, k_scale=None, v_scale=None, *, causal=True,
+              window=0, block_q=128, block_k=128):
+    """Blocked (flash) attention with GQA, causal and/or sliding window.
+
+    q: (B, S, H, dh); k, v: (B, T, Hk, dh), query head h reading kv head
+    h // (H // Hk); optional k_scale, v_scale: (B, T, Hk) f32 scales of
+    int8 / float8_e4m3fn codes k, v, dequantized in the kernel's tile
+    load. Query position i and key position j count from 0: j is visible
+    where i >= j (causal) and i - j < window (window > 0). Returns
+    (B, S, H, dh) in q's dtype. block_q and block_k only validate the call
+    as the reference does (S and T multiples of them where shorter); the
+    kernel tiles on its own."""
+    _check_flash(q, k_scale, v_scale, block_q)
+    T = k.shape[1]
+    if T and T % min(block_k, T):
+        raise ValueError(f"T={T} is not a multiple of block_k={block_k}")
+    if q.device.type == "cpu":
+        return ref.mha_ref(q, k, v, k_scale, v_scale, causal=causal,
+                           window=window)
+    out = flash_mod.flash_attention(q.contiguous(), k, v, k_scale=k_scale,
+                                    v_scale=v_scale, causal=causal,
+                                    window=window)
+    mha_flash.launches += 1
+    return out
+
+
+mha_flash.launches = 0
+
+
+def mha_flash_paged(q, k_pool, v_pool, block_table, k_scale=None,
+                    v_scale=None, *, page, causal=True, window=0,
+                    block_q=128):
+    """Flash attention over a paged kv pool.
+
+    q: (B, S, H, dh); k_pool, v_pool: (R, Hk, dh) batchless row pools;
+    block_table: (B, npages) int32 physical page of each logical page;
+    optional k_scale, v_scale: (R, Hk) f32 pool scales. Logical rows
+    0 .. npages·page-1 are attended, whatever they hold: causal masking
+    hides rows past S (the caller's valid count), and so it or a window is
+    required, as in the reference. The kernel reads the pool through the
+    table: k/v are never gathered or repeated. Returns (B, S, H, dh)."""
+    _check_flash(q, k_scale, v_scale, block_q)
+    if not (causal or window > 0):
+        raise ValueError("paged flash attention needs causal or window "
+                         "masking to cover the tail pages")
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pool, v_pool, block_table,
+                                       k_scale, v_scale, page=page,
+                                       causal=causal, window=window)
+    out = flash_mod.paged_flash_attention(
+        q.contiguous(), k_pool, v_pool, block_table, page=page,
+        k_scale=k_scale, v_scale=v_scale, causal=causal, window=window)
+    mha_flash_paged.launches += 1
+    return out
+
+
+mha_flash_paged.launches = 0
+
 _COUNTED = {"altup_predict_correct": altup_predict_correct,
             "ragged_decode_attention": ragged_decode_attn,
             "paged_ragged_decode_attention": paged_ragged_decode_attn,
-            "rwkv6_wkv": rwkv6_wkv}
+            "rwkv6_wkv": rwkv6_wkv,
+            "flash_attention": mha_flash,
+            "flash_attention_paged": mha_flash_paged}
 
 
 def launch_counts() -> dict:

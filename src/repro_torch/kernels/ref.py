@@ -66,6 +66,87 @@ def paged_ragged_decode_ref(q, k_pool, v_pool, lengths, block_table, *,
                              scale=scale)
 
 
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """Plain version of the flash-attention kernel's arithmetic.
+
+    q: (BH, S, dh); k, v: (BH, T, dh). Query position i and key position
+    j both count from 0; key j is visible to query i where i >= j (causal)
+    and i - j < window (window > 0). Masked scores are -1e30 before the
+    softmax, so a row that sees no key averages every row of v."""
+    BH, S, dh = q.shape
+    T = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    f32 = torch.float32
+    s = torch.einsum("bsd,btd->bst", q.to(f32), k.to(f32)) * scale
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    s = torch.where(mask[None], s, torch.full_like(s, -1e30))
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bst,btd->bsd", pr, v.to(f32)).to(q.dtype)
+
+
+def dequant_ref(codes, scale, dtype=torch.float32):
+    """codes (..., dh) * per-row scale (codes.shape[:-1]), in f32: the
+    materialized dequant that the kernel fuses into its kv-tile load."""
+    return (codes.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def attention_quant_ref(q, k, v, k_scale, v_scale, *, causal=True,
+                        window=0, scale=None):
+    """k, v: (BH, T, dh) int8 or float8_e4m3fn codes with (BH, T) f32
+    scales, dequantized densely, then `attention_ref`."""
+    return attention_ref(q, dequant_ref(k, k_scale), dequant_ref(v, v_scale),
+                         causal=causal, window=window, scale=scale)
+
+
+def mha_ref(q, k, v, k_scale=None, v_scale=None, *, causal=True, window=0,
+            scale=None):
+    """Plain version of `ops.mha_flash`: q (B, S, H, dh), k, v (B, T, Hk,
+    dh) and optional (B, T, Hk) scales. Folds heads into (B·H, ., dh)
+    rows with k, v and the scales repeated per query head (head h reads
+    kv head h // rep), as the reference's wrapper does, then runs
+    `attention_ref` or `attention_quant_ref`. Returns (B, S, H, dh)."""
+    B, S, H, dh = q.shape
+    T, Hk = k.shape[1], k.shape[2]
+    rep = H // Hk
+
+    def fold(t):
+        t = t.repeat_interleave(rep, dim=2) if t.shape[2] != H else t
+        return t.transpose(1, 2).reshape(B * H, t.shape[1], *t.shape[3:])
+    if k_scale is None:
+        o = attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                          window=window, scale=scale)
+    else:
+        o = attention_quant_ref(fold(q), fold(k), fold(v), fold(k_scale),
+                                fold(v_scale), causal=causal, window=window,
+                                scale=scale)
+    return o.reshape(B, H, S, dh).transpose(1, 2)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, k_scale=None,
+                        v_scale=None, *, page, causal=True, window=0,
+                        scale=None):
+    """Plain version of `ops.mha_flash_paged`: q (B, S, H, dh); k_pool,
+    v_pool (R, Hk, dh) row pools; block_table (B, nk) physical page of
+    each logical page; optional (R, Hk) scales. Gathers logical rows
+    0 .. nk·page-1 of each sequence (row t at bt[b, t // page] * page +
+    t % page), whatever they hold, then runs `mha_ref` on them."""
+    nk = block_table.shape[1]
+    rows = torch.arange(nk * page, device=k_pool.device)
+    bt = block_table.to(device=k_pool.device, dtype=torch.long)
+    phys = bt[:, rows // page] * page + rows % page      # (B, nk * page)
+    if k_scale is None:
+        return mha_ref(q, k_pool[phys], v_pool[phys], causal=causal,
+                       window=window, scale=scale)
+    return mha_ref(q, k_pool[phys], v_pool[phys], k_scale[phys],
+                   v_scale[phys], causal=causal, window=window, scale=scale)
+
+
 def rwkv6_wkv_ref(r, k, v, w, u, state=None):
     """Plain version of the RWKV-6 WKV recurrence kernel.
 

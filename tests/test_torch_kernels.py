@@ -45,7 +45,9 @@ def _counts_stay_zero():
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
                                    "paged_ragged_decode_attention": 0,
-                                   "rwkv6_wkv": 0}
+                                   "rwkv6_wkv": 0,
+                                   "flash_attention": 0,
+                                   "flash_attention_paged": 0}
 
 
 @pytest.mark.parametrize("T,K,d", [(8, 2, 128), (5, 2, 64), (64, 4, 256),
@@ -228,7 +230,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["altup_fused"])
-    assert set(build.sources()) == {"altup_fused",
+    assert set(build.sources()) == {"altup_fused", "flash_attention",
                                     "ragged_decode_attention", "rwkv6_wkv"}
 
 

@@ -120,7 +120,9 @@ def test_decode_step_matches_jax(name, flags):
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
                                    "paged_ragged_decode_attention": 0,
-                                   "rwkv6_wkv": 0}
+                                   "rwkv6_wkv": 0,
+                                   "flash_attention": 0,
+                                   "flash_attention_paged": 0}
 
 
 def test_scalar_pos_prefill_and_decode_match_forward():

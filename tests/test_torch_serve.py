@@ -116,7 +116,9 @@ def test_continuous_matches_jax_engine(flags):
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
                                    "paged_ragged_decode_attention": 0,
-                                   "rwkv6_wkv": 0}
+                                   "rwkv6_wkv": 0,
+                                   "flash_attention": 0,
+                                   "flash_attention_paged": 0}
 
 
 def test_generate_matches_jax_and_continuous():
