@@ -40,13 +40,29 @@ recurrence runs through the WKV kernel. Phases:
                the same rows. The checked call of case 1 (bf16) and of
                the paged causal case runs with the launch counts set to
                0 just before and read just after: the slice's path
+      c-ragged-quant, c-paged-quant  the fused dequant of both
+               entry points (int8 and fp8 codes, f32 scales, bf16 and f32
+               queries) at c-ragged's and c-paged's shapes against
+               ref.ragged_decode_quant_ref / paged_ragged_decode_ref, the
+               paged one bitwise equal to the contiguous one; bytes bound
+               with 1-byte codes and two 4-byte scales per row-head; no
+               library call dequantizes and attends (SDPA on dequantized
+               k/v is printed beside, labelled as such); then bf16 k/v
+               under f32 queries, untimed
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
+      d-quant  the same with int8 and with fp8 caches: the fused dequant
+               vs the dense dequant path (1e-3, tokens identical), and,
+               not gated, the quantized logits' distance from the
+               unquantized f32 path's
   (e) serve    8 greedy bf16 requests (prompts of 32-512 tokens, 64 new
                tokens each) through Engine(n_slots=8, max_len=2048,
                prefix_cache=False); the kernels' launch counts of that run
                show the path used them
+      e-quant  the same traffic from int8 caches: the ragged kernel's
+               launches (its fused dequant) == 28 x decode steps, and the
+               cache bytes against (e)'s
   (g) paged    16 greedy bf16 requests sharing a 250-token system prompt
                through Engine(paged=True, n_slots=16, n_pages=512), the
                prefix cache on: hits, page aliasing, a boundary-page copy
@@ -55,6 +71,7 @@ recurrence runs through the WKV kernel. Phases:
       g-spill  the host spill tier: a prefix spilled to the host and
                restored serves the same tokens as the resident prefix;
                every copy, spill and restore held bitwise on the card
+      g-quant  (g)'s traffic and gates from an fp8 pool
   (h) parity   rwkv6-1.6b + AltUp K=2 at full width, f32: forward logits
                on 2 prompts of 64 tokens, then a token-by-token prefill
                and 16 greedy decode_steps, the kernel path vs the dense
@@ -65,8 +82,9 @@ recurrence runs through the WKV kernel. Phases:
                request extending it hits and serves a cold engine's
                tokens; the WKV kernel launches 24 times per step
   (f) profile  (--profile only) device busy share of pure decode steps,
-               of the (e) engine, (f-profile-paged) of the (g) engine
-               and (f-profile-rwkv) of the (i) engine
+               of the (e) engine, (f-profile-quant) of the e-quant
+               engine, (f-profile-paged) of the (g) engine and
+               (f-profile-rwkv) of the (i) engine
 
 Every phase prints one line; any failure raises and exits non-zero. The
 second-to-last line is the per-kernel JSON record; the last line is
@@ -113,7 +131,12 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)    # outputs rounded to bf16 (1 ulp)
 PARITY_TOL = dict(atol=1e-3, rtol=1e-3)  # 28-layer f32 logits, two paths
 
 
+T_START = time.perf_counter()
+
+
 def line(tag, **vals):
+    """One phase's JSON line, with the script's elapsed seconds."""
+    vals["elapsed_s"] = time.perf_counter() - T_START
     print(f"[{tag}] " + json.dumps(vals), flush=True)
 
 
@@ -217,22 +240,51 @@ def check_altup(torch, ops, ref, dtype, T, K=2, d=1024, seed=0):
             "bytes": nbytes, "tol": tol}
 
 
+def stored_kv(torch, k, v, store, dtype):
+    """k, v as the cache stores them: store None keeps q's dtype; "bf16"
+    stores float k/v in bfloat16 (a float storage mode other than the
+    activations'); "int8" / "fp8" gives codes and f32 scales from the
+    port's quant.quantize on the card. Returns (k, v, k_scale, v_scale)."""
+    from repro_torch.kernels import quant as Q
+    if store is None:
+        return k, v, None, None
+    if store == "bf16":
+        return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    spec = Q.resolve_kv_spec(store, dtype)
+    (kc, ks), (vc, vs) = Q.quantize(k, spec), Q.quantize(v, spec)
+    return kc, vc, ks, vs
+
+
+def kv_row_bytes(k, k_scale, Dh):
+    """Bytes of one (row, kv head) of k and v, with their scales."""
+    return 2 * Dh * k.element_size() + (0 if k_scale is None else 2 * 4)
+
+
 def check_ragged(torch, ops, ref, dtype, lens_host, Hk=8, rep=2, Dh=128,
-                 T=2048, seed=1):
+                 T=2048, store=None, timed=True, seed=1):
+    """ops.ragged_decode_attn on CUDA tensors (the kernel) against its
+    plain version; store as in stored_kv ("int8" / "fp8": the fused
+    dequant, against ref.ragged_decode_quant_ref). Timed cases add device
+    ms of the kernel, the plain version and the library call (SDPA on the
+    masked GQA problem; for codes, which it cannot read, SDPA on the
+    dequantized k/v, printed beside and no library call)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed)
     B, H = len(lens_host), Hk * rep
     q = torch.randn(B, 1, H, Dh, generator=gen, device=DEV).to(dtype)
     k = torch.randn(B, T, Hk, Dh, generator=gen, device=DEV).to(dtype)
     v = torch.randn(B, T, Hk, Dh, generator=gen, device=DEV).to(dtype)
+    k, v, ks, vs = stored_kv(torch, k, v, store, dtype)
     lens = torch.tensor(lens_host, dtype=torch.int32, device=DEV)
     qg = q[:, 0].reshape(B, Hk, rep, Dh)
 
     def launch():
-        return ops.ragged_decode_attn(q, k, v, lens)
+        return ops.ragged_decode_attn(q, k, v, lens, ks, vs)
 
     def plain():
-        return ref.ragged_decode_ref(qg, k, v, lens)
+        if ks is None:
+            return ref.ragged_decode_ref(qg, k, v, lens)
+        return ref.ragged_decode_quant_ref(qg, k, v, ks, vs, lens)
     got, want = launch(), plain().reshape(B, 1, H, Dh)
     torch.cuda.synchronize()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
@@ -241,34 +293,44 @@ def check_ragged(torch, ops, ref, dtype, lens_host, Hk=8, rep=2, Dh=128,
         if lens_host[b] == 0 and not bool((got[b] == 0).all()):
             raise AssertionError(f"empty slot {b} is not exact zeros")
     name = "float32" if dtype == torch.float32 else "bfloat16"
+    res = {"dtype": name, "store": store, "B": B, "Hk": Hk, "rep": rep,
+           "Dh": Dh, "T": T, "lengths": lens_host,
+           "max_abs_err": max_err(torch, got, want), "tol": tol}
+    if not timed:
+        return res
     esz = q.element_size()
     rows = sum(lens_host)
-    nbytes = rows * Hk * Dh * 2 * esz + 2 * B * H * Dh * esz + 4 * B
+    nbytes = rows * Hk * kv_row_bytes(k, ks, Dh) + 2 * B * H * Dh * esz \
+        + 4 * B
     nops = rows * Hk * rep * Dh * 4
-    b_ms, b_by = bound_ms(nbytes, nops, name)
+    # the arithmetic of the codes' path (dequant, dots) is f32
+    b_ms, b_by = bound_ms(nbytes, nops, name if ks is None else "float32")
     # library yardstick: one SDPA call on the same masked GQA problem,
     # timed here only (the port never calls it)
+    kd = k if ks is None else ref.dequant_ref(k, ks, dtype)
+    vd = v if vs is None else ref.dequant_ref(v, vs, dtype)
     qs = q.permute(0, 2, 1, 3)                        # (B, H, 1, Dh)
-    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    kt, vt = (t.to(dtype).permute(0, 2, 1, 3) for t in (kd, vd))
     mask = (torch.arange(T, device=DEV)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
 
     def library():
-        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
     lib = library()
     live = lens > 0                  # SDPA gives NaN on an all-masked row
     lib_err = max_err(torch, lib[live].permute(0, 2, 1, 3), want[live])
-    return {"dtype": name, "B": B, "Hk": Hk, "rep": rep, "Dh": Dh, "T": T,
-            "lengths": lens_host,
-            "max_abs_err": max_err(torch, got, want),
-            "ms": device_ms(torch, launch, "ragged_decode_kernel"),
-            "plain_ms": device_ms(torch, plain),
-            "wrapper_ms": time_ms(torch, launch),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": device_ms(torch, library),
-            "library_max_abs_err_nonempty": lib_err,
-            "bytes": nbytes, "tol": tol}
+    sdpa_ms = device_ms(torch, library)
+    res.update({
+        "ms": device_ms(torch, launch, "ragged_decode_kernel"),
+        "plain_ms": device_ms(torch, plain),
+        "wrapper_ms": time_ms(torch, launch),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call dequantizes and attends
+        "library_ms": sdpa_ms if ks is None else None,
+        "sdpa_on_dequantized_ms": None if ks is None else sdpa_ms,
+        "library_max_abs_err_nonempty": lib_err, "bytes": nbytes})
+    return res
 
 
 def pages_for(rows, page):
@@ -296,12 +358,13 @@ def paged_table(torch, gen, reserve, n_shared, n_pages, npg):
 
 def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
                 n_pages=1024, Hk=8, rep=2, Dh=128, T=2048, t_max=2048,
-                page=16, seed=4):
+                page=16, store=None, seed=4):
     """The paged kernel over a random pool of n_pages pages plus the sink,
     through the block table of paged_table (T // page entries per slot)
     with the read bound t_max, against its plain version and, bitwise,
     against the contiguous kernel on the same rows gathered into
-    contiguous caches."""
+    contiguous caches; store as in stored_kv (codes with (R, Hk) pool
+    scales)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(seed)
     B, H, npg = len(lens_host), Hk * rep, T // page
@@ -309,24 +372,32 @@ def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
     q = torch.randn(B, 1, H, Dh, generator=gen, device=DEV).to(dtype)
     kp = torch.randn(R, Hk, Dh, generator=gen, device=DEV).to(dtype)
     vp = torch.randn(R, Hk, Dh, generator=gen, device=DEV).to(dtype)
+    kp, vp, ksp, vsp = stored_kv(torch, kp, vp, store, dtype)
     lens = torch.tensor(lens_host, dtype=torch.int32, device=DEV)
     bt = paged_table(torch, torch.Generator().manual_seed(seed), reserve,
                      n_shared, n_pages, npg)
     grows = (bt.long()[:, :, None] * page
              + torch.arange(page, device=DEV)).reshape(B, T)
-    # the contiguous read slice of the same rows: (B, t_max, Hk, Dh)
-    k, v = kp[grows[:, :t_max]], vp[grows[:, :t_max]]
+
+    def gathered(pool):
+        """The contiguous read slice of the same rows, (B, t_max, ...),
+        1-byte codes through their uint8 view."""
+        if pool is None:
+            return None
+        raw = pool.view(torch.uint8) if pool.element_size() == 1 else pool
+        return raw[grows[:, :t_max]].view(pool.dtype)
+    k, v, ks, vs = (gathered(t) for t in (kp, vp, ksp, vsp))
     qg = q[:, 0].reshape(B, Hk, rep, Dh)
 
     def launch():
-        return ops.paged_ragged_decode_attn(q, kp, vp, lens, bt, page=page,
-                                            t_max=t_max)
+        return ops.paged_ragged_decode_attn(q, kp, vp, lens, bt, ksp, vsp,
+                                            page=page, t_max=t_max)
 
     def plain():
-        return ref.paged_ragged_decode_ref(qg, kp, vp, lens, bt, page=page,
-                                           t_max=t_max)
+        return ref.paged_ragged_decode_ref(qg, kp, vp, lens, bt, ksp, vsp,
+                                           page=page, t_max=t_max)
     got, want = launch(), plain().reshape(B, 1, H, Dh)
-    contiguous = ops.ragged_decode_attn(q, k, v, lens)
+    contiguous = ops.ragged_decode_attn(q, k, v, lens, ks, vs)
     torch.cuda.synchronize()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, want, **tol)
@@ -344,23 +415,26 @@ def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
     rows = torch.cat([grows[b, :n] for b, n in enumerate(lens_host)])
     distinct = int(rows.unique().numel())
     table = sum(pages_for(n, page) for n in lens_host)
-    nbytes = (distinct * Hk * Dh * 2 * esz + 2 * B * H * Dh * esz + 4 * B
-              + 4 * table)
+    nbytes = (distinct * Hk * kv_row_bytes(kp, ksp, Dh)
+              + 2 * B * H * Dh * esz + 4 * B + 4 * table)
     nops = sum(lens_host) * Hk * rep * Dh * 4
-    b_ms, b_by = bound_ms(nbytes, nops, name)
+    b_ms, b_by = bound_ms(nbytes, nops, name if ksp is None else "float32")
     # no single PyTorch call reads through a block table; SDPA on rows
-    # gathered beforehand is printed beside it, labelled as such
+    # gathered (and dequantized) beforehand is printed beside it, labelled
+    # as such
+    kd = k if ks is None else ref.dequant_ref(k, ks, dtype)
+    vd = v if vs is None else ref.dequant_ref(v, vs, dtype)
     qs = q.permute(0, 2, 1, 3)
-    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    kt, vt = (t.to(dtype).permute(0, 2, 1, 3) for t in (kd, vd))
     mask = (torch.arange(t_max, device=DEV)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
 
     def sdpa_gathered():
-        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
-    return {"dtype": name, "B": B, "Hk": Hk, "rep": rep, "Dh": Dh,
-            "page": page, "pool_pages": n_pages, "table_pages": npg,
-            "t_max": t_max,
+    return {"dtype": name, "store": store, "B": B, "Hk": Hk, "rep": rep,
+            "Dh": Dh, "page": page, "pool_pages": n_pages,
+            "table_pages": npg, "t_max": t_max,
             "lengths": lens_host, "shared_pages": n_shared,
             "distinct_rows_read": distinct,
             "max_abs_err": max_err(torch, got, want),
@@ -732,7 +806,37 @@ def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
 # (d) full-width f32 parity: kernel path and paged kernel path vs dense path
 # ---------------------------------------------------------------------------
 
-def parity_f32(torch):
+@contextlib.contextmanager
+def no_cache_writes():
+    """Contiguous decode steps inside the block write nothing to their
+    caches (models.decode._update_at does nothing)."""
+    import repro_torch.models.decode as D
+    real = D._update_at
+    D._update_at = lambda cache, new, idx: cache
+    try:
+        yield
+    finally:
+        D._update_at = real
+
+
+def parity_f32(torch, kind=None):
+    """Full-width f32 decode_step logits and greedy tokens of the kernel
+    path ("k") and the paged kernel path ("p") against the dense path
+    ("d"), over a chunked prefill and 16 decode steps.
+
+    kind "int8" / "fp8" (d-quant): every side serves from quantized
+    caches, and the dense side differs from the kernel side only in its
+    S=1 attention (dense dequant, then sdpa, against the kernels' fused
+    dequant) over the same codes: it runs the fused AltUp kernel too, so
+    their prefills are one computation, and each decode step it reads a
+    copy of the kernel side's caches taken after the kernel side's step
+    (this step's rows included), with its own writes suppressed. Rounding
+    to codes is discontinuous: the two attention paths' ~1e-7 differences
+    would move a code it writes by a whole step now and then (seen: 2 of
+    607744 logits 1.1e-3 apart after one such step), which is the
+    rounding's doing, not the kernel's. An unquantized dense side ("f"),
+    fed the kernel side's tokens, gives the quantized logits' distance
+    from the unquantized ones, printed and not gated."""
     from repro_torch.models.decode import (decode_step, init_cache,
                                            init_paged_cache)
     from repro_torch.models.transformer import init_params
@@ -740,8 +844,15 @@ def parity_f32(torch):
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     cfg = served_config(dtype="float32", param_dtype="float32")
-    cfg_k = cfg.replace(ragged_decode_attn=None, fused_decode_altup=None)
-    cfg_d = cfg.replace(ragged_decode_attn=False, fused_decode_altup=False)
+    quant = kind is not None
+    cfg_q = cfg.replace(kv_cache_dtype=kind) if quant else cfg
+    cfgs = {"k": cfg_q.replace(ragged_decode_attn=None,
+                               fused_decode_altup=None),
+            "d": cfg_q.replace(ragged_decode_attn=False,
+                               fused_decode_altup=None if quant else False)}
+    cfgs["p"] = cfgs["k"]
+    if quant:
+        cfgs["f"] = cfgs["d"].replace(kv_cache_dtype="auto")
     params = init_params(cfg, seed=0, device=DEV)
     perturb_altup(torch, params, seed=10)
     B, T, C, n_dec, page = 4, 1024, 64, 16, 16
@@ -750,18 +861,19 @@ def parity_f32(torch):
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device=DEV) for n in plens]
     n_pages = B * T // page
-    caches = {"k": init_cache(cfg_k, B, T, device=DEV),
-              "p": init_paged_cache(cfg_k, B, T, n_pages=n_pages, page=page,
-                                    device=DEV),
-              "d": init_cache(cfg_d, B, T, device=DEV)}
-    cfgs = {"k": cfg_k, "p": cfg_k, "d": cfg_d}
+    caches = {s: init_cache(c, B, T, device=DEV) for s, c in cfgs.items()
+              if s != "p"}
+    caches["p"] = init_paged_cache(cfgs["p"], B, T, n_pages=n_pages,
+                                   page=page, device=DEV)
     # the paged side reads through a seeded permutation of the pool
     bt = torch.randperm(n_pages, generator=gen, device=DEV).reshape(
         B, T // page).to(torch.int32)
-    pkw = {"k": {}, "d": {}, "p": {"block_table": bt, "page_size": page}}
-    sides = ("k", "p", "d")
+    pkw = {s: {} for s in cfgs}
+    pkw["p"] = {"block_table": bt, "page_size": page}
+    sides = tuple(cfgs)
+    gated = ("k", "p")
     pos = [0] * B
-    worst = {"k": 0.0, "p": 0.0}
+    worst = {s: 0.0 for s in sides if s != "d"}
     last = {}
     # chunked prefill: every slot feeds up to C prompt tokens per step
     while any(pos[b] < plens[b] for b in range(B)):
@@ -781,9 +893,10 @@ def parity_f32(torch):
             if nval[b]:
                 rows = {s: out[s][b, :nval[b], :cfg.vocab_size]
                         for s in sides}
-                for s in ("k", "p"):
+                for s in gated:
                     torch.testing.assert_close(rows[s], rows["d"],
                                                **PARITY_TOL)
+                for s in worst:
                     worst[s] = max(worst[s],
                                    max_err(torch, rows[s], rows["d"]))
                 if pos[b] + nval[b] == plens[b]:
@@ -795,15 +908,26 @@ def parity_f32(torch):
     min_gap = math.inf
     for _ in range(n_dec):
         kv_len = kv_bucket(max(pos) + 1, 32, T)
+        if quant:
+            # the dense and unquantized sides take the kernel side's tokens
+            tok["d"] = tok["f"] = tok["k"]
         lg = {}
         for side in sides:
-            logits, _ = decode_step(
-                params, cfgs[side], caches[side], tok[side][:, None],
-                torch.tensor(pos, device=DEV), kv_len=kv_len,
-                **pkw[side])
+            writes = contextlib.nullcontext()
+            if quant and side == "d":
+                # the kernel side's caches after its step; no writes
+                caches["d"] = {si: {n: t.clone() for n, t in seg.items()}
+                               for si, seg in caches["k"].items()}
+                writes = no_cache_writes()
+            with writes:
+                logits, _ = decode_step(
+                    params, cfgs[side], caches[side], tok[side][:, None],
+                    torch.tensor(pos, device=DEV), kv_len=kv_len,
+                    **pkw[side])
             lg[side] = logits[:, 0, :cfg.vocab_size]
-        for s in ("k", "p"):
+        for s in gated:
             torch.testing.assert_close(lg[s], lg["d"], **PARITY_TOL)
+        for s in worst:
             worst[s] = max(worst[s], max_err(torch, lg[s], lg["d"]))
         top2 = lg["d"].topk(2, dim=-1).values
         min_gap = min(min_gap, float((top2[:, 0] - top2[:, 1]).min()))
@@ -816,15 +940,22 @@ def parity_f32(torch):
                              f"paged kernel and dense paths: {streams}")
     del params, caches
     torch.cuda.empty_cache()
-    return {"slots": B, "prompt_lens": plens, "decode_steps": n_dec,
-            "max_abs_logit_err": worst["k"],
-            "paged_max_abs_logit_err": worst["p"], "page": page,
-            "tol": PARITY_TOL,
-            "greedy_tokens_identical": True,
-            "tokens_checked": B * (n_dec + 1),
-            "min_top2_gap_dense": min_gap,
-            "tf32": [torch.backends.cuda.matmul.allow_tf32,
-                     torch.backends.cudnn.allow_tf32]}
+    res = {"kv_cache_dtype": kind or "auto", "slots": B,
+           "prompt_lens": plens, "decode_steps": n_dec,
+           "max_abs_logit_err": worst["k"],
+           "paged_max_abs_logit_err": worst["p"], "page": page,
+           "tol": PARITY_TOL,
+           "greedy_tokens_identical": True,
+           "tokens_checked": B * (n_dec + 1),
+           "min_top2_gap_dense": min_gap,
+           "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32]}
+    if quant:
+        # not gated: the quantized dense path against the unquantized one
+        res["max_abs_logit_diff_vs_unquantized"] = worst["f"]
+        res["greedy_tokens_equal_unquantized"] = \
+            streams["d"] == streams["f"]
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -833,11 +964,21 @@ def parity_f32(torch):
 
 E_PROMPTS, E_NEW = (32, 96, 160, 224, 288, 352, 416, 512), 64
 
-def serve_bf16(torch, ops, profile=False):
+def cache_bytes(eng):
+    """Device bytes of the engine's caches, every leaf."""
+    return sum(t.numel() * t.element_size()
+               for seg in eng._caches.values() for t in seg.values())
+
+
+def serve_bf16(torch, ops, profile=False, kind=None):
+    """Phase (e); kind "int8" / "fp8" serves the same traffic from
+    quantized caches (e-quant)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.sampling import SamplingParams
     cfg = served_config()                              # bf16
+    if kind is not None:
+        cfg = cfg.replace(kv_cache_dtype=kind)
     params = init_params(cfg, seed=1, device=DEV)
     perturb_altup(torch, params, seed=11)
     eng = Engine(cfg, params, max_len=2048, n_slots=8, prefill_chunk=64,
@@ -893,6 +1034,7 @@ def serve_bf16(torch, ops, profile=False):
     res = {"requests": len(rids), "prompt_lens": plens, "new_tokens": n_new,
            "steps": steps, "decode_steps": len(decode_ms),
            "launches": counts,
+           "kv_cache_dtype": kind or "auto", "cache_bytes": cache_bytes(eng),
            "ragged_launches_per_decode_step":
                counts["ragged_decode_attention"] / len(decode_ms),
            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -981,11 +1123,15 @@ def page_ops(torch, check):
             setattr(E, name, fn)
 
 
-def serve_paged_bf16(torch, ops, profile=False):
+def serve_paged_bf16(torch, ops, profile=False, kind=None):
+    """Phase (g); kind "int8" / "fp8" serves the same traffic from a
+    quantized pool (g-quant)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.sampling import SamplingParams
     cfg = served_config()                              # bf16
+    if kind is not None:
+        cfg = cfg.replace(kv_cache_dtype=kind)
     params = init_params(cfg, seed=1, device=DEV)
     perturb_altup(torch, params, seed=11)
     eng = Engine(cfg, params, max_len=2048, n_slots=G_SLOTS, prefill_chunk=64,
@@ -1046,8 +1192,11 @@ def serve_paged_bf16(torch, ops, profile=False):
                              f"steps, {len(decode_ms)} decode steps")
     decode_ms.sort()
     res = {"requests": len(rids), "system_prompt": len(system),
+           "kv_cache_dtype": kind or "auto", "cache_bytes": cache_bytes(eng),
            "tails": tails, "new_tokens": n_new, "steps": steps,
            "decode_steps": len(decode_ms), "launches": counts,
+           "paged_launches_per_decode_step":
+               counts["paged_ragged_decode_attention"] / len(decode_ms),
            "prefix_hits": hits, "boundary_copies": pops["copies"],
            "prefill_tokens_saved": st["prefill_tokens_saved"],
            "concurrency_peak": st["concurrency_peak"],
@@ -1458,6 +1607,35 @@ def main(argv) -> int:
             r = check_paged(torch, ops, ref, dtype, **kw)
             paged[(r["dtype"], case)] = r
             line("c-paged", case=case, **r)
+    # the fused dequant, both entry points, at the same shapes: (e)'s
+    # halfway depths and the spread for the contiguous kernel, (g)'s
+    # halfway step and the spread for the paged one, int8 and fp8 codes
+    # with bf16 and f32 queries; then float k/v stored in bf16 under f32
+    # queries (a float storage mode other than the activations'), untimed
+    ragged_q, paged_q = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for store in ("int8", "fp8"):
+            for case, lens_host in (("e", e_lens), ("spread", spread)):
+                r = check_ragged(torch, ops, ref, dtype, lens_host,
+                                 T=kv_bucket(max(lens_host), 32, 2048),
+                                 store=store)
+                ragged_q[(r["dtype"], case, store)] = r
+                line("c-ragged-quant", case=case, **r)
+    line("c-ragged-quant", case="spread-bf16-kv",
+         **check_ragged(torch, ops, ref, torch.float32, spread,
+                        store="bf16", timed=False))
+    for dtype in (torch.bfloat16, torch.float32):
+        for store in ("int8", "fp8"):
+            for case, kw in (
+                    ("g", dict(lens_host=g_lens, reserve=g_reserve,
+                               n_shared=G_SYSTEM // G_PAGE, n_pages=G_PAGES,
+                               t_max=kv_bucket(max(g_lens), 32, 2048))),
+                    ("spread", dict(lens_host=spread,
+                                    reserve=[2048 // 16] * 8,
+                                    n_pages=1024))):
+                r = check_paged(torch, ops, ref, dtype, store=store, **kw)
+                paged_q[(r["dtype"], case, store)] = r
+                line("c-paged-quant", case=case, **r)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -1508,14 +1686,24 @@ def main(argv) -> int:
     main_flash_paged = flash_paged[("bfloat16", "causal")]
     torch.cuda.empty_cache()
 
-    # (d) full-width f32 parity of the two paths
+    # (d) full-width f32 parity of the two paths, then of the fused
+    # dequant against the dense dequant path, int8 and fp8
     line("d-parity", **parity_f32(torch))
+    for store in ("int8", "fp8"):
+        line("d-quant", **parity_f32(torch, store))
 
-    # (e) the main path: bf16 serving through Engine
+    # (e) the main path: bf16 serving through Engine, then from int8
+    # caches (e-quant)
     res, counts, prof = serve_bf16(torch, ops, profile=profile)
     line("e-serve", **res)
     if prof is not None:
         line("f-profile", **prof)
+    res_eq, counts_eq, prof_eq = serve_bf16(torch, ops, profile=profile,
+                                            kind="int8")
+    res_eq["cache_bytes_over_e"] = res_eq["cache_bytes"] / res["cache_bytes"]
+    line("e-quant", **res_eq)
+    if prof_eq is not None:
+        line("f-profile-quant", **prof_eq)
 
     # (g) the paged path: bf16 serving from a page pool with prefix reuse
     res_g, counts_g, prof_g = serve_paged_bf16(torch, ops, profile=profile)
@@ -1523,6 +1711,10 @@ def main(argv) -> int:
     if prof_g is not None:
         line("f-profile-paged", **prof_g)
     line("g-spill", **serve_spill_bf16(torch))
+    # (g-quant) the paged path from an fp8 pool
+    res_gq, counts_gq, _ = serve_paged_bf16(torch, ops, kind="fp8")
+    res_gq["cache_bytes_over_g"] = res_gq["cache_bytes"] / res_g["cache_bytes"]
+    line("g-quant", **res_gq)
 
     # (h) rwkv6-1.6b: full-width f32 parity of the WKV kernel path
     line("h-parity", **rwkv_parity_f32(torch))
@@ -1538,6 +1730,8 @@ def main(argv) -> int:
     main_ragged = ragged[("bfloat16", "e")]
     main_paged = paged[("bfloat16", "g")]
     main_wkv = wkv[("bfloat16", "i-decode")]
+    main_ragged_q = ragged_q[("bfloat16", "e", "int8")]    # e-quant's
+    main_paged_q = paged_q[("bfloat16", "g", "fp8")]       # g-quant's
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [
@@ -1556,6 +1750,16 @@ def main(argv) -> int:
          "replaces": "src/repro/kernels/ragged_decode_attention.py:122",
          "launches": counts_g["paged_ragged_decode_attention"],
          **{k: main_paged[k] for k in keys}},
+        {"name": "ragged_decode_attention_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/ragged_decode_attention.cu",
+         "replaces": "src/repro/kernels/ragged_decode_attention.py:210",
+         "launches": counts_eq["ragged_decode_attention"],
+         **{k: main_ragged_q[k] for k in keys}},
+        {"name": "paged_ragged_decode_attention_quant", "route": "cuda",
+         "source": "src/repro_torch/csrc/ragged_decode_attention.cu",
+         "replaces": "src/repro/kernels/ragged_decode_attention.py:122",
+         "launches": counts_gq["paged_ragged_decode_attention"],
+         **{k: main_paged_q[k] for k in keys}},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:53",

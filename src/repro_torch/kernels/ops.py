@@ -43,25 +43,32 @@ def decode_altup_predict_correct(x_wide, x_tilde, sel, p, g):
     return altup_predict_correct(x_wide, x_tilde, sel, p, g)
 
 
-def ragged_decode_attn(q, k, v, lengths):
+def ragged_decode_attn(q, k, v, lengths, k_scale=None, v_scale=None):
     """Length-aware S=1 GQA decode attention over slot caches.
 
     q: (B, 1, H, dh) single-token queries; k, v: (B, T, Hk, dh) slot
     caches, read in place; lengths: (B,) per-slot valid-row counts. Query
     head h reads kv head h // rep (the (B, Hk, rep, dh) grouping of
-    layers.sdpa). Returns (B, 1, H, dh)."""
+    layers.sdpa). k_scale, v_scale: optional (B, T, Hk) f32 scales of
+    int8 / float8_e4m3fn codes k, v, dequantized in the kernel's row load.
+    Raises ValueError when only one scale is given, a scale is not f32 or
+    not of the codes' shape, or codes come without scales. Returns
+    (B, 1, H, dh)."""
     B, S, H, dh = q.shape
     if S != 1:
         raise ValueError("ragged decode attention is single-token (S=1) "
                          f"only, got S={S}")
+    quantized = ragged_mod.check_scales(k, v, k_scale, v_scale)
     Hk = k.shape[2]
     rep = H // Hk
     qg = q[:, 0].reshape(B, Hk, rep, dh)
     if q.device.type == "cpu":
-        o = ref.ragged_decode_ref(qg, k, v, lengths)
+        o = (ref.ragged_decode_quant_ref(qg, k, v, k_scale, v_scale, lengths)
+             if quantized else ref.ragged_decode_ref(qg, k, v, lengths))
     else:
         o = ragged_mod.ragged_decode_attention(qg.contiguous(), k, v,
-                                               lengths)
+                                               lengths, k_scale=k_scale,
+                                               v_scale=v_scale)
         ragged_decode_attn.launches += 1
     return o.reshape(B, 1, H, dh)
 
@@ -69,34 +76,39 @@ def ragged_decode_attn(q, k, v, lengths):
 ragged_decode_attn.launches = 0
 
 
-def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table, *,
-                             page, t_max):
+def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table,
+                             k_scale=None, v_scale=None, *, page, t_max):
     """Paged-pool variant of `ragged_decode_attn`.
 
     q: (B, 1, H, dh) single-token queries; k_pool, v_pool: (R, Hk, dh)
     batchless row pools; block_table: (B, npages) int32 physical page of
-    each logical page; lengths: (B,) fill depths; t_max: the logical read
-    bound (the kv bucket). The kernel follows the block table itself: no
-    gathered copy of the cache is made. Returns (B, 1, H, dh)."""
+    each logical page; lengths: (B,) fill depths; k_scale, v_scale:
+    optional (R, Hk) f32 pool scales of codes, under the contiguous
+    wrapper's rules; t_max: the logical read bound (the kv bucket). The
+    kernel follows the block table itself: no gathered copy of the cache
+    is made. Returns (B, 1, H, dh)."""
     B, S, H, dh = q.shape
     if S != 1:
         raise ValueError("paged ragged decode attention is single-token "
                          f"(S=1) only, got S={S}")
+    ragged_mod.check_scales(k_pool, v_pool, k_scale, v_scale)
     Hk = k_pool.shape[1]
     rep = H // Hk
     qg = q[:, 0].reshape(B, Hk, rep, dh)
     if q.device.type == "cpu":
         o = ref.paged_ragged_decode_ref(qg, k_pool, v_pool, lengths,
-                                        block_table, page=page, t_max=t_max)
+                                        block_table, k_scale, v_scale,
+                                        page=page, t_max=t_max)
     else:
         o = ragged_mod.paged_ragged_decode_attention(
             qg.contiguous(), k_pool, v_pool, lengths, block_table,
-            page=page, t_max=t_max)
+            page=page, t_max=t_max, k_scale=k_scale, v_scale=v_scale)
         paged_ragged_decode_attn.launches += 1
     return o.reshape(B, 1, H, dh)
 
 
 paged_ragged_decode_attn.launches = 0
+
 
 def rwkv6_wkv(r, k, v, w, u, state=None):
     """The RWKV-6 WKV recurrence over a sequence.

@@ -5,17 +5,20 @@ behind two entry points:
 
 * `ragged_decode_attention` over contiguous slot caches, which replaces
   the TPU kernel `repro/kernels/ragged_decode_attention.py::
-  ragged_decode_attention` (unquantized) and reads the slot cache in
+  ragged_decode_attention` and reads the slot cache (and its scales) in
   place through its batch and row strides;
 * `paged_ragged_decode_attention` over batchless row pools read through
   a per-slot block table, which replaces `paged_ragged_decode_attention`
-  of the same file (unquantized).
+  of the same file.
 
-Both are bound by the bytes of the rows they visit, Σ_b len_b·Hk·Dh·2
-elements. Their plain versions are `ref.ragged_decode_ref` and
-`ref.paged_ragged_decode_ref`; the model reaches them through
-`ops.ragged_decode_attn` and `ops.paged_ragged_decode_attn`, which count
-the launches.
+Both take float caches (float32 or bfloat16, whatever q's dtype) or
+int8 / float8_e4m3fn codes with f32 per-row, per-head `k_scale` and
+`v_scale`, dequantized in the kernel as each row is loaded. They are
+bound by the bytes of the rows they visit, Σ_b len_b·Hk·(Dh·2 elements
++ 2 scales). Their plain versions are `ref.ragged_decode_ref`,
+`ref.ragged_decode_quant_ref` and `ref.paged_ragged_decode_ref`; the
+model reaches them through `ops.ragged_decode_attn` and
+`ops.paged_ragged_decode_attn`, which count the launches.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ from repro_torch.kernels import build
 MAX_REP = 8
 MAX_DH = 256
 MAX_TABLE_PAGES = 2048     # block-table entries a block stages in shared memory
+# dtype codes of csrc/common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+CODE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def _library():
@@ -39,19 +44,48 @@ def _library():
         ctypes.c_float
     fn = lib.ragged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, ll, ll, ll, ll,
-                       f, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, ll,
+                       ll, ll, ll, ll, f, i, i, vp]
         fn.restype = i
     fn = lib.paged_ragged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ll, ll, ll,
-                       f, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ll,
+                       ll, ll, ll, f, i, i, vp]
         fn.restype = i
     return lib
 
 
-def _check(q, k, v, lengths, kv_name):
-    """Checks shared by both launchers; returns (B, Hk, rep, dh)."""
+def check_scales(k, v, k_scale, v_scale) -> bool:
+    """The scale rules of both entry points, on any device: k_scale and
+    v_scale come together, as float32 tensors of k's shape without its
+    feature axis, exactly when k and v hold int8 or float8_e4m3fn codes
+    (of one dtype). Returns whether the cache is quantized; raises
+    ValueError otherwise."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    codes = k.dtype in CODE_DTYPES
+    if codes != (v.dtype in CODE_DTYPES) or (codes and v.dtype != k.dtype):
+        raise ValueError(f"k and v must both be float or both hold codes of "
+                         f"one dtype, got {k.dtype} and {v.dtype}")
+    if k_scale is None:
+        if codes:
+            raise ValueError(f"{k.dtype} codes need k_scale and v_scale")
+        return False
+    if not codes:
+        raise ValueError(f"k_scale / v_scale go with int8 or float8_e4m3fn "
+                         f"codes, not {k.dtype} values")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {s.dtype}")
+        if tuple(s.shape) != tuple(k.shape[:-1]):
+            raise ValueError(f"{name} {tuple(s.shape)} does not match the "
+                             f"codes' rows {tuple(k.shape[:-1])}")
+    return True
+
+
+def _check(q, k, v, lengths, k_scale, v_scale, kv_name):
+    """Checks shared by both launchers; returns (B, Hk, rep, dh,
+    quantized)."""
     if q.device.type != "cuda":
         raise ValueError(f"ragged decode kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -61,10 +95,13 @@ def _check(q, k, v, lengths, kv_name):
     if not 1 <= rep <= MAX_REP or not 1 <= dh <= MAX_DH:
         raise ValueError(f"ragged decode kernel takes rep <= {MAX_REP} and "
                          f"Dh <= {MAX_DH}, got rep={rep}, Dh={dh}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"ragged decode kernel takes float32 or bfloat16 "
-                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"q, got {q.dtype}")
+    quantized = check_scales(k, v, k_scale, v_scale)
+    if not quantized and (k.dtype not in _DTYPE_CODES or v.dtype != k.dtype):
+        raise ValueError(f"ragged decode kernel takes float32 or bfloat16 "
+                         f"k, v of one dtype, or codes, got {k.dtype}, "
                          f"{v.dtype}")
     if any(t.device != q.device for t in (k, v, lengths)):
         raise ValueError("q, k, v and lengths lie on different devices")
@@ -72,11 +109,26 @@ def _check(q, k, v, lengths, kv_name):
         if t.stride(-1) != 1 or t.stride(-2) != dh:
             raise ValueError(f"{name} {kv_name} needs contiguous (Hk, Dh) "
                              f"trailing dims, got strides {t.stride()}")
+    if quantized:
+        if any(t.device != q.device for t in (k_scale, v_scale)):
+            raise ValueError("the scales lie on another device than q")
+        if k_scale.stride(-1) != 1 or k_scale.stride() != v_scale.stride():
+            raise ValueError(f"k_scale and v_scale need one layout with "
+                             f"contiguous heads, got strides "
+                             f"{k_scale.stride()} and {v_scale.stride()}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     if lengths.shape != (B,):
         raise ValueError(f"lengths {tuple(lengths.shape)} != ({B},)")
-    return B, Hk, rep, dh
+    return B, Hk, rep, dh, quantized
+
+
+def _kv_code(k) -> int:
+    return CODE_DTYPES.get(k.dtype, _DTYPE_CODES.get(k.dtype))
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -86,31 +138,39 @@ def _raise_on(err: int, name: str) -> None:
 
 def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths: torch.Tensor, *,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None) -> torch.Tensor:
     """Launch the contiguous kernel. q: (B, Hk, rep, Dh) grouped queries;
     k, v: (B, T, Hk, Dh) slot caches, any batch and row strides but heads
     and features contiguous; lengths: (B,) valid-row counts (clamped to
-    [0, T] in the kernel). Returns (B, Hk, rep, Dh) in q's dtype.
+    [0, T] in the kernel); k_scale, v_scale: (B, T, Hk) float32 scales
+    when k, v hold int8 / float8_e4m3fn codes (one layout, heads
+    contiguous, read in place). Returns (B, Hk, rep, Dh) in q's dtype.
 
-    Takes CUDA tensors only, of one dtype (float32 or bfloat16), with
-    rep <= 8 and Dh <= 256, and raises on anything else. Raises
-    RuntimeError if the launch fails."""
-    B, Hk, rep, dh = _check(q, k, v, lengths, "cache")
+    Takes CUDA tensors only: float32 or bfloat16 q, k/v of one float
+    dtype (q's or not) or codes with their scales, rep <= 8 and Dh <= 256;
+    raises on anything else. Raises RuntimeError if the launch fails."""
+    B, Hk, rep, dh, quantized = _check(q, k, v, lengths, k_scale, v_scale,
+                                       "cache")
     if k.dim() != 4 or v.dim() != 4:
         raise ValueError("want k, v (B, T, Hk, Dh)")
     T = k.shape[1]
     if k.shape != (B, T, Hk, dh) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
+    s_sb, s_st = (k_scale.stride(0), k_scale.stride(1)) if quantized \
+        else (0, 0)
     lengths = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
     fn = _library().ragged_decode_attention_launch
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), B, Hk, rep, dh, T,
-                 k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                 float(scale), _DTYPE_CODES[q.dtype],
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+                 _ptr(v_scale), lengths.data_ptr(), out.data_ptr(), B, Hk,
+                 rep, dh, T, k.stride(0), k.stride(1), v.stride(0),
+                 v.stride(1), s_sb, s_st, float(scale),
+                 _DTYPE_CODES[q.dtype], _kv_code(k),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "ragged_decode_attention")
     return out
@@ -121,21 +181,25 @@ def paged_ragged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                   lengths: torch.Tensor,
                                   block_table: torch.Tensor, *, page: int,
                                   t_max: int,
+                                  k_scale: Optional[torch.Tensor] = None,
+                                  v_scale: Optional[torch.Tensor] = None,
                                   scale: Optional[float] = None
                                   ) -> torch.Tensor:
     """Launch the paged kernel. q: (B, Hk, rep, Dh) grouped queries;
     k_pool, v_pool: (R, Hk, Dh) row pools, any row stride but heads and
-    features contiguous; block_table: (B, npages) int32, logical page j of
-    slot b at physical page block_table[b, j]; lengths: (B,) fill depths,
-    clamped to [0, t_max] in the kernel, which follows only the table
-    entries below ceil(len_b / page). Returns (B, Hk, rep, Dh) in q's
-    dtype.
+    features contiguous; k_scale, v_scale: (R, Hk) float32 pool scales
+    when the pools hold codes; block_table: (B, npages) int32, logical
+    page j of slot b at physical page block_table[b, j]; lengths: (B,)
+    fill depths, clamped to [0, t_max] in the kernel, which follows only
+    the table entries below ceil(len_b / page). Returns (B, Hk, rep, Dh)
+    in q's dtype.
 
     Takes CUDA tensors only, under the contiguous launcher's rules, plus
     an int32 block table on the same device with at least
     ceil(t_max / page) <= 2048 entries per row and page >= 1; raises on
     anything else, and RuntimeError if the launch fails."""
-    B, Hk, rep, dh = _check(q, k_pool, v_pool, lengths, "pool")
+    B, Hk, rep, dh, quantized = _check(q, k_pool, v_pool, lengths, k_scale,
+                                       v_scale, "pool")
     if k_pool.dim() != 3 or v_pool.dim() != 3:
         raise ValueError("want k_pool, v_pool (R, Hk, Dh)")
     if k_pool.shape[1:] != (Hk, dh) or v_pool.shape != k_pool.shape:
@@ -158,16 +222,18 @@ def paged_ragged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"the kernel takes at most {MAX_TABLE_PAGES}")
     if block_table.stride(1) != 1:
         raise ValueError("block_table rows must be contiguous")
+    s_st = k_scale.stride(0) if quantized else 0
     lengths = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
     fn = _library().paged_ragged_decode_attention_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 lengths.data_ptr(), block_table.data_ptr(), out.data_ptr(),
-                 B, Hk, rep, dh, t_max, page, block_table.stride(0),
-                 k_pool.stride(0), v_pool.stride(0), float(scale),
-                 _DTYPE_CODES[q.dtype],
+                 _ptr(k_scale), _ptr(v_scale), lengths.data_ptr(),
+                 block_table.data_ptr(), out.data_ptr(), B, Hk, rep, dh,
+                 t_max, page, block_table.stride(0), k_pool.stride(0),
+                 v_pool.stride(0), s_st, float(scale),
+                 _DTYPE_CODES[q.dtype], _kv_code(k_pool),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_ragged_decode_attention")
     return out

@@ -48,22 +48,44 @@ def ragged_decode_ref(q, k, v, lengths, *, scale=None):
     return out.to(q.dtype)
 
 
-def paged_ragged_decode_ref(q, k_pool, v_pool, lengths, block_table, *,
-                            page, t_max, scale=None):
+def ragged_decode_quant_ref(q, k, v, k_scale, v_scale, lengths, *,
+                            scale=None):
+    """Plain version of the ragged decode kernel's fused dequant: k, v
+    (B, T, Hk, Dh) int8 or float8_e4m3fn codes with (B, T, Hk) f32
+    scales, dequantized densely to f32, then `ragged_decode_ref`."""
+    return ragged_decode_ref(q, dequant_ref(k, k_scale),
+                             dequant_ref(v, v_scale), lengths, scale=scale)
+
+
+def _gather_codes(pool, phys):
+    """pool[phys], through a uint8 view for float8 codes (bitwise)."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return pool.view(torch.uint8)[phys].view(pool.dtype)
+    return pool[phys]
+
+
+def paged_ragged_decode_ref(q, k_pool, v_pool, lengths, block_table,
+                            k_scale=None, v_scale=None, *, page, t_max,
+                            scale=None):
     """Plain version of the paged ragged decode kernel.
 
     q: (B, Hk, rep, Dh) grouped single-token queries; k_pool, v_pool:
     (R, Hk, Dh) row pools shared by all slots; block_table: (B, npages)
-    physical page of each logical page; lengths: (B,) fill depths; t_max:
-    the logical read bound. Gathers logical rows 0..t_max-1 of every slot
-    through the table (row t at bt[b, t // page] * page + t % page), then
-    applies `ragged_decode_ref`'s arithmetic, so rows >= length (and past
-    t_max) are masked and empty slots give exact zeros."""
+    physical page of each logical page; lengths: (B,) fill depths;
+    optional k_scale, v_scale: (R, Hk) f32 pool scales of int8 /
+    float8_e4m3fn codes; t_max: the logical read bound. Gathers logical
+    rows 0..t_max-1 of every slot through the table (row t at
+    bt[b, t // page] * page + t % page), then applies `ragged_decode_ref`'s
+    (or `ragged_decode_quant_ref`'s) arithmetic, so rows >= length (and
+    past t_max) are masked and empty slots give exact zeros."""
     rows = torch.arange(t_max, device=k_pool.device)
     bt = block_table.to(device=k_pool.device, dtype=torch.long)
     phys = bt[:, rows // page] * page + rows % page        # (B, t_max)
-    return ragged_decode_ref(q, k_pool[phys], v_pool[phys], lengths,
-                             scale=scale)
+    k, v = _gather_codes(k_pool, phys), _gather_codes(v_pool, phys)
+    if k_scale is None:
+        return ragged_decode_ref(q, k, v, lengths, scale=scale)
+    return ragged_decode_quant_ref(q, k, v, k_scale[phys], v_scale[phys],
+                                   lengths, scale=scale)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, scale=None):

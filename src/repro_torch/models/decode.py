@@ -1,12 +1,15 @@
 """Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the unquantized attention and RWKV-6 parts of
-`repro/models/decode.py`. One cache dict per segment, stacked over the
-segment's layers:
+Port of the attention and RWKV-6 parts of `repro/models/decode.py`. One
+cache dict per segment, stacked over the segment's layers:
 
-  attn : k, v  (n, B, T, Hk, Dh)   contiguous slot caches, post-RoPE keys
+  attn : k, v  (n, B, T + 1, Hk, Dh)  contiguous slot caches, post-RoPE
+               keys; row T of each slot is its SINK row (below)
   attn : k, v  (n, R + page, Hk, Dh)  paged row pools (init_paged_cache),
-               addressed through a per-slot (B, npages) block table
+               addressed through a per-slot (B, npages) block table, the
+               last page a sink page
+  attn : k_scale, v_scale  (n, B, T + 1, Hk) | (n, R + page, Hk) f32,
+               beside k, v when cfg.kv_cache_dtype is int8 or fp8
   rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
                tails shift_tm, shift_cm (n, B, d) in the activation dtype
 
@@ -24,17 +27,32 @@ not mask it (as in the reference, whose engine feeds recurrent plans one
 token per step and resets a slot's state at admission).
 
 Where the reference rebuilds caches functionally, the port writes them in
-place: `_update_at` assigns into the layer's cache view, which is a view
-of the stacked segment cache, and `decode_step` returns the same cache
-dict it was given.
+place: each write is one `index_put_` per leaf into the layer's cache
+view, which is a view of the stacked segment cache, and `decode_step`
+returns the same cache dict it was given. The reference drops padded
+tokens' writes (row index T, out of range, under mode="drop"); PyTorch
+indexing has no drop mode, so every slot cache has one row more than its
+capacity, the sink: the drop marker T lands there, and nothing reads it
+(reads stop at the kv bucket, <= T). Only rows < T compare with the
+reference's cache.
+
+Quantized caches (cfg.kv_cache_dtype int8 | fp8, kernels/quant.py): k and
+v hold 1-byte codes beside f32 per-row, per-head scale leaves. Post-RoPE
+k/v are quantized as they land, codes and scales at one write index
+(contiguous or translated paged rows, the sink included). S=1 kernel
+steps hand the scales to the kernel, which dequantizes as it loads; every
+other step dequantizes its read slice densely (layers.attention_block),
+the reference's oracle path. float8_e4m3fn codes are written and copied
+through a uint8 view (`_raw`): `index_copy_` rejects that dtype on the
+CPU, and the view is bitwise. Recurrent state stays float.
 
 Paged caches (serve/paging.py) share one row pool between all slots:
 writes translate logical rows through the block table (`_paged_rows`),
 S=1 reads go through the paged ragged kernel, which follows the table
 itself, and S>1 reads gather logical rows 0..Tb-1 in order and run the
 dense path. The page-granular helpers (copy_pages, gather_pages,
-scatter_pages) and the contiguous copy_prefix carry the prefix cache's
-hits.
+scatter_pages, reset_pages) and the contiguous copy_prefix carry the
+prefix cache's hits, codes and scales in lockstep.
 
 Caches are built from the ACTIVE d-wide sub-block only, so the widened
 (K*d) stream adds zero bytes to the KV cache (paper Sec. 3.2).
@@ -48,40 +66,52 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
-from repro_torch.kernels import resolve_kernel_flag
+from repro_torch.kernels import quant, resolve_kernel_flag
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (Segment, act_dtype, embed_tokens,
                                             layer_plan, layer_slice,
-                                            rwkv_layer, torch_dtype, unembed)
+                                            rwkv_layer, unembed)
 from repro_torch.serve.sampling import sample_rows, update_seen
 
 
-def kv_store_dtype(cfg: ModelConfig) -> torch.dtype:
-    """Storage dtype of the slot caches: the activation dtype. The port
-    takes cfg.kv_cache_dtype "auto" or a float name equal to the
-    activation dtype; other storage (a float dtype other than the
-    activations', int8, fp8) is the quantized-cache slice (ROADMAP A7)."""
-    ad = act_dtype(cfg)
-    name = cfg.kv_cache_dtype
-    if name == "auto" or (name in ("float32", "bf16")
-                          and torch_dtype(name) == ad):
-        return ad
-    raise NotImplementedError(
-        f"kv_cache_dtype={name!r} with {cfg.dtype} activations is not "
-        f"ported yet: it arrives with ROADMAP A7")
+def kv_quant_spec(cfg: ModelConfig) -> quant.KVQuantSpec:
+    """Resolved cfg.kv_cache_dtype for the attention caches ("auto" = the
+    activation dtype, the unquantized path bit for bit). Quantized
+    storage of a plan with rwkv segments raises NotImplementedError: it
+    arrives with the hybrid quantization of ROADMAP A9 (ring caches raise
+    in decode_positions, as unquantized)."""
+    spec = quant.resolve_kv_spec(cfg.kv_cache_dtype, act_dtype(cfg))
+    if spec.quantized and any(s.kind != "attn" for s in layer_plan(cfg)):
+        raise NotImplementedError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} on a plan with "
+            f"recurrent (rwkv) segments is not ported yet: it arrives with "
+            f"ROADMAP A9")
+    return spec
 
 
 # per-slot recurrent state leaves (stacked (n, B, ...), batch axis 1)
 RECURRENT_LEAVES = ("wkv", "shift_tm", "shift_cm")
+# f32 scales of quantized k/v, row for row beside the codes
+SCALE_LEAVES = ("k_scale", "v_scale")
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """t, or its uint8 view when it holds float8_e4m3fn codes: the bytes
+    to write, copy and index (index_copy_ rejects float8 on the CPU; the
+    view is bitwise)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
                device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Zero caches for a max sequence length T on `device`. dtype: the
-    k/v storage and token-shift dtype (default: the activation dtype);
-    the rwkv state is f32 whatever it is."""
+    """Zero caches for a max sequence length T on `device`: T + 1 rows per
+    slot, the last one the sink of dropped writes. dtype: the float k/v
+    storage and token-shift dtype (default: cfg.kv_cache_dtype's and the
+    activation dtype); quantized k/v are int8 / float8_e4m3fn codes with
+    f32 (n, B, T + 1, Hk) scales, and the rwkv state is f32 whatever it
+    is."""
     dev = resolve_device(device)
-    kd = dtype or kv_store_dtype(cfg)
+    spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
@@ -95,31 +125,43 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
                 "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
                 "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
             continue
-        shape = (n, B, T, hk, dh)
-        caches[f"seg{si}"] = {"k": torch.zeros(shape, dtype=kd, device=dev),
-                              "v": torch.zeros(shape, dtype=kd, device=dev)}
+        caches[f"seg{si}"] = _attn_leaves(spec, dtype, (n, B, T + 1, hk),
+                                          dh, dev)
     return caches
+
+
+def _attn_leaves(spec, dtype, rows, dh: int, dev):
+    """Zero k, v (rows + (dh,)) and, when quantized, their f32 scales
+    (rows). k, v hold spec's codes, or float values in `dtype` when given,
+    else in spec's dtype."""
+    kd = spec.store_dtype if spec.quantized else (dtype or spec.store_dtype)
+    c = {"k": torch.zeros(rows + (dh,), dtype=kd, device=dev),
+         "v": torch.zeros(rows + (dh,), dtype=kd, device=dev)}
+    if spec.quantized:
+        c["k_scale"] = torch.zeros(rows, dtype=torch.float32, device=dev)
+        c["v_scale"] = torch.zeros(rows, dtype=torch.float32, device=dev)
+    return c
 
 
 def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
                      page: int, dtype=None,
                      device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Zero PAGED caches on `device`: the attention k/v leaves drop the
-    per-slot batch axis and pool their rows, (n, R + page, Hk, Dh) per
-    segment with R = n_pages * page, shared by every slot through a
-    (B, ceil(T/page)) block table (serve/paging.PagePool). Logical row q
-    of slot b lives at physical row bt[b, q // page] * page + q % page.
-    B and T size nothing here (they would size per-slot recurrent state,
-    which the port does not serve yet).
+    """Zero PAGED caches on `device`: the attention k/v leaves (and their
+    scales, quantized) drop the per-slot batch axis and pool their rows,
+    (n, R + page, Hk, Dh) per segment with R = n_pages * page, shared by
+    every slot through a (B, ceil(T/page)) block table
+    (serve/paging.PagePool). Logical row q of slot b lives at physical row
+    bt[b, q // page] * page + q % page; scales ride the same rows. B and T
+    size nothing here (they would size per-slot recurrent state, which the
+    port does not serve paged yet).
 
     Deviation from the reference: one SINK page follows the R real rows.
     No one allocates or reads it. The reference drops a padded or idle
     slot's write by aiming it at row R, out of range, under mode="drop";
-    PyTorch indexing has no drop mode, and the contiguous trick of
-    `_update_at` (a spare row of the slot's own cache) does not carry
-    over to a shared pool, where an idle slot's all-zero table row would
-    aim it into page 0, a live page of another request. Here row R is the
-    sink's first row, so such writes land where nothing is read.
+    PyTorch indexing has no drop mode, and a shared pool has no per-slot
+    sink row (an idle slot's all-zero table row would aim into page 0, a
+    live page of another request). Here row R is the sink's first row, so
+    such writes land where nothing is read.
 
     Recurrent (rwkv) plans have no paged layout in the port yet: it
     arrives with the paged recurrent serving item of ROADMAP A8."""
@@ -128,23 +170,23 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
             "paged caches for recurrent (rwkv) segments are not ported "
             "yet: they arrive with ROADMAP A8")
     dev = resolve_device(device)
-    kd = dtype or kv_store_dtype(cfg)
+    spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     rows = (n_pages + 1) * page
-    caches = {}
-    for si, seg in enumerate(layer_plan(cfg)):
-        shape = (seg.n, rows, hk, dh)
-        caches[f"seg{si}"] = {"k": torch.zeros(shape, dtype=kd, device=dev),
-                              "v": torch.zeros(shape, dtype=kd, device=dev)}
-    return caches
+    return {f"seg{si}": _attn_leaves(spec, dtype, (seg.n, rows, hk), dh,
+                                     dev)
+            for si, seg in enumerate(layer_plan(cfg))}
 
 
 def _paged_row_axis(name: str, ndim: int) -> Optional[int]:
     """Physical-row axis of a PAGED cache leaf, None for leaves that are
     not row-pooled. Paged k/v are (n, R + page, Hk, Dh) stacked |
-    (R + page, Hk, Dh) for one layer."""
+    (R + page, Hk, Dh) for one layer; scales (n, R + page, Hk) |
+    (R + page, Hk)."""
     if name in ("k", "v"):
         return 1 if ndim == 4 else 0
+    if name in SCALE_LEAVES:
+        return 1 if ndim == 3 else 0
     return None
 
 
@@ -190,40 +232,25 @@ def _paged_positions(pinfo, block_table, page: int, pool_rows: int,
 
 
 def _update_at(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
-    """Write new (B, S, ...) into cache (B, T, ...) IN PLACE at rows idx.
+    """Write new (B, S, ...) into cache (B, T + 1, ...) IN PLACE at rows
+    idx, with one index_put_.
 
     idx is an int (uniform batch: S contiguous rows starting there; the
-    start is clamped so the rows fit, as the reference's
-    dynamic_update_slice does), or a per-slot (B|1, S) row tensor
-    (continuous batching) as decode_positions builds it: a slot's kept
-    rows are the run idx[b, 0] .. idx[b, 0] + n_b - 1 of its first n_b
-    entries. Row indices >= T are DROPPED — chunked prefill uses this to
-    keep padded tokens out of the cache. The reference drops them in its
-    scatter (mode="drop"); here every dropped write of slot b is aimed at
-    row (idx[b, 0] + n_b) mod T, which none of the slot's kept writes
-    touches (the run would have to cover all T rows, and then nothing is
-    dropped), and writes back the value already there. That keeps the
-    write free of host syncs and of a kept and a dropped write sharing a
-    row."""
-    T = cache.shape[1]
+    start is clamped so the rows fit the T real rows, as the reference's
+    dynamic_update_slice does) or the (slot, row) index pair `wrows` of
+    decode_positions: (B, 1) slots and (B|1, S) rows. Row T is the slot's
+    sink: the drop marker T of padded chunk tokens lands there, where the
+    reference drops the write (mode="drop"), with no host sync. A slot's
+    kept rows are distinct, so only sink writes can meet, and nothing
+    reads the sink."""
+    T = cache.shape[1] - 1
     S = new.shape[1]
+    new = _raw(new.to(cache.dtype))
     if isinstance(idx, int):
         start = max(0, min(idx, T - S))
-        cache[:, start:start + S] = new.to(cache.dtype)
+        _raw(cache)[:, start:start + S] = new
         return cache
-    B = cache.shape[0]
-    if S > T:
-        raise ValueError(f"a {S}-token write does not fit a {T}-row cache")
-    idx = idx.to(torch.long).expand(B, S)
-    keep = idx < T
-    n_keep = keep.sum(dim=1, keepdim=True)
-    spare = torch.remainder(idx[:, :1] + n_keep, T)        # (B, 1)
-    rows = torch.where(keep, idx, spare)
-    bidx = torch.arange(B, device=cache.device)[:, None].expand(B, S)
-    old = cache[bidx, rows]
-    mask = keep.reshape(B, S, *([1] * (new.dim() - 2)))
-    vals = torch.where(mask, new.to(cache.dtype), old)
-    cache.index_put_((bidx, rows), vals)
+    _raw(cache).index_put_(idx, new)
     return cache
 
 
@@ -248,7 +275,10 @@ def decode_positions(pos, S: int, Tc: int, ring: bool, *, n_valid=None,
 
       q_pos   (B|1, S)  absolute query positions pos + i
       widx    int | (B|1, S) cache write rows; padded tokens
-              (i >= n_valid) remap to Tc -> dropped by _update_at
+              (i >= n_valid) and rows past the capacity remap to Tc, the
+              sink row (contiguous) or the sink page (paged)
+      wrows   widx as _update_at's index: the int, or the (slot, row)
+              pair of a per-slot widx
       k_pos   (Tb,) absolute key positions of the read slice
       lengths (B|1,) valid cache rows after this step's writes (the ragged
               kernel's per-slot fill depths)
@@ -272,12 +302,17 @@ def decode_positions(pos, S: int, Tc: int, ring: bool, *, n_valid=None,
     lengths = torch.clamp(p + n, max=Tc).to(torch.int32)    # (B|1,)
     # a scalar uniform pos writes S contiguous rows -> slice assignment
     widx = sp if sp is not None else q_pos
-    if n_valid is not None:
-        # padded chunk tokens (i >= n_valid) write to row Tc -> dropped
-        widx = torch.where(offs[None] < n[:, None], widx,
-                           torch.full_like(widx, Tc))
+    wrows = widx
+    if sp is None:
+        # padded chunk tokens (i >= n_valid) and rows past the capacity
+        # write to row Tc, the sink
+        if n_valid is not None:
+            widx = torch.where(offs[None] < n[:, None], widx,
+                               torch.full_like(widx, Tc))
+        widx = torch.clamp(widx, max=Tc)
+        wrows = (torch.arange(widx.shape[0], device=device)[:, None], widx)
     k_pos = torch.arange(Tb, device=device)
-    return {"q_pos": q_pos, "widx": widx, "k_pos": k_pos,
+    return {"q_pos": q_pos, "widx": widx, "wrows": wrows, "k_pos": k_pos,
             "lengths": lengths, "Tb": Tb}
 
 
@@ -289,37 +324,43 @@ def _decode_ffn(p_l, cfg: ModelConfig, x):
 
 def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
                 pinfo=None, n_valid=None, kv_len=None, use_ragged=False,
-                paged=None):
+                cache_ks=None, cache_vs=None, paged=None):
     """One decode layer: attention over + write into the cache slice, then
     the FFN.
 
     x: (B, S, d) — S is 1 for decode ticks, the chunk size during chunked
-    prefill. cache_k/cache_v: this layer's (B, T, Hk, Dh) cache views,
-    written IN PLACE. pinfo: hoisted decode_positions dict. use_ragged:
-    route S=1 attention through the length-aware kernel wrapper.
+    prefill. cache_k/cache_v: this layer's (B, T + 1, Hk, Dh) cache views,
+    written IN PLACE (row T is the sink). pinfo: hoisted decode_positions
+    dict. use_ragged: route S=1 attention through the length-aware kernel
+    wrapper. cache_ks/cache_vs: the (B, T + 1, Hk) f32 scale views when
+    cfg.kv_cache_dtype is int8 / fp8: k/v are quantized as they land
+    (per position and head), codes and scales at one write index.
 
     paged: optional (block_table, page, Tc) — the caches are then this
-    layer's (R + page, Hk, Dh) row pools, and pinfo (with the segment's
-    _paged_positions translation) is required. Writes land at the
-    translated physical rows (dropped ones in the sink page); an S=1 step
-    with use_ragged reads through the paged kernel, which follows the
-    block table itself; any other step gathers logical rows 0..Tb-1 in
-    order and runs the dense path. Returns (x, {"k": cache_k, "v":
-    cache_v})."""
+    layer's (R + page, Hk, Dh) row pools (scales (R + page, Hk)), and
+    pinfo (with the segment's _paged_positions translation) is required.
+    Writes land at the translated physical rows (dropped ones in the sink
+    page); an S=1 step with use_ragged reads through the paged kernel,
+    which follows the block table itself; any other step gathers logical
+    rows 0..Tb-1 in order and runs the dense path. Returns (x, cache dict
+    of the layer's leaves)."""
     if int(window) > 0:
         raise NotImplementedError("ring caches are not ported yet")
+    spec = kv_quant_spec(cfg)
+    if spec.quantized and (cache_ks is None or cache_vs is None):
+        raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} needs the "
+                         f"layer's scale caches")
     if paged is not None:
         if pinfo is None:
             raise ValueError("a paged decode_attn needs the segment's "
                              "pinfo (decode_segment builds it)")
         block_table, page, _ = paged
     elif pinfo is None:
-        pinfo = decode_positions(pos, x.shape[1], cache_k.shape[1], False,
-                                 n_valid=n_valid, kv_len=kv_len,
+        pinfo = decode_positions(pos, x.shape[1], cache_k.shape[1] - 1,
+                                 False, n_valid=n_valid, kv_len=kv_len,
                                  device=x.device)
     kernel_read = paged is not None and pinfo["kernel_read"]
-    q_pos, widx, k_pos, Tb = (pinfo["q_pos"], pinfo["widx"], pinfo["k_pos"],
-                              pinfo["Tb"])
+    q_pos, k_pos, Tb = pinfo["q_pos"], pinfo["k_pos"], pinfo["Tb"]
     h = L.rms_norm(x, p_l["ln_attn"], cfg.logical_norm_eps)
     # project this step's k, v and write them into the cache
     k_new = torch.einsum("bsd,dhk->bshk", h, p_l["attn"]["wk"].to(x.dtype))
@@ -327,35 +368,50 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     if cfg.qk_norm:
         k_new = L.rms_norm(k_new, p_l["attn"]["k_norm"])
     k_new = L.apply_rope(k_new, q_pos, cfg.rope_theta)
-    lengths = (pinfo["lengths"].expand(x.shape[0]) if use_ragged else None)
+    # quantize-on-write: post-RoPE k/v -> codes (B,S,Hk,Dh) + scales (B,S,Hk)
+    k_new, ks_new = quant.quantize(k_new, spec)
+    v_new, vs_new = quant.quantize(v_new, spec)
+    writes = [(cache_k, k_new), (cache_v, v_new)]
+    if spec.quantized:
+        writes += [(cache_ks, ks_new), (cache_vs, vs_new)]
     if paged is not None:
         # kept writes of two slots never share a row (aliased pages lie
         # below every sharer's first write); dropped ones meet in the sink
-        rows = pinfo["prows"]
-        cache_k.index_put_((rows,), k_new.to(cache_k.dtype))
-        cache_v.index_put_((rows,), v_new.to(cache_v.dtype))
+        rows = (pinfo["prows"],)
+        for leaf, new in writes:
+            _raw(leaf).index_put_(rows, _raw(new.to(leaf.dtype)))
     else:
-        _update_at(cache_k, k_new, widx)
-        _update_at(cache_v, v_new, widx)
+        for leaf, new in writes:
+            _update_at(leaf, new, pinfo["wrows"])
+    lengths = (pinfo["lengths"].expand(x.shape[0]) if use_ragged else None)
+    scales = (cache_ks, cache_vs) if spec.quantized else None
     if kernel_read:
-        a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
-                                 q_pos=q_pos, k_pos=k_pos,
-                                 kv=(cache_k, cache_v),
-                                 ragged_lengths=lengths,
-                                 paged_kv=(block_table, page, Tb))
+        kv = (cache_k, cache_v)
+        paged_kv = (block_table, page, Tb)
     else:
         if paged is not None:
             # logical rows 0..Tb-1 in order: the contiguous read slice
             grows = pinfo["grows"]
-            kr, vr = cache_k[grows], cache_v[grows]
+
+            def read(leaf):
+                return _raw(leaf)[grows].view(leaf.dtype)
         else:
             # read slice: O(bucket) rows, not O(T); a view, never a copy
-            kr, vr = cache_k[:, :Tb], cache_v[:, :Tb]
-        a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
-                                 q_pos=q_pos, k_pos=k_pos, kv=(kr, vr),
-                                 ragged_lengths=lengths)
+            def read(leaf):
+                return leaf[:, :Tb]
+        kv = (read(cache_k), read(cache_v))
+        if scales is not None:
+            scales = (read(cache_ks), read(cache_vs))
+        paged_kv = None
+    a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
+                             q_pos=q_pos, k_pos=k_pos, kv=kv,
+                             ragged_lengths=lengths, kv_scales=scales,
+                             paged_kv=paged_kv)
     x = x + a
-    return _decode_ffn(p_l, cfg, x), {"k": cache_k, "v": cache_v}
+    out = {"k": cache_k, "v": cache_v}
+    if spec.quantized:
+        out.update(k_scale=cache_ks, v_scale=cache_vs)
+    return _decode_ffn(p_l, cfg, x), out
 
 
 def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
@@ -392,7 +448,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
             Tc = bt.shape[1] * pg
             pg_seg = (bt, pg, Tc)
         else:
-            Tc = cache["k"].shape[2]
+            Tc = cache["k"].shape[2] - 1          # row T is the sink
         # the position/index machinery is the same for every layer of the
         # segment: build it once here
         pinfo = decode_positions(pos, S, Tc, int(seg.window) > 0,
@@ -402,10 +458,15 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
             _paged_positions(pinfo, bt, pg, cache["k"].shape[1],
                              kernel_read=use_ragged and S == 1)
 
+        quantized = "k_scale" in cache
+
         def run_layer(i, p_l, xa):
-            out, _ = decode_attn(p_l, cfg, xa, cache["k"][i], cache["v"][i],
-                                 pos, seg.window, pinfo=pinfo,
-                                 use_ragged=use_ragged, paged=pg_seg)
+            out, _ = decode_attn(
+                p_l, cfg, xa, cache["k"][i], cache["v"][i], pos, seg.window,
+                pinfo=pinfo, use_ragged=use_ragged,
+                cache_ks=cache["k_scale"][i] if quantized else None,
+                cache_vs=cache["v_scale"][i] if quantized else None,
+                paged=pg_seg)
             return out
     sels = None
     if cfg.altup.enabled:
@@ -517,20 +578,24 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None):
 def copy_prefix(caches, dst: int, src: int, p: int, *,
                 copy_recurrent: bool = False):
     """Clone the first `p` cache rows of slot `src` into slot `dst`, IN
-    PLACE, across every attention k/v leaf: the slot-to-slot copy behind
-    the contiguous engine's prefix-cache hits. Recurrent leaves have no
-    position axis; copy_recurrent=True clones the whole slot state, which
-    is exact only when the donor stopped at the prefix boundary (depth ==
-    p, the engine's recurrent validity rule). src == dst is a no-op (the
+    PLACE, across every attention k/v leaf and its scales (codes and
+    scales in lockstep, so an int8/fp8 prefix is reused without a
+    dequantize round trip): the slot-to-slot copy behind the contiguous
+    engine's prefix-cache hits. Recurrent leaves have no position axis;
+    copy_recurrent=True clones the whole slot state, which is exact only
+    when the donor stopped at the prefix boundary (depth == p, the
+    engine's recurrent validity rule). src == dst is a no-op (the
     self-donor path reuses the rows in place). Returns the caches."""
     if dst == src:
         return caches
     for seg in caches.values():
         for name, leaf in seg.items():
-            if name in ("k", "v"):                    # (n, B, T, Hk, Dh)
+            if name in ("k", "v") or name in SCALE_LEAVES:
+                # (n, B, T + 1, Hk[, Dh])
                 n = min(p, leaf.shape[2])
                 if n > 0:
-                    leaf[:, dst, :n] = leaf[:, src, :n]
+                    raw = _raw(leaf)
+                    raw[:, dst, :n] = raw[:, src, :n]
             elif name in RECURRENT_LEAVES and copy_recurrent:
                 leaf[:, dst] = leaf[:, src]
     return caches
@@ -554,14 +619,18 @@ def restore_recurrent(caches, saved, slots: torch.Tensor):
 
 
 def reset_slot(caches, slot: int):
-    """Zero slot `slot`'s recurrent state (the rwkv leaves) in every
-    segment, IN PLACE: a recycled slot's state would otherwise carry the
-    previous request's tokens. Attention caches are left as they are:
-    per-slot positions keep their stale rows unread. Returns the
+    """Zero slot `slot`'s recurrent state (the rwkv leaves) and its
+    quantized-cache scales in every segment, IN PLACE: a recycled slot's
+    state would otherwise carry the previous request's tokens, and zero
+    scales make stale code rows dequantize to exact 0. Codes and float
+    k/v are left as they are: per-slot positions keep their stale rows
+    unread. Pooled (paged) scale leaves have no slot axis and are left
+    alone: reset_pages zeroes the pages a request acquires. Returns the
     caches."""
     for seg in caches.values():
         for name, leaf in seg.items():
-            if name in RECURRENT_LEAVES:
+            if name in RECURRENT_LEAVES or (name in SCALE_LEAVES
+                                            and leaf.ndim == 4):
                 leaf[:, slot].zero_()
     return caches
 
@@ -590,8 +659,9 @@ def _row_leaves(caches):
 def copy_pages(caches, dst_pages: Sequence[int], src_pages: Sequence[int],
                *, page: int):
     """Clone whole physical pages src -> dst, IN PLACE, across every
-    row-pooled leaf: the copy of a paged hit's partial boundary page
-    (aliased full pages never copy). Returns the caches."""
+    row-pooled leaf, codes and scales in lockstep: the copy of a paged
+    hit's partial boundary page (aliased full pages never copy). Returns
+    the caches."""
     if len(dst_pages) != len(src_pages):
         raise ValueError(f"{len(dst_pages)} destination pages for "
                          f"{len(src_pages)} source pages")
@@ -600,18 +670,21 @@ def copy_pages(caches, dst_pages: Sequence[int], src_pages: Sequence[int],
     for _, _, leaf, ax in _row_leaves(caches):
         src = _page_rows(src_pages, page, leaf.device)
         dst = _page_rows(dst_pages, page, leaf.device)
-        leaf.index_copy_(ax, dst, leaf.index_select(ax, src))
+        raw = _raw(leaf)
+        raw.index_copy_(ax, dst, raw.index_select(ax, src))
     return caches
 
 
 def gather_pages(caches, pages: Sequence[int], *, page: int):
     """The given pages of every row-pooled leaf as a compact blob
     {segment: {name: tensor}} (blob page i == pages[i]), on the caches'
-    device: the device half of a host-tier spill."""
+    device, in the leaves' dtypes: the device half of a host-tier
+    spill."""
     blob: Dict[str, Dict[str, torch.Tensor]] = {}
     for si, name, leaf, ax in _row_leaves(caches):
         rows = _page_rows(pages, page, leaf.device)
-        blob.setdefault(si, {})[name] = leaf.index_select(ax, rows)
+        blob.setdefault(si, {})[name] = \
+            _raw(leaf).index_select(ax, rows).view(leaf.dtype)
     return blob
 
 
@@ -624,5 +697,21 @@ def scatter_pages(caches, blob, pages: Sequence[int], *, page: int):
     for si, name, leaf, ax in _row_leaves(caches):
         rows = _page_rows(pages, page, leaf.device)
         vals = blob[si][name].narrow(ax, 0, n)
-        leaf.index_copy_(ax, rows, vals.to(leaf.device, leaf.dtype))
+        _raw(leaf).index_copy_(ax, rows,
+                               _raw(vals.to(dtype=leaf.dtype)).to(leaf.device))
+    return caches
+
+
+def reset_pages(caches, pages: Sequence[int], *, page: int):
+    """Zero the quantized scale rows of `pages`, IN PLACE: the paged
+    counterpart of reset_slot's scale sweep, for the fresh pages an
+    admission acquires, so their stale rows dequantize to exact 0. Never
+    call it on aliased (shared) pages: they carry a donor's live scales.
+    Codes, float pools and pools without scales are left alone. Returns
+    the caches."""
+    if not pages:
+        return caches
+    for _, name, leaf, ax in _row_leaves(caches):
+        if name in SCALE_LEAVES:
+            leaf.index_fill_(ax, _page_rows(pages, page, leaf.device), 0.0)
     return caches

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import quant
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
                  # for rows where every position is masked (padding).
@@ -143,9 +144,10 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                     k_pos, kv: Optional[tuple] = None,
                     causal: Optional[bool] = None,
                     ragged_lengths: Optional[torch.Tensor] = None,
+                    kv_scales: Optional[tuple] = None,
                     paged_kv: Optional[tuple] = None):
     """Full attention sub-block (no residual, no pre-norm — caller owns
-    those). Non-banded, unquantized paths only.
+    those). Non-banded paths only.
 
     Returns (out, (k, v)) so callers can populate KV caches. kv: a
     precomputed (k, v) (the decode path with a cache). ragged_lengths:
@@ -154,10 +156,15 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     of the dense masked sdpa. The caller guarantees row t of the cache is
     valid iff t < length, which subsumes causal and per-slot-depth
     masking, so no positions reach the kernel.
+    kv_scales: (k_scale, v_scale) (B, T, Hk) f32 — `kv` holds int8 /
+    float8_e4m3fn codes (cfg.kv_cache_dtype). The kernel wrappers take
+    them and dequantize in the kernel; every other path (S > 1, the dense
+    path) dequantizes here to x's dtype, as the reference does, and is
+    the kernel's oracle.
     paged_kv: (block_table, page, t_max) — `kv` is then a batchless page
-    POOL ((R, Hk, Dh) each) and attention must take the paged kernel
-    path: a pool has no dense (B, T, ...) layout for sdpa, so anything
-    else raises.
+    POOL ((R, Hk, Dh) each, scales (R, Hk)) and attention must take the
+    paged kernel path: a pool has no dense (B, T, ...) layout for sdpa, so
+    anything else raises.
     """
     if cfg.use_rel_pos_bias:
         raise NotImplementedError(
@@ -178,18 +185,22 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
         k, v = kv
     use_ragged = (ragged_lengths is not None and q.shape[1] == 1
                   and kv is not None and causal)
+    ks, vs = kv_scales if kv_scales is not None else (None, None)
     if use_ragged and paged_kv is not None:
         bt, page, t_max = paged_kv
         out = kops.paged_ragged_decode_attn(q, k, v, ragged_lengths, bt,
-                                            page=page, t_max=t_max)
+                                            ks, vs, page=page, t_max=t_max)
     elif use_ragged:
-        out = kops.ragged_decode_attn(q, k, v, ragged_lengths)
+        out = kops.ragged_decode_attn(q, k, v, ragged_lengths, ks, vs)
     elif paged_kv is not None:
         raise ValueError(
             "paged_kv requires the ragged decode path (S == 1, kv cache, "
             "causal, ragged_lengths given): a paged pool has no dense "
             "(B, T, ...) layout for sdpa")
     else:
+        if kv_scales is not None:
+            k = quant.dequantize(k, ks, x.dtype)
+            v = quant.dequantize(v, vs, x.dtype)
         out = sdpa(q, k, v, causal=causal, window=window, q_pos=q_pos,
                    k_pos=k_pos)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))

@@ -31,6 +31,12 @@ worst-case pages, so n_slots may over-commit the pool; retained prefixes
 hold pages, not slots, and spill to a host tier of `host_spill_pages`
 pages when the pool runs short.
 
+Quantized caches (cfg.kv_cache_dtype int8 | fp8), as in the reference:
+admission zeroes a contiguous slot's scale rows (reset_slot, unless the
+slot is its own donor) or a paged request's fresh pages' scale rows
+(reset_pages, never an aliased page), so stale code rows dequantize to
+exact 0; prefix hits copy codes and scales together.
+
 Recurrent plans (rwkv segments), as in the reference: prefill feeds one
 token per step (the state advances token by token), admission zeroes the
 slot's state (models/decode.reset_slot) unless the slot is its own donor,
@@ -64,9 +70,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        decode_sample_step, decode_step,
                                        gather_pages, init_cache,
-                                       init_paged_cache, prefill,
-                                       reset_slot, restore_recurrent,
-                                       save_recurrent, scatter_pages)
+                                       init_paged_cache, kv_quant_spec,
+                                       prefill, reset_pages, reset_slot,
+                                       restore_recurrent, save_recurrent,
+                                       scatter_pages)
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
                                         blank_slot_params, fill_slot_params,
@@ -128,6 +135,7 @@ class Engine:
         if paged and page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self._has_recurrent = any(s.kind == "rwkv" for s in layer_plan(cfg))
+        self._quantized = kv_quant_spec(cfg).quantized
         if paged and self._has_recurrent:
             raise NotImplementedError(
                 "paged serving of recurrent (rwkv) plans is not ported yet: "
@@ -261,8 +269,13 @@ class Engine:
             self._bt_stale = True
             hit = st.prefix_len > 0
             if self._paged:
-                # aliased pages need nothing: they ARE the donor's rows
+                # aliased pages need nothing: they ARE the donor's rows.
+                # Fresh pages' scale rows are zeroed before any copy or
+                # restore lands in them
                 acts = st.paged or {}
+                if self._quantized and acts.get("fresh"):
+                    reset_pages(self._caches, acts["fresh"],
+                                page=self._page_size)
                 if "blob" in acts:
                     scatter_pages(self._caches, acts["blob"],
                                   acts["blob_dst"], page=self._page_size)
@@ -270,11 +283,13 @@ class Engine:
                     copy_pages(self._caches, acts["copy_dst"],
                                acts["copy_src"], page=self._page_size)
             else:
-                # a recycled slot's recurrent state carries the previous
-                # request: zero it, except on a self-donor hit (src ==
-                # dst), whose state IS the prefix it reuses in place
+                # a recycled slot's recurrent state and quantized scales
+                # carry the previous request: zero them, except on a
+                # self-donor hit (src == dst), whose rows and state ARE
+                # the prefix it reuses in place
                 self_donor = hit and st.prefix_src == st.slot
-                if self._has_recurrent and not self_donor:
+                if (self._has_recurrent or self._quantized) and \
+                        not self_donor:
                     reset_slot(self._caches, st.slot)
                 if hit:
                     copy_prefix(self._caches, st.slot, st.prefix_src,

@@ -114,8 +114,10 @@ def test_decode_step_matches_jax(name, flags):
                 np.testing.assert_allclose(_np(tl[b, :n[b]]),
                                            _np(jl[b, :n[b]]), **TOL)
         pos = pos + n
-    # the in-place cache holds the reference's cache rows
-    np.testing.assert_allclose(_np(tcache["seg0"]["k"]),
+    # the in-place cache holds the reference's cache rows (row T is the
+    # port's sink row)
+    assert tcache["seg0"]["k"].shape[2] == T + 1
+    np.testing.assert_allclose(_np(tcache["seg0"]["k"][:, :, :T]),
                                _np(jcache["seg0"]["k"]), **TOL)
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
@@ -143,19 +145,22 @@ def test_scalar_pos_prefill_and_decode_match_forward():
 
 
 def test_dropped_writes_leave_cache_untouched():
-    """Padded chunk tokens and idle slots write nothing (the reference's
-    mode="drop"), including writes that would run past the cache end."""
-    cache = torch.arange(3 * 6, dtype=torch.float32).reshape(3, 6, 1)
+    """Padded chunk tokens and idle slots write nothing to the T real rows
+    (the reference's mode="drop"), including writes that would run past
+    the cache end: they land in each slot's sink row T."""
+    T = 6
+    cache = torch.arange(3 * (T + 1), dtype=torch.float32).reshape(3, T + 1,
+                                                                   1)
     before = cache.clone()
     new = torch.full((3, 4, 1), -1.0)
     # 6 == T marks a dropped write: slot 0 runs into the cache end, slot 1
     # holds two real tokens at rows 0-1, slot 2 is idle
     widx = torch.tensor([[4, 5, 6, 6], [0, 1, 6, 6], [6, 6, 6, 6]])
-    tdec._update_at(cache, new, widx)
+    tdec._update_at(cache, new, (torch.arange(3)[:, None], widx))
     want = before.clone()
     want[0, 4:6] = -1.0
     want[1, 0:2] = -1.0
-    assert torch.equal(cache, want)
+    assert torch.equal(cache[:, :T], want[:, :T])
     # clamped contiguous write at a scalar start, as dynamic_update_slice
     tdec._update_at(cache, torch.full((3, 2, 1), 7.0), 5)
     assert torch.equal(cache[:, 4:6], torch.full((3, 2, 1), 7.0))
