@@ -20,7 +20,9 @@ recurrence runs through the WKV kernel. Phases:
   (c) kernels  each kernel vs its plain version at the shapes the serve
                phases give it (and at a spread of depths from 0 to
                2048): max error; device ms per call (torch.profiler) of
-               the kernel, its plain version and the library yardstick;
+               the kernel (for the ragged decode attention, the split
+               and the merge kernel together), its plain version and the
+               library yardstick;
                the wrapper's ms per call (CUDA events); the bytes bound.
                c-paged also holds the paged kernel bitwise against the
                contiguous one on the same rows, through a permuted table;
@@ -48,7 +50,17 @@ recurrence runs through the WKV kernel. Phases:
                with 1-byte codes and two 4-byte scales per row-head; no
                library call dequantizes and attends (SDPA on dequantized
                k/v is printed beside, labelled as such); then bf16 k/v
-               under f32 queries, untimed
+               under f32 queries, untimed; then every int8 and e4m3 code
+               through the kernel, exactly
+      c-ragged-shapes, c-paged-shapes  both entry points at Dh 320 (rep
+               2, Hk 4: gemma3-4b), Dh 240 (gemma3-12b), Dh 85 (rep 1:
+               rows that take the scalar tail) and rep 8 (Dh 128), with
+               lengths at the span edges, four k/v storages (f32, bf16,
+               int8, fp8), bf16 and f32 queries, paged bitwise equal to
+               contiguous; Dh 320 timed in bf16 with its bound
+      c-paged-long  one paged slot of 40960 rows (2560 table pages) and
+               seven short ones, four storages, both query types,
+               bitwise equal to contiguous; timed in bf16 with its bound
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
@@ -129,6 +141,12 @@ F32_TOL = dict(atol=2e-5, rtol=2e-5)     # kernel vs plain, f32 in and out
 WKV_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)    # outputs rounded to bf16 (1 ulp)
 PARITY_TOL = dict(atol=1e-3, rtol=1e-3)  # 28-layer f32 logits, two paths
+# device_ms filter of the ragged decode attention: a call launches the
+# split kernel (ragged_decode_split_kernel or
+# paged_ragged_decode_split_kernel) and ragged_decode_merge_kernel, and
+# this substring of the three names sums both kernels of the call (two
+# matching launches per call, which device_ms checks)
+RAGGED_KERNELS = "ragged_decode_"
 
 
 T_START = time.perf_counter()
@@ -242,14 +260,16 @@ def check_altup(torch, ops, ref, dtype, T, K=2, d=1024, seed=0):
 
 def stored_kv(torch, k, v, store, dtype):
     """k, v as the cache stores them: store None keeps q's dtype; "bf16"
-    stores float k/v in bfloat16 (a float storage mode other than the
-    activations'); "int8" / "fp8" gives codes and f32 scales from the
-    port's quant.quantize on the card. Returns (k, v, k_scale, v_scale)."""
+    or "f32" stores float k/v in that type (a float storage mode other
+    than the activations'); "int8" / "fp8" gives codes and f32 scales
+    from the port's quant.quantize on the card. Returns (k, v, k_scale,
+    v_scale)."""
     from repro_torch.kernels import quant as Q
     if store is None:
         return k, v, None, None
-    if store == "bf16":
-        return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    if store in ("bf16", "f32"):
+        t = torch.bfloat16 if store == "bf16" else torch.float32
+        return k.to(t), v.to(t), None, None
     spec = Q.resolve_kv_spec(store, dtype)
     (kc, ks), (vc, vs) = Q.quantize(k, spec), Q.quantize(v, spec)
     return kc, vc, ks, vs
@@ -322,7 +342,7 @@ def check_ragged(torch, ops, ref, dtype, lens_host, Hk=8, rep=2, Dh=128,
     lib_err = max_err(torch, lib[live].permute(0, 2, 1, 3), want[live])
     sdpa_ms = device_ms(torch, library)
     res.update({
-        "ms": device_ms(torch, launch, "ragged_decode_kernel"),
+        "ms": device_ms(torch, launch, RAGGED_KERNELS, per_call=2),
         "plain_ms": device_ms(torch, plain),
         "wrapper_ms": time_ms(torch, launch),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -330,6 +350,29 @@ def check_ragged(torch, ops, ref, dtype, lens_host, Hk=8, rep=2, Dh=128,
         "library_ms": sdpa_ms if ks is None else None,
         "sdpa_on_dequantized_ms": None if ks is None else sdpa_ms,
         "library_max_abs_err_nonempty": lib_err, "bytes": nbytes})
+    return res
+
+
+def check_all_codes(torch, ops):
+    """Every int8 code and every float8_e4m3fn code (NaN codes included)
+    through the contiguous kernel's value path: one row of Dh = 256
+    codes as v (k zero codes, scales 1), so that the output is that row
+    as f32, held exactly (the kernel converts codes with integer
+    arithmetic and paired e4m3 conversions, not one conversion per
+    element; the score path shares the same conversion)."""
+    res = {}
+    for kind, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        row = torch.arange(256, dtype=torch.uint8, device=DEV).view(dt)
+        v = row.reshape(1, 1, 1, 256)
+        k = torch.zeros(1, 1, 1, 256, dtype=torch.uint8,
+                        device=DEV).view(dt)
+        ones = torch.ones(1, 1, 1, device=DEV)
+        got = ops.ragged_decode_attn(
+            torch.zeros(1, 1, 1, 256, device=DEV), k, v,
+            torch.ones(1, dtype=torch.int32, device=DEV), ones, ones)
+        torch.testing.assert_close(got.reshape(256), row.float(), atol=0,
+                                   rtol=0, equal_nan=True)
+        res[kind] = "exact"
     return res
 
 
@@ -358,7 +401,7 @@ def paged_table(torch, gen, reserve, n_shared, n_pages, npg):
 
 def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
                 n_pages=1024, Hk=8, rep=2, Dh=128, T=2048, t_max=2048,
-                page=16, store=None, seed=4):
+                page=16, store=None, timed=True, seed=4):
     """The paged kernel over a random pool of n_pages pages plus the sink,
     through the block table of paged_table (T // page entries per slot)
     with the read bound t_max, against its plain version and, bitwise,
@@ -409,6 +452,14 @@ def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
             f"paged kernel differs from the contiguous kernel on the same "
             f"rows: max abs {max_err(torch, got, contiguous)}")
     name = "float32" if dtype == torch.float32 else "bfloat16"
+    res = {"dtype": name, "store": store, "B": B, "Hk": Hk, "rep": rep,
+           "Dh": Dh, "page": page, "pool_pages": n_pages,
+           "table_pages": npg, "t_max": t_max,
+           "lengths": lens_host, "shared_pages": n_shared,
+           "max_abs_err": max_err(torch, got, want),
+           "bitwise_equal_contiguous": True, "tol": tol}
+    if not timed:
+        return res
     esz = q.element_size()
     # bytes: each pool row that some slot reads, once (an aliased page is
     # one input however many slots read it), q, out, lengths, table entries
@@ -432,19 +483,66 @@ def check_paged(torch, ops, ref, dtype, lens_host, reserve, n_shared=0,
     def sdpa_gathered():
         return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
-    return {"dtype": name, "store": store, "B": B, "Hk": Hk, "rep": rep,
-            "Dh": Dh, "page": page, "pool_pages": n_pages,
-            "table_pages": npg, "t_max": t_max,
-            "lengths": lens_host, "shared_pages": n_shared,
-            "distinct_rows_read": distinct,
-            "max_abs_err": max_err(torch, got, want),
-            "bitwise_equal_contiguous": True,
-            "ms": device_ms(torch, launch, "paged_ragged_decode_kernel"),
-            "plain_ms": device_ms(torch, plain),
-            "wrapper_ms": time_ms(torch, launch),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
-            "bytes": nbytes, "tol": tol}
+    res.update({
+        "distinct_rows_read": distinct,
+        "ms": device_ms(torch, launch, RAGGED_KERNELS, per_call=2),
+        "plain_ms": device_ms(torch, plain),
+        "wrapper_ms": time_ms(torch, launch),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
+        "bytes": nbytes})
+    return res
+
+
+def ragged_stores(torch, dtype):
+    """The four k/v storages under queries of `dtype`: q's own float type,
+    the other float type, int8 and fp8 codes."""
+    return (None, "f32" if dtype == torch.bfloat16 else "bf16", "int8",
+            "fp8")
+
+
+def check_shapes(torch, ops, ref):
+    """Both entry points at the head shapes the split kernels were widened
+    for: gemma3-4b's (Dh 320, rep 2, Hk 4) and gemma3-12b's (Dh 240, rep
+    2, Hk 8) widths, an odd width whose rows take the scalar tail (Dh 85,
+    rep 1), and the widest grouping (rep 8, Dh 128); 8 slots with lengths
+    at the span edges, T = 1024, four storages, bf16 and f32 queries,
+    paged bitwise equal to contiguous. The Dh 320 case is timed in bf16
+    (bf16 k/v). Yields (tag, case, result)."""
+    from repro_torch.kernels.ragged_decode_attention import SPAN
+    lens = [0, 1, SPAN - 1, SPAN, SPAN + 1, 517, 1000, 1024]
+    for case, kw in (("dh320", dict(Dh=320, rep=2, Hk=4)),
+                     ("dh240", dict(Dh=240, rep=2, Hk=8)),
+                     ("dh85", dict(Dh=85, rep=1, Hk=8)),
+                     ("rep8", dict(Dh=128, rep=8, Hk=4))):
+        for dtype in (torch.bfloat16, torch.float32):
+            for store in ragged_stores(torch, dtype):
+                timed = (case == "dh320" and dtype == torch.bfloat16
+                         and store is None)
+                yield "c-ragged-shapes", case, check_ragged(
+                    torch, ops, ref, dtype, lens, T=1024, store=store,
+                    timed=timed, **kw)
+                yield "c-paged-shapes", case, check_paged(
+                    torch, ops, ref, dtype, lens, reserve=[64] * 8,
+                    n_pages=520, T=1024, t_max=1024, store=store,
+                    timed=timed, **kw)
+
+
+def check_long_slot(torch, ops, ref):
+    """The paged entry point over one slot of 40960 rows and seven short
+    ones, page 16: 2560 table pages, past the 2048 that the kernel before
+    the split staged per slot. Four storages, bf16 and f32 queries,
+    bitwise equal to the contiguous kernel on the same 40960-row caches;
+    timed in bf16 (bf16 k/v). Yields results."""
+    lens = [40960, 1, 100, 300, 17, 500, 129, 64]
+    reserve = [pages_for(n, 16) for n in lens]
+    for dtype in (torch.bfloat16, torch.float32):
+        for store in ragged_stores(torch, dtype):
+            yield check_paged(
+                torch, ops, ref, dtype, lens, reserve=reserve,
+                n_pages=sum(reserve) + 8, T=40960, t_max=40960, store=store,
+                timed=dtype == torch.bfloat16 and store is None)
+            torch.cuda.empty_cache()
 
 
 def check_wkv(torch, ops, ref, dtype, B, H, Dh, S, state, seed=7):
@@ -1468,14 +1566,16 @@ def _device_kernels(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(torch, fn, name_part=None, iters=50):
+def device_ms(torch, fn, name_part=None, iters=50, per_call=None):
     """Device time per call of fn(): the summed time of the kernels it ran
     (only those whose name holds `name_part`, if given), from
     torch.profiler over `iters` calls. Free of the host time between
     launches, which CUDA events around a loop of calls would include.
     Now and then a profiler session on the card records no device
-    activity at all (once in the ~110 sessions of one run); such a
-    session is run again, three sessions at most."""
+    activity at all (once in the ~110 sessions of one run), or only part
+    of it; such a session is run again, three sessions at most. per_call:
+    how many kernels matching name_part one call launches, so that a
+    partial session can be told (None: any number)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1484,12 +1584,14 @@ def device_ms(torch, fn, name_part=None, iters=50):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = _device_kernels(prof)
-        if kernels:
+        hits = [e for e in _device_kernels(prof)
+                if name_part is None or name_part in e.key]
+        n = sum(e.count for e in hits)
+        if n and (per_call is None or n == per_call * iters):
             break
-    hits = [e for e in kernels if name_part is None or name_part in e.key]
-    if not hits:
-        raise AssertionError(f"no kernel {name_part!r} in the profile")
+    else:
+        raise AssertionError(f"kernels {name_part!r}: {n} in the profile, "
+                             f"want {per_call} x {iters}")
     return sum(e.self_device_time_total for e in hits) / 1e3 / iters
 
 
@@ -1624,6 +1726,7 @@ def main(argv) -> int:
     line("c-ragged-quant", case="spread-bf16-kv",
          **check_ragged(torch, ops, ref, torch.float32, spread,
                         store="bf16", timed=False))
+    line("c-ragged-quant", case="all-codes", **check_all_codes(torch, ops))
     for dtype in (torch.bfloat16, torch.float32):
         for store in ("int8", "fp8"):
             for case, kw in (
@@ -1636,6 +1739,12 @@ def main(argv) -> int:
                 r = check_paged(torch, ops, ref, dtype, store=store, **kw)
                 paged_q[(r["dtype"], case, store)] = r
                 line("c-paged-quant", case=case, **r)
+    # split-K: the head shapes the split kernels were widened for; one
+    # paged slot of 40960 rows
+    for tag, case, r in check_shapes(torch, ops, ref):
+        line(tag, case=case, **r)
+    for r in check_long_slot(torch, ops, ref):
+        line("c-paged-long", **r)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a

@@ -52,8 +52,9 @@ def ragged_decode_attn(q, k, v, lengths, k_scale=None, v_scale=None):
     layers.sdpa). k_scale, v_scale: optional (B, T, Hk) f32 scales of
     int8 / float8_e4m3fn codes k, v, dequantized in the kernel's row load.
     Raises ValueError when only one scale is given, a scale is not f32 or
-    not of the codes' shape, or codes come without scales. Returns
-    (B, 1, H, dh)."""
+    not of the codes' shape, or codes come without scales. On CUDA
+    tensors it launches the split-K kernel and its merge (rep <= 8,
+    dh <= 512) and counts one launch. Returns (B, 1, H, dh)."""
     B, S, H, dh = q.shape
     if S != 1:
         raise ValueError("ragged decode attention is single-token (S=1) "
@@ -84,9 +85,10 @@ def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table,
     batchless row pools; block_table: (B, npages) int32 physical page of
     each logical page; lengths: (B,) fill depths; k_scale, v_scale:
     optional (R, Hk) f32 pool scales of codes, under the contiguous
-    wrapper's rules; t_max: the logical read bound (the kv bucket). The
-    kernel follows the block table itself: no gathered copy of the cache
-    is made. Returns (B, 1, H, dh)."""
+    wrapper's rules; t_max: the logical read bound (the kv bucket), with
+    no limit on the table's length. The kernel follows the block table
+    itself, each split block the entries of its own span: no gathered
+    copy of the cache is made. Returns (B, 1, H, dh)."""
     B, S, H, dh = q.shape
     if S != 1:
         raise ValueError("paged ragged decode attention is single-token "

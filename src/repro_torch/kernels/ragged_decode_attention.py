@@ -1,7 +1,8 @@
 """Launchers of the length-aware S=1 GQA decode-attention CUDA kernels.
 
-Source: `repro_torch/csrc/ragged_decode_attention.cu`, one templated body
-behind two entry points:
+Source: `repro_torch/csrc/ragged_decode_attention.cu`, a split-K
+(flash-decoding) kernel and a merge kernel, one templated body behind two
+entry points:
 
 * `ragged_decode_attention` over contiguous slot caches, which replaces
   the TPU kernel `repro/kernels/ragged_decode_attention.py::
@@ -19,6 +20,16 @@ bound by the bytes of the rows they visit, Σ_b len_b·Hk·(Dh·2 elements
 `ref.ragged_decode_quant_ref` and `ref.paged_ragged_decode_ref`; the
 model reaches them through `ops.ragged_decode_attn` and
 `ops.paged_ragged_decode_attn`, which count the launches.
+
+Each call launches two kernels. The split kernel's grid is (B, Hk,
+n_split): block s of slot b attends rows [s·SPAN, min((s+1)·SPAN, len_b))
+and writes its f32 partial softmax state to a workspace; the merge kernel
+combines the non-empty spans of each slot in span order. The kernels
+compute the partition themselves from the row index alone, never from
+the read bound, so the paged result is bitwise equal to the contiguous
+one on the same rows; the launchers size the grid and the workspace with
+`split_count`. `ref.ragged_decode_split_ref` models the split arithmetic
+in Python for the CPU tests.
 """
 from __future__ import annotations
 
@@ -31,28 +42,51 @@ import torch
 from repro_torch.kernels import build
 
 MAX_REP = 8
-MAX_DH = 256
-MAX_TABLE_PAGES = 2048     # block-table entries a block stages in shared memory
+MAX_DH = 512
+# rows a split block attends: kSpan of the CUDA source, which refuses a
+# call whose n_split was computed with another value (span_sweep.py times
+# the alternatives)
+SPAN = 128
 # dtype codes of csrc/common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CODE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def _library():
-    lib = build.load("ragged_decode_attention")
+    return bind(build.load("ragged_decode_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the two launch functions of `lib`."""
     vp, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     fn = lib.ragged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, ll, ll,
-                       ll, ll, ll, ll, f, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, f, i, i, vp]
         fn.restype = i
     fn = lib.paged_ragged_decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, ll,
-                       ll, ll, ll, f, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                       i, ll, ll, ll, ll, f, i, i, vp]
         fn.restype = i
     return lib
+
+
+def split_count(rows: int) -> int:
+    """n_split, the split grid's depth over a read bound of `rows` (T for
+    the contiguous kernel, t_max for the paged one): ceil(rows / SPAN)."""
+    return -(-max(rows, 0) // SPAN)
+
+
+def _workspace(q, rows):
+    """The f32 partial states of one call, uninitialised: per (slot, kv
+    head, span, query) the Dh-wide unnormalised accumulator, then the
+    running max m and the denominator l. Only the spans a slot fills are
+    written and read."""
+    B, Hk, rep, dh = q.shape
+    return torch.empty((B, Hk, split_count(rows), rep, dh + 2),
+                       dtype=torch.float32, device=q.device)
 
 
 def check_scales(k, v, k_scale, v_scale) -> bool:
@@ -141,16 +175,17 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
                             k_scale: Optional[torch.Tensor] = None,
                             v_scale: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the contiguous kernel. q: (B, Hk, rep, Dh) grouped queries;
-    k, v: (B, T, Hk, Dh) slot caches, any batch and row strides but heads
-    and features contiguous; lengths: (B,) valid-row counts (clamped to
-    [0, T] in the kernel); k_scale, v_scale: (B, T, Hk) float32 scales
-    when k, v hold int8 / float8_e4m3fn codes (one layout, heads
-    contiguous, read in place). Returns (B, Hk, rep, Dh) in q's dtype.
+    """Launch the contiguous split kernel and the merge. q: (B, Hk, rep,
+    Dh) grouped queries; k, v: (B, T, Hk, Dh) slot caches, any batch and
+    row strides but heads and features contiguous; lengths: (B,)
+    valid-row counts (clamped to [0, T] in the kernels); k_scale,
+    v_scale: (B, T, Hk) float32 scales when k, v hold int8 /
+    float8_e4m3fn codes (one layout, heads contiguous, read in place).
+    Returns (B, Hk, rep, Dh) in q's dtype.
 
     Takes CUDA tensors only: float32 or bfloat16 q, k/v of one float
-    dtype (q's or not) or codes with their scales, rep <= 8 and Dh <= 256;
-    raises on anything else. Raises RuntimeError if the launch fails."""
+    dtype (q's or not) or codes with their scales, rep <= 8 and Dh <= 512;
+    raises on anything else. Raises RuntimeError if a launch fails."""
     B, Hk, rep, dh, quantized = _check(q, k, v, lengths, k_scale, v_scale,
                                        "cache")
     if k.dim() != 4 or v.dim() != 4:
@@ -164,12 +199,14 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
     lengths = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
+    ws = _workspace(q, T)
     fn = _library().ragged_decode_attention_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
-                 _ptr(v_scale), lengths.data_ptr(), out.data_ptr(), B, Hk,
-                 rep, dh, T, k.stride(0), k.stride(1), v.stride(0),
-                 v.stride(1), s_sb, s_st, float(scale),
+                 _ptr(v_scale), lengths.data_ptr(), ws.data_ptr(),
+                 out.data_ptr(), B, Hk, rep, dh, T, ws.shape[2],
+                 k.stride(0), k.stride(1), v.stride(0), v.stride(1), s_sb,
+                 s_st, float(scale),
                  _DTYPE_CODES[q.dtype], _kv_code(k),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "ragged_decode_attention")
@@ -185,19 +222,20 @@ def paged_ragged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                   v_scale: Optional[torch.Tensor] = None,
                                   scale: Optional[float] = None
                                   ) -> torch.Tensor:
-    """Launch the paged kernel. q: (B, Hk, rep, Dh) grouped queries;
-    k_pool, v_pool: (R, Hk, Dh) row pools, any row stride but heads and
-    features contiguous; k_scale, v_scale: (R, Hk) float32 pool scales
-    when the pools hold codes; block_table: (B, npages) int32, logical
-    page j of slot b at physical page block_table[b, j]; lengths: (B,)
-    fill depths, clamped to [0, t_max] in the kernel, which follows only
-    the table entries below ceil(len_b / page). Returns (B, Hk, rep, Dh)
-    in q's dtype.
+    """Launch the paged split kernel and the merge. q: (B, Hk, rep, Dh)
+    grouped queries; k_pool, v_pool: (R, Hk, Dh) row pools, any row
+    stride but heads and features contiguous; k_scale, v_scale: (R, Hk)
+    float32 pool scales when the pools hold codes; block_table: (B,
+    npages) int32, logical page j of slot b at physical page
+    block_table[b, j]; lengths: (B,) fill depths, clamped to [0, t_max]
+    in the kernels, which follow only the table entries below
+    ceil(len_b / page), each split block the entries of its own span.
+    Returns (B, Hk, rep, Dh) in q's dtype.
 
     Takes CUDA tensors only, under the contiguous launcher's rules, plus
     an int32 block table on the same device with at least
-    ceil(t_max / page) <= 2048 entries per row and page >= 1; raises on
-    anything else, and RuntimeError if the launch fails."""
+    ceil(t_max / page) entries per row (any number) and page >= 1; raises
+    on anything else, and RuntimeError if a launch fails."""
     B, Hk, rep, dh, quantized = _check(q, k_pool, v_pool, lengths, k_scale,
                                        v_scale, "pool")
     if k_pool.dim() != 3 or v_pool.dim() != 3:
@@ -216,22 +254,23 @@ def paged_ragged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"on {q.device}, got {block_table.dtype} "
                          f"{tuple(block_table.shape)} on "
                          f"{block_table.device}")
-    if not n_read <= min(block_table.shape[1], MAX_TABLE_PAGES):
+    if n_read > block_table.shape[1]:
         raise ValueError(f"t_max={t_max} reads {n_read} pages of {page} "
-                         f"rows; the table has {block_table.shape[1]} and "
-                         f"the kernel takes at most {MAX_TABLE_PAGES}")
+                         f"rows; the table has {block_table.shape[1]}")
     if block_table.stride(1) != 1:
         raise ValueError("block_table rows must be contiguous")
     s_st = k_scale.stride(0) if quantized else 0
     lengths = lengths.to(torch.int32).contiguous()
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
+    ws = _workspace(q, t_max)
     fn = _library().paged_ragged_decode_attention_launch
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _ptr(k_scale), _ptr(v_scale), lengths.data_ptr(),
-                 block_table.data_ptr(), out.data_ptr(), B, Hk, rep, dh,
-                 t_max, page, block_table.stride(0), k_pool.stride(0),
+                 block_table.data_ptr(), ws.data_ptr(), out.data_ptr(), B,
+                 Hk, rep, dh, t_max, page, ws.shape[2],
+                 block_table.stride(0), k_pool.stride(0),
                  v_pool.stride(0), s_st, float(scale),
                  _DTYPE_CODES[q.dtype], _kv_code(k_pool),
                  torch.cuda.current_stream(q.device).cuda_stream)

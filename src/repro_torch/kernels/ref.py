@@ -57,6 +57,79 @@ def ragged_decode_quant_ref(q, k, v, k_scale, v_scale, lengths, *,
                              dequant_ref(v, v_scale), lengths, scale=scale)
 
 
+def split_spans(length: int, rows: int, span: int) -> list:
+    """The [start, stop) row ranges of the non-empty spans of a slot of
+    `length` rows read through a bound of `rows`, as the split kernels
+    partition them: the length is clamped to [0, rows], and span s covers
+    rows [s·span, min((s+1)·span, length)). The ranges depend on the
+    clamped length alone, not on `rows`."""
+    n = max(0, min(length, rows))
+    return [(t, min(t + span, n)) for t in range(0, n, span)]
+
+
+def ragged_decode_split_ref(q, k, v, lengths, k_scale=None, v_scale=None,
+                            *, span, scale=None):
+    """A Python model of the ragged decode kernels' split-K arithmetic,
+    for the tests.
+
+    q: (B, Hk, rep, Dh); k, v: (B, T, Hk, Dh) slot caches, float or int8 /
+    float8_e4m3fn codes with (B, T, Hk) f32 scales; lengths: (B,). The
+    spans of slot b are `split_spans(len_b, T, span)`. Each span's
+    partial state is computed in f32, as the split kernel computes it:
+    m = max of its scores (q·k, times the k scale for codes, times
+    `scale`), weights p = exp(score − m), l = Σ p, acc = Σ p·v (the weight
+    times the v scale, for codes). The states are then merged in span
+    order: M = max m_s, w_s = exp(m_s − M), out = Σ w_s·acc_s /
+    max(Σ w_s·l_s, 1e-30); an empty slot gives exact zeros. Returns
+    (B, Hk, rep, Dh) in q's dtype."""
+    B, Hk, rep, dh = q.shape
+    T = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    f32 = torch.float32
+    out = torch.zeros((B, Hk, rep, dh), dtype=f32, device=q.device)
+    for b in range(B):
+        states = []
+        for t0, t1 in split_spans(int(lengths[b]), T, span):
+            s = torch.einsum("hrd,thd->hrt", q[b].to(f32),
+                             k[b, t0:t1].to(f32))
+            pv = torch.ones((Hk, 1, t1 - t0), dtype=f32, device=q.device)
+            if k_scale is not None:
+                s = s * k_scale[b, t0:t1].to(f32).T[:, None, :]
+                pv = v_scale[b, t0:t1].to(f32).T[:, None, :]
+            s = s * scale
+            m = s.amax(-1)                                  # (Hk, rep)
+            p = torch.exp(s - m[..., None])
+            acc = torch.einsum("hrt,thd->hrd", p * pv, v[b, t0:t1].to(f32))
+            states.append((m, p.sum(-1), acc))
+        if not states:
+            continue                                        # exact zeros
+        M = torch.stack([m for m, _, _ in states]).amax(0)
+        num = torch.zeros((Hk, rep, dh), dtype=f32, device=q.device)
+        den = torch.zeros((Hk, rep), dtype=f32, device=q.device)
+        for m, l, acc in states:                            # span order
+            w = torch.exp(m - M)
+            den = den + w * l
+            num = num + w[..., None] * acc
+        out[b] = num / den.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def paged_ragged_decode_split_ref(q, k_pool, v_pool, lengths, block_table,
+                                  k_scale=None, v_scale=None, *, page, t_max,
+                                  span, scale=None):
+    """`ragged_decode_split_ref` over logical rows 0..t_max-1 of each slot
+    gathered from (R, Hk, Dh) pools (and (R, Hk) scales) through the block
+    table, as `paged_ragged_decode_ref` gathers them."""
+    rows = torch.arange(t_max, device=k_pool.device)
+    bt = block_table.to(device=k_pool.device, dtype=torch.long)
+    phys = bt[:, rows // page] * page + rows % page        # (B, t_max)
+    k, v = _gather_codes(k_pool, phys), _gather_codes(v_pool, phys)
+    ks = None if k_scale is None else k_scale[phys]
+    vs = None if v_scale is None else v_scale[phys]
+    return ragged_decode_split_ref(q, k, v, lengths, ks, vs, span=span,
+                                   scale=scale)
+
+
 def _gather_codes(pool, phys):
     """pool[phys], through a uint8 view for float8 codes (bitwise)."""
     if pool.dtype == torch.float8_e4m3fn:
