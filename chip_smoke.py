@@ -34,14 +34,23 @@ recurrence runs through the WKV kernel. Phases:
                attention at full width as a causal prefill (B=4,
                S=T=2048), non-causal, with T > S, with int8 and fp8
                codes from quant.quantize; gemma3-4b's local layer (dh
-               320, window 1024); untimed edge shapes; the causal over
-               non-causal time (fully masked tiles are skipped)
+               320, window 1024); untimed edge shapes, among them an S
+               that is not a multiple of the bf16 kernel's query tile
+               and code rows too narrow for a tensor map (dh 40 int8, dh
+               24 fp8); the causal over non-causal time (fully masked
+               tiles are skipped). Each bf16 case prints the producer
+               the kernel ran (TmaProducer or CpAsyncProducer, from the
+               kernel name in the profile that times it), and the odd
+               cases check it; every profile counts exactly one flash
+               kernel a call
       c-flash-paged  ops.mha_flash_paged over a 512-page pool of 16 rows
                with garbage in the free and tail pages: causal, window
                256 and int8, bitwise equal to the contiguous kernel on
-               the same rows. The checked call of case 1 (bf16) and of
-               the paged causal case runs with the launch counts set to
-               0 just before and read just after: the slice's path
+               the same rows; then, untimed, pages of 5 rows (bf16 and
+               fp8), which take the cp.async producer. The checked call
+               of case 1 (bf16) and of the paged causal case runs with
+               the launch counts set to 0 just before and read just
+               after: the slice's path
       c-ragged-quant, c-paged-quant  the fused dequant of both
                entry points (int8 and fp8 codes, f32 scales, bf16 and f32
                queries) at c-ragged's and c-paged's shapes against
@@ -96,7 +105,9 @@ recurrence runs through the WKV kernel. Phases:
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine and
-               (f-profile-rwkv) of the (i) engine
+               (f-profile-rwkv) of the (i) engine; and, in c-flash, a
+               fit of a bf16 flash block's fixed cost beside its
+               per-tile cost (block-cost)
 
 Every phase prints one line; any failure raises and exits non-zero. The
 second-to-last line is the per-kernel JSON record; the last line is
@@ -251,7 +262,8 @@ def check_altup(torch, ops, ref, dtype, T, K=2, d=1024, seed=0):
     b_ms, b_by = bound_ms(nbytes, nops, "float32")   # computed in f32
     return {"dtype": name, "T": T, "K": K, "d": d,
             "max_abs_err": max_err(torch, got, want),
-            "ms": device_ms(torch, launch, "altup_predict_correct_kernel"),
+            "ms": device_ms(torch, launch, "altup_predict_correct_kernel",
+                            per_call=1),
             "plain_ms": device_ms(torch, plain),
             "wrapper_ms": time_ms(torch, launch, iters=200),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -598,7 +610,7 @@ def check_wkv(torch, ops, ref, dtype, B, H, Dh, S, state, seed=7):
             "max_abs_err": max_err(torch, got_o, want_o),
             "state_max_abs_err": max_err(torch, got_s,
                                          want_s.reshape(B, H, Dh, Dh)),
-            "ms": device_ms(torch, launch, "rwkv6_wkv_kernel"),
+            "ms": device_ms(torch, launch, "rwkv6_wkv_kernel", per_call=1),
             "plain_ms": device_ms(torch, plain, iters=5),
             "wrapper_ms": time_ms(torch, launch),
             "bound_ms": b_ms, "bound_by": b_by, "library": "none",
@@ -659,8 +671,30 @@ def flash_bound(torch, q, k, k_scale, causal, window):
 
 
 def flash_kernel_name(torch, dtype):
+    """The profiler name of the flash kernel a query dtype runs: one launch
+    a call, so device_ms counts exactly one per call."""
     return "flash_f32_kernel" if dtype == torch.float32 else \
-        "flash_tc_kernel"
+        "flash_wgmma_kernel"
+
+
+def flash_profile(torch, launch, dtype, timed, producer=None):
+    """The flash kernel's device ms per call of launch() (timed only) and,
+    for bf16 q, the producer it ran (TmaProducer or CpAsyncProducer, read
+    from the profiled kernel name; `producer`, if given, must be it), from
+    one profile that counts exactly one flash kernel a call."""
+    if not timed and dtype == torch.float32:
+        return {}
+    ms, keys = profiled(torch, launch, flash_kernel_name(torch, dtype),
+                        iters=50 if timed else 5, per_call=1)
+    res = {"ms": ms} if timed else {}
+    if dtype == torch.bfloat16:
+        names = {p for k in keys for p in ("TmaProducer", "CpAsyncProducer")
+                 if p in k}
+        if len(names) != 1 or producer not in (None, *names):
+            raise AssertionError(f"flash producers {names} in {keys}, want "
+                                 f"{producer or 'one'}")
+        res["producer"] = names.pop()
+    return res
 
 
 def flash_qkv(torch, B, S, T, H, Hk, dh, dtype, seed):
@@ -700,7 +734,8 @@ def counted_call(torch, ops, launch, name, counted):
 
 
 def check_flash(torch, ops, ref, dtype, B, S, T, H, Hk, dh, causal=True,
-                window=0, quant=None, timed=True, counted=False, seed=20):
+                window=0, quant=None, timed=True, counted=False, seed=20,
+                producer=None):
     """ops.mha_flash on a CUDA tensor (the kernel) against ref.mha_ref on
     the same inputs; quant="int8"|"fp8" gives k/v as codes and scales from
     the port's quant.quantize on the card. Timed cases add device ms per
@@ -708,7 +743,8 @@ def check_flash(torch, ops, ref, dtype, B, S, T, H, Hk, dh, causal=True,
     explicit mask for a window; on the dequantized k/v for codes, which
     SDPA cannot read), the wrapper's ms and the bound. counted: the
     checked call is the slice's path, run with every launch count set to
-    0 just before and read just after."""
+    0 just before and read just after. bf16 cases report the producer the
+    kernel ran (`producer`, if given, must be it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import quant as Q
     q, k, v = flash_qkv(torch, B, S, T, H, Hk, dh, dtype, seed)
@@ -737,7 +773,8 @@ def check_flash(torch, ops, ref, dtype, B, S, T, H, Hk, dh, causal=True,
            "max_abs_err": max_err(torch, got, want), "tol": tol,
            "launches": launches}
     if not timed:
-        return res
+        return {**res,
+                **flash_profile(torch, launch, dtype, False, producer)}
     nbytes, nops, (b_ms, b_by) = flash_bound(torch, q, k, ks, causal,
                                              window)
     kd = k if ks is None else ref.dequant_ref(k, ks, dtype)
@@ -754,7 +791,7 @@ def check_flash(torch, ops, ref, dtype, B, S, T, H, Hk, dh, causal=True,
     lib = library().transpose(1, 2)
     sdpa_ms = device_ms(torch, library)
     res.update({
-        "ms": device_ms(torch, launch, flash_kernel_name(torch, dtype)),
+        **flash_profile(torch, launch, dtype, True, producer),
         "plain_ms": device_ms(torch, plain, iters=10),
         "wrapper_ms": time_ms(torch, launch, iters=20),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -796,6 +833,15 @@ FLASH_ODD = (
                               window=64, quant="fp8")),
     ("dh64-int8-t-lt-s", dict(B=2, S=128, T=64, H=4, Hk=4, dh=64,
                               quant="int8")),
+    # S not a multiple of the bf16 kernel's 64 positions a block (rep 2)
+    ("s200-partial-q-tile", dict(B=2, S=200, T=200, H=4, Hk=2, dh=128,
+                                 producer="TmaProducer")),
+    # code rows of 24 / 40 bytes: no tensor map, the cp.async producer
+    ("dh40-int8-cpasync", dict(B=2, S=96, T=160, H=4, Hk=2, dh=40,
+                               quant="int8", producer="CpAsyncProducer")),
+    ("dh24-fp8-cpasync", dict(B=1, S=130, T=130, H=2, Hk=1, dh=24,
+                              quant="fp8", window=50,
+                              producer="CpAsyncProducer")),
 )
 
 
@@ -805,13 +851,38 @@ def flash_skip_ratio(torch, ops, dtype, B=4, S=2048, H=16, Hk=8, dh=128):
     q, k, v = flash_qkv(torch, B, S, S, H, Hk, dh, dtype, seed=21)
     name = flash_kernel_name(torch, dtype)
     ms = {c: device_ms(torch, lambda: ops.mha_flash(q, k, v, causal=c),
-                       name, iters=20)
+                       name, iters=20, per_call=1)
           for c in (True, False)}
     return {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
             "causal_ms": ms[True], "non_causal_ms": ms[False],
             "causal_over_non_causal": ms[True] / ms[False],
             "visible_pair_ratio": flash_pairs(S, S, True, 0)
             / flash_pairs(S, S, False, 0)}
+
+
+def flash_block_cost(torch, ops, H=16, Hk=8, dh=128):
+    """What a bf16 flash block costs beyond its kv tiles: two non-causal
+    calls with the same number of blocks (B=4, S=2048 and B=2, S=4096; a
+    block holds 64 positions) and twice the kv tiles a block (16 and 32
+    of 128 rows), fitted as ms = blocks / SMs * (tiles * tile_us +
+    block_us). block_us is the fixed cost of a block (its q and first kv
+    loads, the softmax of its first tile and the P V of its last, not
+    overlapped, the output store, the block's start and end)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    fit = []
+    for B, S in ((4, 2048), (2, 4096)):
+        q, k, v = flash_qkv(torch, B, S, S, H, Hk, dh, torch.bfloat16, 23)
+        ms = device_ms(torch, lambda: ops.mha_flash(q, k, v, causal=False,
+                                                    block_q=S, block_k=S),
+                       "flash_wgmma_kernel", iters=20, per_call=1)
+        blocks = S // 64 * Hk * B
+        fit.append((ms, blocks / n_sm, S // 128))
+    (m1, w1, t1), (m2, w2, t2) = fit
+    tile_us = 1e3 * (m2 / w2 - m1 / w1) / (t2 - t1)
+    block_us = 1e3 * m1 / w1 - t1 * tile_us
+    return {"dtype": "bfloat16", "sms": n_sm, "ms_s2048": m1, "ms_s4096": m2,
+            "blocks_per_sm": w1, "tile_us": tile_us, "block_us": block_us,
+            "block_share_s2048": block_us / (t1 * tile_us + block_us)}
 
 
 # (c-flash-paged): 4 sequences of 1024 rows in a pool of 512 pages of 16
@@ -823,22 +894,23 @@ FP_B, FP_S, FP_PAGES, FP_PAGE = 4, 1024, 512, 16
 
 def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
                       quant=None, counted=False, H=16, Hk=8, dh=128,
-                      seed=22):
+                      seed=22, B=FP_B, S=FP_S, page=FP_PAGE,
+                      pool_pages=FP_PAGES, timed=True, producer=None):
     """ops.mha_flash_paged on a CUDA pool (the kernel) against
     ref.paged_attention_ref, and bitwise against the contiguous kernel
     (ops.mha_flash) on the same rows gathered through the table; counted
-    as in check_flash."""
+    as in check_flash. bf16 cases report the producer the paged kernel
+    ran (`producer`, if given, must be it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import quant as Q
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    B, S, page = FP_B, FP_S, FP_PAGE
     nk = S // page + 1                               # the tail page
-    R = FP_PAGES * page
+    R = pool_pages * page
     q = torch.randn(B, S, H, dh, generator=gen, device=DEV).to(dtype)
     # garbage: 100x the scale of the valid rows, so a leak shows
     kp = 100 * torch.randn(R, Hk, dh, generator=gen, device=DEV)
     vp = 100 * torch.randn(R, Hk, dh, generator=gen, device=DEV)
-    perm = torch.randperm(FP_PAGES, generator=torch.Generator()
+    perm = torch.randperm(pool_pages, generator=torch.Generator()
                           .manual_seed(seed))[:B * nk]
     bt = perm.reshape(B, nk).to(torch.int32).to(DEV)
     rows = (bt.long()[:, :, None] * page
@@ -855,7 +927,9 @@ def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
     kw = dict(causal=causal, window=window)
 
     def launch():
-        return ops.mha_flash_paged(q, kp, vp, bt, ks, vs, page=page, **kw)
+        # block_q only validates the call: S passes as one block
+        return ops.mha_flash_paged(q, kp, vp, bt, ks, vs, page=page,
+                                   block_q=S, **kw)
 
     def plain():
         return ref.paged_attention_ref(q, kp, vp, bt, ks, vs, page=page,
@@ -866,7 +940,8 @@ def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
     gk, gv = kp[rows], vp[rows]                      # (B, nk·page, Hk, dh)
     gks = None if ks is None else ks[rows]
     gvs = None if vs is None else vs[rows]
-    contiguous = ops.mha_flash(q, gk, gv, gks, gvs, block_k=page, **kw)
+    contiguous = ops.mha_flash(q, gk, gv, gks, gvs, block_q=S, block_k=page,
+                               **kw)
     torch.cuda.synchronize()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got, want, **tol)
@@ -874,6 +949,16 @@ def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
         raise AssertionError(
             f"paged flash kernel differs from the contiguous kernel on the "
             f"same rows: max abs {max_err(torch, got, contiguous)}")
+    res = {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
+           "B": B, "S": S, "H": H, "Hk": Hk, "dh": dh, "page": page,
+           "pool_pages": pool_pages, "table_pages": nk, "causal": causal,
+           "window": window, "quant": quant,
+           "max_abs_err": max_err(torch, got, want),
+           "bitwise_equal_contiguous": True, "launches": launches,
+           "tol": tol}
+    if not timed:
+        return {**res,
+                **flash_profile(torch, launch, dtype, False, producer)}
     nbytes, nops, (b_ms, b_by) = flash_bound(torch, q, gk, gks, causal,
                                              window)
     nbytes += 4 * bt.numel()
@@ -885,18 +970,18 @@ def check_flash_paged(torch, ops, ref, dtype, causal=True, window=0,
     def sdpa_gathered():
         return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
                                               enable_gqa=True)
-    res = {"dtype": "float32" if dtype == torch.float32 else "bfloat16",
-           "B": B, "S": S, "H": H, "Hk": Hk, "dh": dh, "page": page,
-           "pool_pages": FP_PAGES, "table_pages": nk, "causal": causal,
-           "window": window, "quant": quant,
-           "max_abs_err": max_err(torch, got, want),
-           "bitwise_equal_contiguous": True, "launches": launches,
-           "ms": device_ms(torch, launch, flash_kernel_name(torch, dtype)),
-           "plain_ms": device_ms(torch, plain, iters=10),
-           "wrapper_ms": time_ms(torch, launch, iters=20),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
-           "bytes": nbytes, "flop": nops, "tol": tol}
+    res.update({
+        **flash_profile(torch, launch, dtype, True, producer),
+        # the contiguous kernel on the gathered rows, for the cost of paging
+        "contiguous_same_rows_ms": device_ms(
+            torch, lambda: ops.mha_flash(q, gk, gv, gks, gvs, block_q=S,
+                                         block_k=page, **kw),
+            flash_kernel_name(torch, dtype), per_call=1),
+        "plain_ms": device_ms(torch, plain, iters=10),
+        "wrapper_ms": time_ms(torch, launch, iters=20),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "sdpa_on_pregathered_rows_ms": device_ms(torch, sdpa_gathered),
+        "bytes": nbytes, "flop": nops})
     return res
 
 
@@ -1566,33 +1651,53 @@ def _device_kernels(prof):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(torch, fn, name_part=None, iters=50, per_call=None):
-    """Device time per call of fn(): the summed time of the kernels it ran
-    (only those whose name holds `name_part`, if given), from
-    torch.profiler over `iters` calls. Free of the host time between
-    launches, which CUDA events around a loop of calls would include.
-    Now and then a profiler session on the card records no device
-    activity at all (once in the ~110 sessions of one run), or only part
-    of it; such a session is run again, three sessions at most. per_call:
-    how many kernels matching name_part one call launches, so that a
-    partial session can be told (None: any number)."""
+# the first kernel of every profiler session: torch.cuda._sleep's spin
+# kernel, which no timed function launches
+MARKER = "spin_kernel"
+
+
+def profiled(torch, fn, name_part=None, iters=50, per_call=None):
+    """Device time per call of fn() and the names of the kernels it ran
+    (only those whose name holds `name_part`, if given): their summed
+    time from torch.profiler over `iters` calls. Free of the host time
+    between launches, which CUDA events around a loop of calls would
+    include.
+
+    The profiler's records are not always whole on the card. From about
+    the hundredth session of a process on, the kernel launched first in
+    a session has its runtime launch record but no kernel record, in
+    every session; so each session launches a marker kernel first, which
+    is left out of the sums. Now and then a session loses a run of
+    records, or records no device activity at all: such a session is run
+    again, eight sessions at most. per_call: how many kernels matching
+    name_part one call launches; the count must be exactly per_call x
+    iters. Without it (functions of many kernels) the count must be a
+    multiple of iters above 0: every call launches the same kernels."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    want = None if per_call is None else per_call * iters
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         hits = [e for e in _device_kernels(prof)
-                if name_part is None or name_part in e.key]
+                if MARKER not in e.key
+                and (name_part is None or name_part in e.key)]
         n = sum(e.count for e in hits)
-        if n and (per_call is None or n == per_call * iters):
-            break
-    else:
-        raise AssertionError(f"kernels {name_part!r}: {n} in the profile, "
-                             f"want {per_call} x {iters}")
-    return sum(e.self_device_time_total for e in hits) / 1e3 / iters
+        if n and (n == want if want is not None else n % iters == 0):
+            return (sum(e.self_device_time_total for e in hits) / 1e3 / iters,
+                    [e.key for e in hits])
+    raise AssertionError(f"kernels {name_part!r}: {n} in the profile, want "
+                         f"{'k' if per_call is None else per_call} x "
+                         f"{iters}")
+
+
+def device_ms(torch, fn, name_part=None, iters=50, per_call=None):
+    """profiled()'s device ms per call of fn()."""
+    return profiled(torch, fn, name_part, iters, per_call)[0]
 
 
 def profile_decode(torch, eng, prompts, n_steps=8):
@@ -1611,13 +1716,14 @@ def profile_decode(torch, eng, prompts, n_steps=8):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)                 # takes a lost first record
         t0 = time.perf_counter()
         for _ in range(n_steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    kern = sorted(_device_kernels(prof),
+    kern = sorted((e for e in _device_kernels(prof) if MARKER not in e.key),
                   key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in kern)
     return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
@@ -1781,6 +1887,8 @@ def main(argv) -> int:
                  **check_flash(torch, ops, ref, dtype, timed=False, **kw))
         line("c-flash", case="skip-ratio",
              **flash_skip_ratio(torch, ops, dtype))
+    if profile:
+        line("c-flash", case="block-cost", **flash_block_cost(torch, ops))
     flash_paged = {}
     for dtype in (torch.bfloat16, torch.float32):
         for case, kw in (("causal", {}), ("window-256", dict(window=256)),
@@ -1791,6 +1899,13 @@ def main(argv) -> int:
             r = check_flash_paged(torch, ops, ref, dtype, counted=main, **kw)
             flash_paged[(r["dtype"], case)] = r
             line("c-flash-paged", case=case, **r)
+    # pages of 5 rows: no tensor-map box divides the kv tile, the cp.async
+    # producer reads the pool (bf16 and fp8 codes), untimed
+    for kw in ({}, dict(quant="fp8")):
+        line("c-flash-paged", case="page-5" + ("-fp8" if kw else ""),
+             **check_flash_paged(torch, ops, ref, torch.bfloat16, B=2, S=300,
+                                 page=5, pool_pages=200, timed=False,
+                                 producer="CpAsyncProducer", **kw))
     main_flash = flash[("bfloat16", "prefill")]
     main_flash_paged = flash_paged[("bfloat16", "causal")]
     torch.cuda.empty_cache()

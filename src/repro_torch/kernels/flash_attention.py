@@ -13,11 +13,14 @@ two entry points, which replace both modes of the TPU kernel
 Both take q (B, S, H, dh) and group the rep = H // Hk query heads of a kv
 head in one block, so k and v are never repeated per query head. Causal
 and sliding-window masks skip fully masked kv tiles. k/v may be int8 or
-float8_e4m3fn codes with float32 scales, dequantized as the tile loads.
-They are bound by operations (4·dh per visible query-key pair). Their
-plain versions are `ref.mha_ref` and `ref.paged_attention_ref`; callers
-reach them through `ops.mha_flash` and `ops.mha_flash_paged`, which count
-the launches.
+float8_e4m3fn codes with float32 scales, dequantized in the kernel. They
+are bound by operations (4·dh per visible query-key pair). bf16 queries
+run on the tensor cores (wgmma) behind a producer warpgroup that loads
+k/v with TMA, or with cp.async where a tensor map cannot describe them;
+the C launcher builds the tensor maps and picks the producer from the
+shapes. Their plain versions are `ref.mha_ref` and
+`ref.paged_attention_ref`; callers reach them through `ops.mha_flash` and
+`ops.mha_flash_paged`, which count the launches.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 MAX_DH = 320
-MAX_REP = 64               # query heads per kv head: a block holds 64 rows
+MAX_REP = 64               # query heads per kv head: a block holds 64 or 128
+                           # rows (f32 or bf16 queries)
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CODE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
@@ -45,7 +49,7 @@ def _library():
         fn.restype = i
     fn = lib.paged_flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [vp] * 7 + [i] * 7 + [ll] * 5 + [i, i, f, i, i, vp]
+        fn.argtypes = [vp] * 7 + [i] * 8 + [ll] * 5 + [i, i, f, i, i, vp]
         fn.restype = i
     return lib
 
@@ -205,7 +209,7 @@ def paged_flash_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  _ptr(ks), _ptr(vs), block_table.data_ptr(), out.data_ptr(),
-                 B, S, H, Hk, dh, nk, page, block_table.stride(0),
+                 B, S, H, Hk, dh, nk, page, R, block_table.stride(0),
                  k_pool.stride(0), v_pool.stride(0),
                  *_strides(ks, 1), *_strides(vs, 1), int(causal), int(window),
                  float(scale), q_code, kv_code,
