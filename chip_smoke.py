@@ -77,22 +77,36 @@ recurrence runs through the WKV kernel. Phases:
                vs the dense dequant path (1e-3, tokens identical), and,
                not gated, the quantized logits' distance from the
                unquantized f32 path's
+      d-graph  the replaying Engine against the eager reference (the same
+               static-buffer step called directly), full width, f32,
+               contiguous and paged: 4 requests with logprobs, tokens
+               identical, logprobs and every cache leaf within 1e-5
+               (expected bitwise)
   (e) serve    8 greedy bf16 requests (prompts of 32-512 tokens, 64 new
                tokens each) through Engine(n_slots=8, max_len=2048,
-               prefix_cache=False); the kernels' launch counts of that run
-               show the path used them
+               prefix_cache=False), through the eager reference; the
+               kernels' launch counts of that run show the path used them
+      e-graph  the same through Engine as a user calls it, whose
+               pure-decode steps replay CUDA graphs: tokens and step
+               counts identical to the eager run, one replay per
+               pure-decode step, one capture per shape, launch counts
+               (a replay adds its capture's counts) equal to the eager
+               run's once the captures' warm-ups are taken out
       e-quant  the same traffic from int8 caches: the ragged kernel's
                launches (its fused dequant) == 28 x decode steps, and the
-               cache bytes against (e)'s
+               cache bytes against (e)'s; e-quant-graph replayed, as
+               e-graph
   (g) paged    16 greedy bf16 requests sharing a 250-token system prompt
                through Engine(paged=True, n_slots=16, n_pages=512), the
                prefix cache on: hits, page aliasing, a boundary-page copy
                per hit, over-commit of the pool, and the paged kernel's
-               launch counts of that run
+               launch counts of that run; g-graph replayed, as e-graph
+               (pool counters identical too)
       g-spill  the host spill tier: a prefix spilled to the host and
                restored serves the same tokens as the resident prefix;
                every copy, spill and restore held bitwise on the card
-      g-quant  (g)'s traffic and gates from an fp8 pool
+      g-quant  (g)'s traffic and gates from an fp8 pool; g-quant-graph
+               replayed
   (h) parity   rwkv6-1.6b + AltUp K=2 at full width, f32: forward logits
                on 2 prompts of 64 tokens, then a token-by-token prefill
                and 16 greedy decode_steps, the kernel path vs the dense
@@ -101,13 +115,20 @@ recurrence runs through the WKV kernel. Phases:
                tokens) through Engine(n_slots=8, max_len=512) with the
                prefix cache on: a max_new=1 donor over a prefix, then a
                request extending it hits and serves a cold engine's
-               tokens; the WKV kernel launches 24 times per step
+               tokens; the WKV kernel launches 24 times per step;
+               i-graph replayed (every step of a recurrent plan is
+               chunk 1, so every step replays), as e-graph
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
-               engine, (f-profile-paged) of the (g) engine and
-               (f-profile-rwkv) of the (i) engine; and, in c-flash, a
-               fit of a bf16 flash block's fixed cost beside its
-               per-tile cost (block-cost)
+               engine, (f-profile-paged) of the (g) engine,
+               (f-profile-paged-quant) of the g-quant engine and
+               (f-profile-rwkv) of the (i) engine, each eager and (the
+               "-graph" lines) replayed, the port's kernel records held
+               against the launch counters of the same steps; replayed
+               engines also give the gap between the kernels of a replay
+               (back-to-back replays by CUDA events against their kernels'
+               device time); and, in c-flash, a fit of a bf16 flash
+               block's fixed cost beside its per-tile cost (block-cost)
 
 Every phase prints one line; any failure raises and exits non-zero. The
 second-to-last line is the per-kernel JSON record; the last line is
@@ -260,7 +281,7 @@ def check_altup(torch, ops, ref, dtype, T, K=2, d=1024, seed=0):
     nbytes = (2 * K + 1) * T * d * esz + (K * K + 2 * K) * 4
     nops = T * d * (2 * K * K + 4 * K + 1)
     b_ms, b_by = bound_ms(nbytes, nops, "float32")   # computed in f32
-    return {"dtype": name, "T": T, "K": K, "d": d,
+    res = {"dtype": name, "T": T, "K": K, "d": d,
             "max_abs_err": max_err(torch, got, want),
             "ms": device_ms(torch, launch, "altup_predict_correct_kernel",
                             per_call=1),
@@ -268,6 +289,8 @@ def check_altup(torch, ops, ref, dtype, T, K=2, d=1024, seed=0):
             "wrapper_ms": time_ms(torch, launch, iters=200),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "bytes": nbytes, "tol": tol}
+    res["bound_share"] = b_ms / res["ms"]
+    return res
 
 
 def stored_kv(torch, k, v, store, dtype):
@@ -1141,11 +1164,145 @@ def parity_f32(torch, kind=None):
     return res
 
 
+def graph_parity_f32(torch, paged, tol=1e-5):
+    """The replaying Engine against the eager reference at full width in
+    f32: the same 4 requests (prompts of 5-300 tokens, 16 new, logprobs
+    on) through each, contiguous or paged. Tokens identical; every chosen
+    token's logprob and every cache leaf within `tol` (a replay runs the
+    eager step's kernels on its buffers in its order: expected 0)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.sampling import SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = served_config(dtype="float32", param_dtype="float32")
+    params = init_params(cfg, seed=0, device=DEV)
+    perturb_altup(torch, params, seed=12)
+    gen = torch.Generator().manual_seed(13)
+    plens, n_new = (37, 180, 5, 300), 16
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in plens]
+    kw = dict(paged=True, page_size=16) if paged else {}
+    out = {}
+    for replay in (False, True):
+        eng = engine_class(replay)(cfg, params, max_len=512, n_slots=4,
+                                   prefill_chunk=64, prefix_cache=False,
+                                   device=DEV, **kw)
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new,
+                                                      logprobs=True))
+                for p in prompts]
+        done = eng.run()
+        out[replay] = ([done[r].tokens for r in rids],
+                       torch.tensor([done[r].logprobs for r in rids]),
+                       eng._caches, eng.graph_stats)
+    (tok_e, lp_e, c_e, _), (tok_r, lp_r, c_r, gs) = out[False], out[True]
+    if tok_e != tok_r:
+        raise AssertionError(f"replayed tokens differ: {tok_r} vs {tok_e}")
+    lp_err = max_err(torch, lp_r, lp_e)
+
+    def rows(leaf):
+        # rows below the sink: padded tokens of one chunk all write a
+        # slot's sink row (a pool's sink page), in no set order
+        return leaf[:, :-16] if paged else leaf[:, :, :-1]
+    pairs = [(rows(c_r[s][n]), rows(c_e[s][n])) for s in c_e for n in c_e[s]]
+    cache_err = max(max_err(torch, a, b) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs) and \
+        torch.equal(lp_r, lp_e)
+    if lp_err > tol or cache_err > tol:
+        raise AssertionError(f"replayed step off the eager one: logprobs "
+                             f"{lp_err}, caches {cache_err}")
+    if gs["replays"] < 1:
+        raise AssertionError(f"no step replayed: {gs}")
+    del params, out, c_e, c_r
+    torch.cuda.empty_cache()
+    return {"paged": paged, "prompt_lens": list(plens), "new_tokens": n_new,
+            "tokens_identical": True, "logprob_max_abs_err": lp_err,
+            "cache_max_abs_err": cache_err, "bitwise": bitwise, "tol": tol,
+            "replays": gs["replays"], "captures": gs["captures"],
+            "shapes": gs["shapes"]}
+
+
 # ---------------------------------------------------------------------------
 # (e) serve: the main path, through the entry points a user calls
 # ---------------------------------------------------------------------------
 
 E_PROMPTS, E_NEW = (32, 96, 160, 224, 288, 352, 416, 512), 64
+
+# kernels a wrapper call launches on the card: the decode attention's
+# split and merge kernel, one kernel for the others
+KERNELS_PER_LAUNCH = {"ragged_decode_attention": 2,
+                      "paged_ragged_decode_attention": 2}
+
+
+def engine_class(replay):
+    """Engine, whose pure-decode steps replay CUDA graphs on the card, or
+    (replay=False) the eager reference it is held against: the same
+    static-buffer step function, called directly every step."""
+    from repro_torch.serve.engine import Engine
+    if replay:
+        return Engine
+
+    class EagerEngine(Engine):
+        def _run_step(self, key, fn):
+            return fn()
+    return EagerEngine
+
+
+def step_stats(eng):
+    """Engine.stats without its timings: the counts a replayed run must
+    share with the eager one."""
+    return {k: v for k, v in eng.stats.items()
+            if k not in ("prefill_s", "decode_s")}
+
+
+def graph_window(before, after):
+    """What the engine's graphs did between two graph_stats snapshots:
+    captures (and all of the engine's), replays, the warm-ups'
+    launches."""
+    return {"captures": after["captures"] - before["captures"],
+            "captures_total": after["captures"],
+            "replays": after["replays"] - before["replays"],
+            "shapes": after["shapes"],
+            "warmup_launches": {k: n - before["warmup_launches"][k]
+                                for k, n in after["warmup_launches"].items()},
+            "replays_by_shape": {str(k): n for k, n in
+                                 after["replays_by_shape"].items()},
+            "launches_per_replay": {str(k): v for k, v in
+                                    after["launches_per_replay"].items()}}
+
+
+def hold_replay(eager, replayed, replays_want):
+    """Gate a replayed serve phase against its eager twin: every request's
+    tokens and the engine's step counts identical (and the pool counters,
+    paged), one replay per pure-decode step, one capture per static shape,
+    and the kernels' launch counts equal to the eager run's once the
+    warm-ups' launches are taken out. Returns the fields to print."""
+    if replayed["tokens"] != eager["tokens"]:
+        raise AssertionError(f"replayed tokens differ from eager: "
+                             f"{replayed['tokens']} vs {eager['tokens']}")
+    for key in ("stats", "paged_stats"):
+        if replayed.get(key) != eager.get(key):
+            raise AssertionError(f"replayed {key} {replayed.get(key)} != "
+                                 f"eager {eager.get(key)}")
+    g = replayed["graph"]
+    if g["replays"] != replays_want:
+        raise AssertionError(f"{g['replays']} replays for {replays_want} "
+                             f"pure-decode steps")
+    if g["captures_total"] != len(g["shapes"]) or \
+            not g["replays"] > len(g["shapes"]):
+        raise AssertionError(f"not one capture per shape, reused: {g}")
+    net = {k: n - g["warmup_launches"][k]
+           for k, n in replayed["launches"].items()}
+    if net != eager["launches"]:
+        raise AssertionError(f"replayed launches {replayed['launches']} "
+                             f"less warm-ups {g['warmup_launches']} != eager "
+                             f"{eager['launches']}")
+    return {"tokens_identical": True, "stats_identical": True,
+            "launches_less_warmups_equal_eager": True,
+            "replays_per_decode_step": g["replays"] / replays_want,
+            "step_ms_median_over_eager": (replayed["decode_step_ms_median"]
+                                          / eager["decode_step_ms_median"]),
+            "decode_tok_s_over_eager": (replayed["decode_tok_s"]
+                                        / eager["decode_tok_s"])}
 
 def cache_bytes(eng):
     """Device bytes of the engine's caches, every leaf."""
@@ -1153,19 +1310,21 @@ def cache_bytes(eng):
                for seg in eng._caches.values() for t in seg.values())
 
 
-def serve_bf16(torch, ops, profile=False, kind=None):
+def serve_bf16(torch, ops, profile=False, kind=None, replay=False):
     """Phase (e); kind "int8" / "fp8" serves the same traffic from
-    quantized caches (e-quant)."""
+    quantized caches (e-quant); replay=True through the engine whose
+    pure-decode steps replay CUDA graphs (e-graph, e-quant-graph),
+    replay=False through the eager reference."""
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import Engine
     from repro_torch.serve.sampling import SamplingParams
     cfg = served_config()                              # bf16
     if kind is not None:
         cfg = cfg.replace(kv_cache_dtype=kind)
     params = init_params(cfg, seed=1, device=DEV)
     perturb_altup(torch, params, seed=11)
-    eng = Engine(cfg, params, max_len=2048, n_slots=8, prefill_chunk=64,
-                 prefix_cache=False, device=DEV)
+    eng = engine_class(replay)(cfg, params, max_len=2048, n_slots=8,
+                               prefill_chunk=64, prefix_cache=False,
+                               device=DEV)
     gen = torch.Generator().manual_seed(3)
     plens = list(E_PROMPTS)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
@@ -1177,6 +1336,7 @@ def serve_bf16(torch, ops, profile=False, kind=None):
     eng.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()     # the peak of this run only
+    gs0 = eng.graph_stats
     ops.reset_launch_counts()                # counts start at 0 right here
     t_run = time.perf_counter()
     rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
@@ -1192,6 +1352,7 @@ def serve_bf16(torch, ops, profile=False, kind=None):
             decode_ms.append(1e3 * dt)
     wall = time.perf_counter() - t_run
     counts = ops.launch_counts()             # read right after the run
+    graph = graph_window(gs0, eng.graph_stats) if replay else None
     out = eng.collect()
     if sorted(out) != sorted(rids):
         raise AssertionError(f"not every request completed: {sorted(out)}")
@@ -1206,15 +1367,21 @@ def serve_bf16(torch, ops, profile=False, kind=None):
             counts["ragged_decode_attention"] <= 0:
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     # one launch per layer per step: fused AltUp on every step, ragged
-    # attention on the pure-decode (S=1) steps
-    if counts["altup_predict_correct"] != n_layers * steps or \
-            counts["ragged_decode_attention"] != n_layers * len(decode_ms) \
+    # attention on the pure-decode (S=1) steps, and once more per layer in
+    # each capture's warm-up
+    warm = graph["warmup_launches"] if graph else dict.fromkeys(counts, 0)
+    if counts["altup_predict_correct"] - warm["altup_predict_correct"] != \
+            n_layers * steps or \
+            counts["ragged_decode_attention"] - \
+            warm["ragged_decode_attention"] != n_layers * len(decode_ms) \
             or counts["paged_ragged_decode_attention"] != 0:
-        raise AssertionError(f"launch counts {counts} do not match {steps} "
-                             f"steps, {len(decode_ms)} decode steps")
+        raise AssertionError(f"launch counts {counts} (warm-ups {warm}) do "
+                             f"not match {steps} steps, {len(decode_ms)} "
+                             f"decode steps")
     st = eng.stats
     decode_ms.sort()
     res = {"requests": len(rids), "prompt_lens": plens, "new_tokens": n_new,
+           "replay": replay, "graph": graph,
            "steps": steps, "decode_steps": len(decode_ms),
            "launches": counts,
            "kv_cache_dtype": kind or "auto", "cache_bytes": cache_bytes(eng),
@@ -1227,10 +1394,13 @@ def serve_bf16(torch, ops, profile=False, kind=None):
            "decode_step_ms_min": decode_ms[0],
            "wall_s": wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    prof = profile_decode(torch, eng, prompts) if profile else None
+    trace = {"tokens": [out[r].tokens for r in rids],
+             "stats": step_stats(eng)}
+    prof = profile_decode(torch, ops, eng, prompts, replay) if profile \
+        else None
     del eng, params
     torch.cuda.empty_cache()
-    return res, counts, prof
+    return res, trace, prof
 
 
 # ---------------------------------------------------------------------------
@@ -1306,19 +1476,21 @@ def page_ops(torch, check):
             setattr(E, name, fn)
 
 
-def serve_paged_bf16(torch, ops, profile=False, kind=None):
+def serve_paged_bf16(torch, ops, profile=False, kind=None, replay=False):
     """Phase (g); kind "int8" / "fp8" serves the same traffic from a
-    quantized pool (g-quant)."""
+    quantized pool (g-quant); replay as in serve_bf16 (g-graph,
+    g-quant-graph)."""
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import Engine
     from repro_torch.serve.sampling import SamplingParams
     cfg = served_config()                              # bf16
     if kind is not None:
         cfg = cfg.replace(kv_cache_dtype=kind)
     params = init_params(cfg, seed=1, device=DEV)
     perturb_altup(torch, params, seed=11)
-    eng = Engine(cfg, params, max_len=2048, n_slots=G_SLOTS, prefill_chunk=64,
-                 paged=True, page_size=G_PAGE, n_pages=G_PAGES, device=DEV)
+    eng = engine_class(replay)(cfg, params, max_len=2048, n_slots=G_SLOTS,
+                               prefill_chunk=64, paged=True,
+                               page_size=G_PAGE, n_pages=G_PAGES,
+                               device=DEV)
     system, tails, prompts = paged_traffic(torch, cfg.vocab_size)
     n_new = G_NEW
     # the warm request puts the system prompt in the prefix cache (and
@@ -1328,6 +1500,7 @@ def serve_paged_bf16(torch, ops, profile=False, kind=None):
     eng.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    gs0 = eng.graph_stats
     with page_ops(torch, check=False) as pops:
         ops.reset_launch_counts()            # counts start at 0 right here
         t_run = time.perf_counter()
@@ -1344,6 +1517,7 @@ def serve_paged_bf16(torch, ops, profile=False, kind=None):
                 decode_ms.append(1e3 * dt)
         wall = time.perf_counter() - t_run
         counts = ops.launch_counts()         # read right after the run
+    graph = graph_window(gs0, eng.graph_stats) if replay else None
     out = eng.collect()
     if sorted(out) != sorted(rids):
         raise AssertionError(f"not every request completed: {sorted(out)}")
@@ -1368,13 +1542,19 @@ def serve_paged_bf16(torch, ops, profile=False, kind=None):
         raise AssertionError(f"pool not over-committed as expected: {st}, "
                              f"{ps}")
     n_layers = cfg.n_layers
-    if counts["paged_ragged_decode_attention"] != n_layers * len(decode_ms) \
+    warm = graph["warmup_launches"] if graph else dict.fromkeys(counts, 0)
+    if counts["paged_ragged_decode_attention"] - \
+            warm["paged_ragged_decode_attention"] != \
+            n_layers * len(decode_ms) \
             or counts["ragged_decode_attention"] != 0 \
-            or counts["altup_predict_correct"] != n_layers * steps:
-        raise AssertionError(f"launch counts {counts} do not match {steps} "
-                             f"steps, {len(decode_ms)} decode steps")
+            or counts["altup_predict_correct"] - \
+            warm["altup_predict_correct"] != n_layers * steps:
+        raise AssertionError(f"launch counts {counts} (warm-ups {warm}) do "
+                             f"not match {steps} steps, {len(decode_ms)} "
+                             f"decode steps")
     decode_ms.sort()
     res = {"requests": len(rids), "system_prompt": len(system),
+           "replay": replay, "graph": graph,
            "kv_cache_dtype": kind or "auto", "cache_bytes": cache_bytes(eng),
            "tails": tails, "new_tokens": n_new, "steps": steps,
            "decode_steps": len(decode_ms), "launches": counts,
@@ -1390,10 +1570,13 @@ def serve_paged_bf16(torch, ops, profile=False, kind=None):
            "decode_step_ms_min": decode_ms[0],
            "wall_s": wall, "paged_stats": ps,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    prof = profile_decode(torch, eng, prompts) if profile else None
+    trace = {"tokens": [out[r].tokens for r in rids],
+             "stats": step_stats(eng), "paged_stats": ps}
+    prof = profile_decode(torch, ops, eng, prompts, replay) if profile \
+        else None
     del eng, params
     torch.cuda.empty_cache()
-    return res, counts, prof
+    return res, trace, prof
 
 
 def serve_spill_bf16(torch):
@@ -1552,9 +1735,10 @@ def rwkv_traffic(torch, vocab):
     return donor, batch
 
 
-def serve_rwkv_bf16(torch, ops, profile=False):
+def serve_rwkv_bf16(torch, ops, profile=False, replay=False):
+    """Phase (i); replay as in serve_bf16 (i-graph: every step of a
+    recurrent plan is chunk 1, so every step replays)."""
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import Engine
     from repro_torch.serve.sampling import SamplingParams
     cfg = rwkv_config()                                # bf16
     params = init_params(cfg, seed=1, device=DEV)
@@ -1562,8 +1746,8 @@ def serve_rwkv_bf16(torch, ops, profile=False):
     donor, batch = rwkv_traffic(torch, cfg.vocab_size)
 
     def engine(**kw):
-        return Engine(cfg, params, max_len=I_MAX_LEN, n_slots=I_SLOTS,
-                      device=DEV, **kw)
+        return engine_class(replay)(cfg, params, max_len=I_MAX_LEN,
+                                    n_slots=I_SLOTS, device=DEV, **kw)
     eng = engine()
     # warm-up request (cuBLAS handles, allocator) outside the counted run
     eng.submit(batch[1][:8], sampling=SamplingParams(max_new=4))
@@ -1571,6 +1755,7 @@ def serve_rwkv_bf16(torch, ops, profile=False):
     eng.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()     # the peak of this run only
+    gs0 = eng.graph_stats
     ops.reset_launch_counts()                # counts start at 0 right here
     t_run = time.perf_counter()
     decode_ms, steps = [], 0
@@ -1592,6 +1777,7 @@ def serve_rwkv_bf16(torch, ops, profile=False):
     drive()
     wall = time.perf_counter() - t_run
     counts = ops.launch_counts()             # read right after the run
+    graph = graph_window(gs0, eng.graph_stats) if replay else None
     out = eng.collect()
     if sorted(out) != sorted([r_donor] + rids):
         raise AssertionError(f"not every request completed: {sorted(out)}")
@@ -1606,19 +1792,24 @@ def serve_rwkv_bf16(torch, ops, profile=False):
         raise AssertionError(f"not one prefix hit at the donor's depth: "
                              f"{st}")
     n_layers = cfg.n_layers
-    if counts["rwkv6_wkv"] != n_layers * steps or \
+    warm = graph["warmup_launches"] if graph else dict.fromkeys(counts, 0)
+    if counts["rwkv6_wkv"] - warm["rwkv6_wkv"] != n_layers * steps or \
             counts["altup_predict_correct"] <= 0 or \
             counts["ragged_decode_attention"] != 0 or \
             counts["paged_ragged_decode_attention"] != 0:
         raise AssertionError(f"launch counts {counts} do not match "
                              f"{steps} steps of {n_layers} layers")
     hit_tokens = list(out[rids[0]].tokens)
+    trace = {"tokens": [out[r].tokens for r in [r_donor] + rids],
+             "stats": step_stats(eng)}
     decode_ms.sort()
     res = {"requests": 1 + len(rids), "donor_prompt": len(donor),
            "prompt_lens": [len(p) for p in batch], "new_tokens": I_NEW,
+           "replay": replay, "graph": graph,
            "steps": steps, "decode_steps": len(decode_ms),
            "launches": counts,
-           "wkv_launches_per_step": counts["rwkv6_wkv"] / steps,
+           "wkv_launches_per_step":
+               (counts["rwkv6_wkv"] - warm["rwkv6_wkv"]) / steps,
            "prefix_hits": st["prefix_hits"],
            "prefill_tokens_saved": st["prefill_tokens_saved"],
            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -1628,7 +1819,8 @@ def serve_rwkv_bf16(torch, ops, profile=False):
            "decode_step_ms_min": decode_ms[0],
            "wall_s": wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    prof = profile_decode(torch, eng, batch[1:]) if profile else None
+    prof = (profile_decode(torch, ops, eng, batch[1:], replay) if profile
+            else None)
     del eng
     # the extender served cold, alone, on an engine of the same shape
     cold = engine(prefix_cache=False)
@@ -1640,7 +1832,7 @@ def serve_rwkv_bf16(torch, ops, profile=False):
     res["hit_tokens_equal_cold"] = True
     del cold, params
     torch.cuda.empty_cache()
-    return res, counts, prof
+    return res, trace, prof
 
 
 def _device_kernels(prof):
@@ -1700,45 +1892,112 @@ def device_ms(torch, fn, name_part=None, iters=50, per_call=None):
     return profiled(torch, fn, name_part, iters, per_call)[0]
 
 
-def profile_decode(torch, eng, prompts, n_steps=8):
+def profile_decode(torch, ops, eng, prompts, replay, n_steps=8,
+                   sessions=3):
     """Device busy share of pure decode steps at the served shapes: the
     phase's own prompts, prefilled, then `n_steps` decode steps under
-    torch.profiler."""
+    torch.profiler. The port's kernel records are held against the launch
+    counters of the same steps (a replayed graph's kernels included: its
+    replays add their capture's counts), one record per launch and two
+    per decode-attention call; a session that lost records is run again.
+    A replaying engine also gives the gap between the kernels of its
+    most replayed graph: replays back to back timed by CUDA events
+    against the kernels' own device time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.sampling import SamplingParams
     for p in prompts:
-        eng.submit(p, sampling=SamplingParams(max_new=n_steps + 4))
+        eng.submit(p, sampling=SamplingParams(
+            max_new=sessions * n_steps + 4))
     while True:                              # through the prefill steps
         pf0 = eng.stats["prefill_tokens"]
         eng.step()
         if eng.stats["prefill_tokens"] == pf0:
             break
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1)                 # takes a lost first record
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            eng.step()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        c0 = ops.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)             # takes a lost first record
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        c1 = ops.launch_counts()
+        kern = sorted((e for e in _device_kernels(prof)
+                       if MARKER not in e.key),
+                      key=lambda e: -e.self_device_time_total)
+        want = sum((c1[k] - c0[k]) * KERNELS_PER_LAUNCH.get(k, 1)
+                   for k in c1)
+        got = sum(e.count for e in kern if "repro_torch::" in e.key)
+        if got == want:
+            break
+    else:
+        raise AssertionError(f"profiler records {got} port kernels for "
+                             f"{want} counted launches")
     eng.run()
-    kern = sorted((e for e in _device_kernels(prof) if MARKER not in e.key),
-                  key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in kern)
-    return {"steps": n_steps, "wall_ms_per_step": 1e3 * wall / n_steps,
-            "device_ms_per_step": dev_us / 1e3 / n_steps,
-            "device_busy_share": (dev_us / 1e6) / wall,
-            "kernels_per_step": sum(e.count for e in kern) / n_steps,
-            "top_kernels": [[e.key[:70], e.count / n_steps,
-                             e.self_device_time_total / 1e3 / n_steps]
-                            for e in kern[:10]],
-            # the port's own kernels, each with its launches and device ms
-            # per step and its share of the step's device time
-            "port_kernels": [[e.key[:70], e.count / n_steps,
-                              e.self_device_time_total / 1e3 / n_steps,
-                              e.self_device_time_total / dev_us]
-                             for e in kern if "repro_torch::" in e.key]}
+    res = {"steps": n_steps, "replay": replay,
+           "wall_ms_per_step": 1e3 * wall / n_steps,
+           "device_ms_per_step": dev_us / 1e3 / n_steps,
+           "wall_minus_device_ms_per_step": (1e3 * wall - dev_us / 1e3)
+           / n_steps,
+           "device_busy_share": (dev_us / 1e6) / wall,
+           "kernels_per_step": sum(e.count for e in kern) / n_steps,
+           "port_kernel_records": got, "port_kernel_launches_counted": want,
+           "top_kernels": [[e.key[:70], e.count / n_steps,
+                            e.self_device_time_total / 1e3 / n_steps]
+                           for e in kern[:10]],
+           # the port's own kernels, each with its launches and device ms
+           # per step and its share of the step's device time
+           "port_kernels": [[e.key[:70], e.count / n_steps,
+                             e.self_device_time_total / 1e3 / n_steps,
+                             e.self_device_time_total / dev_us]
+                            for e in kern if "repro_torch::" in e.key]}
+    if replay:
+        res.update(replay_gaps(torch, eng))
+    return res
+
+
+def replay_gaps(torch, eng, iters=5):
+    """How much of a replayed step is gaps between its kernels: the most
+    replayed graph, replayed back to back (CUDA events over 50 replays),
+    against the summed device time of its kernels (torch.profiler over
+    `iters` replays). The port's kernel records must count exactly the
+    launches the graph's capture recorded (two a decode-attention call);
+    a session that lost one is run again. Such a session also loses a
+    record or two of its ~14000 others now and then, so their count is
+    printed, not gated. The replays
+    run on the engine's last step inputs after its run, writing the rows
+    that step wrote."""
+    from torch.profiler import ProfilerActivity, profile
+    gs = eng.graph_stats
+    by_shape = gs["replays_by_shape"]
+    key = max(by_shape, key=by_shape.get)
+    graph = eng._graphs._graphs[key][0]
+    want = iters * sum(n * KERNELS_PER_LAUNCH.get(k, 1)
+                       for k, n in gs["launches_per_replay"][key].items())
+    replay_ms = time_ms(torch, graph.replay, iters=50, warmup=5)
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            for _ in range(iters):
+                graph.replay()
+            torch.cuda.synchronize()
+        kern = [e for e in _device_kernels(prof) if MARKER not in e.key]
+        port = sum(e.count for e in kern if "repro_torch::" in e.key)
+        if port == want:
+            break
+    else:
+        raise AssertionError(f"replay profile: {port} port kernel records, "
+                             f"want {want}")
+    kern_ms = sum(e.self_device_time_total for e in kern) / 1e3 / iters
+    return {"replayed_shape": list(key), "replay_ms": replay_ms,
+            "replay_kernel_ms": kern_ms,
+            "replay_records_per_replay": sum(e.count for e in kern) / iters,
+            "replay_port_records": port,
+            "replay_gap_share": 1.0 - kern_ms / replay_ms}
 
 
 def main(argv) -> int:
@@ -1915,39 +2174,56 @@ def main(argv) -> int:
     line("d-parity", **parity_f32(torch))
     for store in ("int8", "fp8"):
         line("d-quant", **parity_f32(torch, store))
+    # the replayed step against the eager one, full width, f32
+    for pool in (False, True):
+        line("d-graph", **graph_parity_f32(torch, pool))
 
-    # (e) the main path: bf16 serving through Engine, then from int8
-    # caches (e-quant)
-    res, counts, prof = serve_bf16(torch, ops, profile=profile)
-    line("e-serve", **res)
-    if prof is not None:
-        line("f-profile", **prof)
-    res_eq, counts_eq, prof_eq = serve_bf16(torch, ops, profile=profile,
-                                            kind="int8")
-    res_eq["cache_bytes_over_e"] = res_eq["cache_bytes"] / res["cache_bytes"]
-    line("e-quant", **res_eq)
-    if prof_eq is not None:
-        line("f-profile-quant", **prof_eq)
+    # (e) the main path: bf16 serving through Engine, eager and replayed
+    # (its pure-decode steps replay CUDA graphs), then from int8 caches
+    # (e-quant); each replayed phase held against its eager twin
+    def serve_pair(fn, tag, tag_graph, prof_tag, base=None, **kw):
+        res, trace, prof = fn(torch, ops, profile=profile, **kw)
+        if base is not None:         # cache bytes against the float run's
+            res[f"cache_bytes_over_{base[0]}"] = \
+                res["cache_bytes"] / base[1]["cache_bytes"]
+        line(tag, **res)
+        if prof is not None:
+            line(prof_tag, **prof)
+        res_r, trace_r, prof_r = fn(torch, ops, profile=profile,
+                                    replay=True, **kw)
+        steps = res_r["steps"] if fn is serve_rwkv_bf16 \
+            else res_r["decode_steps"]
+        res_r.update(hold_replay({**res, **trace}, {**res_r, **trace_r},
+                                 steps))
+        line(tag_graph, **res_r)
+        if prof_r is not None:
+            line(prof_tag + "-graph", **prof_r)
+        return res, res_r
+    res, res_r = serve_pair(serve_bf16, "e-serve", "e-graph", "f-profile")
+    res_eq, res_eq_r = serve_pair(serve_bf16, "e-quant", "e-quant-graph",
+                                  "f-profile-quant", base=("e", res),
+                                  kind="int8")
 
     # (g) the paged path: bf16 serving from a page pool with prefix reuse
-    res_g, counts_g, prof_g = serve_paged_bf16(torch, ops, profile=profile)
-    line("g-paged-serve", **res_g)
-    if prof_g is not None:
-        line("f-profile-paged", **prof_g)
+    res_g, res_g_r = serve_pair(serve_paged_bf16, "g-paged-serve",
+                                "g-graph", "f-profile-paged")
     line("g-spill", **serve_spill_bf16(torch))
     # (g-quant) the paged path from an fp8 pool
-    res_gq, counts_gq, _ = serve_paged_bf16(torch, ops, kind="fp8")
-    res_gq["cache_bytes_over_g"] = res_gq["cache_bytes"] / res_g["cache_bytes"]
-    line("g-quant", **res_gq)
+    res_gq, res_gq_r = serve_pair(serve_paged_bf16, "g-quant",
+                                  "g-quant-graph", "f-profile-paged-quant",
+                                  base=("g", res_g), kind="fp8")
 
     # (h) rwkv6-1.6b: full-width f32 parity of the WKV kernel path
     line("h-parity", **rwkv_parity_f32(torch))
 
     # (i) rwkv6-1.6b: bf16 serving through Engine with prefix reuse
-    res_i, counts_i, prof_i = serve_rwkv_bf16(torch, ops, profile=profile)
-    line("i-rwkv-serve", **res_i)
-    if prof_i is not None:
-        line("f-profile-rwkv", **prof_i)
+    res_i, res_i_r = serve_pair(serve_rwkv_bf16, "i-rwkv-serve", "i-graph",
+                                "f-profile-rwkv")
+    # the main path's launch counts: the replayed runs (Engine as a user
+    # calls it)
+    counts, counts_eq = res_r["launches"], res_eq_r["launches"]
+    counts_g, counts_gq = res_g_r["launches"], res_gq_r["launches"]
+    counts_i = res_i_r["launches"]
 
     # each kernel at the shape of the run its launches are counted in
     main_altup = altup[("bfloat16", 8)]      # (e)'s decode step

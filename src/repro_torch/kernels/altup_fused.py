@@ -1,11 +1,14 @@
 """Launcher of the fused AltUp predict+correct CUDA kernel.
 
 Source: `repro_torch/csrc/altup_fused.cu`, which replaces the TPU kernel
-`repro/kernels/altup_fused.py::altup_predict_correct`. The kernel is
-bound by bytes, (2K+1)·T·d elements per call, and at the decode shape
-(T = 8 slots, K = 2, d = 1024, bf16) by its launch; see the source note.
-Its plain version is `ref.altup_predict_correct_ref`; the model reaches
-it through `ops.altup_predict_correct`, which counts the launches.
+`repro/kernels/altup_fused.py::altup_predict_correct`. Its bytes bound
+is (2K+1)·T·d elements per call; at the decode shape (T = 8 slots, K = 2,
+d = 1024, bf16) the kernel's own latency bounds it, so it makes one
+memory round trip over 64-thread blocks on a (vectors, tokens) grid; see
+the source note. Its plain version is `ref.altup_predict_correct_ref`;
+the model reaches it through `ops.altup_predict_correct`, which counts
+the launches. The wrapper keeps no tensor across calls, so a CUDA graph
+captures its launch (serve/engine.py).
 """
 from __future__ import annotations
 

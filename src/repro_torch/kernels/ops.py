@@ -2,10 +2,11 @@
 
 Each wrapper takes the shapes of its counterpart in `repro/kernels/ops.py`
 and flattens or groups them as that one does. On a CUDA tensor it
-launches the kernel (and adds one to its `launches` count, the only place
-that count moves); on a CPU tensor it runs the kernel's plain version in
-`ref.py`. There is no fallback: a kernel that fails to build or launch
-raises.
+launches the kernel (and adds one to its `launches` count); on a CPU
+tensor it runs the kernel's plain version in `ref.py`. The only other
+place the counts move is `add_launches`, through which the engine counts
+the kernels a CUDA graph replays. There is no fallback: a kernel that
+fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -230,3 +231,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add {kernel: n} to the counts. A CUDA graph's replay launches the
+    kernels its capture recorded without running a wrapper: the engine
+    adds each capture's counts here once per replay (and takes back the
+    counts the wrappers added while capturing, which launched nothing)."""
+    for name, n in counts.items():
+        _COUNTED[name].launches += n

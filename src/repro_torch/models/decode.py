@@ -59,6 +59,7 @@ Caches are built from the ACTIVE d-wide sub-block only, so the widened
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -428,6 +429,19 @@ def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def altup_selectors(K: int, selection: str, layer_offset: int, n: int,
+                    device: torch.device) -> torch.Tensor:
+    """(n, K) float32 one-hot selectors of layers layer_offset ..
+    layer_offset + n - 1 on `device`, built once per (config, device) and
+    shared, never written: a step makes no host-to-device copy for them
+    (a CUDA graph cannot capture one from pageable memory; see
+    serve/engine.py) and launches nothing to build them."""
+    return torch.stack([alt.block_selector(i, K, selection)
+                        for i in range(layer_offset, layer_offset + n)]
+                       ).to(device)
+
+
 def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    n_valid=None, kv_len=None, use_ragged=False,
                    use_fused=False, paged=None,
@@ -470,12 +484,8 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
             return out
     sels = None
     if cfg.altup.enabled:
-        # built on the host and moved in one copy at the top of the step,
-        # where the card has little queued: 3 launches per layer otherwise
-        sels = torch.stack([alt.block_selector(i, K, cfg.altup.selection)
-                            for i in range(seg.layer_offset,
-                                           seg.layer_offset + seg.n)]
-                           ).to(x.device)
+        sels = altup_selectors(K, cfg.altup.selection, seg.layer_offset,
+                               seg.n, x.device)
     for i in range(seg.n):
         p_l = layer_slice(p_seg, i)
 

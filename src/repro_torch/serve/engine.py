@@ -49,13 +49,27 @@ retired a few steps earlier serves other tokens than a cold prefill. The
 port saves the retained slots' state before each step and restores it
 after.
 
-The engine runs eager PyTorch (the reference jits its step; there is no
-counterpart here). Each step hands the attention layers the per-slot
-depths: cache reads are sliced to a power-of-two `kv-len bucket` >= the
-deepest slot, and on the card S=1 attention runs through the ragged
-decode kernel (its paged variant under paging), which also skips rows
-past each slot's own depth. Only the (B,) sampled ids (and (B,) logprobs
-when asked for) leave the device.
+Each step hands the attention layers the per-slot depths: cache reads
+are sliced to a power-of-two `kv-len bucket` >= the deepest slot, and on
+the card S=1 attention runs through the ragged decode kernel (its paged
+variant under paging), which also skips rows past each slot's own depth.
+Only the (B,) sampled ids (and (B,) logprobs when asked for) leave the
+device.
+
+CUDA graphs, the counterpart of the reference's jitted step. Every step
+goes through one static-buffer step function (`_static_step`): the
+host fills pinned mirrors of the step's inputs (tokens, pos, n_valid,
+rep_pen; the paged block table when admission or retirement changed
+it), which are copied into device buffers that never move, and the step
+reads only those, the caches and `seen`, all written in place. On the
+card a pure-decode step (chunk width 1: every step of a recurrent plan)
+replays a CUDA graph of that function, captured at the first step of
+its static shape (kv bucket, logprobs or not) after a warm-up on a side
+stream (`StepGraphs`); a step that feeds a prefill chunk (C > 1) calls
+the function eagerly, by the rule of its shape. On the CPU the function
+is always called directly. A capture that fails raises: no replayable
+step runs eagerly instead. Retained recurrent donors are saved before
+and restored after the step, outside the graph.
 """
 from __future__ import annotations
 
@@ -74,6 +88,7 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        prefill, reset_pages, reset_slot,
                                        restore_recurrent, save_recurrent,
                                        scatter_pages)
+from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
                                         blank_slot_params, fill_slot_params,
@@ -108,6 +123,105 @@ def _spill_entry(caches, page: int,
     blob = gather_pages(caches, entry.pages, page=page)
     return {si: {n: t.cpu() for n, t in leaves.items()}
             for si, leaves in blob.items()}
+
+
+class StepInputs:
+    """The static device buffers of one step width C and their host
+    mirrors (pinned on the card): tokens (B, C), pos (B,), nval (B,)
+    int64 and rep_pen (B,) f32. The engine fills `host` (numpy views of
+    the mirrors) and `upload()`s them; the device tensors never move, so
+    a captured step reads each step's inputs from them. A mirror is
+    rewritten only after the previous step's ids reached the host, which
+    waits for that step's copies."""
+
+    def __init__(self, B: int, C: int, device: torch.device):
+        pin = device.type == "cuda"
+        specs = {"tokens": ((B, C), torch.long), "pos": ((B,), torch.long),
+                 "nval": ((B,), torch.long),
+                 "rep_pen": ((B,), torch.float32)}
+        self._pairs = []
+        self.host: Dict[str, np.ndarray] = {}
+        for name, (shape, dtype) in specs.items():
+            h = torch.zeros(shape, dtype=dtype, pin_memory=pin)
+            d = torch.zeros(shape, dtype=dtype, device=device)
+            self._pairs.append((h, d))
+            self.host[name] = h.numpy()
+            setattr(self, name, d)
+
+    def upload(self) -> None:
+        for h, d in self._pairs:
+            d.copy_(h, non_blocking=True)
+
+
+class StepGraphs:
+    """CUDA graphs of one engine's pure-decode step, one per static shape
+    (key), in one shared memory pool. Held by the engine only, and
+    holding nothing of it, so a dropped engine frees its graphs and their
+    pool with its caches.
+
+    The first `run` of a key warms the step up on a side stream, puts the
+    recurrent state back as it was (attention-cache and `seen` writes
+    are idempotent: the step writes the same rows again), then captures
+    the step and replays it. Replays run the captured kernels on the same
+    buffers in the same order as the eager step. Launch counts: the
+    warm-up's launches are counted as they happen; the counts the
+    wrappers add while capturing (nothing launches) are taken back, and
+    each replay adds its capture's counts (`ops.add_launches`)."""
+
+    def __init__(self, device: torch.device, n_slots: int):
+        self.device = device
+        self.n_slots = n_slots
+        self._pool = torch.cuda.graph_pool_handle()
+        self._graphs: Dict[tuple, tuple] = {}
+        self._replays: Dict[tuple, int] = {}
+        self.captures = 0
+        self.replays = 0
+        # the warm-ups' kernel launches, {kernel: n}
+        self.warmup_launches = {k: 0 for k in kops.launch_counts()}
+
+    def stats(self) -> Dict[str, object]:
+        return {"captures": self.captures, "replays": self.replays,
+                "shapes": sorted(self._graphs),
+                "replays_by_shape": dict(self._replays),
+                "launches_per_replay": {
+                    k: g[2] for k, g in sorted(self._graphs.items())},
+                "warmup_launches": dict(self.warmup_launches)}
+
+    def run(self, key: tuple, fn, caches):
+        """Replay the graph of `key`, capturing fn() first if it has none.
+        Returns the graph's static outputs (fn()'s result)."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(fn, caches)
+        graph, out, launches = entry
+        graph.replay()
+        kops.add_launches(launches)
+        self.replays += 1
+        self._replays[key] = self._replays.get(key, 0) + 1
+        return out
+
+    def _capture(self, fn, caches):
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        slots = torch.arange(self.n_slots, device=dev)
+        saved = save_recurrent(caches, slots)
+        before = kops.launch_counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fn()
+        cur.wait_stream(side)
+        restore_recurrent(caches, saved, slots)
+        mid = kops.launch_counts()
+        for k, n in mid.items():
+            self.warmup_launches[k] += n - before[k]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = fn()
+        launches = {k: n - mid[k] for k, n in kops.launch_counts().items()}
+        kops.add_launches({k: -n for k, n in launches.items()})
+        self.captures += 1
+        return graph, out, launches
 
 
 class Engine:
@@ -160,8 +274,14 @@ class Engine:
         self._sched: Optional[SlotScheduler] = None
         self._caches = None
         self._seen = None
-        self._bt = None             # device block table of the paged step
+        # the static step inputs, per chunk width, and the paged step's
+        # block table (pinned host mirror, device buffer)
+        self._inputs: Dict[int, StepInputs] = {}
+        self._bt_host = self._bt = None
         self._bt_stale = True       # admit/retire changed the host table
+        # on the card, pure-decode steps replay CUDA graphs
+        self._graphs = (StepGraphs(self.device, n_slots)
+                        if self.device.type == "cuda" else None)
         self._events: List[Tuple[int, int]] = []      # last step's deltas
         # (B, n) chosen-token logprobs of the most recent generate() run
         # with sampling.logprobs=True; None otherwise
@@ -197,6 +317,14 @@ class Engine:
                 "spills": pool.spills, "restores": pool.restores,
                 "host_dropped": pool.host_dropped,
                 "host_pages_used": self._sched.host_pages_used}
+
+    @property
+    def graph_stats(self) -> Optional[Dict[str, object]]:
+        """CUDA-graph counters (None off the card): captures, replays, the
+        captured shapes (kv bucket, logprobs) and the replays of each,
+        each shape's kernel launches a replay, and the warm-ups' launches.
+        Lifetime counters, not reset by reset_stats."""
+        return None if self._graphs is None else self._graphs.stats()
 
     def _bucket(self, needed: int) -> int:
         if not self._kv_buckets:
@@ -307,14 +435,23 @@ class Engine:
                 self.stats["prefill_tokens_saved"] += st.prefix_len
             self._sched.release_donor(st)
 
-    def _block_table(self) -> torch.Tensor:
-        """The step's device block table. Page assignments are static per
-        request life, so the (n_slots, npages_max) int32 table moves to
-        the device only after admit() or retire() changed it."""
-        if self._bt_stale:
-            self._bt = self._tensor(self._pool.block_table())
-            self._bt_stale = False
-        return self._bt
+    def _refresh_block_table(self) -> None:
+        """Bring the step's device block table `_bt`, one (n_slots,
+        npages_max) int32 buffer for the engine's life, up to date before
+        the step runs. Page assignments are static per request life, so
+        the host table is copied into it only after admit() or retire()
+        changed it."""
+        if not self._bt_stale:
+            return
+        table = torch.from_numpy(self._pool.block_table())
+        if self._bt is None:
+            self._bt_host = torch.zeros(
+                table.shape, dtype=table.dtype,
+                pin_memory=self.device.type == "cuda")
+            self._bt = torch.zeros_like(table, device=self.device)
+        self._bt_host.copy_(table)
+        self._bt.copy_(self._bt_host, non_blocking=True)
+        self._bt_stale = False
 
     def submit(self, prompt, *, sampling: SamplingParams) -> int:
         """Enqueue one request. prompt: 1-D sequence of token ids. Returns
@@ -345,16 +482,19 @@ class Engine:
             return 0
         self.stats["concurrency_peak"] = max(
             self.stats["concurrency_peak"], len(active))
-        pkw = ({"block_table": self._block_table(),
-                "page_size": self._page_size} if self._paged else {})
         B = self.n_slots
         # pure-decode steps stay (B, 1); the chunk width only when a
         # prefilling slot can use it
         C = self._chunk if any(st.in_prefill for st in active.values()) \
             else 1
-        tokens = np.zeros((B, C), np.int64)
-        pos = np.zeros((B,), np.int64)
-        nval = np.zeros((B,), np.int64)
+        inputs = self._inputs.get(C)
+        if inputs is None:
+            inputs = self._inputs[C] = StepInputs(B, C, self.device)
+        h = inputs.host
+        tokens, pos, nval = h["tokens"], h["pos"], h["nval"]
+        tokens.fill(0)
+        pos.fill(0)
+        nval.fill(0)
         sparams = blank_slot_params(B)
         samples: Dict[int, bool] = {}
         want_lp = False
@@ -376,17 +516,19 @@ class Engine:
                 dec_tokens += n
             needed = max(needed, st.pos + n)
         kv_len = self._bucket(needed)
-        sp_dev = {"rep_pen": self._tensor(sparams["rep_pen"])}
+        h["rep_pen"][:] = sparams["rep_pen"]
         t0 = serve_clock()
+        inputs.upload()
+        if self._paged:
+            self._refresh_block_table()
         # retained recurrent donors keep the state they retired with
         kept = (self._tensor(np.asarray(sorted(self._sched.retained),
                                         np.int64))
                 if self._has_recurrent and self._sched.retained else None)
         saved = None if kept is None else save_recurrent(self._caches, kept)
-        ids, lps, self._caches, self._seen = decode_sample_step(
-            self.params, self._caches, self._seen, self._tensor(tokens),
-            self._tensor(pos), self._tensor(nval), sp_dev, cfg=self.cfg,
-            kv_len=kv_len, want_logprobs=want_lp, any_sampled=False, **pkw)
+        ids, lps = self._run_step(
+            (kv_len, want_lp) if C == 1 else None,
+            functools.partial(self._static_step, inputs, kv_len, want_lp))
         if saved is not None:
             restore_recurrent(self._caches, saved, kept)
         ids = ids.cpu().numpy()               # (B,) — the only per-step
@@ -413,6 +555,31 @@ class Engine:
                 self._sched.retire(st.slot)
                 self._bt_stale = True
         return len(active)
+
+    def _static_step(self, inputs: StepInputs, kv_len: int,
+                     want_lp: bool):
+        """The step on the static buffers: decode_sample_step over
+        `inputs`, the caches, `seen` and the block table buffer, all
+        written in place. Returns (ids, logprobs | None) on the device.
+        This is the function a CUDA graph captures."""
+        pkw = ({"block_table": self._bt, "page_size": self._page_size}
+               if self._paged else {})
+        ids, lps, caches, seen = decode_sample_step(
+            self.params, self._caches, self._seen, inputs.tokens,
+            inputs.pos, inputs.nval, {"rep_pen": inputs.rep_pen},
+            cfg=self.cfg, kv_len=kv_len, want_logprobs=want_lp,
+            any_sampled=False, **pkw)
+        if caches is not self._caches or seen is not self._seen:
+            raise RuntimeError("the step must write the caches and the seen "
+                               "table in place")
+        return ids, lps
+
+    def _run_step(self, key: Optional[tuple], fn):
+        """Run one step: on the card, a pure-decode step (key = its static
+        shape) replays its CUDA graph; any other step calls fn()."""
+        if key is None or self._graphs is None:
+            return fn()
+        return self._graphs.run(key, fn, self._caches)
 
     def stream(self) -> Iterator[Tuple[int, int]]:
         """Drive step() while work remains, yielding (rid, token) deltas
