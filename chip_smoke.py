@@ -13,7 +13,9 @@ Qwen3-0.6B wrapped with AltUp K=2 (recycled), at its full width and depth,
 with seeded random weights: once over contiguous slot caches and once
 over a paged KV pool with prefix reuse. It then does the same for the
 second served family, RWKV-6 "Finch" 1.6B wrapped with AltUp K=2, whose
-recurrence runs through the WKV kernel. Phases:
+recurrence runs through the WKV kernel, and for the windowed one,
+gemma3-4b wrapped with AltUp K=2 (5 local layers with a 1024-row ring
+cache to 1 global layer). Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
@@ -70,6 +72,12 @@ recurrence runs through the WKV kernel. Phases:
       c-paged-long  one paged slot of 40960 rows (2560 table pages) and
                seven short ones, four storages, both query types,
                bitwise equal to contiguous; timed in bf16 with its bound
+      c-* case j*  the fused AltUp and the decode attention at gemma3-4b's
+               served shapes: AltUp at 8 tokens of d 2560; both entry
+               points at Dh 320 (Hk 4, rep 2) halfway through (j) and
+               j-paged, ring lengths (<= 1024) and global lengths; int8
+               codes (contiguous) and fp8 codes (paged) at j-paged's
+               ring shape; each timed with its bound
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
@@ -110,7 +118,11 @@ recurrence runs through the WKV kernel. Phases:
   (h) parity   rwkv6-1.6b + AltUp K=2 at full width, f32: forward logits
                on 2 prompts of 64 tokens, then a token-by-token prefill
                and 16 greedy decode_steps, the kernel path vs the dense
-               path
+               path; with, ungated, the per-layer record of both paths
+               (time mix, channel mix, AltUp output), each layer's WKV
+               through the kernel, the dense chunked form and the f32
+               scan against a float64 scan, each decode layer's fused
+               AltUp against float64, and the logits' magnitude
   (i) rwkv     8 greedy bf16 requests (prompts of 32-256 tokens, 32 new
                tokens) through Engine(n_slots=8, max_len=512) with the
                prefix cache on: a max_new=1 donor over a prefix, then a
@@ -118,6 +130,30 @@ recurrence runs through the WKV kernel. Phases:
                tokens; the WKV kernel launches 24 times per step;
                i-graph replayed (every step of a recurrent plan is
                chunk 1, so every step replays), as e-graph
+  (j) gemma3-4b + AltUp K=2, sliding windows over ring caches:
+      j-parity full-width f32 decode_step logits of the kernel path and
+               the paged kernel path vs the dense path: a prefill of
+               1100 and 1013 tokens in direct chunks of 64 (a chunk
+               reads its rings before it writes, across the wrap), then
+               16 greedy S=1 steps; tokens identical, every cache row
+               below the sink within 1e-3, the dense logits within 1e-3
+               of forward on the same tokens
+      j-serve  8 greedy bf16 requests (prompts of 64-1150 tokens, two
+               past the window, one that wraps during decode; 40 new)
+               through Engine(n_slots=8, max_len=2048,
+               prefix_cache=False): chunk-1 prefill, so every step is
+               S=1 and launches 34 AltUp and 34 decode-attention kernels
+               (29 on rings, 5 global); j-graph replayed, every step a
+               replay, as e-graph, with the replayed step's device ms
+      j-paged  a 600-token system prompt served first, then 8 requests
+               extending it (tails of 32-480 tokens, 32 new) over a pool
+               of pages of 16 rows with prefix reuse: every hit copies
+               the prompt's 38 pages and aliases none; j-paged-graph
+               replayed, and its hits' tokens equal a cold engine's
+      j-quant  j-paged's traffic from int8 slot caches (the contiguous
+               ring copy, j-quant-int8-graph) and from an fp8 pool
+               (j-quant-fp8-graph), both replayed only, each run's hits'
+               tokens equal to a cold engine's
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -1242,8 +1278,13 @@ def engine_class(replay):
         return Engine
 
     class EagerEngine(Engine):
+        # False: steps replay as in Engine (for work outside a counted run)
+        eager = True
+
         def _run_step(self, key, fn):
-            return fn()
+            if self.eager:
+                return fn()
+            return super()._run_step(key, fn)
     return EagerEngine
 
 
@@ -1647,6 +1688,117 @@ def serve_spill_bf16(torch):
 # (h) rwkv6-1.6b full-width f32 parity: WKV kernel path vs dense path
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def rwkv_recording():
+    """Record, in call order, the outputs of every RWKV-6 time mix and
+    channel mix and of every AltUp layer, the inputs of the dense chunked
+    WKV, and the inputs and output of the fused AltUp kernel's decode
+    wrapper: {"tm", "cm", "alt", "wkv_in", "fused"}: lists, one entry a
+    layer in order."""
+    import repro_torch.core.altup as A
+    import repro_torch.kernels.ops as O
+    import repro_torch.models.rwkv as R
+    rec = {"tm": [], "cm": [], "alt": [], "wkv_in": [], "fused": []}
+    real = {"tm": R.rwkv_time_mix, "cm": R.rwkv_channel_mix,
+            "alt": A.altup_layer, "wkv_in": R.wkv_chunked,
+            "fused": O.decode_altup_predict_correct}
+
+    def tm(*a, **kw):
+        out = real["tm"](*a, **kw)
+        rec["tm"].append(out[0].detach().clone())
+        return out
+
+    def cm(*a, **kw):
+        out = real["cm"](*a, **kw)
+        rec["cm"].append(out[0].detach().clone())
+        return out
+
+    def alt(*a, **kw):
+        out = real["alt"](*a, **kw)
+        rec["alt"].append(out.detach().clone())
+        return out
+
+    def chunked(r, k, v, w, u, state, **kw):
+        rec["wkv_in"].append(tuple(t.detach().clone()
+                                   for t in (r, k, v, w, u, state)))
+        return real["wkv_in"](r, k, v, w, u, state, **kw)
+
+    def fused(*a):
+        out = real["fused"](*a)
+        rec["fused"].append((tuple(t.detach().clone() for t in a),
+                             out.detach().clone()))
+        return out
+    R.rwkv_time_mix, R.rwkv_channel_mix, R.wkv_chunked = tm, cm, chunked
+    A.altup_layer, O.decode_altup_predict_correct = alt, fused
+    try:
+        yield rec
+    finally:
+        R.rwkv_time_mix, R.rwkv_channel_mix = real["tm"], real["cm"]
+        R.wkv_chunked, A.altup_layer = real["wkv_in"], real["alt"]
+        O.decode_altup_predict_correct = real["fused"]
+
+
+def wkv_f64(torch, r, k, v, w, u, state):
+    """The WKV recurrence in float64, one step at a time: the exact value
+    the kernel and the dense forms are held against."""
+    f = torch.float64
+    r, k, v, w = (t.to(f) for t in (r, k, v, w))
+    uf = u.to(f)[None, :, :, None]
+    s = state.to(f)
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + uf * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(outs, dim=1)
+
+
+def per_layer_diff(torch, rec_k, rec_d):
+    """Per layer: max |kernel path - dense path| of the time mix, the
+    channel mix and the AltUp layer's output, and the largest |value| of
+    the dense AltUp output."""
+    return {"time_mix": [max_err(torch, a, b)
+                         for a, b in zip(rec_k["tm"], rec_d["tm"])],
+            "channel_mix": [max_err(torch, a, b)
+                            for a, b in zip(rec_k["cm"], rec_d["cm"])],
+            "altup": [max_err(torch, a, b)
+                      for a, b in zip(rec_k["alt"], rec_d["alt"])],
+            "altup_out_max_abs": [float(b.abs().max())
+                                  for b in rec_d["alt"]]}
+
+
+def wkv_local_errors(torch, ops, wkv_in):
+    """Each layer's WKV inputs of the dense forward, through the kernel,
+    the dense chunked form and the f32 sequential scan, each against the
+    f64 scan: max abs error a layer, and the largest |output|."""
+    import repro_torch.models.rwkv as R
+    out = {"kernel": [], "chunked": [], "scan_f32": [], "out_max_abs": []}
+    for r, k, v, w, u, s0 in wkv_in:
+        exact = wkv_f64(torch, r, k, v, w, u, s0)
+        got = {"kernel": ops.rwkv6_wkv(r, k, v, w, u, None)[0],
+               "chunked": R.wkv_chunked(r, k, v, w, u, s0)[0],
+               "scan_f32": R.wkv_scan(r, k, v, w, u, s0)[0]}
+        for name, o in got.items():
+            out[name].append(float((o.double() - exact).abs().max()))
+        out["out_max_abs"].append(float(exact.abs().max()))
+    return out
+
+
+def altup_local_errors(torch, fused):
+    """Each layer's fused AltUp kernel call of a decode step against the
+    einsum predict+correct on the same inputs and both against float64:
+    max abs error a layer."""
+    from repro_torch.core import altup as A
+    out = {"fused": [], "einsum": []}
+    for (xw, xt, sel, p, g), got in fused:
+        exact = A.correct(A.predict(xw.double(), p.double()), xt.double(),
+                          sel.double(), g.double())
+        dense = A.correct(A.predict(xw, p), xt, sel, g)
+        out["fused"].append(float((got.double() - exact).abs().max()))
+        out["einsum"].append(float((dense.double() - exact).abs().max()))
+    return out
+
+
 def rwkv_parity_f32(torch):
     from repro_torch.models.decode import decode_step, init_cache
     from repro_torch.models.transformer import forward, init_params
@@ -1662,8 +1814,12 @@ def rwkv_parity_f32(torch):
     gen = torch.Generator(device=DEV).manual_seed(21)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                             device=DEV)
-    fwd = {s: forward(params, cfgs[s], prompts, wkv_kernel=wkv[s])
-           [..., :cfg.vocab_size] for s in "kd"}
+    fwd, rec_fwd = {}, {}
+    for s in "kd":
+        # the per-layer record of each path (C2: which layer adds what)
+        with rwkv_recording() as rec_fwd[s]:
+            fwd[s] = forward(params, cfgs[s], prompts, wkv_kernel=wkv[s]
+                             )[..., :cfg.vocab_size]
     torch.testing.assert_close(fwd["k"], fwd["d"], **PARITY_TOL)
     worst_fwd = max_err(torch, fwd["k"], fwd["d"])
     caches = {s: init_cache(cfgs[s], B, S + n_dec, device=DEV) for s in "kd"}
@@ -1681,10 +1837,14 @@ def rwkv_parity_f32(torch):
     tok = {s: lg[s].argmax(-1) for s in "kd"}
     streams = {s: [tok[s].tolist()] for s in "kd"}
     min_gap = math.inf
+    rec_dec = {}
     for t in range(S, S + n_dec):
         for s in "kd":
-            out, _ = decode_step(params, cfgs[s], caches[s], tok[s][:, None],
-                                 t, wkv_kernel=wkv[s])
+            # the last step's per-layer record of each path
+            with (rwkv_recording() if t == S + n_dec - 1
+                  else contextlib.nullcontext({})) as rec_dec[s]:
+                out, _ = decode_step(params, cfgs[s], caches[s],
+                                     tok[s][:, None], t, wkv_kernel=wkv[s])
             lg[s] = out[:, 0, :cfg.vocab_size]
         torch.testing.assert_close(lg["k"], lg["d"], **PARITY_TOL)
         worst = max(worst, max_err(torch, lg["k"], lg["d"]))
@@ -1698,12 +1858,28 @@ def rwkv_parity_f32(torch):
                              f"path and the dense path: {streams}")
     state_err = max_err(torch, caches["k"]["seg0"]["wkv"],
                         caches["d"]["seg0"]["wkv"])
-    del params, caches
+    from repro_torch.kernels import ops
+    diagnosis = {
+        "logit_max_abs": float(fwd["d"].abs().max()),
+        "logit_std": float(fwd["d"].std()),
+        "decode_logit_max_abs": float(lg["d"].abs().max()),
+        "forward_err_over_logit_max_abs":
+            worst_fwd / float(fwd["d"].abs().max()),
+        "forward_per_layer": per_layer_diff(torch, rec_fwd["k"],
+                                            rec_fwd["d"]),
+        "decode_last_step_per_layer": per_layer_diff(torch, rec_dec["k"],
+                                                     rec_dec["d"]),
+        "forward_wkv_local_vs_f64": wkv_local_errors(
+            torch, ops, rec_fwd["d"]["wkv_in"]),
+        "decode_altup_local_vs_f64": altup_local_errors(
+            torch, rec_dec["k"]["fused"])}
+    del params, caches, rec_fwd, rec_dec
     torch.cuda.empty_cache()
     return {"prompts": B, "prompt_len": S, "decode_steps": n_dec,
             "forward_max_abs_logit_err": worst_fwd,
             "decode_max_abs_logit_err": worst,
             "final_wkv_state_max_abs_err": state_err, "tol": PARITY_TOL,
+            "c2_diagnosis": diagnosis,
             "greedy_tokens_identical": True,
             "tokens_checked": B * (n_dec + 1),
             "min_top2_gap_dense": min_gap,
@@ -1833,6 +2009,388 @@ def serve_rwkv_bf16(torch, ops, profile=False, replay=False):
     del cold, params
     torch.cuda.empty_cache()
     return res, trace, prof
+
+
+# ---------------------------------------------------------------------------
+# (j) gemma3-4b + AltUp K=2: sliding windows over ring caches
+# ---------------------------------------------------------------------------
+
+# phase (j)'s traffic: 8 prompts from 64 to 1150 tokens, two of them past
+# gemma3-4b's window of 1024 (their rings wrap during prefill), one of
+# 1000 tokens (its rings wrap during decode), 40 new tokens each
+J_PROMPTS, J_NEW = (64, 200, 420, 640, 860, 1000, 1100, 1150), 40
+J_SLOTS, J_MAX_LEN = 8, 2048
+# j-paged's traffic: a 600-token system prompt (served first, to put it in
+# the prefix cache), then 8 requests of it plus a tail of 32-480 tokens,
+# 32 new tokens each: the longer ones pass the window
+J_SYSTEM, J_PAGED_NEW, J_PAGE = 600, 32, 16
+
+
+def gemma_config(**kw):
+    """gemma3-4b wrapped with AltUp K=2 (recycled: vocab > 100k)."""
+    from repro_torch.configs import get_config
+    return get_config("gemma3-4b", altup_k=2).replace(**kw)
+
+
+def gemma_layers(cfg):
+    """(ring layers, global layers) of the plan."""
+    from repro_torch.models.transformer import layer_plan
+    plan = layer_plan(cfg)
+    ring = sum(s.n for s in plan if s.window > 0)
+    return ring, sum(s.n for s in plan) - ring
+
+
+def check_gemma_kernels(torch, ops, ref):
+    """The fused AltUp and the decode attention at gemma3-4b's served
+    shapes (j): AltUp at 8 tokens of d 2560; the decode attention at Dh
+    320 (Hk 4, rep 2) halfway through (j), ring lengths (<= W, read
+    through min(bucket, W)) on the local layers and full lengths on the
+    global ones; the paged entry point at j-paged's halfway step (no page
+    shared: a ring hit copies its pages); int8 codes (contiguous) and fp8
+    codes (paged) at j-paged's ring shape, as j-quant serves them. Yields
+    (tag, case, key, result)."""
+    from repro_torch.serve.engine import kv_bucket
+    cfg = gemma_config()
+    W = cfg.window_size
+    gemma = dict(Hk=cfg.n_kv_heads, rep=cfg.n_heads // cfg.n_kv_heads,
+                 Dh=cfg.resolved_head_dim)
+    j_lens = [n + J_NEW // 2 for n in J_PROMPTS]
+    j_bucket = kv_bucket(max(j_lens), 32, J_MAX_LEN)
+    _, jp_prompts, _ = gemma_traffic(torch, cfg.vocab_size, paged=True)
+    jp_lens = [len(p) + J_PAGED_NEW // 2 for p in jp_prompts]
+    jp_bucket = kv_bucket(max(jp_lens), 32, J_MAX_LEN)
+    jp_ring = [min(n, W) for n in jp_lens]
+    jp_paged = dict(reserve=[pages_for(len(p) + J_PAGED_NEW, J_PAGE)
+                             for p in jp_prompts],
+                    n_pages=J_SLOTS * J_MAX_LEN // J_PAGE, T=J_MAX_LEN,
+                    page=J_PAGE, **gemma)
+    for dtype in (torch.bfloat16, torch.float32):
+        r = check_altup(torch, ops, ref, dtype, J_SLOTS, d=cfg.d_model)
+        yield "c-altup", "j", (r["dtype"], "altup"), r
+        for case, lens, t in (
+                ("j-ring", [min(n, W) for n in j_lens], min(j_bucket, W)),
+                ("j-global", j_lens, j_bucket)):
+            r = check_ragged(torch, ops, ref, dtype, lens, T=t, **gemma)
+            yield "c-ragged", case, (r["dtype"], case), r
+        for case, lens, t in (
+                ("j-paged-ring", jp_ring, min(jp_bucket, W)),
+                ("j-paged-global", jp_lens, jp_bucket)):
+            r = check_paged(torch, ops, ref, dtype, lens, t_max=t,
+                            **jp_paged)
+            yield "c-paged", case, (r["dtype"], case), r
+    r = check_ragged(torch, ops, ref, torch.bfloat16, jp_ring,
+                     T=min(jp_bucket, W), store="int8", **gemma)
+    yield "c-ragged-quant", "j-quant-ring", \
+        ("bfloat16", "j-quant-ring", "int8"), r
+    r = check_paged(torch, ops, ref, torch.bfloat16, jp_ring,
+                    t_max=min(jp_bucket, W), store="fp8", **jp_paged)
+    yield "c-paged-quant", "j-quant-ring", \
+        ("bfloat16", "j-quant-ring", "fp8"), r
+
+
+def gemma_parity_f32(torch):
+    """j-parity: full-width f32 decode_step logits of the kernel path
+    ("k") and the paged kernel path ("p", a permuted block table) against
+    the dense path ("d") on gemma3-4b + AltUp K=2: a prefill of 1100 and
+    1013 tokens in direct chunks of 64 (each chunk reads its rings before
+    writing, across the wrap), then 16 greedy S=1 steps (slot 1 wraps
+    during them). Logits within PARITY_TOL every step, greedy tokens
+    identical, every cache row below the sink within PARITY_TOL, and the
+    dense path's logits at the last prompt position and each decode step
+    within PARITY_TOL of `forward` on the same tokens."""
+    from repro_torch.models.decode import (decode_step, init_cache,
+                                           init_paged_cache, _gather_rows)
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.serve.engine import kv_bucket
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gemma_config(dtype="float32", param_dtype="float32")
+    cfgs = {"k": cfg.replace(ragged_decode_attn=None,
+                             fused_decode_altup=None),
+            "d": cfg.replace(ragged_decode_attn=False,
+                             fused_decode_altup=False)}
+    cfgs["p"] = cfgs["k"]
+    params = init_params(cfg, seed=0, device=DEV)
+    perturb_altup(torch, params, seed=30)
+    B, T, C, n_dec, page = 2, J_MAX_LEN, 64, 16, 16
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    plens = [1100, 1013]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=DEV) for n in plens]
+    n_pages = B * T // page
+    caches = {s: init_cache(cfgs[s], B, T, device=DEV) for s in "kd"}
+    caches["p"] = init_paged_cache(cfgs["p"], B, T, n_pages=n_pages,
+                                   page=page, device=DEV)
+    bt = torch.randperm(n_pages, generator=gen, device=DEV).reshape(
+        B, T // page).to(torch.int32)
+    pkw = {"k": {}, "d": {}, "p": {"block_table": bt, "page_size": page}}
+    sides = ("k", "p", "d")
+    pos = [0] * B
+    worst = {"k": 0.0, "p": 0.0}
+    dense_rows = [[] for _ in range(B)]      # the dense path's logits
+    last = {}
+    t0 = time.perf_counter()
+    while any(pos[b] < plens[b] for b in range(B)):
+        toks = torch.zeros(B, C, dtype=torch.long, device=DEV)
+        nval = [min(C, plens[b] - pos[b]) for b in range(B)]
+        for b in range(B):
+            toks[b, :nval[b]] = prompts[b][pos[b]:pos[b] + nval[b]]
+        kv_len = kv_bucket(max(p + n for p, n in zip(pos, nval)), 32, T)
+        out = {}
+        for side in sides:
+            out[side], _ = decode_step(
+                params, cfgs[side], caches[side], toks,
+                torch.tensor(pos, device=DEV),
+                n_valid=torch.tensor(nval, device=DEV), kv_len=kv_len,
+                **pkw[side])
+        for b in range(B):
+            if nval[b]:
+                rows = {s: out[s][b, :nval[b], :cfg.vocab_size]
+                        for s in sides}
+                for s in worst:
+                    torch.testing.assert_close(rows[s], rows["d"],
+                                               **PARITY_TOL)
+                    worst[s] = max(worst[s],
+                                   max_err(torch, rows[s], rows["d"]))
+                if pos[b] + nval[b] == plens[b]:
+                    last[b] = {s: rows[s][-1] for s in sides}
+                    dense_rows[b].append(rows["d"][-1])
+        pos = [p + n for p, n in zip(pos, nval)]
+    prefill_s = time.perf_counter() - t0
+    tok = {s: torch.stack([last[b][s].argmax() for b in range(B)])
+           for s in sides}
+    streams = {s: [tok[s].tolist()] for s in sides}
+    for _ in range(n_dec):
+        kv_len = kv_bucket(max(pos) + 1, 32, T)
+        lg = {}
+        for side in sides:
+            logits, _ = decode_step(
+                params, cfgs[side], caches[side], tok[side][:, None],
+                torch.tensor(pos, device=DEV), kv_len=kv_len, **pkw[side])
+            lg[side] = logits[:, 0, :cfg.vocab_size]
+        for s in worst:
+            torch.testing.assert_close(lg[s], lg["d"], **PARITY_TOL)
+            worst[s] = max(worst[s], max_err(torch, lg[s], lg["d"]))
+        for b in range(B):
+            dense_rows[b].append(lg["d"][b])
+        for side in sides:
+            tok[side] = lg[side].argmax(dim=-1)
+            streams[side].append(tok[side].tolist())
+        pos = [p + 1 for p in pos]
+    if not streams["k"] == streams["p"] == streams["d"]:
+        raise AssertionError(f"greedy tokens differ between the kernel, "
+                             f"paged kernel and dense paths: {streams}")
+    # every cache row below the sink: the contiguous kernel side against
+    # the dense side, and the paged side's logical rows (the first W of a
+    # ring segment) against the dense side's
+    cache_err = {"k": 0.0, "p": 0.0}
+    for si, seg in caches["d"].items():
+        for name, want in seg.items():
+            rows = want.shape[2] - 1
+            got = caches["k"][si][name][:, :, :rows]
+            torch.testing.assert_close(got, want[:, :, :rows], **PARITY_TOL)
+            cache_err["k"] = max(cache_err["k"],
+                                 max_err(torch, got, want[:, :, :rows]))
+            grows = _gather_rows(bt, page, rows)
+            pg = caches["p"][si][name][:, grows]
+            torch.testing.assert_close(pg, want[:, :, :rows], **PARITY_TOL)
+            cache_err["p"] = max(cache_err["p"],
+                                 max_err(torch, pg, want[:, :, :rows]))
+    # the dense path against forward on the same tokens: the last prompt
+    # position and the 16 decode steps' positions
+    fwd_err = 0.0
+    for b in range(B):
+        fed = torch.tensor([s[b] for s in streams["d"][:-1]], device=DEV)
+        seq = torch.cat([prompts[b], fed])[None]
+        with torch.no_grad():
+            logits = forward(params, cfgs["d"], seq)[0, plens[b] - 1:,
+                                                     :cfg.vocab_size]
+        got = torch.stack(dense_rows[b])
+        torch.testing.assert_close(got, logits, **PARITY_TOL)
+        fwd_err = max(fwd_err, max_err(torch, got, logits))
+        del logits
+    ring, glob = gemma_layers(cfg)
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "d_model": cfg.d_model,
+            "head_dim": cfg.resolved_head_dim, "ring_layers": ring,
+            "global_layers": glob, "window": cfg.window_size, "slots": B,
+            "prompt_lens": plens, "prefill_chunk": C, "decode_steps": n_dec,
+            "max_abs_logit_err": worst["k"],
+            "paged_max_abs_logit_err": worst["p"],
+            "cache_max_abs_err": cache_err["k"],
+            "paged_cache_max_abs_err": cache_err["p"],
+            "forward_max_abs_logit_err": fwd_err, "tol": PARITY_TOL,
+            "greedy_tokens_identical": True,
+            "tokens_checked": B * (n_dec + 1), "prefill_s": prefill_s,
+            "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32]}
+
+
+def gemma_traffic(torch, vocab, paged):
+    """(j)'s prompts (seed 32), or j-paged's system prompt and batch
+    (seed 33): returns (warm prompt or None, prompts, new tokens)."""
+    if not paged:
+        gen = torch.Generator().manual_seed(32)
+        return None, [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                      for n in J_PROMPTS], J_NEW
+    gen = torch.Generator().manual_seed(33)
+    system = torch.randint(0, vocab, (J_SYSTEM,), generator=gen).tolist()
+    tails = torch.randint(32, 481, (J_SLOTS,), generator=gen).tolist()
+    return system, [system + torch.randint(0, vocab, (n,),
+                                           generator=gen).tolist()
+                    for n in tails], J_PAGED_NEW
+
+
+def serve_gemma(torch, ops, kind=None, replay=False, paged=False,
+                prefix_cache=False, cold_check=False):
+    """Phase (j) and its twins on gemma3-4b + AltUp K=2 in bf16 through
+    Engine(n_slots=8, max_len=2048). Ring plans prefill one token per
+    step, so every step is S=1: each launches the fused AltUp kernel and
+    the ragged decode kernel (its paged variant, paged=True) once per
+    layer, 29 on rings and 5 on global caches, and each replays a graph
+    when replay=True. kind "int8" / "fp8": quantized caches. paged /
+    prefix_cache: j-paged's traffic (a served system prompt, then 8
+    requests that extend it) over a pool of pages of 16 rows with prefix
+    reuse; a paged ring hit aliases no page and copies every prefix page.
+    cold_check: the batch served again on a cold engine (prefix cache
+    off, replayed) must give every hit's tokens."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = gemma_config()                                # bf16
+    if kind is not None:
+        cfg = cfg.replace(kv_cache_dtype=kind)
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=34)
+    warm_prompt, prompts, n_new = gemma_traffic(torch, cfg.vocab_size,
+                                                paged=prefix_cache)
+    kw = dict(paged=True, page_size=J_PAGE) if paged else {}
+
+    def engine(cls, prefix):
+        return cls(cfg, params, max_len=J_MAX_LEN, n_slots=J_SLOTS,
+                   prefix_cache=prefix, device=DEV, **kw)
+    eng = engine(engine_class(replay), prefix_cache)
+    # the warm request: the system prompt, whose retained rows the batch
+    # reuses (it stops at depth 631 <= max(600, W): a valid ring donor),
+    # or a short request (cuBLAS handles, allocator). It replays its
+    # steps on both twins (632 chunk-1 steps take ~45 s eager); the
+    # counted run below is eager on the eager twin
+    warm = warm_prompt if warm_prompt is not None else prompts[0][:16]
+    eng.eager = False
+    eng.submit(warm, sampling=SamplingParams(max_new=n_new))
+    eng.run()
+    eng.eager = not replay
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()     # the peak of this run only
+    gs0 = eng.graph_stats
+    with page_ops(torch, check=False) as pops:
+        ops.reset_launch_counts()            # counts start at 0 right here
+        t_run = time.perf_counter()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
+                for p in prompts]
+        step_ms, decode_ms, steps = [], [], 0
+        while eng.has_work:
+            pf0 = eng.stats["prefill_tokens"]
+            t0 = time.perf_counter()
+            eng.step()                       # ends in the ids' device->host
+            dt = 1e3 * (time.perf_counter() - t0)
+            steps += 1
+            step_ms.append(dt)
+            if eng.stats["prefill_tokens"] == pf0:
+                decode_ms.append(dt)
+        wall = time.perf_counter() - t_run
+        counts = ops.launch_counts()         # read right after the run
+    graph = graph_window(gs0, eng.graph_stats) if replay else None
+    out = eng.collect()
+    if sorted(out) != sorted(rids):
+        raise AssertionError(f"not every request completed: {sorted(out)}")
+    for rid in rids:
+        c = out[rid]
+        if len(c.tokens) != n_new or c.finish_reason != "length" or \
+                not all(0 <= t < cfg.vocab_size for t in c.tokens):
+            raise AssertionError(f"request {rid}: {c.finish_reason}, "
+                                 f"{len(c.tokens)} tokens")
+    st, ps = dict(eng.stats), eng.paged_stats
+    if sorted(eng._inputs) != [1]:
+        raise AssertionError(f"a ring plan stepped at chunk widths "
+                             f"{sorted(eng._inputs)}, not 1 alone")
+    ring, glob = gemma_layers(cfg)
+    n_layers = cfg.n_layers
+    attn = "paged_ragged_decode_attention" if paged \
+        else "ragged_decode_attention"
+    other = "ragged_decode_attention" if paged \
+        else "paged_ragged_decode_attention"
+    warm_l = graph["warmup_launches"] if graph else \
+        dict.fromkeys(counts, 0)
+    if ring + glob != n_layers or \
+            counts[attn] - warm_l[attn] != n_layers * steps or \
+            counts["altup_predict_correct"] - \
+            warm_l["altup_predict_correct"] != n_layers * steps or \
+            counts[other] != 0:
+        raise AssertionError(f"launch counts {counts} (warm-ups {warm_l}) "
+                             f"do not match {steps} S=1 steps of "
+                             f"{n_layers} layers")
+    res = {"config": cfg.name, "requests": len(rids),
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
+           "window": cfg.window_size, "ring_layers": ring,
+           "global_layers": glob, "paged": paged,
+           "prefix_cache": prefix_cache, "replay": replay, "graph": graph,
+           "kv_cache_dtype": kind or "auto", "cache_bytes": cache_bytes(eng),
+           "steps": steps, "decode_steps": len(decode_ms),
+           "launches": counts,
+           "attn_launches_per_step": (counts[attn] - warm_l[attn]) / steps,
+           "altup_launches_per_step":
+               (counts["altup_predict_correct"]
+                - warm_l["altup_predict_correct"]) / steps,
+           "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "wall_s": wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    step_ms.sort()
+    decode_ms.sort()
+    res.update({"step_ms_median": step_ms[len(step_ms) // 2],
+                "step_ms_p80": step_ms[int(0.8 * len(step_ms))],
+                "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+                "decode_step_ms_p80": decode_ms[int(0.8 * len(decode_ms))]})
+    if prefix_cache:
+        hits = st["prefix_hits"]
+        npp = pages_for(J_SYSTEM, J_PAGE)
+        res.update({"prefix_hits": hits,
+                    "prefill_tokens_saved": st["prefill_tokens_saved"]})
+        if hits < 1:
+            raise AssertionError(f"no prefix hit: {st}")
+        if paged:
+            # a ring hit copies every prefix page and aliases none
+            if ps["alias_acquisitions"] != 0 or pops["copies"] != hits or \
+                    pops["copied_pages"] != hits * npp:
+                raise AssertionError(f"{hits} hits, {pops}, {ps}: not "
+                                     f"{npp} copied pages and no alias "
+                                     f"each")
+            res.update({"paged_stats": ps, "page_copies": pops["copies"],
+                        "copied_pages": pops["copied_pages"],
+                        "prefix_pages": npp})
+    if replay:
+        # device ms of one replayed step (the most replayed shape)
+        res.update(replay_gaps(torch, eng))
+    trace = {"tokens": [out[r].tokens for r in rids],
+             "stats": step_stats(eng), "paged_stats": ps}
+    del eng
+    if cold_check:
+        cold = engine(engine_class(True), False)
+        crids = [cold.submit(p, sampling=SamplingParams(max_new=n_new))
+                 for p in prompts]
+        cout = cold.run()
+        cold_tokens = [cout[r].tokens for r in crids]
+        if cold_tokens != trace["tokens"]:
+            raise AssertionError(f"prefix hits serve other tokens than a "
+                                 f"cold engine: {trace['tokens']} vs "
+                                 f"{cold_tokens}")
+        res["hit_tokens_equal_cold"] = True
+        del cold
+    del params
+    torch.cuda.empty_cache()
+    return res, trace
 
 
 def _device_kernels(prof):
@@ -2110,6 +2668,11 @@ def main(argv) -> int:
         line(tag, case=case, **r)
     for r in check_long_slot(torch, ops, ref):
         line("c-paged-long", **r)
+    # gemma3-4b's served shapes (j)
+    j_kern = {}
+    for tag, case, key, r in check_gemma_kernels(torch, ops, ref):
+        j_kern[key] = r
+        line(tag, case=case, **r)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -2219,6 +2782,38 @@ def main(argv) -> int:
     # (i) rwkv6-1.6b: bf16 serving through Engine with prefix reuse
     res_i, res_i_r = serve_pair(serve_rwkv_bf16, "i-rwkv-serve", "i-graph",
                                 "f-profile-rwkv")
+    # (j) gemma3-4b + AltUp K=2, sliding windows over ring caches:
+    # full-width f32 parity across the wrap, then bf16 serving through
+    # Engine, eager and replayed (every step of a ring plan is S=1, so
+    # every step replays): (j) contiguous, j-paged with prefix reuse (a
+    # ring hit copies every prefix page; the replayed run's hits against
+    # a cold engine), and j-quant from int8 slot caches and from an fp8
+    # pool, replayed only (an eager twin adds ~100 ms a chunk-1 step;
+    # eager == replayed is held by j-serve and j-paged), each run's hits
+    # against a cold engine
+    line("j-parity", **gemma_parity_f32(torch))
+
+    def gemma_pair(tag, tag_graph, **kw):
+        res, trace = serve_gemma(torch, ops, **kw)
+        line(tag, **res)
+        res_r, trace_r = serve_gemma(torch, ops, replay=True,
+                                        cold_check=kw.get("paged", False),
+                                        **kw)
+        res_r.update(hold_replay({**res, **trace}, {**res_r, **trace_r},
+                                 res_r["steps"]))
+        line(tag_graph, **res_r)
+        return res_r
+    res_j_r = gemma_pair("j-serve", "j-graph")
+    res_jp_r = gemma_pair("j-paged", "j-paged-graph", paged=True,
+                          prefix_cache=True)
+    res_jq_r = serve_gemma(torch, ops, kind="int8", prefix_cache=True,
+                           replay=True, cold_check=True)[0]
+    line("j-quant-int8-graph", **res_jq_r)
+    res_jqp_r = serve_gemma(torch, ops, kind="fp8", paged=True,
+                            prefix_cache=True, replay=True,
+                            cold_check=True)[0]
+    line("j-quant-fp8-graph", **res_jqp_r)
+
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
     counts, counts_eq = res_r["launches"], res_eq_r["launches"]
@@ -2276,6 +2871,31 @@ def main(argv) -> int:
          "launches": main_flash_paged["launches"],
          **{k: main_flash_paged[k] for k in keys}},
     ]
+    # the same kernels at gemma3-4b's shapes, each with the launches of the
+    # (j) run that serves them (the decode attention at a ring layer's
+    # shape: 29 of the 34 launches a step)
+    for name, src, replaces, res_run, case in (
+            ("altup_predict_correct", "altup_fused.cu",
+             "altup_fused.py:39", res_j_r, ("bfloat16", "altup")),
+            ("ragged_decode_attention", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:210", res_j_r,
+             ("bfloat16", "j-ring")),
+            ("paged_ragged_decode_attention", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:122", res_jp_r,
+             ("bfloat16", "j-paged-ring")),
+            ("ragged_decode_attention_quant", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:210", res_jq_r,
+             ("bfloat16", "j-quant-ring", "int8")),
+            ("paged_ragged_decode_attention_quant",
+             "ragged_decode_attention.cu", "ragged_decode_attention.py:122",
+             res_jqp_r, ("bfloat16", "j-quant-ring", "fp8"))):
+        counter = name.removesuffix("_quant")
+        kernels.append(
+            {"name": name + "_gemma3_4b", "route": "cuda",
+             "source": "src/repro_torch/csrc/" + src,
+             "replaces": "src/repro/kernels/" + replaces,
+             "launches": res_run["launches"][counter],
+             **{k: j_kern[case][k] for k in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

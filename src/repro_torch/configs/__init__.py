@@ -11,6 +11,8 @@ from typing import Optional
 from repro_torch.config import AltUpConfig, ModelConfig
 
 _ARCH_MODULES = {
+    "gemma3-4b": "gemma3_4b",
+    "gemma3-12b": "gemma3_12b",
     "qwen3-0.6b": "qwen3_0_6b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }

@@ -4,7 +4,9 @@ Port of the attention and RWKV-6 parts of `repro/models/decode.py`. One
 cache dict per segment, stacked over the segment's layers:
 
   attn : k, v  (n, B, T + 1, Hk, Dh)  contiguous slot caches, post-RoPE
-               keys; row T of each slot is its SINK row (below)
+               keys; row T of each slot is its SINK row (below). A
+               sliding-window segment (window W) keeps a RING of
+               Tc = min(T, W) rows instead, Tc + 1 with its sink
   attn : k, v  (n, R + page, Hk, Dh)  paged row pools (init_paged_cache),
                addressed through a per-slot (B, npages) block table, the
                last page a sink page
@@ -12,6 +14,16 @@ cache dict per segment, stacked over the segment's layers:
                beside k, v when cfg.kv_cache_dtype is int8 or fp8
   rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
                tails shift_tm, shift_cm (n, B, d) in the activation dtype
+
+Ring caches, as in the reference: position q lands in row q % Tc, so a
+slot that passed Tc holds exactly the window's last Tc keys, in rotated
+order. The ragged kernel reads them unchanged (lengths = min(depth, Tc):
+softmax does not care about row order); the dense path rebuilds each
+row's absolute position (`_ring_k_pos`). A multi-token chunk on a ring
+reads the window BEFORE it writes (decode_attn), since its writes would
+overwrite keys its earlier tokens still need. In a page pool a ring
+segment's capacity is min(table span, W), its rows wrapping inside the
+slot's first ceil(W / page) pages.
 
 `pos` is a scalar (uniform static batch) or a per-slot (B,) tensor, so B
 sequences at different depths decode in one step (continuous batching).
@@ -79,8 +91,7 @@ def kv_quant_spec(cfg: ModelConfig) -> quant.KVQuantSpec:
     """Resolved cfg.kv_cache_dtype for the attention caches ("auto" = the
     activation dtype, the unquantized path bit for bit). Quantized
     storage of a plan with rwkv segments raises NotImplementedError: it
-    arrives with the hybrid quantization of ROADMAP A9 (ring caches raise
-    in decode_positions, as unquantized)."""
+    arrives with the hybrid quantization of ROADMAP A9."""
     spec = quant.resolve_kv_spec(cfg.kv_cache_dtype, act_dtype(cfg))
     if spec.quantized and any(s.kind != "attn" for s in layer_plan(cfg)):
         raise NotImplementedError(
@@ -106,7 +117,8 @@ def _raw(t: torch.Tensor) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
                device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """Zero caches for a max sequence length T on `device`: T + 1 rows per
-    slot, the last one the sink of dropped writes. dtype: the float k/v
+    slot, the last one the sink of dropped writes; a sliding-window
+    segment's ring holds min(T, window) + 1. dtype: the float k/v
     storage and token-shift dtype (default: cfg.kv_cache_dtype's and the
     activation dtype); quantized k/v are int8 / float8_e4m3fn codes with
     f32 (n, B, T + 1, Hk) scales, and the rwkv state is f32 whatever it
@@ -126,7 +138,8 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
                 "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
                 "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
             continue
-        caches[f"seg{si}"] = _attn_leaves(spec, dtype, (n, B, T + 1, hk),
+        Tc = min(T, seg.window) if seg.window > 0 else T
+        caches[f"seg{si}"] = _attn_leaves(spec, dtype, (n, B, Tc + 1, hk),
                                           dh, dev)
     return caches
 
@@ -152,9 +165,11 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     (n, R + page, Hk, Dh) per segment with R = n_pages * page, shared by
     every slot through a (B, ceil(T/page)) block table
     (serve/paging.PagePool). Logical row q of slot b lives at physical row
-    bt[b, q // page] * page + q % page; scales ride the same rows. B and T
-    size nothing here (they would size per-slot recurrent state, which the
-    port does not serve paged yet).
+    bt[b, q // page] * page + q % page; scales ride the same rows. A ring
+    segment uses the first min(T, W) logical rows of each slot (its
+    capacity, decode_segment), so one layout serves both kinds of
+    segment. B and T size nothing here (they would size per-slot
+    recurrent state, which the port does not serve paged yet).
 
     Deviation from the reference: one SINK page follows the R real rows.
     No one allocates or reads it. The reference drops a padded or idle
@@ -216,13 +231,13 @@ def _gather_rows(block_table, page: int, Tb: int):
     return block_table[:, rows // page].to(torch.long) * page + rows % page
 
 
-def _paged_positions(pinfo, block_table, page: int, pool_rows: int,
-                     kernel_read: bool):
+def _paged_positions(pinfo, block_table, page: int, Tc: int,
+                     pool_rows: int, kernel_read: bool):
     """Add the paged row translation to a decode_positions dict, once per
-    segment: `prows` (B, S) physical write rows, `kernel_read` (the step
-    reads through the paged kernel), and otherwise `grows` (B, Tb)
-    physical read rows for the gather (S > 1, or the kernel flag off)."""
-    Tc = block_table.shape[1] * page
+    segment of logical capacity Tc: `prows` (B, S) physical write rows,
+    `kernel_read` (the step reads through the paged kernel), and
+    otherwise `grows` (B, Tb) physical read rows for the gather (S > 1,
+    or the kernel flag off)."""
     # R = pool_rows - page, the first row of the sink page
     pinfo["prows"] = _paged_rows(block_table, pinfo["widx"], page, Tc,
                                  pool_rows - page)
@@ -238,7 +253,8 @@ def _update_at(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
 
     idx is an int (uniform batch: S contiguous rows starting there; the
     start is clamped so the rows fit the T real rows, as the reference's
-    dynamic_update_slice does) or the (slot, row) index pair `wrows` of
+    dynamic_update_slice does), an (S,) row tensor shared by every slot
+    (a uniform batch on a ring), or the (slot, row) index pair `wrows` of
     decode_positions: (B, 1) slots and (B|1, S) rows. Row T is the slot's
     sink: the drop marker T of padded chunk tokens lands there, where the
     reference drops the write (mode="drop"), with no host sync. A slot's
@@ -250,6 +266,9 @@ def _update_at(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
     if isinstance(idx, int):
         start = max(0, min(idx, T - S))
         _raw(cache)[:, start:start + S] = new
+        return cache
+    if isinstance(idx, torch.Tensor):
+        _raw(cache)[:, idx] = new
         return cache
     _raw(cache).index_put_(idx, new)
     return cache
@@ -270,25 +289,43 @@ def _scalar_pos(pos):
     return None
 
 
+def _ring_k_pos(pos: torch.Tensor, W: int, far_offset: int = 1):
+    """Absolute key positions held by a W-row ring cache at depth `pos`
+    ((B|1,) tensor): (B|1, W).
+
+    Ring row i holds the latest position q <= pos with q % W == i, i.e.
+    pos - ((pos - i) mod W). Rows never written map to negative positions;
+    they are pushed to pos + far_offset, past every query, so the causal
+    mask drops them. far_offset must exceed the largest query offset from
+    `pos`: 1 for an S=1 step, S + 1 for a chunk read before its writes."""
+    p = pos.to(torch.long)[:, None]                          # (B|1, 1)
+    idx = torch.arange(W, device=p.device)[None]            # (1, W)
+    k_abs = p - torch.remainder(p - idx, W)
+    return torch.where(k_abs < 0, p + far_offset, k_abs)
+
+
 def decode_positions(pos, S: int, Tc: int, ring: bool, *, n_valid=None,
                      kv_len=None, device="cpu"):
     """Per-segment position/index construction, built once per segment.
 
       q_pos   (B|1, S)  absolute query positions pos + i
-      widx    int | (B|1, S) cache write rows; padded tokens
-              (i >= n_valid) and rows past the capacity remap to Tc, the
-              sink row (contiguous) or the sink page (paged)
-      wrows   widx as _update_at's index: the int, or the (slot, row)
-              pair of a per-slot widx
-      k_pos   (Tb,) absolute key positions of the read slice
+      widx    int | (B|1, S) cache write rows (q_pos % Tc on a ring);
+              padded tokens (i >= n_valid) and rows past the capacity
+              remap to Tc, the sink row (contiguous) or the sink page
+              (paged)
+      wrows   widx as _update_at's index: the int, the (S,) rows of a
+              uniform batch on a ring, or the (slot, row) pair of a
+              per-slot widx
+      k_pos   (Tb,) | (B|1, Tb) absolute key positions of the read slice
+              (rebuilt per slot on a ring)
       lengths (B|1,) valid cache rows after this step's writes (the ragged
-              kernel's per-slot fill depths)
+              kernel's per-slot fill depths; a ring of depth p holds
+              exactly its rows < min(p, Tc))
       Tb      static read-slice length (kv-len bucket clamped to Tc)
+
+    Every tensor is built on the device from `pos` and `n_valid`, so a
+    captured step computes the ring's write rows anew on each replay.
     """
-    if ring:
-        raise NotImplementedError(
-            "ring caches (sliding-window segments) are not ported yet: "
-            "they arrive with the gemma3 window slice")
     Tb = _bucketed(Tc, kv_len)
     sp = _scalar_pos(pos)
     if sp is not None and n_valid is not None:
@@ -301,6 +338,16 @@ def decode_positions(pos, S: int, Tc: int, ring: bool, *, n_valid=None,
          if n_valid is None else n_valid.to(device=device, dtype=torch.long))
     q_pos = p[:, None] + offs[None]                         # (B|1, S)
     lengths = torch.clamp(p + n, max=Tc).to(torch.int32)    # (B|1,)
+    if ring:
+        widx = torch.remainder(q_pos, Tc)
+        if n_valid is not None:
+            widx = torch.where(offs[None] < n[:, None], widx,
+                               torch.full_like(widx, Tc))
+        k_pos = _ring_k_pos(p + n - 1, Tc)[:, :Tb]
+        wrows = (widx[0] if sp is not None else
+                 (torch.arange(widx.shape[0], device=device)[:, None], widx))
+        return {"q_pos": q_pos, "widx": widx, "wrows": wrows,
+                "k_pos": k_pos, "lengths": lengths, "Tb": Tb}
     # a scalar uniform pos writes S contiguous rows -> slice assignment
     widx = sp if sp is not None else q_pos
     wrows = widx
@@ -343,10 +390,17 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     Writes land at the translated physical rows (dropped ones in the sink
     page); an S=1 step with use_ragged reads through the paged kernel,
     which follows the block table itself; any other step gathers logical
-    rows 0..Tb-1 in order and runs the dense path. Returns (x, cache dict
-    of the layer's leaves)."""
-    if int(window) > 0:
-        raise NotImplementedError("ring caches are not ported yet")
+    rows 0..Tb-1 in order and runs the dense path.
+
+    window > 0: the caches are rings of Tc rows (writes at q % Tc). An S=1
+    step writes, then reads, as above. A chunk (S > 1) reads the window
+    first: the pre-chunk rows (a copy, since the writes land in place)
+    with their positions at depth pos - 1, then the chunk's own fresh
+    keys at theirs (padded ones pushed past every query), all through the
+    dense path; quantized fresh keys take the quantize -> dequantize
+    round trip every later read sees. Returns (x, cache dict of the
+    layer's leaves)."""
+    ring = int(window) > 0
     spec = kv_quant_spec(cfg)
     if spec.quantized and (cache_ks is None or cache_vs is None):
         raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} needs the "
@@ -355,13 +409,32 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
         if pinfo is None:
             raise ValueError("a paged decode_attn needs the segment's "
                              "pinfo (decode_segment builds it)")
-        block_table, page, _ = paged
-    elif pinfo is None:
-        pinfo = decode_positions(pos, x.shape[1], cache_k.shape[1] - 1,
-                                 False, n_valid=n_valid, kv_len=kv_len,
-                                 device=x.device)
+        block_table, page, Tc = paged
+    else:
+        Tc = cache_k.shape[1] - 1                 # row Tc is the sink
+        if pinfo is None:
+            pinfo = decode_positions(pos, x.shape[1], Tc, ring,
+                                     n_valid=n_valid, kv_len=kv_len,
+                                     device=x.device)
     kernel_read = paged is not None and pinfo["kernel_read"]
     q_pos, k_pos, Tb = pinfo["q_pos"], pinfo["k_pos"], pinfo["Tb"]
+    S = x.shape[1]
+    if paged is not None:
+        # logical rows 0..Tb-1 in order: the contiguous read slice (a copy)
+        grows = pinfo.get("grows")
+
+        def read(leaf):
+            return _raw(leaf)[grows].view(leaf.dtype)
+    else:
+        # read slice: O(bucket) rows, not O(T); a view, never a copy
+        def read(leaf):
+            return leaf[:, :Tb]
+    chunk_ring = ring and S > 1
+    if chunk_ring:
+        # the window before this chunk's writes overwrite any of it
+        pre = [read(leaf) if paged is not None else read(leaf).clone()
+               for leaf in (cache_k, cache_v, cache_ks, cache_vs)
+               if leaf is not None]
     h = L.rms_norm(x, p_l["ln_attn"], cfg.logical_norm_eps)
     # project this step's k, v and write them into the cache
     k_new = torch.einsum("bsd,dhk->bshk", h, p_l["attn"]["wk"].to(x.dtype))
@@ -384,35 +457,57 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     else:
         for leaf, new in writes:
             _update_at(leaf, new, pinfo["wrows"])
-    lengths = (pinfo["lengths"].expand(x.shape[0]) if use_ragged else None)
-    scales = (cache_ks, cache_vs) if spec.quantized else None
-    if kernel_read:
-        kv = (cache_k, cache_v)
-        paged_kv = (block_table, page, Tb)
+    if chunk_ring:
+        a = _chunk_ring_attn(p_l, cfg, h, pre, k_new, v_new, ks_new, vs_new,
+                             pinfo, Tc, window, spec)
     else:
-        if paged is not None:
-            # logical rows 0..Tb-1 in order: the contiguous read slice
-            grows = pinfo["grows"]
-
-            def read(leaf):
-                return _raw(leaf)[grows].view(leaf.dtype)
+        lengths = (pinfo["lengths"].expand(x.shape[0]) if use_ragged
+                   else None)
+        scales = (cache_ks, cache_vs) if spec.quantized else None
+        if kernel_read:
+            kv = (cache_k, cache_v)
+            paged_kv = (block_table, page, Tb)
         else:
-            # read slice: O(bucket) rows, not O(T); a view, never a copy
-            def read(leaf):
-                return leaf[:, :Tb]
-        kv = (read(cache_k), read(cache_v))
-        if scales is not None:
-            scales = (read(cache_ks), read(cache_vs))
-        paged_kv = None
-    a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
-                             q_pos=q_pos, k_pos=k_pos, kv=kv,
-                             ragged_lengths=lengths, kv_scales=scales,
-                             paged_kv=paged_kv)
+            kv = (read(cache_k), read(cache_v))
+            if scales is not None:
+                scales = (read(cache_ks), read(cache_vs))
+            paged_kv = None
+        a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
+                                 q_pos=q_pos, k_pos=k_pos, kv=kv,
+                                 ragged_lengths=lengths, kv_scales=scales,
+                                 paged_kv=paged_kv)
     x = x + a
     out = {"k": cache_k, "v": cache_v}
     if spec.quantized:
         out.update(k_scale=cache_ks, v_scale=cache_vs)
     return _decode_ffn(p_l, cfg, x), out
+
+
+def _chunk_ring_attn(p_l, cfg: ModelConfig, h, pre, k_new, v_new, ks_new,
+                     vs_new, pinfo, Tc: int, window, spec):
+    """Attention of a chunk (S > 1) on a ring: over the pre-chunk rows
+    `pre` ([k, v] or, quantized, [k, v, k_scale, v_scale] codes, read
+    before the chunk's writes) at their positions at depth pos - 1, then
+    the chunk's fresh keys at their own positions. Rows never written and
+    padded chunk tokens (widx == Tc) sit past every query."""
+    q_pos, widx, Tb = pinfo["q_pos"], pinfo["widx"], pinfo["Tb"]
+    S = h.shape[1]
+    pre_k, pre_v = pre[0], pre[1]
+    fresh_k, fresh_v = k_new, v_new
+    if spec.quantized:
+        pre_k = quant.dequantize(pre_k, pre[2], h.dtype)
+        pre_v = quant.dequantize(pre_v, pre[3], h.dtype)
+        fresh_k = quant.dequantize(k_new, ks_new, h.dtype)
+        fresh_v = quant.dequantize(v_new, vs_new, h.dtype)
+    pre_pos = _ring_k_pos(q_pos[:, 0] - 1, Tc, far_offset=S + 1)[:, :Tb]
+    chunk_pos = torch.where(widx < Tc, q_pos, q_pos[:, -1:] + 1)
+    kp = torch.cat([pre_pos.expand(chunk_pos.shape[0], Tb), chunk_pos],
+                   dim=1)
+    kcat = torch.cat([pre_k, fresh_k.to(pre_k.dtype)], dim=1)
+    vcat = torch.cat([pre_v, fresh_v.to(pre_v.dtype)], dim=1)
+    a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
+                             q_pos=q_pos, k_pos=kp, kv=(kcat, vcat))
+    return a
 
 
 def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
@@ -448,8 +543,9 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    wkv_kernel: Optional[bool] = None):
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
     place. paged: optional (block_table, page) — the segment's caches are
-    row pools and the logical capacity Tc is the table's row span. An
-    rwkv segment reads and writes only its recurrent state leaves."""
+    row pools and the logical capacity Tc is the table's row span, capped
+    at the window on a ring segment. An rwkv segment reads and writes
+    only its recurrent state leaves."""
     K = cfg.altup.K
     S = x.shape[1]
     if seg.kind == "rwkv":
@@ -457,19 +553,21 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
             return decode_rwkv(p_l, cfg, xa, cache, i, wkv_kernel)
     else:
         pg_seg = None
+        ring = int(seg.window) > 0
         if paged is not None:
             bt, pg = paged
             Tc = bt.shape[1] * pg
+            if ring:
+                Tc = min(Tc, int(seg.window))
             pg_seg = (bt, pg, Tc)
         else:
-            Tc = cache["k"].shape[2] - 1          # row T is the sink
+            Tc = cache["k"].shape[2] - 1          # row Tc is the sink
         # the position/index machinery is the same for every layer of the
         # segment: build it once here
-        pinfo = decode_positions(pos, S, Tc, int(seg.window) > 0,
-                                 n_valid=n_valid, kv_len=kv_len,
-                                 device=x.device)
+        pinfo = decode_positions(pos, S, Tc, ring, n_valid=n_valid,
+                                 kv_len=kv_len, device=x.device)
         if paged is not None:
-            _paged_positions(pinfo, bt, pg, cache["k"].shape[1],
+            _paged_positions(pinfo, bt, pg, Tc, cache["k"].shape[1],
                              kernel_read=use_ragged and S == 1)
 
         quantized = "k_scale" in cache
@@ -591,18 +689,22 @@ def copy_prefix(caches, dst: int, src: int, p: int, *,
     PLACE, across every attention k/v leaf and its scales (codes and
     scales in lockstep, so an int8/fp8 prefix is reused without a
     dequantize round trip): the slot-to-slot copy behind the contiguous
-    engine's prefix-cache hits. Recurrent leaves have no position axis;
-    copy_recurrent=True clones the whole slot state, which is exact only
-    when the donor stopped at the prefix boundary (depth == p, the
-    engine's recurrent validity rule). src == dst is a no-op (the
+    engine's prefix-cache hits. Rows < min(p, Tc) copy, Tc the leaf's
+    capacity without its sink row: a ring of Tc rows collapses to the last
+    min(p, Tc) prefix positions, whose rows q % Tc are exactly rows
+    0..min(p, Tc)-1 under the engine's ring donor rule (donor depth <=
+    max(p, W): it never wrapped past the prefix). Recurrent leaves have
+    no position axis; copy_recurrent=True clones the whole slot state,
+    which is exact only when the donor stopped at the prefix boundary
+    (depth == p, the engine's recurrent validity rule). src == dst is a no-op (the
     self-donor path reuses the rows in place). Returns the caches."""
     if dst == src:
         return caches
     for seg in caches.values():
         for name, leaf in seg.items():
             if name in ("k", "v") or name in SCALE_LEAVES:
-                # (n, B, T + 1, Hk[, Dh])
-                n = min(p, leaf.shape[2])
+                # (n, B, Tc + 1, Hk[, Dh]), row Tc the sink
+                n = min(p, leaf.shape[2] - 1)
                 if n > 0:
                     raw = _raw(leaf)
                     raw[:, dst, :n] = raw[:, src, :n]

@@ -147,7 +147,7 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                     kv_scales: Optional[tuple] = None,
                     paged_kv: Optional[tuple] = None):
     """Full attention sub-block (no residual, no pre-norm — caller owns
-    those). Non-banded paths only.
+    those).
 
     Returns (out, (k, v)) so callers can populate KV caches. kv: a
     precomputed (k, v) (the decode path with a cache). ragged_lengths:

@@ -7,10 +7,11 @@ shape (n, d, H, dh)), owned by a `ParamTree` module, so the weight bridge
 is a rename and not a reshuffle. Layers run in a Python loop where the
 reference scans.
 
-Ported: `family="dense"` with full attention (`window_size == 0`) and
-`family="rwkv6"` (one segment of RWKV-6 layers, `models/rwkv.py`); other
-families and sliding windows raise NotImplementedError naming the ROADMAP
-item that brings them.
+Ported: `family="dense"`, with full attention or sliding windows (one
+windowed segment, or gemma3's alternating local and global segments when
+`global_every` is set), and `family="rwkv6"` (one segment of RWKV-6
+layers, `models/rwkv.py`); other families raise NotImplementedError
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -115,11 +116,22 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
             f"family {cfg.family!r} is not ported yet: the port serves "
             f"family='dense' and 'rwkv6'; the other families arrive with "
             f"ROADMAP A9")
-    if cfg.window_size > 0:
-        raise NotImplementedError(
-            "sliding-window attention (ring caches) is not ported yet: it "
-            "arrives with the gemma3 window slice (ROADMAP A3/A4)")
-    return [Segment("attn", cfg.n_layers, "dense", 0, window=0)]
+    if cfg.window_size > 0 and cfg.global_every > 0:
+        # gemma3's 5:1 local:global pattern -> alternating static segments
+        segs: List[Segment] = []
+        off = 0
+        while off < cfg.n_layers:
+            nl = min(cfg.global_every - 1, cfg.n_layers - off)
+            if nl:
+                segs.append(Segment("attn", nl, "dense", off,
+                                    window=cfg.window_size))
+                off += nl
+            if off < cfg.n_layers:
+                segs.append(Segment("attn", 1, "dense", off, window=0))
+                off += 1
+        return segs
+    return [Segment("attn", cfg.n_layers, "dense", 0,
+                    window=cfg.window_size)]
 
 
 # --------------------------------------------------------------------------

@@ -37,6 +37,13 @@ slot is its own donor) or a paged request's fresh pages' scale rows
 (reset_pages, never an aliased page), so stale code rows dequantize to
 exact 0; prefix hits copy codes and scales together.
 
+Sliding-window plans (ring caches, models/decode.py), as in the
+reference: prefill feeds one token per step (a chunk's ring writes would
+overwrite keys its earlier tokens still need), a prefix hit is refused
+when the donor decoded past max(p, W) (its ring wrapped over prefix
+rows), and a paged hit copies every prefix page instead of aliasing the
+full ones (a sharer's ring writes wrap back into its low pages).
+
 Recurrent plans (rwkv segments), as in the reference: prefill feeds one
 token per step (the state advances token by token), admission zeroes the
 slot's state (models/decode.reset_slot) unless the slot is its own donor,
@@ -62,8 +69,8 @@ host fills pinned mirrors of the step's inputs (tokens, pos, n_valid,
 rep_pen; the paged block table when admission or retirement changed
 it), which are copied into device buffers that never move, and the step
 reads only those, the caches and `seen`, all written in place. On the
-card a pure-decode step (chunk width 1: every step of a recurrent plan)
-replays a CUDA graph of that function, captured at the first step of
+card a pure-decode step (chunk width 1: every step of a recurrent or
+ring plan) replays a CUDA graph of that function, captured at the first step of
 its static shape (kv bucket, logprobs or not) after a warm-up on a side
 stream (`StepGraphs`); a step that feeds a prefill chunk (C > 1) calls
 the function eagerly, by the rule of its shape. On the CPU the function
@@ -234,8 +241,9 @@ class Engine:
     slot caches; page_size: rows per page; n_pages: pool size (None = full
     capacity, n_slots full-length requests; smaller over-commits the
     slots, admission-limited); host_spill_pages: host tier for evicted
-    prefix pages (0 = off). Recurrent plans prefill one token per step
-    whatever prefill_chunk says, and take no paged=True yet."""
+    prefix pages (0 = off). Recurrent and sliding-window plans prefill
+    one token per step whatever prefill_chunk says; recurrent plans take
+    no paged=True yet."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int, *,
                  n_slots: int = 8, prefill_chunk: int = 8,
@@ -248,7 +256,11 @@ class Engine:
                 f"kv_bucket_min must be >= 1, got {kv_bucket_min}")
         if paged and page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
-        self._has_recurrent = any(s.kind == "rwkv" for s in layer_plan(cfg))
+        plan = layer_plan(cfg)
+        self._has_recurrent = any(s.kind == "rwkv" for s in plan)
+        # the capacity of every ring (sliding-window segment)
+        self._ring_caps = tuple(min(max_len, s.window) for s in plan
+                                if s.kind == "attn" and s.window > 0)
         self._quantized = kv_quant_spec(cfg).quantized
         if paged and self._has_recurrent:
             raise NotImplementedError(
@@ -264,8 +276,11 @@ class Engine:
         self.n_slots = n_slots
         self._kv_buckets = kv_buckets
         self._kv_bucket_min = kv_bucket_min
-        # recurrent state advances token by token: chunk-1 prefill
-        self._chunk = 1 if self._has_recurrent else max(1, prefill_chunk)
+        # recurrent state advances token by token, and a chunk's ring
+        # writes would overwrite keys its earlier tokens still need:
+        # chunk-1 prefill
+        self._chunk = (1 if self._has_recurrent or self._ring_caps
+                       else max(1, prefill_chunk))
         self._prefix_cache = prefix_cache
         self._paged = bool(paged)
         self._page_size = int(page_size)
@@ -344,17 +359,25 @@ class Engine:
     # collector instead of being freed at once.
 
     @staticmethod
-    def _prefix_usable_len(p: int, depth: int, *, recurrent: bool) -> int:
+    def _prefix_usable_len(p: int, depth: int, *, recurrent: bool,
+                           ring_caps: Tuple[int, ...]) -> int:
         """Model-kind validity of a prefix match, contiguous or paged
-        (scheduler hook, bound to the plan's `recurrent` flag; p is
-        already capped to min(LCP, donor depth, prompt_len - 1)). A
-        recurrent donor's state reflects ALL its `depth` fed tokens, so
-        reuse is exact only when it stopped at the prefix boundary
-        (depth == p). The reference also refuses ring donors that wrapped
-        over the prefix and gives recurrent plans no paged reuse; the
-        port has no ring segments and no paged recurrent plans, so one
-        rule serves both layouts."""
+        (scheduler hook, bound to the plan's `recurrent` flag and ring
+        capacities; p is already capped to min(LCP, donor depth,
+        prompt_len - 1)).
+
+        * recurrent segments: the donor's state reflects ALL its `depth`
+          fed tokens, so reuse is exact only when it stopped at the
+          prefix boundary (depth == p).
+        * ring segments (capacity W): a donor that decoded past the
+          prefix overwrote ring rows the prefix still needs once it
+          wraps; rows [max(0, p - W), p) survive iff depth <= max(p, W).
+
+        The reference gives recurrent plans no paged reuse; the port has
+        no paged recurrent plans, so one rule serves both layouts."""
         if p <= 0 or (recurrent and depth != p):
+            return 0
+        if any(depth > max(p, W) for W in ring_caps):
             return 0
         return p
 
@@ -362,7 +385,8 @@ class Engine:
         if self._sched is not None:
             return
         usable = functools.partial(self._prefix_usable_len,
-                                   recurrent=self._has_recurrent)
+                                   recurrent=self._has_recurrent,
+                                   ring_caps=self._ring_caps)
         if self._paged:
             P = self._page_size
             npages_max = -(-self.max_len // P)
@@ -377,6 +401,10 @@ class Engine:
                 self.n_slots, self.max_len, pool=self._pool,
                 prefix_cache=self._prefix_cache,
                 prefix_usable_len=usable,
+                # ring plans copy prefix pages instead of aliasing them: a
+                # sharer's ring writes wrap back into its low pages, which
+                # would overwrite the donor's shared rows
+                alias_ok=not self._ring_caps,
                 spill_fn=functools.partial(_spill_entry, self._caches, P),
                 host_budget=self._host_spill_pages)
         else:

@@ -17,12 +17,16 @@ Replaces "one contiguous (T,) slot row per request" with fixed-size KV
 
 Sharing + tiers:
 
-  * Prefix aliasing: a hit aliases the donor's FULL prefix pages
+  * Prefix aliasing: for plans without ring windows, a hit aliases the
+    donor's FULL prefix pages
     (p // page of them) and copies only the partial boundary page into
     the sharer's own fresh page (models/decode.copy_pages). Aliased pages
     are append-only for their donor (its writes land at rows >= depth >=
     p) and never written by the sharer (its first write is row p, inside
     its own pages), so sharing is exact.
+  * Ring plans (sliding windows) copy every prefix page instead of
+    aliasing (alias_ok=False): a sharer's ring writes wrap back into its
+    low pages, which would overwrite the donor's rows.
   * Tiered spill: evicting a retained entry first gathers its pages to a
     host blob (the engine's spill_fn) when a host budget is configured.
     The entry stays matchable with spilled=True; a later hit scatters the
@@ -136,15 +140,15 @@ class PagedScheduler(SlotScheduler):
     front, prefix hits alias or copy donor PAGES (the engine's actions
     ride in RequestState.paged), retirement frees the slot row at once
     and retains only the prefix's page list, and eviction spills cold
-    pages to a host tier before releasing them. The reference's
-    alias_ok=False, under which ring plans copy every prefix page
-    instead of aliasing, waits for the ring-cache slice.
+    pages to a host tier before releasing them. alias_ok=False (ring
+    plans) copies every prefix page of a hit instead of aliasing the full
+    ones.
 
     st.paged actions for the engine (processed in admission order):
       fresh    : list of newly acquired pages
       alias    : count of leading donor pages shared by refcount
       copy_src / copy_dst : physical pages to clone (the partial boundary
-                 page of an aliased hit)
+                 page of an aliased hit; every prefix page of a ring hit)
       blob / blob_dst     : host blob to scatter into the slot's own
                  prefix pages (hit on a spilled entry)
     """
@@ -152,12 +156,14 @@ class PagedScheduler(SlotScheduler):
     def __init__(self, n_slots: int, max_len: int, *, pool: PagePool,
                  prefix_cache: bool = False,
                  prefix_usable_len=None,
+                 alias_ok: bool = True,
                  spill_fn: Optional[
                      Callable[[PrefixEntry], object]] = None,
                  host_budget: int = 0):
         super().__init__(n_slots, max_len, prefix_cache=prefix_cache,
                          prefix_usable_len=prefix_usable_len)
         self.pool = pool
+        self.alias_ok = alias_ok
         self.spill_fn = spill_fn
         self.host_budget = int(host_budget)
         # paged retained entries hold PAGES, not slots: keyed by rid
@@ -257,7 +263,8 @@ class PagedScheduler(SlotScheduler):
                     pool.restores += 1
                 else:
                     src = self._donor_pages(donor)
-                    alias = list(src[: p // pool.page])
+                    if self.alias_ok:
+                        alias = list(src[: p // pool.page])
                     if len(alias) < n_pp:
                         copy_src = list(src[len(alias): n_pp])
             if not self._ensure_pages(need - len(alias), keep=donor):

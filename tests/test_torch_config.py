@@ -41,19 +41,20 @@ def test_config_fields_and_defaults_match_reference(name):
                                 dict(altup_k=2), dict(altup_k=4),
                                 dict(altup_k=2, recycled=False),
                                 dict(smoke=True, altup_k=2)])
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-4b",
+                                  "gemma3-12b"])
 def test_get_config_matches_reference(arch, kw):
     got = dataclasses.asdict(tconfigs.get_config(arch, **kw))
     want = dataclasses.asdict(jconfigs.get_config(arch, **kw))
     assert got == want
     if kw == dict(altup_k=2):
         # recycled by default only above 100k tokens of vocabulary
-        assert got["altup"]["recycled"] == (arch == "qwen3-0.6b")
+        assert got["altup"]["recycled"] == (arch != "rwkv6-1.6b")
 
 
 def test_get_config_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("gemma3-4b")
+        tconfigs.get_config("granite-3-2b")
 
 
 @pytest.mark.parametrize("flag,device,want", [

@@ -277,6 +277,43 @@ def test_rwkv_static_step_with_retained_donor():
                    n_slots=2, prefix_cache=False)
 
 
+@functools.lru_cache(maxsize=None)
+def _gemma():
+    """gemma3-4b SMOKE + AltUp K=2 (window 8, a ring segment of 5 layers
+    and one global layer), AltUp p/g perturbed, as JAX and port trees."""
+    jc = jget_config("gemma3-4b", smoke=True, altup_k=2)
+    tc = tget_config("gemma3-4b", smoke=True, altup_k=2)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jax_init_params(jax.random.PRNGKey(6), jc))
+    tree = _perturb_altup(tree, np.random.default_rng(7))
+    return (jc, tc, jax.tree_util.tree_map(jnp.asarray, tree),
+            bridge.params_from_numpy(tree, device="cpu"))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_ring_static_step_matches_jax_and_fresh_tensors(paged):
+    """A ring plan (gemma3-4b SMOKE + AltUp K=2): every step is chunk 1,
+    prefill included (the replayed width on the card), and the ring write
+    rows come from the static position buffer. Five requests through 2
+    slots wrap the window of 8 and recycle slots; a prefix hit follows a
+    donor that stopped at its boundary. Tokens and stats equal the JAX
+    Engine's and the fresh-tensor step's, across kv buckets."""
+    jc, tc, jp, tp = _gemma()
+    rng = np.random.default_rng(8)
+
+    def ids(n):
+        return rng.integers(1, 127, size=n).tolist()
+    pre = ids(10)
+    prompts = [ids(3), pre, pre + ids(7), ids(5), ids(19)]
+    news = [9, 1, 12, 4, 5]
+    kw = dict(n_slots=2, kv_bucket_min=8, paged=paged, page_size=PAGE)
+    eng = _three_engines(jc, tc, jp, tp, prompts, news, max_len=40, **kw)
+    assert {c for c, _ in eng.shapes} == {1}
+    assert len({b for _, b in eng.shapes}) >= 2, eng.shapes
+    assert eng.stats["prefix_hits"] == 1
+    assert max(len(p) + n for p, n in zip(prompts, news)) > jc.window_size
+
+
 def test_altup_selectors_built_once_per_config_and_device():
     """decode_segment takes its AltUp selectors from a cache keyed on the
     config and device: the first step builds them (one host-to-device

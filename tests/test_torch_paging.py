@@ -237,19 +237,24 @@ def test_gather_scatter_pages_roundtrip_matches_jax():
 
 @pytest.mark.parametrize("dst,src,p", [(2, 0, 5), (1, 1, 7), (0, 2, 48)])
 def test_copy_prefix_matches_jax(dst, src, p):
+    """The port's slot caches (MAX_LEN rows and the sink row) against the
+    reference's (MAX_LEN rows): rows < MAX_LEN equal, the sink row of
+    every slot left as it was."""
     jc, tc = _cfgs()
     rng = np.random.default_rng(dst * 10 + src)
-    arrs = {n: rng.standard_normal((2, 3, MAX_LEN, 2, 8)).astype(np.float32)
-            for n in ("k", "v")}
-    want = jdec.copy_prefix({"seg0": {n: jnp.asarray(a)
+    arrs = {n: rng.standard_normal((2, 3, MAX_LEN + 1, 2, 8)).astype(
+        np.float32) for n in ("k", "v")}
+    want = jdec.copy_prefix({"seg0": {n: jnp.asarray(a[:, :, :MAX_LEN])
                                       for n, a in arrs.items()}},
                             dst, src, p)
     got = tdec.copy_prefix({"seg0": {n: torch.from_numpy(a.copy())
                                      for n, a in arrs.items()}},
                            dst, src, p)
     for n in ("k", "v"):
-        np.testing.assert_array_equal(_np(got["seg0"][n]),
+        np.testing.assert_array_equal(_np(got["seg0"][n][:, :, :MAX_LEN]),
                                       _np(want["seg0"][n]))
+        np.testing.assert_array_equal(_np(got["seg0"][n][:, :, MAX_LEN]),
+                                      arrs[n][:, :, MAX_LEN])
 
 
 # -----------------------------------------------------------------------------
