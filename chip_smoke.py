@@ -15,7 +15,8 @@ over a paged KV pool with prefix reuse. It then does the same for the
 second served family, RWKV-6 "Finch" 1.6B wrapped with AltUp K=2, whose
 recurrence runs through the WKV kernel, and for the windowed one,
 gemma3-4b wrapped with AltUp K=2 (5 local layers with a 1024-row ring
-cache to 1 global layer). Phases:
+cache to 1 global layer); last it trains the served model at full width
+and serves the trained weights. Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
@@ -154,6 +155,35 @@ cache to 1 global layer). Phases:
                ring copy, j-quant-int8-graph) and from an fp8 pool
                (j-quant-fp8-graph), both replayed only, each run's hits'
                tokens equal to a cold engine's
+  (k) training (no kernel has a backward pass: the differentiated path
+      runs none), then the trained weights served through the kernels:
+      k-grad   Qwen3-0.6B + AltUp K=2 at full width, 2 layers, f32, TF32
+               off: loss_fn and every leaf's gradient on the card against
+               the CPU from one seeded init (loss 1e-5 relative, each
+               leaf max|Δ| <= 1e-4 of its max); the fused and the plain
+               cross entropy (no z-loss), and remat "full" against
+               "none", on the card, within the same bound; the port's
+               launch counts unchanged across the differentiated steps
+      k-train  Trainer(device="cuda") on the registry's full qwen3-0.6b
+               + AltUp K=2 (28 layers, bf16): the launcher's TrainConfig
+               at 30 steps of 8 x 512 tokens in 2 microbatches
+               (Adafactor, lr 0.3, warmup 10); gates: finite losses, the
+               last 5 averaging at least 1 nat below the first; median
+               step ms (steps 3-30), tokens/s, MFU over the bf16 dense
+               peak, peak memory; one more step under torch.profiler
+               (device ms against the median: the busy share; the top
+               kernels); the plain attention's and the cross entropy's
+               device ms at the step's shapes, timed alone
+      k-resume full width, 4 layers: 6 steps straight against 3, a
+               checkpoint, a new Trainer resumed from it and 3 more,
+               deterministic algorithms on: equal final loss; the
+               checkpoint read by bridge.load_npz bit for bit equal to
+               the parameters written
+      k-serve  k-train's weights (AltUp p and g moved by training), cast
+               to f32, through Engine: 4 prompts of the pipeline, 16
+               greedy tokens, through the kernels (graphs replayed) and
+               with both kernel flags off: tokens identical, chosen-token
+               logprobs within 1e-3, the kernels launched
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -169,16 +199,20 @@ cache to 1 global layer). Phases:
 Every phase prints one line; any failure raises and exits non-zero. The
 second-to-last line is the per-kernel JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-It exits 1 without printing a result when no CUDA device is present, and
-fails when the repository's `src/repro_torch` is not beside it.
+The k phases write their checkpoints to a temporary directory under the
+git-ignored build/, removed when they end. It exits 1 without printing a
+result when no CUDA device is present, and fails when the repository's
+`src/repro_torch` is not beside it.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -276,7 +310,7 @@ def perturb_rwkv(torch, params, cfg, seed):
 def perturb_altup(torch, params, seed):
     """p = I + 0.2·N(0,1), g = 1 + 0.2·N(0,1): at init (p = I, g = 1)
     predict and correct are trivial and would test nothing."""
-    gen = torch.Generator(device=DEV).manual_seed(seed)
+    gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
     with torch.no_grad():
         for name in params.keys():
             if not name.startswith("seg"):
@@ -2393,6 +2427,397 @@ def serve_gemma(torch, ops, kind=None, replay=False, paged=False,
     return res, trace
 
 
+# ---------------------------------------------------------------------------
+# (k) training: gradients, a full-width run, resume, serving the result
+# ---------------------------------------------------------------------------
+
+K_GRAD_TOL = 1e-4        # per leaf: max|Δgrad| <= 1e-4 · max|grad|
+K_LOSS_RTOL = 1e-5
+
+
+def cfg_name(cfg):
+    alt = cfg.altup
+    return (f"{cfg.name} + AltUp K={alt.K}"
+            f"{' recycled' if alt.recycled else ''}, {cfg.n_layers} "
+            f"layers, {cfg.dtype}")
+
+
+def to_device(params, device, dtype=None):
+    """A copy of a ParamTree on `device` (cast to `dtype` if given), its
+    leaves as trainable as the original's."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.transformer import ParamTree
+    leaves = tree_lib.leaves(params)
+    return ParamTree(tree_lib.from_paths(
+        (p, x.detach().to(device=device, dtype=dtype or x.dtype))
+        for p, x in leaves)).requires_grad_(leaves[0][1].requires_grad)
+
+
+def grads_on(torch, params, cfg, batch, loss=None):
+    """(loss, {path: grad}) of loss_fn (or of `loss(params, batch)`)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.model import loss_fn
+    paths, leaves = zip(*tree_lib.leaves(params))
+    total = (loss_fn(params, cfg, batch)[0] if loss is None
+             else loss(params, batch))
+    grads = torch.autograd.grad(total, leaves)
+    return float(total.detach()), dict(zip(paths, grads))
+
+
+def worst_leaf(torch, got, want):
+    """The leaf with the largest max|got - want| / max|want|: (ratio,
+    path)."""
+    worst = (0.0, None)
+    for path, w in want.items():
+        scale = float(w.float().abs().max())
+        err = float((got[path].float().cpu() - w.float().cpu()).abs().max())
+        ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if ratio > worst[0] or worst[1] is None:
+            worst = (ratio, "/".join(path))
+    return worst
+
+
+def batch_on(torch, batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_grad_f32(torch, ops):
+    """k-grad: loss_fn and every leaf's gradient on the card against the
+    CPU, full width (Qwen3-0.6B + AltUp K=2, recycled), 2 layers, f32,
+    TF32 off, from one seeded init copied to both devices; the fused and
+    the plain cross entropy (no z-loss) on the card; remat "full" against
+    "none" on the card; the port's kernel launch counts unchanged across
+    the differentiated steps."""
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import forward, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = served_config(n_layers=2, dtype="float32", param_dtype="float32")
+    cpu = init_params(cfg, seed=20, device="cpu").requires_grad_(True)
+    perturb_altup(torch, cpu, seed=21)
+    dev = to_device(cpu, DEV)
+    nb = lm_batch(cfg, 2, 256, seed=0, step=0)
+    nb["mask"][1, :40] = 0.0                 # a masked stretch
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads_on(torch, cpu, cfg.replace(remat="none"),
+                               batch_on(torch, nb, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    bd = batch_on(torch, nb, DEV)
+    c0 = ops.launch_counts()
+    loss_dev, g_dev = grads_on(torch, dev, cfg, bd)           # remat full
+    loss_none, g_none = grads_on(torch, dev, cfg.replace(remat="none"), bd)
+
+    def xent(fused):
+        def loss(params, batch):
+            logits = forward(params, cfg, batch["tokens"], train=True)
+            logits = logits.masked_fill(
+                torch.arange(logits.shape[-1], device=DEV)
+                >= cfg.vocab_size, -1e30)
+            return M.cross_entropy(logits, batch["labels"], batch["mask"],
+                                   z_loss=0.0, fused=fused)[0]
+        return loss
+    loss_plain, g_plain = grads_on(torch, dev, cfg, bd, loss=xent(False))
+    loss_fused, g_fused = grads_on(torch, dev, cfg, bd, loss=xent(True))
+    torch.cuda.synchronize()
+    c1 = ops.launch_counts()
+    res = {"cfg": cfg_name(cfg), "B": 2,
+           "S": 256, "leaves": len(g_cpu), "cpu_s": cpu_s,
+           "loss_cuda": loss_dev, "loss_cpu": loss_cpu,
+           "loss_rel_err": abs(loss_dev - loss_cpu) / abs(loss_cpu),
+           "launches_while_differentiating": {
+               k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    for tag, got, want in (("cuda_vs_cpu", g_dev, g_cpu),
+                           ("remat_full_vs_none", g_dev, g_none),
+                           ("fused_vs_plain_xent", g_fused, g_plain)):
+        ratio, path = worst_leaf(torch, got, want)
+        res[tag] = {"worst_leaf": path, "max_err_over_max": ratio}
+        if not ratio <= K_GRAD_TOL:
+            raise AssertionError(f"k-grad {tag}: leaf {path} off by "
+                                 f"{ratio:.3e} of its max (gate "
+                                 f"{K_GRAD_TOL})")
+    res["xent_loss_rel_err"] = abs(loss_fused - loss_plain) / loss_plain
+    res["remat_loss_rel_err"] = abs(loss_none - loss_dev) / loss_dev
+    if not (res["loss_rel_err"] <= K_LOSS_RTOL
+            and res["xent_loss_rel_err"] <= K_LOSS_RTOL
+            and res["remat_loss_rel_err"] <= K_LOSS_RTOL):
+        raise AssertionError(f"k-grad losses apart: {res}")
+    if res["launches_while_differentiating"]:
+        raise AssertionError(f"the differentiated path launched kernels: "
+                             f"{res['launches_while_differentiating']}")
+    del cpu, dev, g_cpu, g_dev, g_none, g_plain, g_fused
+    torch.cuda.empty_cache()
+    return res
+
+
+K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 30, 8, 512, 2, 0.3
+
+
+def train_full(torch, ops, workdir):
+    """k-train: Trainer(device="cuda") on the registry's full qwen3-0.6b +
+    AltUp K=2 (28 layers, bf16), the launcher's TrainConfig at 30 steps
+    of 8 x 512 tokens in 2 microbatches (Adafactor, lr 0.3, warmup 10).
+    Gates: finite losses, the mean of the last 5 at least 1 nat below the
+    first. Then one more step under torch.profiler (device time, top
+    kernels) and the plain attention's and the cross entropy's device ms
+    at the step's shapes, timed alone. Returns (result, trainer)."""
+    import numpy as np
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import padded_vocab
+    from repro_torch.train.trainer import Trainer
+    cfg = served_config()
+    tcfg = train_config(K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR,
+                        str(workdir / "k-train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, device=DEV)
+    logs = []
+    out = tr.run(log=logs.append)
+    run_s = time.perf_counter() - t0
+    c1 = ops.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    med_s = float(np.median(tr.step_times[2:]))
+    tokens = K_BATCH * K_SEQ
+    flops_tok = M.model_flops_per_token(cfg)
+    res = {"cfg": cfg_name(cfg),
+           "steps": out["step"], "tokens_per_step": tokens,
+           "microbatches": K_MB, "run_s": run_s,
+           "first_step_s": tr.step_times[0],
+           "median_step_ms_3_30": 1e3 * med_s,
+           "p80_step_ms_3_30": 1e3 * float(np.percentile(tr.step_times[2:],
+                                                         80)),
+           "tokens_per_s": tokens / med_s,
+           "model_flops_per_token": flops_tok,
+           "mfu_bf16_dense_peak": flops_tok * tokens / med_s
+           / PEAK_OPS_PER_S["bfloat16"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss_first": losses[0], "loss_last5_mean": sum(losses[-5:]) / 5,
+           "losses": losses, "accuracy_last": out["history"][-1]["accuracy"],
+           "stragglers": out["stragglers"], "log": logs,
+           "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"k-train: a loss is not finite: {losses}")
+    if not res["loss_last5_mean"] <= losses[0] - 1.0:
+        raise AssertionError(f"k-train: the last 5 losses average "
+                             f"{res['loss_last5_mean']:.4f}, not 1 nat "
+                             f"below the first {losses[0]:.4f}")
+    if res["launches"]:
+        raise AssertionError(f"k-train launched kernels: {res['launches']}")
+    res.update(profile_train_step(torch, tr, med_s))
+    # the plain attention and the cross entropy at the step's shapes,
+    # alone: each microbatch runs every layer's attention forward, again
+    # in the recompute (remat "full") and backward; the loss once and
+    # its backward
+    B, S = K_BATCH // K_MB, K_SEQ
+    g = torch.Generator(device=DEV).manual_seed(5)
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=g, device=DEV,
+                           dtype=torch.bfloat16).requires_grad_(True)
+    q, k, v = leaf(B, S, H, Dh), leaf(B, S, Hk, Dh), leaf(B, S, Hk, Dh)
+    pos = torch.arange(S, device=DEV)
+
+    def attn():
+        return Lyr.sdpa(q, k, v, causal=True, window=0, q_pos=pos,
+                        k_pos=pos)
+
+    def attn_fwd():
+        with torch.no_grad():
+            attn()
+
+    def attn_fwd_bwd():
+        torch.autograd.grad(attn().float().sum(), (q, k, v))
+    logits = leaf(B, S, padded_vocab(cfg))
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=DEV)
+
+    def xent_fwd_bwd():
+        lg = logits.masked_fill(torch.arange(logits.shape[-1], device=DEV)
+                                >= cfg.vocab_size, -1e30)
+        loss, _ = M.cross_entropy(lg, labels)
+        torch.autograd.grad(loss, (logits,))
+    def dev_ms(fn):
+        return time_ms(torch, fn, iters=10, warmup=2)
+    a_ms = K_MB * cfg.n_layers * (dev_ms(attn_fwd) + dev_ms(attn_fwd_bwd))
+    x_ms = K_MB * dev_ms(xent_fwd_bwd)
+    res.update({"attention_ms_per_step_alone": a_ms,
+                "attention_share_of_median_step": a_ms / (1e3 * med_s),
+                "xent_ms_per_step_alone": x_ms,
+                "xent_share_of_median_step": x_ms / (1e3 * med_s)})
+    del q, k, v, logits
+    tr.opt_state = None
+    torch.cuda.empty_cache()
+    return res, tr
+
+
+def profile_train_step(torch, tr, med_s):
+    """One more train step under torch.profiler: the device time of its
+    kernels (against the unprofiled median step: the device busy share)
+    and its top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = tr._batch(tr.step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)                 # takes a lost first record
+        t0 = time.perf_counter()
+        tr.params, tr.opt_state, _ = tr._step_fn(tr.params, tr.opt_state,
+                                                 batch, tr.step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tr.step += 1
+    kern = sorted((e for e in _device_kernels(prof) if MARKER not in e.key),
+                  key=lambda e: -e.self_device_time_total)
+    dev_us = sum(e.self_device_time_total for e in kern)
+    if not dev_us:
+        raise AssertionError("the profiled train step recorded no kernel")
+    return {"profiled_step_wall_ms": 1e3 * wall,
+            "profiled_step_device_ms": dev_us / 1e3,
+            "profiled_step_kernels": sum(e.count for e in kern),
+            "device_busy_share_of_median_step": (dev_us / 1e6) / med_s,
+            "top_kernels": [[e.key[:70], e.count,
+                             e.self_device_time_total / 1e3,
+                             e.self_device_time_total / dev_us]
+                            for e in kern[:12]]}
+
+
+def train_resume(torch, workdir):
+    """k-resume: full width, 4 layers, bf16: 6 steps straight against 3
+    steps, a checkpoint, a new Trainer resumed from it and 3 more steps,
+    deterministic algorithms on (the embedding's backward otherwise
+    scatters with atomics): the same final loss. The checkpoint read back
+    by bridge.load_npz equals the parameters it was written from, bit
+    for bit."""
+    import dataclasses
+    from repro_torch import bridge
+    from repro_torch import tree as tree_lib
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.launch.train import train_config
+    cfg = served_config(n_layers=4)
+    base = train_config(6, 4, 256, 1, K_LR, str(workdir / "k-resume-a"))
+    straight = dataclasses.replace(base, checkpoint_every=0)
+    first = dataclasses.replace(base, steps=3, checkpoint_every=3,
+                                checkpoint_dir=str(workdir / "k-resume-b"))
+    rest = dataclasses.replace(first, steps=6, checkpoint_every=0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        r_straight = Trainer(cfg, straight, device=DEV).run(
+            log=lambda s: None)
+        tr = Trainer(cfg, first, device=DEV)
+        tr.run(log=lambda s: None)
+        saved = {p: x.detach().cpu() for p, x in tree_lib.leaves(tr.params)}
+        del tr
+        tr = Trainer(cfg, rest, device=DEV)
+        if not (tr.maybe_resume() and tr.step == 3):
+            raise AssertionError("k-resume: no checkpoint at step 3")
+        r_resumed = tr.run(log=lambda s: None)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = r_straight["final_loss"], r_resumed["final_loss"]
+    rel = abs(a - b) / abs(a)
+    if not rel <= K_LOSS_RTOL:
+        raise AssertionError(f"k-resume: final loss {b} against {a} "
+                             f"straight")
+    path = Path(first.checkpoint_dir) / "step-000000003" / "arrays.npz"
+    loaded = bridge.load_npz(str(path), device="cpu")
+    bad = [("/".join(p)) for p, x in tree_lib.leaves(loaded)
+           if not torch.equal(x, saved[p])]
+    if bad or len(saved) != len(tree_lib.leaves(loaded)):
+        raise AssertionError(f"k-resume: load_npz differs at {bad[:3]}")
+    del tr
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg),
+            "steps": 6, "tokens_per_step": 4 * 256,
+            "final_loss_straight": a, "final_loss_resumed": b,
+            "final_loss_rel_err": rel,
+            "losses_resumed": [h["loss"] for h in r_resumed["history"]],
+            "checkpoint_bytes": path.stat().st_size,
+            "load_npz_bitwise_leaves": len(saved)}
+
+
+def serve_trained(torch, ops, params):
+    """k-serve: k-train's weights (AltUp p and g moved off I and g_init by
+    training) through Engine(device="cuda"): 4 prompts of the pipeline,
+    16 greedy tokens, once through the kernels (fused AltUp and ragged
+    decode attention, decode steps replayed from CUDA graphs) and once
+    with both turned off. Served in f32 (the bf16 weights cast exactly),
+    as the d phases hold the kernel path against the dense one: tokens
+    identical, chosen-token logprobs within 1e-3, the kernels launched
+    (the weights serve as the trainer left them, trainable: the engine's
+    steps run without autograd)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = served_config(dtype="float32", param_dtype="float32")
+    p32 = to_device(params, DEV, torch.float32)
+    moved = {"altup_p_max_off_identity": 0.0, "altup_g_max_off_init": 0.0}
+    with torch.no_grad():
+        for path, x in tree_lib.leaves(p32):
+            if path[-1] == "altup_p":
+                off = x - torch.eye(x.shape[-1], device=DEV)
+                key = "altup_p_max_off_identity"
+            elif path[-1] == "altup_g":
+                off = x - cfg.altup.g_init
+                key = "altup_g_max_off_init"
+            else:
+                continue
+            moved[key] = max(moved[key], float(off.abs().max()))
+    if not min(moved.values()) > 0:
+        raise AssertionError(f"k-serve: AltUp scalars did not move: {moved}")
+    prompts = lm_batch(cfg, 4, 64, seed=1, step=10_000)["tokens"].tolist()
+    out = {}
+    for tag, flags in (("kernels", {}),
+                       ("dense", dict(fused_decode_altup=False,
+                                      ragged_decode_attn=False))):
+        eng = Engine(cfg.replace(**flags), p32, max_len=256, n_slots=4,
+                     prefix_cache=False, device=DEV)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=16,
+                                                      logprobs=True))
+                for p in prompts]
+        done = eng.run()
+        counts = ops.launch_counts()
+        out[tag] = {"tokens": [list(done[r].tokens) for r in rids],
+                    "logprobs": [list(done[r].logprobs) for r in rids],
+                    "launches": {k: n for k, n in counts.items() if n},
+                    "replays": eng.graph_stats["replays"]}
+        del eng
+    if out["kernels"]["tokens"] != out["dense"]["tokens"]:
+        raise AssertionError(f"k-serve: kernel tokens "
+                             f"{out['kernels']['tokens']} against dense "
+                             f"{out['dense']['tokens']}")
+    lp_err = max(abs(a - b) for ra, rb in zip(out["kernels"]["logprobs"],
+                                              out["dense"]["logprobs"])
+                 for a, b in zip(ra, rb))
+    if not lp_err <= PARITY_TOL["atol"]:
+        raise AssertionError(f"k-serve: chosen-token logprobs {lp_err} "
+                             f"apart")
+    kl = out["kernels"]["launches"]
+    if not (kl.get("altup_predict_correct", 0) > 0
+            and kl.get("ragged_decode_attention", 0) > 0):
+        raise AssertionError(f"k-serve: kernels not launched: {kl}")
+    if out["dense"]["launches"]:
+        raise AssertionError(f"k-serve: the dense path launched "
+                             f"{out['dense']['launches']}")
+    del p32
+    torch.cuda.empty_cache()
+    return {**moved, "prompts": 4, "prompt_len": 64, "new": 16,
+            "tokens_identical": True, "tokens": out["kernels"]["tokens"],
+            "logprob_max_abs_diff": lp_err,
+            "logprobs_first": out["kernels"]["logprobs"][0][:4],
+            "launches_kernels": kl,
+            "replays_kernels": out["kernels"]["replays"],
+            "replays_dense": out["dense"]["replays"]}
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -2559,6 +2984,9 @@ def replay_gaps(torch, eng, iters=5):
 
 
 def main(argv) -> int:
+    # k-resume runs with deterministic algorithms, which need cuBLAS's
+    # fixed workspace; it must be set before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2813,6 +3241,29 @@ def main(argv) -> int:
                             prefix_cache=True, replay=True,
                             cold_check=True)[0]
     line("j-quant-fp8-graph", **res_jqp_r)
+
+    # (k) training: gradients against the CPU, a full-width run, resume
+    # from a checkpoint, then the trained weights served through the
+    # kernels. Checkpoints go to a directory under build/, removed after
+    (ROOT / "build").mkdir(exist_ok=True)
+    t_k = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        work = Path(work)
+        t0 = time.perf_counter()
+        res_kg = train_grad_f32(torch, ops)
+        line("k-grad", seconds=time.perf_counter() - t0, **res_kg)
+        t0 = time.perf_counter()
+        res_kt, trainer = train_full(torch, ops, work)
+        line("k-train", seconds=time.perf_counter() - t0, **res_kt)
+        t0 = time.perf_counter()
+        res_kr = train_resume(torch, work)
+        line("k-resume", seconds=time.perf_counter() - t0, **res_kr)
+        t0 = time.perf_counter()
+        res_ks = serve_trained(torch, ops, trainer.params)
+        line("k-serve", seconds=time.perf_counter() - t0, **res_ks)
+        del trainer
+        torch.cuda.empty_cache()
+    line("k-phases", seconds=time.perf_counter() - t_k)
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)

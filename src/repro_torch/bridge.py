@@ -23,7 +23,9 @@ from repro_torch.models.transformer import ParamTree
 SEP = "//"      # the reference checkpoint's path separator
 
 
-def _to_tensor(arr, device, dtype) -> torch.Tensor:
+def tensor_from_numpy(arr, device, dtype=None) -> torch.Tensor:
+    """A numpy array (bf16 as ml_dtypes or as 2-byte void records) as a
+    tensor on `device`, cast to `dtype` unless None."""
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
                                         and arr.dtype.itemsize == 2):
@@ -45,7 +47,8 @@ def params_from_numpy(tree: Mapping, device="cuda",
 
     def conv(node):
         return {k: (conv(v) if isinstance(v, Mapping)
-                    else _to_tensor(v, dev, dtype)) for k, v in node.items()}
+                    else tensor_from_numpy(v, dev, dtype))
+                for k, v in node.items()}
     return ParamTree(conv(tree))
 
 

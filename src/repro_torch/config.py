@@ -1,9 +1,10 @@
 """Configuration dataclasses of the AltUp framework (PyTorch port).
 
-A field-for-field copy of the JAX package's `repro/config.py`: the same
-names, types and defaults, so one configuration names the same model in
-both packages. The port keeps its own copy rather than importing the
-reference package, which it never does.
+A field-for-field copy of the JAX package's `repro/config.py` (its model,
+optimizer and training dataclasses): the same names, types and defaults,
+so one configuration names the same model in both packages. The port
+keeps its own copy rather than importing the reference package, which it
+never does.
 
 Everything is a frozen dataclass so configs hash and compare cleanly.
 """
@@ -151,8 +152,9 @@ class ModelConfig:
     # fused predict+correct kernel inside the decode layer loop:
     fused_decode_altup: Optional[bool] = None
     # KV-cache storage dtype for serving. "auto" = the activation dtype;
-    # "float32"/"bf16" = explicit float storage; "int8"/"fp8" belong to
-    # the quantized-cache slice and are refused by this port for now.
+    # "float32"/"bf16" = explicit float storage; "int8"/"fp8" = 1-byte
+    # codes plus per-head, per-position f32 scales, dequantized in the
+    # decode kernels (kernels/quant.py); recurrent state stays float.
     kv_cache_dtype: str = "auto"
 
     def __post_init__(self):
@@ -169,3 +171,34 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adafactor"         # adafactor | adamw
+    learning_rate: float = 1.0      # paper: base LR 1.0, rsqrt decay
+    warmup_steps: int = 10000
+    schedule: str = "rsqrt"         # rsqrt | constant | cosine
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    clip_by_global_norm: float = 1.0
+    # gradient compression of a data-parallel sync (beyond-paper); the
+    # train step does not read it, in the reference as here (A11)
+    grad_compression: str = "none"  # none | topk | int8
+    topk_fraction: float = 0.05
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    seq_len: int = 128
+    global_batch: int = 8
+    microbatches: int = 1           # gradient accumulation
+    seed: int = 0
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    task: str = "causal_lm"         # causal_lm | span_corruption
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)

@@ -7,8 +7,16 @@ tensor it runs the kernel's plain version in `ref.py`. The only other
 place the counts move is `add_launches`, through which the engine counts
 the kernels a CUDA graph replays. There is no fallback: a kernel that
 fails to build or launch raises.
+
+No kernel has a backward pass (nor has its counterpart in the
+reference), so every wrapper refuses, on either device, an input that
+requires grad while grad mode is on: autograd would otherwise see the
+kernel's output as a constant and drop the gradients through it without
+a word. Training runs the dense path (`forward(..., train=True)`).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import altup_fused, ref
 from repro_torch.kernels import flash_attention as flash_mod
@@ -16,9 +24,19 @@ from repro_torch.kernels import ragged_decode_attention as ragged_mod
 from repro_torch.kernels import rwkv6_wkv as wkv_mod
 
 
+def _refuse_grad(name, *tensors):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward pass and an input requires "
+            f"grad; call it under torch.no_grad(), or train through the "
+            f"dense path (forward(..., train=True))")
+
+
 def altup_predict_correct(x_wide, x_tilde, sel, p, g):
     """Shape-polymorphic wrapper: (..., K, d) stream + (..., d) computed
     block -> fused predict+correct. Leading axes are flattened to T."""
+    _refuse_grad("altup_predict_correct", x_wide, x_tilde, sel, p, g)
     lead = x_wide.shape[:-2]
     K, d = x_wide.shape[-2:]
     xw = x_wide.reshape(-1, K, d)
@@ -56,6 +74,7 @@ def ragged_decode_attn(q, k, v, lengths, k_scale=None, v_scale=None):
     not of the codes' shape, or codes come without scales. On CUDA
     tensors it launches the split-K kernel and its merge (rep <= 8,
     dh <= 512) and counts one launch. Returns (B, 1, H, dh)."""
+    _refuse_grad("ragged_decode_attn", q, k, v, k_scale, v_scale)
     B, S, H, dh = q.shape
     if S != 1:
         raise ValueError("ragged decode attention is single-token (S=1) "
@@ -90,6 +109,8 @@ def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table,
     no limit on the table's length. The kernel follows the block table
     itself, each split block the entries of its own span: no gathered
     copy of the cache is made. Returns (B, 1, H, dh)."""
+    _refuse_grad("paged_ragged_decode_attn", q, k_pool, v_pool, k_scale,
+                 v_scale)
     B, S, H, dh = q.shape
     if S != 1:
         raise ValueError("paged ragged decode attention is single-token "
@@ -123,6 +144,7 @@ def rwkv6_wkv(r, k, v, w, u, state=None):
     A given state is overwritten IN PLACE with the final state and is the
     tensor returned (the decode step's cache leaf, updated without a
     copy); on the CPU the plain version's result is copied into it."""
+    _refuse_grad("rwkv6_wkv", r, k, v, w, u, state)
     B, S, H, Dh = r.shape
     if state is not None and not state.is_contiguous():
         raise ValueError("rwkv6_wkv updates the state in place: it must be "
@@ -169,6 +191,7 @@ def mha_flash(q, k, v, k_scale=None, v_scale=None, *, causal=True,
     (B, S, H, dh) in q's dtype. block_q and block_k only validate the call
     as the reference does (S and T multiples of them where shorter); the
     kernel tiles on its own."""
+    _refuse_grad("mha_flash", q, k, v, k_scale, v_scale)
     _check_flash(q, k_scale, v_scale, block_q)
     T = k.shape[1]
     if T and T % min(block_k, T):
@@ -198,6 +221,7 @@ def mha_flash_paged(q, k_pool, v_pool, block_table, k_scale=None,
     hides rows past S (the caller's valid count), and so it or a window is
     required, as in the reference. The kernel reads the pool through the
     table: k/v are never gathered or repeated. Returns (B, S, H, dh)."""
+    _refuse_grad("mha_flash_paged", q, k_pool, v_pool, k_scale, v_scale)
     _check_flash(q, k_scale, v_scale, block_q)
     if not (causal or window > 0):
         raise ValueError("paged flash attention needs causal or window "

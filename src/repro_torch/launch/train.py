@@ -1,0 +1,66 @@
+"""Training launcher of the port (the reference's `repro.launch.train`).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      [--smoke] [--altup 2] [--steps 100] [--batch 8] [--seq 64] \
+      [--microbatches 1] [--lr 0.3] [--ckpt DIR] [--resume] \
+      [--device cuda|cpu]
+
+Adafactor with the rsqrt schedule, warmup max(steps // 5, 10), a
+checkpoint every 50 steps and on SIGTERM. --device defaults to cuda and
+fails without a card. --mesh (sharded training) arrives with ROADMAP
+A11 and raises.
+"""
+import argparse
+import os
+import tempfile
+
+from repro_torch.config import OptimizerConfig, TrainConfig
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.train.trainer import Trainer
+
+
+def train_config(steps: int, batch: int, seq: int, microbatches: int,
+                 lr: float, ckpt: str) -> TrainConfig:
+    """The launcher's TrainConfig for these flags."""
+    return TrainConfig(
+        steps=steps, seq_len=seq, global_batch=batch,
+        microbatches=microbatches, checkpoint_every=50,
+        log_every=10, checkpoint_dir=ckpt,
+        optimizer=OptimizerConfig(name="adafactor", learning_rate=lr,
+                                  warmup_steps=max(steps // 5, 10)))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--altup", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--mesh", default=None,
+                    help="sharded training: not ported yet (ROADMAP A11)")
+    ap.add_argument("--lr", type=float, default=0.3)
+    ap.add_argument("--ckpt", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: sharded training is not ported yet (ROADMAP A11)")
+
+    cfg = get_config(args.arch, smoke=args.smoke, altup_k=args.altup)
+    tcfg = train_config(args.steps, args.batch, args.seq, args.microbatches,
+                        args.lr, args.ckpt)
+    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer.install_preemption_handler()
+    if args.resume and trainer.maybe_resume():
+        print(f"resumed at step {trainer.step}")
+    res = trainer.run()
+    print(f"final: step={res['step']} loss={res['final_loss']}")
+
+
+if __name__ == "__main__":
+    main()

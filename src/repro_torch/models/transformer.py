@@ -12,14 +12,21 @@ windowed segment, or gemma3's alternating local and global segments when
 `global_every` is set), and `family="rwkv6"` (one segment of RWKV-6
 layers, `models/rwkv.py`); other families raise NotImplementedError
 naming the ROADMAP item that brings them.
+
+`forward` has two modes: the decode path's oracle (no autograd; the
+RWKV recurrence may run through its kernel) and, with `train=True`, the
+differentiable forward of `models/model.loss_fn`, which runs no kernel
+and recomputes each layer in the backward pass as `cfg.remat` says.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
@@ -61,7 +68,9 @@ class ParamTree(nn.Module):
     """Owns a nested mapping of parameters under the reference's leaf
     names. Index it like the reference's dict pytree (`tree["seg0"]
     ["attn"]["wq"]`); `state_dict()` names leaves `seg0.attn.wq`. The
-    parameters are inference weights (requires_grad=False)."""
+    parameters are inference weights (requires_grad=False);
+    `requires_grad_(True)` makes every leaf trainable (as a Trainer
+    does)."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -183,6 +192,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     where the two must agree."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return ParamTree(init_tree(cfg, gen, dev))
+
+
+def init_tree(cfg: ModelConfig, gen, dev) -> Dict:
+    """The nested dict of init_params, drawn from the torch.Generator
+    `gen` on `dev`. On dev="meta" (gen None) it holds shapes and dtypes
+    only: the counterpart of the reference's jax.eval_shape of
+    init_params."""
     pd = prm_dtype(cfg)
     V = padded_vocab(cfg)
     d = cfg.d_model
@@ -198,7 +215,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         pd, dev)
     for si, seg in enumerate(layer_plan(cfg)):
         params[f"seg{si}"] = init_segment(seg, cfg, gen, dev)
-    return ParamTree(params)
+    return params
 
 
 # --------------------------------------------------------------------------
@@ -231,7 +248,7 @@ def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
 
 
 # --------------------------------------------------------------------------
-# forward (the decode oracle)
+# forward (the decode oracle, and the training forward)
 # --------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
@@ -246,10 +263,39 @@ def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], K, d)
 
 
+# matmuls whose outputs remat="dots" keeps for the backward pass (the
+# reference's dots_with_no_batch_dims_saveable keeps its dot_generals)
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, remat: str):
+    """The reference's remat_wrap: "none" keeps every activation, "full"
+    recomputes the layer in the backward pass, "dots" recomputes it but
+    keeps its matmul outputs."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_matmuls))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
-                  k_pos, wkv_kernel: Optional[bool] = None):
+                  k_pos, wkv_kernel: Optional[bool] = None,
+                  remat: str = "none"):
     """Run a full-sequence segment. x: (B, S, [K,] d). An rwkv segment
-    starts every layer's recurrence from a zero state."""
+    starts every layer's recurrence from a zero state. remat: the policy
+    around each layer body, AltUp included (remat_wrap)."""
     K = cfg.altup.K
     for i in range(seg.n):
         p_l = layer_slice(p_seg, i)
@@ -263,27 +309,49 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
         if cfg.altup.enabled:
             sel = alt.block_selector(seg.layer_offset + i, K,
                                      cfg.altup.selection, x.device)
-            x = alt.altup_layer(layer_fn, x, sel, p_l["altup_p"],
-                                p_l["altup_g"])
+
+            def body(xw, p_l=p_l, sel=sel, layer_fn=layer_fn):
+                return alt.altup_layer(layer_fn, xw, sel, p_l["altup_p"],
+                                       p_l["altup_g"])
         else:
-            x = layer_fn(x)
+            body = layer_fn
+        x = remat_wrap(body, remat)(x)
     return x
 
 
 def forward(params, cfg: ModelConfig, tokens, *,
-            wkv_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V_pad).
+            wkv_kernel: Optional[bool] = None,
+            train: bool = False) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V_pad). (The reference also
+    returns an MoE aux loss, which the dense and rwkv6 families do not
+    have.)
 
-    The oracle the decode path is held against, not a training path. (The
-    reference also returns an MoE aux loss, which the dense and rwkv6
-    families do not have.) wkv_kernel: the RWKV-6 recurrence through the
-    kernel wrapper (resolve_kernel_flag; None = on CUDA tensors)."""
+    train=False: the oracle the decode path is held against, run without
+    autograd; wkv_kernel sends the RWKV-6 recurrence through the kernel
+    wrapper (resolve_kernel_flag: None = on CUDA tensors).
+    train=True: the forward of the loss, differentiable. It runs no
+    kernel (no kernel has a backward pass): the AltUp einsums, the masked
+    sdpa and the chunked WKV form, as the reference's training forward
+    does; each layer is recomputed in the backward pass as `cfg.remat`
+    says ("none", "full" or "dots"), which leaves the gradients as they
+    are."""
+    if not train:
+        with torch.no_grad():
+            return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,
+                            remat="none")
+    if wkv_kernel:
+        raise ValueError("train=True runs no kernel: the WKV kernel has no "
+                         "backward pass")
+    return _forward(params, cfg, tokens, wkv_kernel=False, remat=cfg.remat)
+
+
+def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat):
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
         x = apply_segment(params[f"seg{si}"], seg, cfg, x, q_pos=q_pos,
-                          k_pos=q_pos, wkv_kernel=wkv_kernel)
+                          k_pos=q_pos, wkv_kernel=wkv_kernel, remat=remat)
     return unembed(params, cfg, x)
 
 

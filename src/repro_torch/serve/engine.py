@@ -243,7 +243,9 @@ class Engine:
     slots, admission-limited); host_spill_pages: host tier for evicted
     prefix pages (0 = off). Recurrent and sliding-window plans prefill
     one token per step whatever prefill_chunk says; recurrent plans take
-    no paged=True yet."""
+    no paged=True yet. Steps (graph captures included) and generate()
+    run without autograd, so trainable parameters (a Trainer's) serve as
+    they are."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int, *,
                  n_slots: int = 8, prefill_chunk: int = 8,
@@ -495,6 +497,7 @@ class Engine:
         prompt = np.asarray(prompt).reshape(-1).tolist()
         return self._sched.submit(prompt, sampling)
 
+    @torch.no_grad()
     def step(self) -> int:
         """One step: admit queued requests into free slots, advance every
         active slot (a chunk of prompt tokens while prefilling, one token
@@ -663,6 +666,7 @@ class Engine:
     # static batch (oracle) — same sampler as the continuous step
     # ------------------------------------------------------------------
 
+    @torch.no_grad()
     def generate(self, prompt_tokens, n_new: Optional[int] = None, *,
                  sampling: Optional[SamplingParams] = None) -> torch.Tensor:
         """prompt_tokens: (B, S). Returns (B, n) generated ids (int32, on

@@ -32,7 +32,8 @@ def _fields(cls):
 
 @pytest.mark.parametrize("name", ["AltUpConfig", "SeqAltUpConfig",
                                   "MoEConfig", "MLAConfig", "SSMConfig",
-                                  "RWKVConfig", "ModelConfig"])
+                                  "RWKVConfig", "ModelConfig",
+                                  "OptimizerConfig", "TrainConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
 
