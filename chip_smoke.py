@@ -143,18 +143,52 @@ and serves the trained weights. Phases:
                past the window, one that wraps during decode; 40 new)
                through Engine(n_slots=8, max_len=2048,
                prefix_cache=False): chunk-1 prefill, so every step is
-               S=1 and launches 34 AltUp and 34 decode-attention kernels
-               (29 on rings, 5 global); j-graph replayed, every step a
-               replay, as e-graph, with the replayed step's device ms
+               S=1 and launches one AltUp and one decode-attention
+               kernel a layer; the eager twin (this line) and a replayed
+               run held against it as e-graph at 6 layers (5 on rings,
+               1 global; cut so the run fits its time), then j-graph
+               replayed at full depth (34 launches of each a step, 29
+               on rings, 5 global), every step a replay, with the
+               replayed step's device ms
       j-paged  a 600-token system prompt served first, then 8 requests
                extending it (tails of 32-480 tokens, 32 new) over a pool
                of pages of 16 rows with prefix reuse: every hit copies
-               the prompt's 38 pages and aliases none; j-paged-graph
-               replayed, and its hits' tokens equal a cold engine's
+               the prompt's 38 pages and aliases none; the eager twin
+               at 6 layers held as j-serve's; j-paged-graph replayed at
+               full depth, and its hits' tokens equal a cold engine's
       j-quant  j-paged's traffic from int8 slot caches (the contiguous
                ring copy, j-quant-int8-graph) and from an fp8 pool
                (j-quant-fp8-graph), both replayed only, each run's hits'
                tokens equal to a cold engine's
+  (s) self-speculative decoding (greedy) through Engine(speculative=True),
+      every round from replayed CUDA graphs (snapshot + draft + ring
+      restore, verify, post-verify restore), no new kernel:
+      s-parity f32, TF32 off: speculative against non-speculative tokens,
+               identical, on Qwen3-0.6B + AltUp K=2 at full width and
+               depth (drafts through 14 of 28 layers), two requests:
+               contiguous, paged (a donor, then a request that hits 130
+               of its rows) and int8 slot caches; then gemma3-4b + AltUp
+               K=2 at full width, 12 layers (10 on rings of 1024 rows, 2
+               global), one request decoding across the wrap; then the
+               contiguous case with a full-depth draft (every draft
+               accepted, captures included) under a repetition penalty
+               of 1.4, with logprobs. Gates: rounds ran, each replaying
+               one draft and one verify graph (and one restore on
+               rings), and the draft graphs launched the fused AltUp and
+               the decode attention (paged: its paged entry point); the
+               penalty case accepted drafts and its logprobs are within
+               1e-3 of the non-speculative engine's
+      s-serve  bf16, speculative against non-speculative, both replayed,
+               on one stream (prompt 288, 64 new) and on (e)'s 8
+               requests: decode tok/s, median and p80 ms of a round and
+               of a step, accept rate, mean k, tokens a round, device ms
+               of one draft round, one verify and one step (their most
+               replayed graphs back to back; on (e)'s load their top
+               kernels by torch.profiler), kernels a round, captures
+               and their seconds; token agreement (not gated: bf16
+               rounds the verify's dense chunk attention and the step's
+               kernel differently), with the first differing position
+               and the non-speculative run's top-2 logit margin there
   (k) training (no kernel has a backward pass: the differentiated path
       runs none), then the trained weights served through the kernels:
       k-grad   Qwen3-0.6B + AltUp K=2 at full width, 2 layers, f32, TF32
@@ -2058,6 +2092,10 @@ J_SLOTS, J_MAX_LEN = 8, 2048
 # the prefix cache), then 8 requests of it plus a tail of 32-480 tokens,
 # 32 new tokens each: the longer ones pass the window
 J_SYSTEM, J_PAGED_NEW, J_PAGE = 600, 32, 16
+# the depth at which j-serve and j-paged run their eager twin and the
+# replayed run held against it (5 ring layers and 1 global: the plan's
+# pattern once); the phase's numbers come from a replayed run at full depth
+J_TWIN_LAYERS = 6
 
 
 def gemma_config(**kw):
@@ -2277,9 +2315,10 @@ def gemma_traffic(torch, vocab, paged):
 
 
 def serve_gemma(torch, ops, kind=None, replay=False, paged=False,
-                prefix_cache=False, cold_check=False):
+                prefix_cache=False, cold_check=False, n_layers=None):
     """Phase (j) and its twins on gemma3-4b + AltUp K=2 in bf16 through
-    Engine(n_slots=8, max_len=2048). Ring plans prefill one token per
+    Engine(n_slots=8, max_len=2048), at full depth or, n_layers given, cut
+    to that many layers (full width). Ring plans prefill one token per
     step, so every step is S=1: each launches the fused AltUp kernel and
     the ragged decode kernel (its paged variant, paged=True) once per
     layer, 29 on rings and 5 on global caches, and each replays a graph
@@ -2291,7 +2330,8 @@ def serve_gemma(torch, ops, kind=None, replay=False, paged=False,
     off, replayed) must give every hit's tokens."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.sampling import SamplingParams
-    cfg = gemma_config()                                # bf16
+    cfg = gemma_config(**({} if n_layers is None
+                          else {"n_layers": n_layers}))    # bf16
     if kind is not None:
         cfg = cfg.replace(kv_cache_dtype=kind)
     params = init_params(cfg, seed=1, device=DEV)
@@ -2818,6 +2858,309 @@ def serve_trained(torch, ops, params):
             "replays_dense": out["dense"]["replays"]}
 
 
+# ---------------------------------------------------------------------------
+# (s) self-speculative decoding: AltUp drafts, a chunk verify, rollback
+# ---------------------------------------------------------------------------
+
+# s-parity (f32): two requests a case; the ring case's one request decodes
+# across the wrap of its 1024-row rings
+S_PROMPTS, S_NEW = (45, 150), 24
+S_DONOR_SHARED = 130          # the paged case's prefix hit, in rows
+S_RING_PROMPT, S_RING_NEW, S_RING_LAYERS = 1000, 48, 12
+# the "penalty" case: a full-depth draft (every draft accepted) under a
+# repetition penalty, chosen-token logprobs held to S_LP_TOL
+S_PENALTY, S_LP_TOL = 1.4, 1e-3
+# s-serve (bf16): the single stream; the 8-slot load is (e)'s traffic
+S_SINGLE_PROMPT, S_SINGLE_NEW = 288, 64
+
+
+def spec_rounds(eng, ring, before=None):
+    """What the speculative rounds of a run did, from the engine's round
+    graphs (counters since the snapshot `before`, or the engine's life):
+    replays of each phase, the draft graphs' kernel launches, all the
+    rounds' launches a round, captures and their seconds. Gate: every
+    round replayed one draft and one verify graph, and on a ring plan one
+    post-verify restore: no round ran eagerly."""
+    gs = eng.spec_graph_stats
+    b = before or {"replays_by_shape": {}, "captures": 0, "capture_s": 0.0}
+    st = eng.stats
+    rounds = st["spec_rounds"]
+    phases, draft, total = {}, {}, {}
+    for key, n in gs["replays_by_shape"].items():
+        n -= b["replays_by_shape"].get(key, 0)
+        phases[key[0]] = phases.get(key[0], 0) + n
+        for kern, m in gs["launches_per_replay"][key].items():
+            total[kern] = total.get(kern, 0) + n * m
+            if key[0] == "draft":
+                draft[kern] = draft.get(kern, 0) + n * m
+    want = {"draft": rounds, "verify": rounds}
+    if ring:
+        want["restore"] = rounds
+    if {k: n for k, n in phases.items() if n} != want:
+        raise AssertionError(f"round graph replays {phases} for {rounds} "
+                             f"rounds")
+    drafted = st["spec_drafted"]
+    return {"spec_rounds": rounds, "spec_drafted": drafted,
+            "spec_accepted": st["spec_accepted"],
+            "accept_rate": st["spec_accepted"] / max(drafted, 1),
+            "mean_k": st["spec_k_sum"] / max(rounds, 1),
+            "tokens_per_round": (st["spec_accepted"] + rounds)
+            / max(rounds, 1),
+            "phase_replays": phases,
+            "draft_launches": {k: n for k, n in draft.items() if n},
+            "launches_per_round": {k: n / max(rounds, 1)
+                                   for k, n in total.items() if n},
+            "captures": gs["captures"] - b["captures"],
+            "capture_s": gs["capture_s"] - b["capture_s"],
+            "round_shapes": [list(k) for k in gs["shapes"]]}
+
+
+def spec_parity_f32(torch, ops, case):
+    """s-parity: greedy requests through Engine(speculative=True) and a
+    non-speculative Engine, both replaying CUDA graphs, in f32 (TF32 off):
+    "contiguous" and "int8" (int8 slot caches) on Qwen3-0.6B + AltUp K=2
+    at full width and depth (D = 14 of 28 layers: default_draft_layers),
+    two requests of S_PROMPTS tokens; "paged" the same over pages of 16
+    rows, a donor served first and a request that hits its first
+    S_DONOR_SHARED rows; "ring" on gemma3-4b + AltUp K=2 at full width, 12
+    layers (10 on rings of 1024 rows, 2 global), one request decoding
+    across the wrap; "penalty" as "contiguous" with a full-depth draft
+    (the draft is the target, so rounds, their graph captures included,
+    commit several tokens) under a repetition penalty of S_PENALTY, with
+    logprobs. Gates: tokens identical, rounds ran, each from its graphs
+    (spec_rounds), the draft graphs launched the fused AltUp and the
+    decode attention (the paged entry point when paged), the hit taken by
+    both engines; "penalty": drafts accepted, chosen-token logprobs
+    within S_LP_TOL of the non-speculative engine's."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.speculative import SpecConfig
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(41)
+    kw = dict(max_len=512, n_slots=2, prefill_chunk=64, device=DEV)
+    if case == "ring":
+        cfg = gemma_config(n_layers=S_RING_LAYERS, **f32)
+        kw["max_len"] = S_RING_PROMPT + S_RING_NEW
+        plens, n_new = (S_RING_PROMPT,), S_RING_NEW
+    else:
+        cfg = served_config(**f32, **({"kv_cache_dtype": "int8"}
+                                      if case == "int8" else {}))
+        plens, n_new = S_PROMPTS, S_NEW
+    if case == "paged":
+        kw.update(paged=True, page_size=16)
+    penalty = case == "penalty"
+    sp = SamplingParams(max_new=n_new, **(
+        {"repetition_penalty": S_PENALTY, "logprobs": True}
+        if penalty else {}))
+    params = init_params(cfg, seed=2, device=DEV)
+    perturb_altup(torch, params, seed=42)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in plens]
+    donor = None
+    if case == "paged":
+        donor = prompts[1]
+        prompts[1] = donor[:S_DONOR_SHARED] + torch.randint(
+            0, cfg.vocab_size, (20,), generator=gen).tolist()
+    out, lps = {}, {}
+    for spec in (False, True):
+        spec_arg = (SpecConfig(draft_layers=cfg.n_layers)
+                    if spec and penalty else spec)
+        eng = Engine(cfg, params, speculative=spec_arg, **kw)
+        if donor is not None:
+            eng.submit(donor, sampling=SamplingParams(max_new=n_new))
+            eng.run()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=sp) for p in prompts]
+        done = eng.run()
+        out[spec] = ([list(done[r].tokens) for r in rids], eng,
+                     ops.launch_counts())
+        if penalty:
+            lps[spec] = [list(done[r].logprobs) for r in rids]
+    (tok_n, eng_n, _), (tok_s, eng_s, counts) = out[False], out[True]
+    if tok_s != tok_n:
+        raise AssertionError(f"s-parity {case}: speculative tokens {tok_s} "
+                             f"against {tok_n}")
+    lp_err = None
+    if penalty:
+        lp_err = max(abs(a - b) for x, y in zip(lps[True], lps[False])
+                     for a, b in zip(x, y))
+        if not (eng_s.stats["spec_accepted"] > 0 and lp_err <= S_LP_TOL):
+            raise AssertionError(
+                f"s-parity {case}: accepted {eng_s.stats['spec_accepted']}"
+                f", logprob error {lp_err} (limit {S_LP_TOL})")
+    rounds = spec_rounds(eng_s, ring=case == "ring")
+    attn = ("paged_ragged_decode_attention" if case == "paged"
+            else "ragged_decode_attention")
+    dl = rounds["draft_launches"]
+    if not (rounds["spec_rounds"] > 0 and dl.get("altup_predict_correct", 0)
+            > 0 and dl.get(attn, 0) > 0):
+        raise AssertionError(f"s-parity {case}: rounds {rounds}")
+    hits = (eng_n.stats["prefix_hits"], eng_s.stats["prefix_hits"])
+    if donor is not None and min(hits) < 1:
+        raise AssertionError(f"s-parity {case}: prefix hits {hits}")
+    ring, glob = gemma_layers(cfg) if case == "ring" else (0, cfg.n_layers)
+    res = {"layers": cfg.n_layers, "ring_layers": ring,
+           "global_layers": glob, "draft_layers": eng_s._draft_layers,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
+           "max_depth": max(len(p) for p in prompts) + n_new,
+           "prefix_hits": hits[1], "tokens_identical": True,
+           "repetition_penalty": S_PENALTY if penalty else 1.0,
+           "logprob_max_abs_err": lp_err, "launches": {k: n for k, n in counts.items() if n}, **rounds}
+    del out, eng_n, eng_s, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def top2_margin(torch, params, cfg, tokens):
+    """The top-2 logit margin at the last position of `tokens`, through
+    forward (the dense path) in the serving dtype."""
+    from repro_torch.models.transformer import forward
+    logits = forward(params, cfg, torch.tensor([tokens], device=DEV))
+    top = logits[0, -1, :cfg.vocab_size].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def spec_serve_bf16(torch, ops, load):
+    """s-serve: Qwen3-0.6B + AltUp K=2 at full width and depth in bf16,
+    speculative against non-speculative, both replaying CUDA graphs:
+    "single" one stream (n_slots=1: the load where a draft pays), "e"
+    (e)'s 8 requests. Each engine serves a warm-up request first, out of
+    the counted run. Records decode tok/s, the median and p80 ms of a
+    decode step or round, accepted / drafted, mean k, tokens a round, the
+    device ms of one draft round, one verify and one non-speculative step
+    (their most replayed graphs, back to back by CUDA events, after the
+    run; on (e)'s load also their top kernels by torch.profiler), the
+    kernels a round launches, captures and their seconds. In
+    bf16 the verify's chunk attention (dense) and the step's (ragged
+    kernel) round differently, so a near-tie may flip a greedy token:
+    token agreement is recorded, with the first differing position and
+    the non-speculative run's top-2 logit margin there, not gated."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = served_config()                              # bf16
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=11)
+    gen = torch.Generator().manual_seed(3)
+    if load == "single":
+        plens, n_new, n_slots = (S_SINGLE_PROMPT,), S_SINGLE_NEW, 1
+    else:
+        plens, n_new, n_slots = E_PROMPTS, E_NEW, 8
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in plens]
+    runs = {}
+    for spec in (False, True):
+        eng = Engine(cfg, params, max_len=2048, n_slots=n_slots,
+                     prefill_chunk=64, prefix_cache=False, speculative=spec,
+                     device=DEV)
+        eng.submit(prompts[0][:16], sampling=SamplingParams(max_new=8))
+        eng.run()
+        eng.reset_stats()
+        before = eng.spec_graph_stats if spec else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
+                for p in prompts]
+        step_ms = []
+        t_run = time.perf_counter()
+        while eng.has_work:
+            pf0 = eng.stats["prefill_tokens"]
+            t0 = time.perf_counter()
+            eng.step()
+            if eng.stats["prefill_tokens"] == pf0:
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        wall = time.perf_counter() - t_run
+        done = eng.collect()
+        st = eng.stats
+        step_ms.sort()
+        r = {"decode_tok_s": st["decode_tokens"] / st["decode_s"],
+             "decode_steps": len(step_ms),
+             "step_ms_median": step_ms[len(step_ms) // 2],
+             "step_ms_p80": step_ms[int(0.8 * len(step_ms))],
+             "wall_s": wall,
+             "launches": {k: n for k, n in ops.launch_counts().items()
+                          if n}}
+        graphs = eng._spec_graphs if spec else eng._graphs
+        by_phase = {}
+        for key, n in graphs.stats()["replays_by_shape"].items():
+            phase = key[0] if spec else "step"
+            if n > by_phase.get(phase, (None, 0))[1]:
+                by_phase[phase] = (key, n)
+        for phase, (key, _) in by_phase.items():
+            if phase != "restore":
+                replay = graphs._graphs[key][0].replay
+                r[f"{phase}_device_ms"] = time_ms(torch, replay, iters=20,
+                                                  warmup=3)
+                r[f"{phase}_timed_shape"] = [str(v) for v in key]
+                if load == "e":
+                    r[f"{phase}_kernel_ms"], r[f"{phase}_top_kernels"] = \
+                        top_kernels(torch, replay)
+        if spec:
+            r.update(spec_rounds(eng, ring=False, before=before))
+        runs[spec] = ([list(done[rid].tokens) for rid in rids], r)
+        del eng
+    (tok_n, res_n), (tok_s, res_s) = runs[False], runs[True]
+    agree = []
+    for p, a, b in zip(prompts, tok_n, tok_s):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        agree.append(None if j is None else
+                     {"position": j, "non_spec_top2_margin":
+                      top2_margin(torch, params, cfg, p + a[:j])})
+    if any(len(t) != n_new for t in tok_s + tok_n):
+        raise AssertionError(f"s-serve {load}: a request did not complete")
+    del params
+    torch.cuda.empty_cache()
+    return {"requests": len(prompts), "prompt_lens": list(plens),
+            "new_tokens": n_new, "n_slots": n_slots,
+            "tokens_identical_requests": sum(a is None for a in agree),
+            "first_differences": [a for a in agree if a is not None],
+            "non_spec": res_n, "spec": res_s,
+            "decode_tok_s_spec_over_non_spec":
+                res_s["decode_tok_s"] / res_n["decode_tok_s"],
+            "round_ms_median_over_step_ms_median":
+                res_s["step_ms_median"] / res_n["step_ms_median"]}
+
+
+def top_kernels(torch, fn, iters=3, top=6):
+    """fn()'s kernels by device time (torch.profiler over `iters` calls,
+    the marker first and left out): the summed device ms a call and the
+    `top` largest as [name, ms a call, launches a call]. Not gated: a
+    profiler run may lose a record now and then (profiled())."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in _device_kernels(prof) if MARKER not in e.key),
+                  key=lambda e: -e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / iters,
+            [[e.key[:90], e.self_device_time_total / 1e3 / iters,
+              e.count / iters] for e in kern[:top]])
+
+
+def spec_phases(torch, ops):
+    """The s phases, each line with its seconds; returns their seconds."""
+    t_s = time.perf_counter()
+    for case in ("contiguous", "paged", "int8", "ring", "penalty"):
+        t0 = time.perf_counter()
+        r = spec_parity_f32(torch, ops, case)
+        line("s-parity", case=case, seconds=time.perf_counter() - t0, **r)
+    for load in ("single", "e"):
+        t0 = time.perf_counter()
+        r = spec_serve_bf16(torch, ops, load)
+        line("s-serve", load=load, seconds=time.perf_counter() - t0, **r)
+    seconds = time.perf_counter() - t_s
+    line("s-phases", seconds=seconds)
+    return seconds
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -3221,14 +3564,21 @@ def main(argv) -> int:
     # against a cold engine
     line("j-parity", **gemma_parity_f32(torch))
 
+    # The eager twin (~70 ms a chunk-1 step at full depth) runs at
+    # J_TWIN_LAYERS, against a replayed run at the same depth; the
+    # phase's numbers, launches and cold check come from a replayed run
+    # at full depth
     def gemma_pair(tag, tag_graph, **kw):
-        res, trace = serve_gemma(torch, ops, **kw)
+        res, trace = serve_gemma(torch, ops, n_layers=J_TWIN_LAYERS, **kw)
         line(tag, **res)
-        res_r, trace_r = serve_gemma(torch, ops, replay=True,
-                                        cold_check=kw.get("paged", False),
-                                        **kw)
-        res_r.update(hold_replay({**res, **trace}, {**res_r, **trace_r},
-                                 res_r["steps"]))
+        res_t, trace_t = serve_gemma(torch, ops, replay=True,
+                                     n_layers=J_TWIN_LAYERS, **kw)
+        held = hold_replay({**res, **trace}, {**res_t, **trace_t},
+                           res_t["steps"])
+        res_r, _ = serve_gemma(torch, ops, replay=True,
+                               cold_check=kw.get("paged", False), **kw)
+        res_r.update(twin_layers=J_TWIN_LAYERS, twin=held,
+                     twin_graph=res_t["graph"])
         line(tag_graph, **res_r)
         return res_r
     res_j_r = gemma_pair("j-serve", "j-graph")
@@ -3241,6 +3591,12 @@ def main(argv) -> int:
                             prefix_cache=True, replay=True,
                             cold_check=True)[0]
     line("j-quant-fp8-graph", **res_jqp_r)
+
+    # (s) self-speculative decoding: f32 parity of speculative against
+    # non-speculative serving (Qwen3 contiguous, paged with a hit, int8;
+    # gemma3-4b rings across the wrap), then bf16 numbers on one stream
+    # and on (e)'s load
+    spec_phases(torch, ops)
 
     # (k) training: gradients against the CPU, a full-width run, resume
     # from a checkpoint, then the trained weights served through the
@@ -3347,6 +3703,7 @@ def main(argv) -> int:
              "replaces": "src/repro/kernels/" + replaces,
              "launches": res_run["launches"][counter],
              **{k: j_kern[case][k] for k in keys}})
+    line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -71,6 +71,25 @@ def altup_layer(layer_fn: Callable[[torch.Tensor], torch.Tensor],
     return correct(x_hat, x_tilde, sel, g)
 
 
+def compose_predictors(p_stack: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """Compose a run of per-layer predictors into ONE (K, K) mixer.
+
+    p_stack: (n, K, K) stacked predictors of a segment. Applying only the
+    predict steps of layers start..n-1 is
+
+        x <- P_{n-1} @ (... @ (P_{start} @ x))  ==  (P_{n-1} ... P_{start}) @ x
+
+    since predict() is linear in the stream, so the skipped tail of a
+    draft (models/decode.draft_step) costs K^2 scalars per token however
+    many layers it skips. The product is taken in the reference's order,
+    in p_stack's dtype; start == n returns the identity."""
+    n, K = p_stack.shape[0], p_stack.shape[1]
+    comp = torch.eye(K, dtype=p_stack.dtype, device=p_stack.device)
+    for i in range(int(start), n):
+        comp = p_stack[i] @ comp
+    return comp
+
+
 # --------------------------------------------------------------------------
 # Embedding widening / recycling (paper Sec. 3 + Sec. 4.1)
 # --------------------------------------------------------------------------

@@ -13,12 +13,12 @@ same arithmetic, bit for bit on the CPU:
 
 Scales are always float32, one per row of the reduced axis (per position
 and head for cache rows). The flash-attention kernel consumes these
-codes and scales and fuses `code * scale` into its kv-tile load; the
-quantized slot caches of the decode path arrive with ROADMAP A7.
+codes and scales and fuses `code * scale` into its kv-tile load, as the
+decode kernels do over the quantized caches of models/decode.py.
 
 The stochastic rounding of the reference (`key=`, the gradient
 compression path) raises NotImplementedError: a JAX PRNG key has no
-counterpart in the port yet (ROADMAP A6 / A11).
+counterpart in the port yet (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ def _no_stochastic(key) -> None:
     if key is not None:
         raise NotImplementedError(
             "stochastic rounding (key=) belongs to gradient compression, "
-            "which is not ported yet (ROADMAP A6 / A11)")
+            "which is not ported yet (ROADMAP A11)")
 
 
 def int8_round(y: torch.Tensor, *, key=None) -> torch.Tensor:

@@ -71,6 +71,7 @@ Caches are built from the ACTIVE d-wide sub-block only, so the widened
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, Optional, Sequence
 
@@ -616,6 +617,18 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     (resolve_kernel_flag; None = on CUDA tensors). Returns (logits
     (B, S, V_pad), caches), the caches written in place.
     """
+    kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
+    x = embed_tokens(params, cfg, tokens)
+    for si, seg in enumerate(layer_plan(cfg)):
+        x, _ = decode_segment(params[f"seg{si}"], caches[f"seg{si}"], seg,
+                              cfg, x, pos, n_valid=n_valid, kv_len=kv_len,
+                              wkv_kernel=wkv_kernel, **kw)
+    return unembed(params, cfg, x), caches
+
+
+def _step_kwargs(cfg: ModelConfig, tokens, pos, block_table, page_size):
+    """decode_segment's kernel flags and paged argument for a step on
+    `tokens`' device."""
     dev = tokens.device
     paged = None
     if block_table is not None:
@@ -625,15 +638,47 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
         if not (isinstance(pos, torch.Tensor) and pos.dim() == 1):
             raise ValueError("paged decode needs per-slot (B,) positions")
         paged = (block_table, int(page_size))
-    use_ragged = resolve_kernel_flag(cfg.ragged_decode_attn, dev)
     use_fused = cfg.altup.enabled and \
         resolve_kernel_flag(cfg.fused_decode_altup, dev)
+    return {"use_ragged": resolve_kernel_flag(cfg.ragged_decode_attn, dev),
+            "use_fused": use_fused, "paged": paged}
+
+
+def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
+               draft_layers: int, n_valid=None, kv_len=None,
+               block_table=None, page_size=0):
+    """Predict-only DRAFT forward for self-speculative decoding
+    (serve/speculative.py).
+
+    Runs layers [0, draft_layers) exactly as decode_step does, their cache
+    writes included (in place: the draft's k/v land at their true
+    positions, and the verify chunk rewrites them with the same values),
+    then collapses every remaining layer to its AltUp PREDICT step: the
+    skipped tail of each segment is one composed K x K mixer
+    (core/altup.compose_predictors), applied from `start` = the number of
+    the segment's layers that ran. With AltUp off the tail is the
+    identity (a plain early exit). A segment that straddles draft_layers
+    runs decode_segment with its layer count cut to the head, on the
+    stacked caches and parameters as they are: decode_segment touches no
+    layer past its count, so the tail layers' caches stay as they were.
+    Same arguments as decode_step; returns (logits (B, S, V_pad),
+    caches)."""
+    D = int(draft_layers)
+    if not 1 <= D <= cfg.n_layers:
+        raise ValueError(f"draft_layers={D} out of range [1, "
+                         f"{cfg.n_layers}]")
+    kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
     x = embed_tokens(params, cfg, tokens)
     for si, seg in enumerate(layer_plan(cfg)):
-        x, _ = decode_segment(params[f"seg{si}"], caches[f"seg{si}"], seg,
-                              cfg, x, pos, n_valid=n_valid, kv_len=kv_len,
-                              use_ragged=use_ragged, use_fused=use_fused,
-                              paged=paged, wkv_kernel=wkv_kernel)
+        p_seg = params[f"seg{si}"]
+        m = min(max(D - seg.layer_offset, 0), seg.n)   # layers that run
+        if m > 0:
+            head = seg if m == seg.n else dataclasses.replace(seg, n=m)
+            x, _ = decode_segment(p_seg, caches[f"seg{si}"], head, cfg, x,
+                                  pos, n_valid=n_valid, kv_len=kv_len, **kw)
+        if m < seg.n and cfg.altup.enabled:
+            x = alt.predict(x, alt.compose_predictors(p_seg["altup_p"],
+                                                      start=m))
     return unembed(params, cfg, x), caches
 
 
@@ -727,6 +772,116 @@ def restore_recurrent(caches, saved, slots: torch.Tensor):
     Returns the caches."""
     for (si, name), vals in saved.items():
         caches[si][name].index_copy_(1, slots, vals)
+    return caches
+
+
+# --------------------------------------------------------------------------
+# ring rollback for speculative rounds
+# --------------------------------------------------------------------------
+# Full-attention k/v rows past the committed position need NO restore after
+# a rejected speculative suffix: per-slot positions mask them and they are
+# rewritten before they become visible, scales in lockstep with codes. A
+# RING row is the exception: writing position pos + j at row (pos + j) % Tc
+# destroys position pos + j - Tc, which the queries after a rewind still
+# need. So the engine snapshots the S rows a round will touch before it
+# drafts, and writes them back: all of them before the verify (the chunk
+# reads the pre-round window) and the rejected suffix after it.
+
+def _ring_segs(cfg: ModelConfig):
+    """(segment name, window) of every ring-cache segment."""
+    return [(f"seg{si}", int(seg.window))
+            for si, seg in enumerate(layer_plan(cfg))
+            if seg.kind == "attn" and seg.window > 0]
+
+
+def _per_slot(v, B: int, device) -> torch.Tensor:
+    """An int or a (B,) tensor as a (B,) long tensor on `device`, made
+    there (no host-to-device copy: the engine captures these calls)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.long).expand(B)
+    return torch.full((B,), int(v), dtype=torch.long, device=device)
+
+
+def _round_rows(leaf, pos, S: int, window: int, block_table, page: int):
+    """The (B, S) rows of `leaf`'s row axis that ring positions
+    pos..pos+S-1 occupy, and the leaf's sink row. Contiguous: rows of
+    each slot's ring of Tc rows (row Tc its sink). Paged: physical pool
+    rows through the block table, the ring's logical capacity
+    min(table span, window) as in decode_segment, the sink page's first
+    row the sink."""
+    if block_table is None:
+        Tc, B, sink = leaf.shape[2] - 1, leaf.shape[1], leaf.shape[2] - 1
+    else:
+        Tc = min(block_table.shape[1] * page, window)
+        B, sink = block_table.shape[0], leaf.shape[1] - page
+    offs = torch.arange(S, device=leaf.device)
+    rows = torch.remainder(_per_slot(pos, B, leaf.device)[:, None]
+                           + offs[None], Tc)
+    if block_table is not None:
+        rows = (torch.gather(block_table.to(torch.long), 1, rows // page)
+                * page + rows % page)
+    return rows, sink
+
+
+def _ring_index(leaf, rows, paged: bool):
+    """The (slot, row) index of a contiguous leaf's (B, S) rows, or the
+    physical rows of a pool, behind the layer axis."""
+    if paged:
+        return (slice(None), rows)
+    bidx = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    return (slice(None), bidx, rows)
+
+
+def snapshot_rows(cfg: ModelConfig, caches, pos, S: int, *,
+                  block_table=None, page_size: int = 0, out=None):
+    """Copies of the ring rows (codes AND quantized scales, in lockstep)
+    that positions pos..pos+S-1 will overwrite: {segment: {leaf: (n, B,
+    S, ...)}}, empty for a plan without rings. pos: an int or a per-slot
+    (B,) tensor. S must not exceed the smallest ring (the engine caps the
+    draft length so one round never wraps a row onto itself).
+    block_table/page_size: a paged pool, rows through the table; the copies
+    have the contiguous shapes. out: an earlier snapshot of the same
+    shapes to copy the rows into (the engine's static buffers), returned
+    instead of new tensors."""
+    paged = block_table is not None
+    snap = {}
+    for name, window in _ring_segs(cfg):
+        entry = {}
+        for leaf_name in ("k", "v") + SCALE_LEAVES:
+            leaf = caches[name].get(leaf_name)
+            if leaf is None:
+                continue
+            rows, _ = _round_rows(leaf, pos, S, window, block_table,
+                                   page_size)
+            vals = _raw(leaf)[_ring_index(leaf, rows, paged)]
+            if out is not None:
+                _raw(out[name][leaf_name]).copy_(vals)
+            else:
+                entry[leaf_name] = vals.view(leaf.dtype)
+        snap[name] = entry
+    return snap if out is None else out
+
+
+def restore_rows(cfg: ModelConfig, caches, snap, pos, start, S: int, *,
+                 block_table=None, page_size: int = 0):
+    """Write snapshot rows back, IN PLACE: slot b restores rows
+    start_b..S-1 (start an int or a (B,) tensor). start=0 undoes a whole
+    round's ring writes (before the verify: the draft's writes must not
+    shadow the window the chunk reads); start = the slot's committed
+    count rewinds exactly the rejected suffix. Rows before a slot's
+    start land in the sink (contiguous: the slot's sink row; paged: the
+    sink page) where the reference drops them, so start >= S restores
+    nothing for that slot. Returns the caches."""
+    paged = block_table is not None
+    for name, window in _ring_segs(cfg):
+        for leaf_name, vals in snap[name].items():
+            leaf = caches[name][leaf_name]
+            rows, sink = _round_rows(leaf, pos, S, window, block_table,
+                                     page_size)
+            st = _per_slot(start, rows.shape[0], leaf.device)
+            offs = torch.arange(S, device=leaf.device)
+            rows = torch.where(offs[None] >= st[:, None], rows, sink)
+            _raw(leaf)[_ring_index(leaf, rows, paged)] = _raw(vals)
     return caches
 
 

@@ -1,8 +1,8 @@
 """Serving engine: continuous batching over slot KV caches or a page pool.
 
-Port of `repro/serve/engine.py` for greedy requests, with prefix reuse
-and paging, without speculative decoding (a later slice). Two decode
-surfaces share one sampler (serve/sampling.sample_rows):
+Port of `repro/serve/engine.py` for greedy requests, with prefix reuse,
+paging and self-speculative decoding. Two decode surfaces share one
+sampler (serve/sampling.sample_rows):
 
 * submit()/step()/collect()/stream()/run() — continuous batching. Requests
   are admitted into cache slots by serve/scheduler.SlotScheduler; every
@@ -56,6 +56,17 @@ retired a few steps earlier serves other tokens than a cold prefill. The
 port saves the retained slots' state before each step and restores it
 after.
 
+Self-speculative decoding (speculative=True | SpecConfig, greedy), as in
+the reference (serve/speculative.py): when every active slot decodes, a
+step is one ROUND: k draft steps through the first D layers and AltUp's
+composed predictors, one chunk verify of the k + 1 tokens, the accepted
+drafts and a correction or bonus token committed (eos and stops cut a
+round on the host), ring rows rolled back from a pre-round snapshot. The
+draft length adapts to the accept rate (AdaptiveK), capped by each
+slot's budget and, on a ring plan, so that one round never wraps a ring
+row onto itself. Recurrent plans decode normally. A round in which no
+slot may draft runs the normal step.
+
 Each step hands the attention layers the per-slot depths: cache reads
 are sliced to a power-of-two `kv-len bucket` >= the deepest slot, and on
 the card S=1 attention runs through the ragged decode kernel (its paged
@@ -76,12 +87,20 @@ stream (`StepGraphs`); a step that feeds a prefill chunk (C > 1) calls
 the function eagerly, by the rule of its shape. On the CPU the function
 is always called directly. A capture that fails raises: no replayable
 step runs eagerly instead. Retained recurrent donors are saved before
-and restored after the step, outside the graph.
+and restored after the step, outside the graph. A speculative round
+replays graphs of its own on the card, never eager (`_spec_round`): the
+snapshot, the draft and the pre-verify ring restore in one per (k, kv
+bucket), the verify in one per (k, kv bucket, logprobs), the post-verify
+restore in one per k, over static buffers (`RoundBuffers`); the draft's
+seen table is a copy made inside its graph. A draft warm-up leaves the
+rings as it found them (it ends in its own restore); a verify warm-up's
+ring writes are restored before its capture.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Iterator, List, Optional, Tuple
+import time
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -93,8 +112,9 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        gather_pages, init_cache,
                                        init_paged_cache, kv_quant_spec,
                                        prefill, reset_pages, reset_slot,
-                                       restore_recurrent, save_recurrent,
-                                       scatter_pages)
+                                       restore_recurrent, restore_rows,
+                                       save_recurrent, scatter_pages,
+                                       snapshot_rows)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
@@ -102,6 +122,9 @@ from repro_torch.serve.sampling import (Completion, SamplingParams,
                                         sample_rows, update_seen)
 from repro_torch.serve.paging import PagePool, PagedScheduler
 from repro_torch.serve.scheduler import SlotScheduler, serve_clock
+from repro_torch.serve.speculative import (AdaptiveK, SpecConfig,
+                                           default_draft_layers, draft_round,
+                                           spec_verify_step)
 
 
 def kv_bucket(needed: int, lo: int, cap: int) -> int:
@@ -141,22 +164,26 @@ class StepInputs:
     rewritten only after the previous step's ids reached the host, which
     waits for that step's copies."""
 
-    def __init__(self, B: int, C: int, device: torch.device):
+    def __init__(self, B: int, C: int, device: torch.device,
+                 extra: Tuple[str, ...] = ()):
         pin = device.type == "cuda"
         specs = {"tokens": ((B, C), torch.long), "pos": ((B,), torch.long),
                  "nval": ((B,), torch.long),
                  "rep_pen": ((B,), torch.float32)}
-        self._pairs = []
+        specs.update({name: ((B,), torch.long) for name in extra})
+        self._pairs: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.host: Dict[str, np.ndarray] = {}
         for name, (shape, dtype) in specs.items():
             h = torch.zeros(shape, dtype=dtype, pin_memory=pin)
             d = torch.zeros(shape, dtype=dtype, device=device)
-            self._pairs.append((h, d))
+            self._pairs[name] = (h, d)
             self.host[name] = h.numpy()
             setattr(self, name, d)
 
-    def upload(self) -> None:
-        for h, d in self._pairs:
+    def upload(self, *names: str) -> None:
+        """Copy the named mirrors (all of them by default) to the device."""
+        for name in names or self._pairs:
+            h, d = self._pairs[name]
             d.copy_(h, non_blocking=True)
 
 
@@ -182,24 +209,30 @@ class StepGraphs:
         self._graphs: Dict[tuple, tuple] = {}
         self._replays: Dict[tuple, int] = {}
         self.captures = 0
+        self.capture_s = 0.0        # host seconds in warm-ups and captures
         self.replays = 0
         # the warm-ups' kernel launches, {kernel: n}
         self.warmup_launches = {k: 0 for k in kops.launch_counts()}
 
     def stats(self) -> Dict[str, object]:
-        return {"captures": self.captures, "replays": self.replays,
-                "shapes": sorted(self._graphs),
+        return {"captures": self.captures, "capture_s": self.capture_s,
+                "replays": self.replays, "shapes": sorted(self._graphs),
                 "replays_by_shape": dict(self._replays),
                 "launches_per_replay": {
                     k: g[2] for k, g in sorted(self._graphs.items())},
                 "warmup_launches": dict(self.warmup_launches)}
 
-    def run(self, key: tuple, fn, caches):
+    def run(self, key: tuple, fn, caches, undo=None):
         """Replay the graph of `key`, capturing fn() first if it has none.
+        undo: called after the warm-up, before the capture, to put back
+        what the warm-up wrote and a replay would not write the same way.
         Returns the graph's static outputs (fn()'s result)."""
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(fn, caches)
+            t0 = time.perf_counter()
+            entry = self._graphs[key] = self._capture(fn, caches, undo)
+            torch.cuda.synchronize(self.device)
+            self.capture_s += time.perf_counter() - t0
         graph, out, launches = entry
         graph.replay()
         kops.add_launches(launches)
@@ -207,7 +240,7 @@ class StepGraphs:
         self._replays[key] = self._replays.get(key, 0) + 1
         return out
 
-    def _capture(self, fn, caches):
+    def _capture(self, fn, caches, undo):
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         slots = torch.arange(self.n_slots, device=dev)
@@ -219,6 +252,8 @@ class StepGraphs:
             fn()
         cur.wait_stream(side)
         restore_recurrent(caches, saved, slots)
+        if undo is not None:
+            undo()
         mid = kops.launch_counts()
         for k, n in mid.items():
             self.warmup_launches[k] += n - before[k]
@@ -229,6 +264,25 @@ class StepGraphs:
         kops.add_launches({k: -n for k, n in launches.items()})
         self.captures += 1
         return graph, out, launches
+
+
+class RoundBuffers:
+    """The static device buffers of the speculative rounds: the round's
+    inputs (`inputs`: t_0 as tokens (B, 1), pos, n_valid = caps + 1,
+    rep_pen, the per-slot draft budgets `caps` and the post-verify
+    restore's `starts`, with their pinned host mirrors), the seen table
+    as the round found it (`seen_pre`: a verify capture's warm-up commits
+    into the persistent table, and the capture puts it back from here),
+    the draft's throwaway copy of the seen table, and, per draft length
+    k, the ring snapshot that the draft fills and the post-verify restore
+    reads."""
+
+    def __init__(self, B: int, V: int, device: torch.device):
+        self.inputs = StepInputs(B, 1, device, extra=("caps", "starts"))
+        self.seen_pre = torch.zeros((B, V), dtype=torch.bool, device=device)
+        self.draft_seen = torch.zeros((B, V), dtype=torch.bool,
+                                      device=device)
+        self.snaps: Dict[int, Dict[str, Dict[str, torch.Tensor]]] = {}
 
 
 class Engine:
@@ -243,16 +297,20 @@ class Engine:
     slots, admission-limited); host_spill_pages: host tier for evicted
     prefix pages (0 = off). Recurrent and sliding-window plans prefill
     one token per step whatever prefill_chunk says; recurrent plans take
-    no paged=True yet. Steps (graph captures included) and generate()
-    run without autograd, so trainable parameters (a Trainer's) serve as
-    they are."""
+    no paged=True yet. speculative: True or a SpecConfig turns on greedy
+    self-speculative decoding (serve/speculative.py); recurrent plans
+    decode normally whatever it says. Steps (graph captures included) and
+    generate() run without autograd, so trainable parameters (a
+    Trainer's) serve as they are."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int, *,
                  n_slots: int = 8, prefill_chunk: int = 8,
                  kv_buckets: bool = True, kv_bucket_min: int = 32,
-                 prefix_cache: bool = True, paged: bool = False,
-                 page_size: int = 16, n_pages: Optional[int] = None,
-                 host_spill_pages: int = 0, device="cuda"):
+                 prefix_cache: bool = True,
+                 speculative: Union[bool, SpecConfig] = False,
+                 paged: bool = False, page_size: int = 16,
+                 n_pages: Optional[int] = None, host_spill_pages: int = 0,
+                 device="cuda"):
         if kv_bucket_min < 1:
             raise ValueError(
                 f"kv_bucket_min must be >= 1, got {kv_bucket_min}")
@@ -299,6 +357,7 @@ class Engine:
         # on the card, pure-decode steps replay CUDA graphs
         self._graphs = (StepGraphs(self.device, n_slots)
                         if self.device.type == "cuda" else None)
+        self._init_spec(speculative)
         self._events: List[Tuple[int, int]] = []      # last step's deltas
         # (B, n) chosen-token logprobs of the most recent generate() run
         # with sampling.logprobs=True; None otherwise
@@ -308,10 +367,41 @@ class Engine:
         # prefill_tokens_saved count prefix reuse (saved tokens arrived by
         # copy or aliasing instead of prefill); concurrency_peak is the
         # most slots active in one step
+        # spec_* count the speculative rounds: drafted / accepted give the
+        # accept rate, spec_k_sum / spec_rounds the mean draft length
         self.stats = {"steps": 0, "prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_s": 0.0, "decode_s": 0.0,
                       "prefix_hits": 0, "prefill_tokens_saved": 0,
+                      "spec_rounds": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "spec_k_sum": 0,
                       "concurrency_peak": 0}
+
+    def _init_spec(self, speculative: Union[bool, SpecConfig]) -> None:
+        """Resolve the speculative mode against the plan, as the reference
+        does at its first submit: recurrent plans fall back to normal
+        decode (their state cannot rewind a rejected suffix), and ring
+        plans cap the draft length so one round never wraps a ring row
+        onto itself (k + 1 <= the smallest ring)."""
+        if speculative is True:
+            speculative = SpecConfig()
+        elif speculative is False:
+            speculative = None
+        self._spec = False
+        if speculative is None or self._has_recurrent:
+            return
+        k_cap = min(self._ring_caps) - 1 if self._ring_caps else None
+        if k_cap is not None and k_cap < 1:
+            return
+        self._spec = True
+        self._spec_k = AdaptiveK(speculative, k_cap)
+        self._draft_layers = (speculative.draft_layers
+                              if speculative.draft_layers is not None
+                              else default_draft_layers(self.cfg))
+        self._round: Optional[RoundBuffers] = None
+        # the rounds' graphs: (draft, k, kv bucket), (verify, k, kv
+        # bucket, logprobs), (restore, k)
+        self._spec_graphs = (StepGraphs(self.device, self.n_slots)
+                             if self.device.type == "cuda" else None)
 
     def reset_stats(self) -> None:
         for k in self.stats:
@@ -342,6 +432,14 @@ class Engine:
         each shape's kernel launches a replay, and the warm-ups' launches.
         Lifetime counters, not reset by reset_stats."""
         return None if self._graphs is None else self._graphs.stats()
+
+    @property
+    def spec_graph_stats(self) -> Optional[Dict[str, object]]:
+        """The speculative rounds' graph counters, as graph_stats (None off
+        the card or with speculative decoding off)."""
+        if not self._spec or self._spec_graphs is None:
+            return None
+        return self._spec_graphs.stats()
 
     def _bucket(self, needed: int) -> int:
         if not self._kv_buckets:
@@ -513,6 +611,16 @@ class Engine:
             return 0
         self.stats["concurrency_peak"] = max(
             self.stats["concurrency_peak"], len(active))
+        if self._paged:
+            self._refresh_block_table()
+        # a speculative round only when EVERY active slot decodes: the
+        # draft runs a cut layer stack, and a prefilling slot must fill
+        # every layer's cache. A round in which no slot may draft (each at
+        # its last token) falls through to the normal step
+        if self._spec and not any(st.in_prefill for st in active.values()):
+            n = self._spec_round(active)
+            if n is not None:
+                return n
         B = self.n_slots
         # pure-decode steps stay (B, 1); the chunk width only when a
         # prefilling slot can use it
@@ -550,8 +658,6 @@ class Engine:
         h["rep_pen"][:] = sparams["rep_pen"]
         t0 = serve_clock()
         inputs.upload()
-        if self._paged:
-            self._refresh_block_table()
         # retained recurrent donors keep the state they retired with
         kept = (self._tensor(np.asarray(sorted(self._sched.retained),
                                         np.int64))
@@ -593,13 +699,11 @@ class Engine:
         `inputs`, the caches, `seen` and the block table buffer, all
         written in place. Returns (ids, logprobs | None) on the device.
         This is the function a CUDA graph captures."""
-        pkw = ({"block_table": self._bt, "page_size": self._page_size}
-               if self._paged else {})
         ids, lps, caches, seen = decode_sample_step(
             self.params, self._caches, self._seen, inputs.tokens,
             inputs.pos, inputs.nval, {"rep_pen": inputs.rep_pen},
             cfg=self.cfg, kv_len=kv_len, want_logprobs=want_lp,
-            any_sampled=False, **pkw)
+            any_sampled=False, **self._step_kw())
         if caches is not self._caches or seen is not self._seen:
             raise RuntimeError("the step must write the caches and the seen "
                                "table in place")
@@ -611,6 +715,188 @@ class Engine:
         if key is None or self._graphs is None:
             return fn()
         return self._graphs.run(key, fn, self._caches)
+
+    # ------------------------------------------------------------------
+    # speculative rounds: draft, verify, ring rollback
+    # ------------------------------------------------------------------
+
+    def _spec_round(self, active) -> Optional[int]:
+        """One speculative round (step()'s body when speculative mode is
+        on and every active slot decodes). Returns the active-slot count,
+        or None when no slot may draft (each slot's budget is 0); the
+        caller then runs the normal step.
+
+        On the card each phase replays a CUDA graph over static buffers:
+        snapshot + draft + the pre-verify ring restore (one graph per k
+        and kv bucket), the verify (per k, kv bucket and logprobs), the
+        post-verify ring restore (per k). On the CPU the same functions
+        are called directly. One device-to-host transfer a round: the
+        committed tokens and counts (and the logprobs when asked for)."""
+        B = self.n_slots
+        # per-slot draft budget: the controller's k, clamped so the round
+        # overruns neither max_new (it commits <= k_b + 1 tokens) nor the
+        # slot's cache capacity
+        caps: Dict[int, int] = {}
+        for slot, st in active.items():
+            rem = st.request.sampling.max_new - len(st.generated)
+            caps[slot] = max(0, min(self._spec_k.k, rem - 1,
+                                    self.max_len - 1 - st.pos))
+        k = max(caps.values())
+        if k < 1:
+            return None
+        S = k + 1
+        if self._round is None:
+            self._round = RoundBuffers(B, self.cfg.vocab_size, self.device)
+        rb = self._round
+        h = rb.inputs.host
+        for name in ("tokens", "pos", "nval", "caps"):
+            h[name].fill(0)
+        sparams = blank_slot_params(B)
+        want_lp = False
+        needed = 1
+        for slot, st in active.items():
+            h["tokens"][slot, 0] = st.next_tokens(1)[0]
+            h["pos"][slot] = st.pos
+            h["nval"][slot] = caps[slot] + 1
+            h["caps"][slot] = caps[slot]
+            sp = st.request.sampling
+            fill_slot_params(sparams, slot, sp)
+            want_lp |= sp.logprobs
+            needed = max(needed, st.pos + caps[slot] + 1)
+        h["rep_pen"][:] = sparams["rep_pen"]
+        # the draft and the verify read one kv bucket
+        kv_len = self._bucket(needed)
+        t0 = serve_clock()
+        rb.inputs.upload()
+        ring = bool(self._ring_caps)
+        if ring and k not in rb.snaps:
+            # the static snapshot buffers of this k (their values unused)
+            rb.snaps[k] = snapshot_rows(self.cfg, self._caches, rb.inputs.pos,
+                                        S, **self._step_kw())
+        # 1. snapshot, draft k tokens, undo the draft's ring writes (the
+        # verify chunk reads the pre-round window)
+        tok_mat = self._run_round(
+            ("draft", k, kv_len),
+            functools.partial(self._static_draft, k, kv_len))
+        # 2. the chunk verify and the accept rule; a capture's warm-up
+        # committed into `seen` and wrote ring rows, which its replay
+        # reads as the pre-round table and window, so both are put back
+        # before the capture
+        out, lps = self._run_round(
+            ("verify", k, kv_len, want_lp),
+            functools.partial(self._static_verify, tok_mat, kv_len, want_lp),
+            undo=functools.partial(self._undo_verify, k))
+        out = out.cpu().numpy()           # (B, S + 1): committed, count
+        lps = lps.cpu().numpy() if want_lp else None
+        now = serve_clock()
+        dt = now - t0
+        # 3. host commit: per-rid deltas in generation order, the finish
+        # reasons checked token by token, so eos / stop may cut a round
+        drafted = int(h["caps"].sum())
+        accepted = committed = 0
+        starts = h["starts"]
+        starts.fill(S)
+        for slot, st in active.items():
+            m = int(out[slot, S])
+            accepted += m - 1
+            done_at = m
+            for j in range(m):
+                tok = int(out[slot, j])
+                st.advance(1)
+                lp = (float(lps[slot, j])
+                      if lps is not None and st.request.sampling.logprobs
+                      else None)
+                st.note_token(tok, lp, now=now)
+                self._events.append((st.request.rid, tok))
+                if st.should_retire():
+                    done_at = j + 1
+                    break
+            committed += done_at
+            starts[slot] = done_at
+            if st.finish_reason is not None:
+                self._sched.retire(st.slot)
+                self._bt_stale = True
+        # 4. ring rollback of every uncommitted row, rejected on the device
+        # or cut on the host (eos mid-round), so a retained prefix donor
+        # keeps a clean window
+        if ring:
+            rb.inputs.upload("starts")
+            self._run_round(("restore", k),
+                            functools.partial(self._static_restore, k, True))
+        self._spec_k.update(accepted, drafted)
+        self.stats["steps"] += 1
+        self.stats["decode_tokens"] += committed
+        self.stats["decode_s"] += dt
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_drafted"] += drafted
+        self.stats["spec_accepted"] += accepted
+        self.stats["spec_k_sum"] += k
+        return len(active)
+
+    def _step_kw(self) -> Dict[str, object]:
+        return ({"block_table": self._bt, "page_size": self._page_size}
+                if self._paged else {})
+
+    def _static_draft(self, k: int, kv_len: int) -> torch.Tensor:
+        """Snapshot the round's ring rows into the static buffers of k and
+        `seen` into seen_pre, draft k tokens (draft_round) on a throwaway
+        copy of `seen`, then restore every snapshot row. Returns tok_mat
+        (B, k + 1)."""
+        rb = self._round
+        inp = rb.inputs
+        S = k + 1
+        ring = bool(self._ring_caps)
+        if ring:
+            snapshot_rows(self.cfg, self._caches, inp.pos, S,
+                          out=rb.snaps[k], **self._step_kw())
+        rb.seen_pre.copy_(self._seen)
+        rb.draft_seen.copy_(self._seen)
+        tok_mat, _, _ = draft_round(
+            self.params, self._caches, rb.draft_seen, inp.tokens, inp.pos,
+            inp.caps, {"rep_pen": inp.rep_pen}, cfg=self.cfg,
+            draft_layers=self._draft_layers, k=k, kv_len=kv_len,
+            **self._step_kw())
+        if ring:
+            restore_rows(self.cfg, self._caches, rb.snaps[k], inp.pos, 0, S,
+                         **self._step_kw())
+        return tok_mat
+
+    def _static_verify(self, tok_mat: torch.Tensor, kv_len: int,
+                       want_lp: bool):
+        """The verify over the draft's tok_mat (spec_verify_step), `seen`
+        updated in place. Returns ((B, S + 1) int32: the committed tokens
+        and, last, the committed count; logprobs (B, S) | None)."""
+        inp = self._round.inputs
+        committed, n_comm, lps, _, _ = spec_verify_step(
+            self.params, self._caches, self._seen, tok_mat, inp.pos,
+            inp.nval, {"rep_pen": inp.rep_pen}, cfg=self.cfg, kv_len=kv_len,
+            want_logprobs=want_lp, **self._step_kw())
+        out = torch.cat([committed, n_comm[:, None].to(torch.int32)], dim=1)
+        return out, lps
+
+    def _static_restore(self, k: int, from_starts: bool) -> None:
+        """Restore the round's ring rows from the snapshot buffers of k:
+        each slot's rows from its `starts` entry on (the post-verify
+        rollback), or all of them."""
+        inp = self._round.inputs
+        restore_rows(self.cfg, self._caches, self._round.snaps[k], inp.pos,
+                     inp.starts if from_starts else 0, k + 1,
+                     **self._step_kw())
+
+    def _undo_verify(self, k: int) -> None:
+        """Put back what a verify capture's warm-up wrote that its replay
+        would read: the committed prefix in `seen` (from seen_pre) and,
+        on ring plans, every ring row of the round."""
+        self._seen.copy_(self._round.seen_pre)
+        if self._ring_caps:
+            self._static_restore(k, False)
+
+    def _run_round(self, key: tuple, fn, undo=None):
+        """Run one phase of a round: on the card, replay the graph of
+        `key` (captured at its first use); on the CPU, call fn()."""
+        if self._spec_graphs is None:
+            return fn()
+        return self._spec_graphs.run(key, fn, self._caches, undo=undo)
 
     def stream(self) -> Iterator[Tuple[int, int]]:
         """Drive step() while work remains, yielding (rid, token) deltas
