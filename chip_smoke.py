@@ -189,6 +189,38 @@ and serves the trained weights. Phases:
                rounds the verify's dense chunk attention and the step's
                kernel differently), with the first differing position
                and the non-speculative run's top-2 logit margin there
+  (u) seeded sampling (temperature > 0), plain torch ops captured in the
+      step's graphs (no new kernel; sampled steps still run the AltUp and
+      decode-attention kernels):
+      u-rng    the port's threefry2x32 on the card against the same
+               functions on the CPU (which the CPU tests hold bitwise
+               against jax.random): key data, 3-deep fold_in chains,
+               random_bits and uniform (minval 0 and tiny) at (8,
+               151936), bitwise; gumbel within 2e-6; categorical ids
+               identical; the filters' keep masks over an 18-row top-k /
+               top-p / min-p grid identical, or differing only at a
+               threshold within its rounding: a top-p mass within the
+               two sides' measured f32 cumsum errors added (or 1e-6), a
+               min-p logit within 2e-6
+      u-parity f32, TF32 off, Qwen3-0.6B + AltUp K=2 at full width and
+               depth, 8 requests (greedy and sampled; temperatures
+               0.7-1.2, top_k 0 / 50, top_p 0.9 / 1.0, min_p 0 / 0.05,
+               one with repetition_penalty 1.3 and logprobs): tokens of
+               the eager engine identical to the replayed one
+               (contiguous, paged with a prefix hit, int8 caches), two
+               seeded requests identical to B=1 generate(sampling=sp);
+               Engine(speculative=True): eager and replayed identical,
+               two replayed runs identical, the greedy requests' tokens
+               identical to the non-speculative engine's; sampled graphs
+               captured, the kernels launched
+      u-serve  bf16, (e)'s load with temperature 0.8, top_k 50, top_p
+               0.95, replayed: decode tok/s and median / p80 step ms
+               against the greedy e-graph run's, the device ms of a
+               sampled and a greedy step graph (back to back) and their
+               kernels, the sampler's device ms at (8, 151936) split
+               into threefry, Gumbel, sort and filters and the rest,
+               port launches a decode step (gated as (e)'s), and a
+               sampled speculative run: accept rate, mean k, ms a round
   (k) training (no kernel has a backward pass: the differentiated path
       runs none), then the trained weights served through the kernels:
       k-grad   Qwen3-0.6B + AltUp K=2 at full width, 2 layers, f32, TF32
@@ -1353,6 +1385,11 @@ def engine_class(replay):
             if self.eager:
                 return fn()
             return super()._run_step(key, fn)
+
+        def _run_round(self, key, fn, undo=None):
+            if self.eager:
+                return fn()
+            return super()._run_round(key, fn, undo)
     return EagerEngine
 
 
@@ -3161,6 +3198,419 @@ def spec_phases(torch, ops):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# (u) seeded sampling: the threefry stream on the card, sampled serving
+# ---------------------------------------------------------------------------
+
+U_V = 151936                  # Qwen3's vocabulary: a served row
+U_GUMBEL_ATOL = 2e-6          # two ulps of the largest Gumbel value (~16)
+U_MARGIN = 1e-6               # top-p mass / min-p logit off a threshold
+U_PROMPTS, U_NEW = (16, 40, 64, 24, 96, 33, 57, 80), 16
+U_SHARED = 40                 # u-parity paged: rows of the donor's prompt hit
+# u-parity's requests: greedy and sampled, each filter, one with a penalty
+# and logprobs, one seeded by its request id; entries 1 and 4 also go
+# through B=1 generate()
+U_REQUESTS = (dict(),
+              dict(temperature=0.7, top_k=50, seed=101),
+              dict(temperature=1.0, top_p=0.9, seed=102),
+              dict(temperature=1.2, min_p=0.05, seed=103),
+              dict(temperature=0.9, top_k=50, top_p=0.9, min_p=0.05,
+                   seed=104),
+              dict(temperature=0.8, repetition_penalty=1.3, logprobs=True,
+                   seed=105),
+              dict(),
+              dict(temperature=1.1))
+U_SERVE = dict(temperature=0.8, top_k=50, top_p=0.95)     # u-serve
+
+
+def mask_margin(torch, z, k, p, m, j):
+    """How close token j of row z (f32, CPU) lies to the filters'
+    thresholds, in float64: its top-p mass-before against p and its logit
+    against the min-p line (top-k is exact); inf where a filter is off."""
+    z64 = z.double()
+    srt = torch.sort(z64, descending=True).values
+    probs = torch.softmax(srt, dim=0)
+    before = torch.cumsum(probs, dim=0) - probs
+    pos = int((srt > z64[j]).sum())
+    return {"top_p": abs(float(before[pos]) - p) if p < 1.0 else math.inf,
+            "min_p": (abs(float(z64[j] - srt[0]) - math.log(m)) if m > 0.0
+                      else math.inf)}
+
+
+def mass_before_err(torch, z):
+    """The largest error of the f32 top-p cumsum (the mass before each
+    sorted position, as _filter_logits computes it) on z's device against
+    float64 on the CPU, over the rows of z."""
+    srt = torch.sort(z, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    got = (torch.cumsum(probs, dim=-1) - probs).cpu().double()
+    srt64 = srt.cpu().double()
+    p64 = torch.softmax(srt64, dim=-1)
+    return float((got - (torch.cumsum(p64, dim=-1) - p64)).abs().max())
+
+
+def sampling_rng(torch):
+    """u-rng: the port's PRNG and filters on the card against the CPU."""
+    from repro_torch import prng
+    from repro_torch.serve import sampling as samp
+    # the CPU build's first multi-threaded log of a process may compute
+    # one thread's share at ~1e-4 relative error (MKL, first call only):
+    # make that call before the CPU side's Gumbel noise
+    torch.log(torch.rand(1 << 20) + 0.5)
+    gen = torch.Generator().manual_seed(61)
+    seeds = (0, 1, 2**31 - 1, -1, 2**32 + 5, 7, 100, 12345)
+    kc = torch.stack([prng.key_data(s) for s in seeds])
+    kg = torch.stack([prng.key_data(s).to(DEV) for s in seeds])
+    res = {"key_data_bitwise": torch.equal(kc, kg.cpu())}
+    for _ in range(3):
+        d = torch.randint(0, 2**32, (len(seeds),), generator=gen,
+                          dtype=torch.int64)
+        kc, kg = prng.fold_in(kc, d), prng.fold_in(kg, d.to(DEV))
+    kc, kg = prng.fold_in(kc, 0x5BEC), prng.fold_in(kg, 0x5BEC)
+    res["fold_chain_bitwise"] = torch.equal(kc, kg.cpu())
+    res["random_bits_bitwise"] = torch.equal(
+        prng.random_bits(kc, U_V), prng.random_bits(kg, U_V).cpu())
+    tiny = float(torch.finfo(torch.float32).tiny)
+    for name, lo in (("uniform_bitwise", 0.0), ("uniform_tiny_bitwise", tiny)):
+        res[name] = torch.equal(
+            prng.uniform(kc, U_V, lo, 1.0).view(torch.int32),
+            prng.uniform(kg, U_V, lo, 1.0).cpu().view(torch.int32))
+    res["gumbel_max_abs_err"] = max_err(torch, prng.gumbel(kc, U_V),
+                                        prng.gumbel(kg, U_V).cpu())
+    z = 3 * torch.randn((len(seeds), U_V), generator=gen)
+    res["categorical_identical"] = torch.equal(
+        prng.categorical(kc, z), prng.categorical(kg, z.to(DEV)).cpu())
+    grid = [(k, p, m) for k in (0, 1, 50) for p in (0.9, 0.95, 1.0)
+            for m in (0.0, 0.05)]
+    z = 3 * torch.randn((len(grid), U_V), generator=gen)
+    params = [torch.tensor([g[i] for g in grid],
+                           dtype=torch.long if i == 0 else torch.float32)
+              for i in range(3)]
+    keep_c = samp._filter_logits(z, *params).isfinite()
+    keep_g = samp._filter_logits(z.to(DEV), *(t.to(DEV) for t in params)
+                                 ).isfinite().cpu()
+    # a mask may differ only where the token lies at a threshold within
+    # the rounding that decides it: the two sides' f32 cumsum errors
+    # (top-p, measured here: the CPU's is the larger, ~1e-5 at this V),
+    # or U_MARGIN; min-p logits within two ulps
+    cumsum_err = {"cpu": mass_before_err(torch, z),
+                  "card": mass_before_err(torch, z.to(DEV))}
+    tol = {"top_p": max(U_MARGIN, sum(cumsum_err.values())),
+           "min_p": 2 * U_MARGIN}
+    diff = []
+    for b, j in (keep_c != keep_g).nonzero().tolist():
+        mg = mask_margin(torch, z[b], *grid[b], j)
+        diff.append({"row": list(grid[b]), "token": j,
+                     "kept_on_card": bool(keep_g[b, j]),
+                     "margin": {k: v for k, v in mg.items()
+                                if v != math.inf},
+                     "explained": any(mg[k] <= tol[k] for k in mg)})
+    res.update(filter_rows=len(grid), filter_kept=int(keep_c.sum()),
+               top_p_cumsum_max_abs_err=cumsum_err, margin_tol=tol,
+               filter_differing=diff)
+    bitwise = [k for k, v in res.items() if k.endswith("bitwise")]
+    if not (all(res[k] for k in bitwise) and res["categorical_identical"]
+            and res["gumbel_max_abs_err"] <= U_GUMBEL_ATOL
+            and all(d["explained"] for d in diff)):
+        raise AssertionError(f"u-rng: {res}")
+    res["gumbel_atol"] = U_GUMBEL_ATOL
+    return res
+
+
+def sampling_parity_f32(torch, ops):
+    """u-parity: sampled serving eager against replayed, f32, full width
+    and depth (see the module docstring)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(dtype="float32", param_dtype="float32")
+    gen = torch.Generator().manual_seed(63)
+    cfgs = {"auto": served_config(**f32),
+            "int8": served_config(**f32, kv_cache_dtype="int8")}
+    params = init_params(cfgs["auto"], seed=6, device=DEV)
+    perturb_altup(torch, params, seed=64)
+    V = cfgs["auto"].vocab_size
+    prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
+               for n in U_PROMPTS]
+    # paged: a donor first; requests 1 and 4 extend its prompt
+    donor = torch.randint(0, V, (U_SHARED + 9,), generator=gen).tolist()
+    shared = [donor[:U_SHARED] + p if i in (1, 4) else p
+              for i, p in enumerate(prompts)]
+    sps = [SamplingParams(max_new=U_NEW, **kw) for kw in U_REQUESTS]
+    eager_cls = engine_class(False)
+
+    def serve(cls, kind="auto", spec=False, paged=False):
+        kw = dict(paged=True, page_size=16) if paged else {}
+        eng = cls(cfgs[kind], params, max_len=256, n_slots=8,
+                  prefill_chunk=64, speculative=spec, device=DEV, **kw)
+        ps = prompts
+        if paged:
+            eng.submit(donor, sampling=SamplingParams(max_new=2))
+            eng.run()
+            ps = shared
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=sp) for p, sp in zip(ps, sps)]
+        done = eng.run()
+        counts = ops.launch_counts()
+        return {"tokens": [list(done[r].tokens) for r in rids],
+                "logprobs": [done[r].logprobs for r in rids],
+                "eng": eng, "launches": {k: n for k, n in counts.items()
+                                         if n}}
+
+    def sampled_shapes(stats):
+        return [list(k) for k in stats["shapes"] if k[-1] is True]
+
+    res, fails = {}, []
+    base = None
+    for case, kw in (("contiguous", {}), ("paged", dict(paged=True)),
+                     ("int8", dict(kind="int8")), ("spec", dict(spec=True))):
+        t0 = time.perf_counter()
+        eager, replayed = serve(eager_cls, **kw), serve(Engine, **kw)
+        eng = replayed["eng"]
+        r = {"tokens_identical": eager["tokens"] == replayed["tokens"],
+             "launches": replayed["launches"]}
+        lp = [abs(a - b) for x, y in zip(eager["logprobs"],
+                                         replayed["logprobs"])
+              if x is not None for a, b in zip(x, y)]
+        r["logprob_max_abs_err"] = max(lp)
+        gs = eng.spec_graph_stats if case == "spec" else eng.graph_stats
+        r["sampled_graphs"] = sampled_shapes(gs)
+        attn = ("paged_ragged_decode_attention" if case == "paged"
+                else "ragged_decode_attention")
+        ok = (r["tokens_identical"] and bool(r["sampled_graphs"])
+              and r["launches"].get("altup_predict_correct", 0) > 0
+              and r["launches"].get(attn, 0) > 0)
+        if case == "contiguous":
+            base = replayed
+            static = [eng.generate([prompts[i]], sampling=sps[i]
+                                   ).cpu().flatten().tolist() for i in (1, 4)]
+            r["generate_identical"] = static == [base["tokens"][i]
+                                                 for i in (1, 4)]
+            ok &= r["generate_identical"]
+        if case == "paged":
+            r["prefix_hits"] = eng.stats["prefix_hits"]
+            ok &= r["prefix_hits"] >= 2
+        if case == "spec":
+            again = serve(Engine, spec=True)
+            greedy = [i for i, kw in enumerate(U_REQUESTS) if not kw]
+            st = eng.stats
+            r.update(run_to_run_identical=again["tokens"] ==
+                     replayed["tokens"],
+                     greedy_identical_to_non_spec=all(
+                         replayed["tokens"][i] == base["tokens"][i]
+                         for i in greedy),
+                     spec_rounds=st["spec_rounds"],
+                     accept_rate=st["spec_accepted"]
+                     / max(st["spec_drafted"], 1),
+                     mean_k=st["spec_k_sum"] / max(st["spec_rounds"], 1))
+            ok &= (r["run_to_run_identical"]
+                   and r["greedy_identical_to_non_spec"]
+                   and st["spec_rounds"] > 0)
+            del again
+        r["seconds"] = time.perf_counter() - t0
+        res[case] = r
+        if not ok:
+            fails.append(case)
+        if case != "contiguous":
+            del eager, replayed, eng
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"u-parity {fails}: {res}")
+    del base, params
+    torch.cuda.empty_cache()
+    return {"requests": len(sps), "prompt_lens": list(U_PROMPTS),
+            "new_tokens": U_NEW, "sampling": list(U_REQUESTS), **res}
+
+
+def graph_ms(torch, fn, iters=20):
+    """Device ms of fn() replayed from a CUDA graph, back to back by CUDA
+    events: its kernels and the gaps between them, without the host's
+    launches (fn warmed up on a side stream first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay, iters=iters, warmup=3)
+
+
+def sampler_ms(torch):
+    """The sampler's device ms at (8, 151936), each function replayed
+    from a CUDA graph (graph_ms: called eagerly, the host launches its
+    ~400 kernels slower than the card runs them; and the profiler loses
+    a record now and then late in a run): the greedy sample_rows
+    (penalty, argmax), the sampled one, and its pieces: random_bits
+    (threefry), gumbel (threefry, then two logs), the sort alone and
+    _filter_logits (sort, softmax, cumsum, three masks); the rest is the
+    sampled call less the greedy one, gumbel and the filters. Bound: one
+    read of the (8, V) f32 logits."""
+    from repro_torch import prng
+    from repro_torch.serve import sampling as samp
+    B = 8
+    gen = torch.Generator(device=DEV).manual_seed(65)
+    rows = 3 * torch.randn((B, U_V), generator=gen, device=DEV)
+    seen = torch.rand((B, U_V), generator=gen, device=DEV) < 0.001
+    sp = {"temperature": torch.full((B,), U_SERVE["temperature"],
+                                    device=DEV),
+          "top_k": torch.full((B,), U_SERVE["top_k"], device=DEV),
+          "top_p": torch.full((B,), U_SERVE["top_p"], device=DEV),
+          "min_p": torch.zeros((B,), device=DEV),
+          "rep_pen": torch.ones((B,), device=DEV),
+          "key": torch.stack([prng.key_data(b) for b in range(B)]).to(DEV),
+          "sample_idx": torch.arange(B, device=DEV)}
+    keys = prng.fold_in(sp["key"], sp["sample_idx"])
+    fns = {"greedy_ms": lambda: samp.sample_rows(rows, sp, seen),
+           "sampled_ms": lambda: samp.sample_rows(rows, sp, seen,
+                                                  any_sampled=True),
+           "threefry_ms": lambda: prng.random_bits(keys, U_V),
+           "gumbel_ms": lambda: prng.gumbel(keys, U_V),
+           "sort_ms": lambda: torch.sort(rows, dim=-1, descending=True),
+           "filters_ms": lambda: samp._filter_logits(
+               rows, sp["top_k"], sp["top_p"], sp["min_p"])}
+    out = {name: graph_ms(torch, fn) for name, fn in fns.items()}
+    out["rest_ms"] = (out["sampled_ms"] - out["greedy_ms"]
+                      - out["gumbel_ms"] - out["filters_ms"])
+    out["bound_ms"], out["bound_by"] = bound_ms(B * U_V * 4, 0, "float32")
+    return out
+
+
+def sampling_serve_bf16(torch, ops, greedy):
+    """u-serve: (e)'s load sampled (U_SERVE), replayed, against `greedy`,
+    the e-graph run's result of the same script run (see the module
+    docstring)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = served_config()                              # bf16, as (e)
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=11)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in E_PROMPTS]
+    sp = SamplingParams(max_new=E_NEW, **U_SERVE)
+    res = {"requests": len(prompts), "prompt_lens": list(E_PROMPTS),
+           "new_tokens": E_NEW, "sampling": U_SERVE}
+    for spec in (False, True):
+        eng = Engine(cfg, params, max_len=2048, n_slots=8, prefill_chunk=64,
+                     prefix_cache=False, speculative=spec, device=DEV)
+        eng.submit(prompts[0][:16], sampling=SamplingParams(
+            max_new=4, **U_SERVE))
+        eng.run()
+        eng.reset_stats()
+        gs0 = eng.graph_stats
+        before = eng.spec_graph_stats if spec else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()             # counts start at 0 right here
+        rids = [eng.submit(p, sampling=sp) for p in prompts]
+        step_ms, steps = [], 0
+        while eng.has_work:
+            pf0 = eng.stats["prefill_tokens"]
+            t0 = time.perf_counter()
+            eng.step()
+            steps += 1
+            if eng.stats["prefill_tokens"] == pf0:
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = ops.launch_counts()          # read right after the run
+        done = eng.collect()
+        if any(len(done[r].tokens) != E_NEW for r in rids):
+            raise AssertionError(f"u-serve spec={spec}: a request did not "
+                                 f"complete")
+        st = eng.stats
+        step_ms.sort()
+        r = {"decode_tok_s": st["decode_tokens"] / st["decode_s"],
+             "decode_steps": len(step_ms),
+             "step_ms_median": step_ms[len(step_ms) // 2],
+             "step_ms_p80": step_ms[int(0.8 * len(step_ms))],
+             "launches": {k: n for k, n in counts.items() if n}}
+        if spec:
+            r.update({k: v for k, v in spec_rounds(eng, ring=False,
+                                                   before=before).items()
+                      if k in ("spec_rounds", "accept_rate", "mean_k",
+                               "tokens_per_round", "launches_per_round",
+                               "captures", "round_shapes")})
+            r["round_ms_over_sampled_step_ms"] = \
+                r["step_ms_median"] / res["sampled"]["step_ms_median"]
+            res["spec"] = r
+            del eng
+            continue
+        graph = graph_window(gs0, eng.graph_stats)
+        warm = graph["warmup_launches"]
+        n_layers = cfg.n_layers
+        if counts["altup_predict_correct"] - warm["altup_predict_correct"] \
+                != n_layers * steps or counts["ragged_decode_attention"] \
+                - warm["ragged_decode_attention"] != n_layers * len(step_ms):
+            raise AssertionError(f"u-serve: launch counts {counts} (warm-ups "
+                                 f"{warm}) against {steps} steps, "
+                                 f"{len(step_ms)} decode steps")
+        by_shape = eng.graph_stats["replays_by_shape"]
+        if any(not key[-1] for key in by_shape):
+            raise AssertionError(f"u-serve: a greedy graph replayed in a "
+                                 f"sampled run: {by_shape}")
+        key = max(by_shape, key=by_shape.get)
+        r["altup_launches_per_step"] = (counts["altup_predict_correct"]
+                                        - warm["altup_predict_correct"]) / steps
+        r["ragged_launches_per_decode_step"] = (
+            counts["ragged_decode_attention"]
+            - warm["ragged_decode_attention"]) / len(step_ms)
+        r["timed_shape"] = [str(v) for v in key]
+        replay = eng._graphs._graphs[key][0].replay
+        r["graph_device_ms"] = time_ms(torch, replay, iters=20, warmup=3)
+        r["graph_kernel_ms"], r["graph_top_kernels"] = top_kernels(torch,
+                                                                   replay)
+        # the greedy graph of the same kv bucket on this engine, timed the
+        # same way: one greedy request batch of the same prompts
+        eng.reset_stats()
+        gids = [eng.submit(p, sampling=SamplingParams(max_new=4))
+                for p in prompts]
+        eng.run()
+        gkey = (key[0], key[1], False)
+        greedy_graph = eng._graphs._graphs.get(gkey)
+        if greedy_graph is not None:
+            r["greedy_graph_device_ms"] = time_ms(torch, greedy_graph[0].replay,
+                                                  iters=20, warmup=3)
+            r["greedy_graph_kernel_ms"], _ = top_kernels(
+                torch, greedy_graph[0].replay)
+        del gids
+        res["sampled"] = r
+        del eng
+        torch.cuda.empty_cache()
+    res["sampler"] = sampler_ms(torch)
+    g = greedy or {}
+    res["greedy_e_graph"] = {k: g.get(k) for k in (
+        "decode_tok_s", "decode_step_ms_median", "decode_step_ms_p80")}
+    if g:
+        res["decode_tok_s_sampled_over_greedy"] = \
+            res["sampled"]["decode_tok_s"] / g["decode_tok_s"]
+        res["step_ms_median_sampled_minus_greedy"] = \
+            res["sampled"]["step_ms_median"] - g["decode_step_ms_median"]
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def sampling_phases(torch, ops, greedy=None):
+    """The u phases, each line with its seconds; greedy: the e-graph
+    run's result, which u-serve is set beside. Returns their seconds."""
+    t_u = time.perf_counter()
+    for tag, fn in (("u-rng", lambda: sampling_rng(torch)),
+                    ("u-parity", lambda: sampling_parity_f32(torch, ops)),
+                    ("u-serve", lambda: sampling_serve_bf16(torch, ops,
+                                                            greedy))):
+        t0 = time.perf_counter()
+        r = fn()
+        line(tag, seconds=time.perf_counter() - t0, **r)
+    seconds = time.perf_counter() - t_u
+    line("u-phases", seconds=seconds)
+    return seconds
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -3597,6 +4047,11 @@ def main(argv) -> int:
     # gemma3-4b rings across the wrap), then bf16 numbers on one stream
     # and on (e)'s load
     spec_phases(torch, ops)
+
+    # (u) seeded sampling: the PRNG on the card against the CPU, f32
+    # sampled serving eager against replayed (speculative included), then
+    # (e)'s load sampled, set beside the greedy e-graph run
+    sampling_phases(torch, ops, res_r)
 
     # (k) training: gradients against the CPU, a full-width run, resume
     # from a checkpoint, then the trained weights served through the

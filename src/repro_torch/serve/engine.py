@@ -1,8 +1,8 @@
 """Serving engine: continuous batching over slot KV caches or a page pool.
 
-Port of `repro/serve/engine.py` for greedy requests, with prefix reuse,
-paging and self-speculative decoding. Two decode surfaces share one
-sampler (serve/sampling.sample_rows):
+Port of `repro/serve/engine.py`, greedy and seeded sampled requests, with
+prefix reuse, paging and self-speculative decoding. Two decode surfaces
+share one sampler (serve/sampling.sample_rows):
 
 * submit()/step()/collect()/stream()/run() — continuous batching. Requests
   are admitted into cache slots by serve/scheduler.SlotScheduler; every
@@ -56,8 +56,14 @@ retired a few steps earlier serves other tokens than a cold prefill. The
 port saves the retained slots' state before each step and restores it
 after.
 
-Self-speculative decoding (speculative=True | SpecConfig, greedy), as in
-the reference (serve/speculative.py): when every active slot decodes, a
+Seeded sampling, as in the reference: a request's base key is
+jax.random.key(seed), seed defaulting to its request id, rebuilt by the
+port's threefry2x32 (repro_torch/prng.py); token t is drawn under
+fold_in(base, t), so a request's stream depends on neither its batch nor
+the scheduling, and a seeded request gives the JAX Engine's tokens.
+
+Self-speculative decoding (speculative=True | SpecConfig), as in the
+reference (serve/speculative.py): when every active slot decodes, a
 step is one ROUND: k draft steps through the first D layers and AltUp's
 composed predictors, one chunk verify of the k + 1 tokens, the accepted
 drafts and a correction or bonus token committed (eos and stops cut a
@@ -77,24 +83,27 @@ device.
 CUDA graphs, the counterpart of the reference's jitted step. Every step
 goes through one static-buffer step function (`_static_step`): the
 host fills pinned mirrors of the step's inputs (tokens, pos, n_valid,
-rep_pen; the paged block table when admission or retirement changed
+rep_pen, and a sampled step's temperature, filters, keys and sample
+indices; the paged block table when admission or retirement changed
 it), which are copied into device buffers that never move, and the step
 reads only those, the caches and `seen`, all written in place. On the
-card a pure-decode step (chunk width 1: every step of a recurrent or
-ring plan) replays a CUDA graph of that function, captured at the first step of
-its static shape (kv bucket, logprobs or not) after a warm-up on a side
-stream (`StepGraphs`); a step that feeds a prefill chunk (C > 1) calls
-the function eagerly, by the rule of its shape. On the CPU the function
-is always called directly. A capture that fails raises: no replayable
-step runs eagerly instead. Retained recurrent donors are saved before
-and restored after the step, outside the graph. A speculative round
-replays graphs of its own on the card, never eager (`_spec_round`): the
-snapshot, the draft and the pre-verify ring restore in one per (k, kv
-bucket), the verify in one per (k, kv bucket, logprobs), the post-verify
-restore in one per k, over static buffers (`RoundBuffers`); the draft's
-seen table is a copy made inside its graph. A draft warm-up leaves the
-rings as it found them (it ends in its own restore); a verify warm-up's
-ring writes are restored before its capture.
+card a pure-decode step (chunk width 1: every step of a recurrent or ring
+plan) replays a CUDA graph of that function, captured at the first step
+of its static shape (kv bucket, logprobs or not, sampled or not: an
+all-greedy batch replays a graph without the sampler) after a warm-up on
+a side stream (`StepGraphs`); a step that feeds a prefill chunk (C > 1)
+calls the function eagerly, by the rule of its shape. On the CPU the
+function is always called directly. A capture that fails raises: no
+replayable step runs eagerly instead. Retained recurrent donors are saved
+before and restored after the step, outside the graph. A speculative
+round replays graphs of its own on the card, never eager (`_spec_round`):
+the snapshot, the draft and the pre-verify ring restore in one per (k, kv
+bucket, sampled), the verify in one per (k, kv bucket, logprobs,
+sampled), the post-verify restore in one per k, over static buffers
+(`RoundBuffers`); the draft's seen table is a copy made inside its graph.
+A draft warm-up leaves the rings as it found them (it ends in its own
+restore); a verify warm-up's ring writes are restored before its
+capture.
 """
 from __future__ import annotations
 
@@ -105,7 +114,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        decode_sample_step, decode_step,
@@ -118,7 +127,8 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
 from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
-                                        blank_slot_params, fill_slot_params,
+                                        base_key_data, blank_slot_params,
+                                        fill_slot_params, key_data_of,
                                         sample_rows, update_seen)
 from repro_torch.serve.paging import PagePool, PagedScheduler
 from repro_torch.serve.scheduler import SlotScheduler, serve_clock
@@ -155,22 +165,40 @@ def _spill_entry(caches, page: int,
             for si, leaves in blob.items()}
 
 
+# the step inputs only a sampled step reads
+_SAMPLING = ("temperature", "top_k", "top_p", "min_p", "key", "sample_idx")
+
+
+def _sparam_names(any_sampled: bool) -> Tuple[str, ...]:
+    """The slot parameters a step reads: rep_pen, and the sampling ones
+    when a slot samples."""
+    return ("rep_pen",) + (_SAMPLING if any_sampled else ())
+
+
 class StepInputs:
     """The static device buffers of one step width C and their host
     mirrors (pinned on the card): tokens (B, C), pos (B,), nval (B,)
-    int64 and rep_pen (B,) f32. The engine fills `host` (numpy views of
-    the mirrors) and `upload()`s them; the device tensors never move, so
-    a captured step reads each step's inputs from them. A mirror is
-    rewritten only after the previous step's ids reached the host, which
-    waits for that step's copies."""
+    int64 and rep_pen (B,) f32; for a sampled step also temperature,
+    top_p, min_p (B,) f32, top_k, sample_idx (B,) int64 and the key
+    words (B, 2) int64 (prng's word type); `extra`: more (B,) int64
+    buffers. The engine fills `host` (numpy views of the mirrors) and
+    `upload()`s them; the device tensors never move, so a captured step
+    reads each step's inputs from them. The sampling mirrors are written
+    and uploaded only by a step that samples. A mirror is rewritten only
+    after the previous step's ids reached the host, which waits for that
+    step's copies."""
 
     def __init__(self, B: int, C: int, device: torch.device,
                  extra: Tuple[str, ...] = ()):
         pin = device.type == "cuda"
-        specs = {"tokens": ((B, C), torch.long), "pos": ((B,), torch.long),
-                 "nval": ((B,), torch.long),
-                 "rep_pen": ((B,), torch.float32)}
-        specs.update({name: ((B,), torch.long) for name in extra})
+        f32, i64 = torch.float32, torch.long
+        specs = {"tokens": ((B, C), i64), "pos": ((B,), i64),
+                 "nval": ((B,), i64), "rep_pen": ((B,), f32),
+                 "temperature": ((B,), f32), "top_k": ((B,), i64),
+                 "top_p": ((B,), f32), "min_p": ((B,), f32),
+                 "key": ((B, prng.KEY_WIDTH), i64),
+                 "sample_idx": ((B,), i64)}
+        specs.update({name: ((B,), i64) for name in extra})
         self._pairs: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.host: Dict[str, np.ndarray] = {}
         for name, (shape, dtype) in specs.items():
@@ -185,6 +213,22 @@ class StepInputs:
         for name in names or self._pairs:
             h, d = self._pairs[name]
             d.copy_(h, non_blocking=True)
+
+    def fill_sampling(self, sparams: Dict[str, np.ndarray],
+                      any_sampled: bool) -> Tuple[str, ...]:
+        """Copy the host slot parameters into the mirrors the step reads:
+        rep_pen, and with any_sampled the sampling ones. Returns the names
+        written, for upload()."""
+        names = _sparam_names(any_sampled)
+        for name in names:
+            self.host[name][:] = sparams[name]
+        return names
+
+    def sparams(self, any_sampled: bool) -> Dict[str, torch.Tensor]:
+        """The step's slot-parameter tensors: rep_pen, and with
+        any_sampled the sampling ones."""
+        return {name: getattr(self, name)
+                for name in _sparam_names(any_sampled)}
 
 
 class StepGraphs:
@@ -273,8 +317,10 @@ class RoundBuffers:
     restore's `starts`, with their pinned host mirrors), the seen table
     as the round found it (`seen_pre`: a verify capture's warm-up commits
     into the persistent table, and the capture puts it back from here),
-    the draft's throwaway copy of the seen table, and, per draft length
-    k, the ring snapshot that the draft fills and the post-verify restore
+    the draft's throwaway copy of the seen table, per draft length k the
+    ring snapshot that the draft fills and the post-verify restore reads,
+    and, once a sampled round runs at k, the draft distributions q_mat
+    (B, k, V) f32 that the draft writes and the verify's rejection rule
     reads."""
 
     def __init__(self, B: int, V: int, device: torch.device):
@@ -283,10 +329,19 @@ class RoundBuffers:
         self.draft_seen = torch.zeros((B, V), dtype=torch.bool,
                                       device=device)
         self.snaps: Dict[int, Dict[str, Dict[str, torch.Tensor]]] = {}
+        self.q_mats: Dict[int, torch.Tensor] = {}
+
+    def q_mat(self, k: int) -> torch.Tensor:
+        """The static q_mat buffer of draft length k, made at first use."""
+        if k not in self.q_mats:
+            B, V = self.seen_pre.shape
+            self.q_mats[k] = torch.zeros((B, k, V), dtype=torch.float32,
+                                         device=self.seen_pre.device)
+        return self.q_mats[k]
 
 
 class Engine:
-    """Greedy serving engine over `n_slots` slots of `max_len` rows on
+    """Serving engine over `n_slots` slots of `max_len` rows on
     `device` ("cuda" by default; raises without a card).
     prefill_chunk: prompt tokens a prefilling slot feeds per step;
     kv_buckets/kv_bucket_min: the power-of-two read-slice policy;
@@ -297,7 +352,7 @@ class Engine:
     slots, admission-limited); host_spill_pages: host tier for evicted
     prefix pages (0 = off). Recurrent and sliding-window plans prefill
     one token per step whatever prefill_chunk says; recurrent plans take
-    no paged=True yet. speculative: True or a SpecConfig turns on greedy
+    no paged=True yet. speculative: True or a SpecConfig turns on
     self-speculative decoding (serve/speculative.py); recurrent plans
     decode normally whatever it says. Steps (graph captures included) and
     generate() run without autograd, so trainable parameters (a
@@ -359,6 +414,9 @@ class Engine:
                         if self.device.type == "cuda" else None)
         self._init_spec(speculative)
         self._events: List[Tuple[int, int]] = []      # last step's deltas
+        # each live request's (2,) uint32 base key data, dropped at
+        # retirement
+        self._base_keys: Dict[int, np.ndarray] = {}
         # (B, n) chosen-token logprobs of the most recent generate() run
         # with sampling.logprobs=True; None otherwise
         self.last_logprobs = None
@@ -398,8 +456,8 @@ class Engine:
                               if speculative.draft_layers is not None
                               else default_draft_layers(self.cfg))
         self._round: Optional[RoundBuffers] = None
-        # the rounds' graphs: (draft, k, kv bucket), (verify, k, kv
-        # bucket, logprobs), (restore, k)
+        # the rounds' graphs: (draft, k, kv bucket, sampled), (verify, k,
+        # kv bucket, logprobs, sampled), (restore, k)
         self._spec_graphs = (StepGraphs(self.device, self.n_slots)
                              if self.device.type == "cuda" else None)
 
@@ -583,17 +641,22 @@ class Engine:
 
     def submit(self, prompt, *, sampling: SamplingParams) -> int:
         """Enqueue one request. prompt: 1-D sequence of token ids. Returns
-        a request id for collect()/stream(). Greedy only in this port:
-        temperature > 0 raises NotImplementedError."""
+        a request id for collect()/stream(). sampling.seed=None seeds a
+        sampled request by its request id."""
         if not isinstance(sampling, SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams, got "
                             f"{type(sampling).__name__}")
-        if not sampling.greedy:
-            raise NotImplementedError(
-                "temperature > 0 sampling is not ported yet (ROADMAP A5)")
         self._ensure_slots()
         prompt = np.asarray(prompt).reshape(-1).tolist()
-        return self._sched.submit(prompt, sampling)
+        rid = self._sched.submit(prompt, sampling)
+        seed = sampling.seed if sampling.seed is not None else rid
+        self._base_keys[rid] = base_key_data(seed)
+        return rid
+
+    def _retire(self, st) -> None:
+        self._sched.retire(st.slot)
+        self._base_keys.pop(st.request.rid, None)
+        self._bt_stale = True
 
     @torch.no_grad()
     def step(self) -> int:
@@ -636,7 +699,7 @@ class Engine:
         nval.fill(0)
         sparams = blank_slot_params(B)
         samples: Dict[int, bool] = {}
-        want_lp = False
+        want_lp = any_sampled = False
         pf_tokens = dec_tokens = 0
         needed = 1
         for slot, st in active.items():
@@ -647,25 +710,29 @@ class Engine:
             nval[slot] = n
             samples[slot] = st.samples_after(n)
             sp = st.request.sampling
-            fill_slot_params(sparams, slot, sp)
+            fill_slot_params(sparams, slot, sp,
+                             self._base_keys[st.request.rid],
+                             len(st.generated))
             want_lp |= sp.logprobs
+            any_sampled |= not sp.greedy
             if st.in_prefill:
                 pf_tokens += n
             else:
                 dec_tokens += n
             needed = max(needed, st.pos + n)
         kv_len = self._bucket(needed)
-        h["rep_pen"][:] = sparams["rep_pen"]
+        names = inputs.fill_sampling(sparams, any_sampled)
         t0 = serve_clock()
-        inputs.upload()
+        inputs.upload("tokens", "pos", "nval", *names)
         # retained recurrent donors keep the state they retired with
         kept = (self._tensor(np.asarray(sorted(self._sched.retained),
                                         np.int64))
                 if self._has_recurrent and self._sched.retained else None)
         saved = None if kept is None else save_recurrent(self._caches, kept)
         ids, lps = self._run_step(
-            (kv_len, want_lp) if C == 1 else None,
-            functools.partial(self._static_step, inputs, kv_len, want_lp))
+            (kv_len, want_lp, any_sampled) if C == 1 else None,
+            functools.partial(self._static_step, inputs, kv_len, want_lp,
+                              any_sampled))
         if saved is not None:
             restore_recurrent(self._caches, saved, kept)
         ids = ids.cpu().numpy()               # (B,) — the only per-step
@@ -689,21 +756,20 @@ class Engine:
             st.note_token(tok, lp, now=now)
             self._events.append((st.request.rid, tok))
             if st.should_retire():
-                self._sched.retire(st.slot)
-                self._bt_stale = True
+                self._retire(st)
         return len(active)
 
     def _static_step(self, inputs: StepInputs, kv_len: int,
-                     want_lp: bool):
+                     want_lp: bool, any_sampled: bool):
         """The step on the static buffers: decode_sample_step over
         `inputs`, the caches, `seen` and the block table buffer, all
         written in place. Returns (ids, logprobs | None) on the device.
         This is the function a CUDA graph captures."""
         ids, lps, caches, seen = decode_sample_step(
             self.params, self._caches, self._seen, inputs.tokens,
-            inputs.pos, inputs.nval, {"rep_pen": inputs.rep_pen},
+            inputs.pos, inputs.nval, inputs.sparams(any_sampled),
             cfg=self.cfg, kv_len=kv_len, want_logprobs=want_lp,
-            any_sampled=False, **self._step_kw())
+            any_sampled=any_sampled, **self._step_kw())
         if caches is not self._caches or seen is not self._seen:
             raise RuntimeError("the step must write the caches and the seen "
                                "table in place")
@@ -752,7 +818,7 @@ class Engine:
         for name in ("tokens", "pos", "nval", "caps"):
             h[name].fill(0)
         sparams = blank_slot_params(B)
-        want_lp = False
+        want_lp = any_sampled = False
         needed = 1
         for slot, st in active.items():
             h["tokens"][slot, 0] = st.next_tokens(1)[0]
@@ -760,14 +826,17 @@ class Engine:
             h["nval"][slot] = caps[slot] + 1
             h["caps"][slot] = caps[slot]
             sp = st.request.sampling
-            fill_slot_params(sparams, slot, sp)
+            fill_slot_params(sparams, slot, sp,
+                             self._base_keys[st.request.rid],
+                             len(st.generated))
             want_lp |= sp.logprobs
+            any_sampled |= not sp.greedy
             needed = max(needed, st.pos + caps[slot] + 1)
-        h["rep_pen"][:] = sparams["rep_pen"]
+        names = rb.inputs.fill_sampling(sparams, any_sampled)
         # the draft and the verify read one kv bucket
         kv_len = self._bucket(needed)
         t0 = serve_clock()
-        rb.inputs.upload()
+        rb.inputs.upload("tokens", "pos", "nval", "caps", *names)
         ring = bool(self._ring_caps)
         if ring and k not in rb.snaps:
             # the static snapshot buffers of this k (their values unused)
@@ -776,15 +845,17 @@ class Engine:
         # 1. snapshot, draft k tokens, undo the draft's ring writes (the
         # verify chunk reads the pre-round window)
         tok_mat = self._run_round(
-            ("draft", k, kv_len),
-            functools.partial(self._static_draft, k, kv_len))
+            ("draft", k, kv_len, any_sampled),
+            functools.partial(self._static_draft, k, kv_len, any_sampled))
         # 2. the chunk verify and the accept rule; a capture's warm-up
         # committed into `seen` and wrote ring rows, which its replay
         # reads as the pre-round table and window, so both are put back
-        # before the capture
+        # before the capture (its draws come from keys fixed by the
+        # round's inputs and write nothing)
         out, lps = self._run_round(
-            ("verify", k, kv_len, want_lp),
-            functools.partial(self._static_verify, tok_mat, kv_len, want_lp),
+            ("verify", k, kv_len, want_lp, any_sampled),
+            functools.partial(self._static_verify, tok_mat, kv_len, want_lp,
+                              any_sampled),
             undo=functools.partial(self._undo_verify, k))
         out = out.cpu().numpy()           # (B, S + 1): committed, count
         lps = lps.cpu().numpy() if want_lp else None
@@ -814,8 +885,7 @@ class Engine:
             committed += done_at
             starts[slot] = done_at
             if st.finish_reason is not None:
-                self._sched.retire(st.slot)
-                self._bt_stale = True
+                self._retire(st)
         # 4. ring rollback of every uncommitted row, rejected on the device
         # or cut on the host (eos mid-round), so a retained prefix donor
         # keeps a clean window
@@ -837,11 +907,13 @@ class Engine:
         return ({"block_table": self._bt, "page_size": self._page_size}
                 if self._paged else {})
 
-    def _static_draft(self, k: int, kv_len: int) -> torch.Tensor:
+    def _static_draft(self, k: int, kv_len: int,
+                      any_sampled: bool) -> torch.Tensor:
         """Snapshot the round's ring rows into the static buffers of k and
         `seen` into seen_pre, draft k tokens (draft_round) on a throwaway
-        copy of `seen`, then restore every snapshot row. Returns tok_mat
-        (B, k + 1)."""
+        copy of `seen`, then restore every snapshot row. A sampled round's
+        draft also writes its distributions into the q_mat buffer of k.
+        Returns tok_mat (B, k + 1)."""
         rb = self._round
         inp = rb.inputs
         S = k + 1
@@ -851,26 +923,32 @@ class Engine:
                           out=rb.snaps[k], **self._step_kw())
         rb.seen_pre.copy_(self._seen)
         rb.draft_seen.copy_(self._seen)
-        tok_mat, _, _ = draft_round(
+        tok_mat, _, _, _ = draft_round(
             self.params, self._caches, rb.draft_seen, inp.tokens, inp.pos,
-            inp.caps, {"rep_pen": inp.rep_pen}, cfg=self.cfg,
+            inp.caps, inp.sparams(any_sampled), cfg=self.cfg,
             draft_layers=self._draft_layers, k=k, kv_len=kv_len,
-            **self._step_kw())
+            any_sampled=any_sampled,
+            q_out=rb.q_mat(k) if any_sampled else None, **self._step_kw())
         if ring:
             restore_rows(self.cfg, self._caches, rb.snaps[k], inp.pos, 0, S,
                          **self._step_kw())
         return tok_mat
 
     def _static_verify(self, tok_mat: torch.Tensor, kv_len: int,
-                       want_lp: bool):
-        """The verify over the draft's tok_mat (spec_verify_step), `seen`
-        updated in place. Returns ((B, S + 1) int32: the committed tokens
-        and, last, the committed count; logprobs (B, S) | None)."""
-        inp = self._round.inputs
+                       want_lp: bool, any_sampled: bool):
+        """The verify over the draft's tok_mat and, sampled, its q_mat
+        (spec_verify_step), `seen` updated in place. Returns ((B, S + 1)
+        int32: the committed tokens and, last, the committed count;
+        logprobs (B, S) | None)."""
+        rb = self._round
+        inp = rb.inputs
+        k = tok_mat.shape[1] - 1
         committed, n_comm, lps, _, _ = spec_verify_step(
             self.params, self._caches, self._seen, tok_mat, inp.pos,
-            inp.nval, {"rep_pen": inp.rep_pen}, cfg=self.cfg, kv_len=kv_len,
-            want_logprobs=want_lp, **self._step_kw())
+            inp.nval, inp.sparams(any_sampled),
+            rb.q_mat(k) if any_sampled else None, cfg=self.cfg,
+            kv_len=kv_len, want_logprobs=want_lp, any_sampled=any_sampled,
+            **self._step_kw())
         out = torch.cat([committed, n_comm[:, None].to(torch.int32)], dim=1)
         return out, lps
 
@@ -913,6 +991,7 @@ class Engine:
             rid=r.rid, tokens=tuple(st.generated),
             finish_reason=st.finish_reason or "length",
             prompt_len=len(r.prompt),
+            prefix_len=st.prefix_len,
             logprobs=(tuple(st.logprobs) if r.sampling.logprobs else None),
             submitted_at=r.arrival, first_token_at=st.t_first,
             finished_at=st.t_done)
@@ -954,34 +1033,58 @@ class Engine:
 
     @torch.no_grad()
     def generate(self, prompt_tokens, n_new: Optional[int] = None, *,
-                 sampling: Optional[SamplingParams] = None) -> torch.Tensor:
+                 sampling: Optional[SamplingParams] = None,
+                 temperature: float = 0.0, key=None) -> torch.Tensor:
         """prompt_tokens: (B, S). Returns (B, n) generated ids (int32, on
         the engine's device), through contiguous caches of its own even
-        when the engine is paged. Greedy: sampling=None means greedy with
-        n_new tokens; a SamplingParams must be greedy, and n defaults to
-        its max_new (an explicit n_new is capped at it). The static batch
-        always emits the full n tokens per row; eos/stops are scheduler
-        concerns."""
+        when the engine is paged.
+
+        generate(prompts, sampling=SamplingParams(...)): row b samples
+        under base key jax.random.key(sampling.seed + b) (seed defaults to
+        0), folded by token index, through the same sample_rows as the
+        continuous path; n defaults to sampling.max_new, and an explicit
+        n_new is capped at it. The legacy form generate(prompts, n_new,
+        temperature=, key=): key=None means greedy; with key (the (2,)
+        uint32 data of a JAX key, serve/sampling.key_data_of), row b uses
+        fold_in(key, b) as its base key. Passing both forms raises
+        TypeError. The static batch always emits the full n tokens per
+        row; eos/stops are scheduler concerns, so a seeded B=1 call's
+        stream is what a continuous request with the same SamplingParams
+        returns a prefix of."""
         cfg = self.cfg
         prompt_tokens = self._tensor(prompt_tokens).to(torch.long)
         B, S = prompt_tokens.shape
         if sampling is None:
             if n_new is None:
                 raise TypeError("generate() needs n_new or sampling=")
-            sampling = SamplingParams(max_new=int(n_new))
-        elif n_new is not None:
-            n_new = min(int(n_new), sampling.max_new)
-        if not sampling.greedy:
-            raise NotImplementedError(
-                "temperature > 0 sampling is not ported yet (ROADMAP A5)")
+            sampled = temperature > 0.0 and key is not None
+            sampling = SamplingParams(
+                max_new=int(n_new),
+                temperature=float(temperature) if sampled else 0.0)
+            keys = np.zeros((B, prng.KEY_WIDTH), np.int64)
+            if sampled:
+                base = prng.as_key_data(key_data_of(key))
+                keys = prng.fold_in(base.expand(B, prng.KEY_WIDTH),
+                                    torch.arange(B)).numpy()
+        elif key is not None or temperature != 0.0:
+            raise TypeError(
+                "pass either sampling=SamplingParams(...) or the legacy "
+                "(temperature, key) kwargs — not both")
+        else:
+            seed = sampling.seed if sampling.seed is not None else 0
+            keys = np.stack([base_key_data(seed + b) for b in range(B)])
+            if n_new is not None:
+                n_new = min(int(n_new), sampling.max_new)
         n = int(n_new) if n_new is not None else sampling.max_new
         if S + n > self.max_len:
             raise ValueError(f"prompt({S}) + n({n}) exceeds "
                              f"max_len={self.max_len}")
+        any_sampled = not sampling.greedy
         sparams = blank_slot_params(B)
         for b in range(B):
-            fill_slot_params(sparams, b, sampling)
-        sp_dev = {"rep_pen": self._tensor(sparams["rep_pen"])}
+            fill_slot_params(sparams, b, sampling, keys[b], 0)
+        sparams["key"] = sparams["key"].astype(np.int64)
+        sp_dev = {name: self._tensor(v) for name, v in sparams.items()}
         want_lp = sampling.logprobs
         seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
                            device=self.device)
@@ -994,12 +1097,13 @@ class Engine:
         update_seen(seen, prompt_tokens)
         outs, lp_outs = [], []
 
-        def sample_at(logits):
+        def sample_at(logits, t):
             rows = logits[:, -1, :cfg.vocab_size]
+            sp_dev["sample_idx"].fill_(t)
             return sample_rows(rows, sp_dev, seen, want_logprobs=want_lp,
-                               any_sampled=False)
+                               any_sampled=any_sampled)
 
-        tok, lp = sample_at(logits)
+        tok, lp = sample_at(logits, 0)
         outs.append(tok)
         lp_outs.append(lp)
         for t in range(1, n):
@@ -1008,7 +1112,7 @@ class Engine:
                                          S + t - 1,
                                          kv_len=self._bucket(S + t))
             update_seen(seen, tk)
-            tok, lp = sample_at(logits)
+            tok, lp = sample_at(logits, t)
             outs.append(tok)
             lp_outs.append(lp)
         self.last_logprobs = (torch.stack(lp_outs, dim=1) if want_lp

@@ -1,6 +1,6 @@
 """Serving request API: typed request/result objects + the batched sampler.
 
-Port of `repro/serve/sampling.py`, greedy branch:
+Port of `repro/serve/sampling.py`:
 
 * `SamplingParams` — the frozen, validated per-request sampling contract
   (same fields, defaults and checks as the reference).
@@ -9,10 +9,16 @@ Port of `repro/serve/sampling.py`, greedy branch:
   step (models/decode.decode_sample_step) and the static `generate()`.
 
 Greedy (temperature <= 0) argmaxes the penalty-adjusted row; with the
-default repetition_penalty=1.0 the adjustment is a bitwise no-op. Seeded
-sampling (temperature > 0) raises NotImplementedError: to give the
-reference's tokens it must reproduce JAX's threefry draw, which is a later
-slice (ROADMAP A5).
+default repetition_penalty=1.0 the adjustment is a bitwise no-op.
+
+Seeded sampling (temperature > 0) gives the reference's tokens, not only
+its distribution: token t of a request is drawn under
+fold_in(base key, t), where the base key is jax.random.key(seed) (seed
+defaults to the request id), through the port's own threefry2x32
+(repro_torch/prng.py), bitwise JAX's. The filters (top-k, top-p, min-p)
+key off one descending sort of the temperature-scaled row, as in the
+reference; a categorical draw is the argmax of the filtered row plus
+Gumbel noise.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 FINISH_REASONS = ("stop", "eos", "length")
 
@@ -85,14 +93,16 @@ class Completion:
 
     tokens include any matched stop suffix / eos / stop token id.
     logprobs (only when SamplingParams.logprobs was set) are the chosen
-    tokens' log-probabilities under the penalty-adjusted distribution.
-    Timestamps are serve/scheduler.serve_clock() seconds. (The reference's
-    prefix_len field arrives with the prefix cache.)
+    tokens' log-probabilities under the penalty-adjusted, unscaled
+    distribution. prefix_len counts the prompt tokens that arrived by
+    prefix-cache copy or aliasing instead of prefill (0 = cold path).
+    Timestamps are serve/scheduler.serve_clock() seconds.
     """
     rid: int
     tokens: Tuple[int, ...]
     finish_reason: str
     prompt_len: int = 0
+    prefix_len: int = 0
     logprobs: Optional[Tuple[float, ...]] = None
     submitted_at: float = 0.0
     first_token_at: float = 0.0
@@ -113,27 +123,59 @@ class Completion:
 # per-slot parameter arrays (host side; moved to the device each step)
 # ---------------------------------------------------------------------------
 
+def key_width() -> int:
+    """uint32 words per PRNG key. The reference sizes this from its
+    configured default implementation (2 for threefry, 4 for rbg); the port
+    rebuilds threefry2x32 only, JAX's default, so it is always 2."""
+    return prng.KEY_WIDTH
+
+
 def blank_slot_params(n_slots: int) -> Dict[str, np.ndarray]:
     """Host-side (B,) parameter arrays at inactive-slot defaults (greedy,
-    no filtering). The engine overwrites the active slots each step. (The
-    reference's per-slot PRNG key and sample index arrive with the seeded
-    sampler.)"""
+    no filtering), with each slot's (2,) uint32 base key data and sample
+    index. The engine overwrites the active slots each step."""
     return {
         "temperature": np.zeros((n_slots,), np.float32),
         "top_k": np.zeros((n_slots,), np.int32),
         "top_p": np.ones((n_slots,), np.float32),
         "min_p": np.zeros((n_slots,), np.float32),
         "rep_pen": np.ones((n_slots,), np.float32),
+        "key": np.zeros((n_slots, key_width()), np.uint32),
+        "sample_idx": np.zeros((n_slots,), np.int32),
     }
 
 
 def fill_slot_params(arrs: Dict[str, np.ndarray], slot: int,
-                     sp: SamplingParams) -> None:
+                     sp: SamplingParams, key_data: np.ndarray,
+                     sample_idx: int) -> None:
     arrs["temperature"][slot] = sp.temperature
     arrs["top_k"][slot] = sp.top_k
     arrs["top_p"][slot] = sp.top_p
     arrs["min_p"][slot] = sp.min_p
     arrs["rep_pen"][slot] = sp.repetition_penalty
+    arrs["key"][slot] = key_data
+    arrs["sample_idx"][slot] = sample_idx
+
+
+def base_key_data(seed: int) -> np.ndarray:
+    """uint32 key data of jax.random.key(seed), the per-request base key
+    the sampler folds by sample index; plain numpy, as the scheduler's
+    bookkeeping is host-side."""
+    return prng.key_data(seed).numpy().astype(np.uint32)
+
+
+def key_data_of(key) -> np.ndarray:
+    """Normalize user-supplied key data, the counterpart of a legacy or
+    typed JAX key's (2,) uint32 data (numpy, torch or a sequence), to a
+    (2,) uint32 array."""
+    if isinstance(key, torch.Tensor):
+        key = key.cpu().numpy()
+    arr = np.asarray(key)
+    if arr.shape != (key_width(),) or not np.issubdtype(arr.dtype,
+                                                        np.integer):
+        raise ValueError(f"key data must be {key_width()} integer words, "
+                         f"got {arr.dtype} {arr.shape}")
+    return (arr.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
 
 
 # ---------------------------------------------------------------------------
@@ -164,27 +206,73 @@ def update_seen(seen: torch.Tensor, tokens: torch.Tensor,
     return seen
 
 
+def penalize(rows: torch.Tensor, rep_pen: torch.Tensor,
+             seen: torch.Tensor) -> torch.Tensor:
+    """CTRL-style repetition penalty on f32 rows (..., V): every seen id's
+    logit divided by rep_pen (...) when positive, multiplied when not."""
+    rp = rep_pen.to(device=rows.device, dtype=torch.float32)[..., None]
+    return torch.where(seen, torch.where(rows > 0, rows / rp, rows * rp),
+                       rows)
+
+
+def _filter_logits(z: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
+                   min_p: torch.Tensor) -> torch.Tensor:
+    """Mask (to -inf) tokens excluded by per-slot top-k / top-p / min-p.
+
+    z: (B, V) temperature-scaled logits. All three filters key off ONE
+    descending sort. Ties at each threshold are kept, and every filter
+    keeps at least the max token, so a row is never fully masked."""
+    B, V = z.shape
+    dev = z.device
+    srt = torch.sort(z, dim=-1, descending=True).values
+    # top-k: value threshold at the k-th largest (0 -> disabled)
+    top_k = top_k.to(device=dev, dtype=torch.long)
+    k = torch.where(top_k <= 0, V, torch.clamp(top_k, max=V))
+    keep = z >= srt.gather(1, (k - 1)[:, None])
+    # top-p: position j survives while the mass BEFORE it is < top_p, so
+    # j = 0 always does. top_p >= 1 maps to +inf: "disabled" keeps every
+    # token even when the f32 cumsum saturates to 1.0 before the tail
+    probs = torch.softmax(srt, dim=-1)
+    mass_before = torch.cumsum(probs, dim=-1) - probs
+    top_p = top_p.to(device=dev, dtype=torch.float32)
+    p_lim = torch.where(top_p >= 1.0, torch.inf, top_p)
+    n_keep = (mass_before < p_lim[:, None]).sum(dim=-1)
+    keep &= z >= srt.gather(1, (n_keep - 1)[:, None])
+    # min-p: prob >= min_p * max-prob  <=>  z >= z_max + log(min_p)
+    # (min_p = 0 -> log 0 = -inf keeps everything)
+    min_p = min_p.to(device=dev, dtype=torch.float32)
+    keep &= z >= srt[:, :1] + torch.log(min_p)[:, None]
+    return torch.where(keep, z, -torch.inf)
+
+
 def sample_rows(rows: torch.Tensor, sparams: Dict[str, torch.Tensor],
                 seen: torch.Tensor, *, want_logprobs: bool = False,
                 any_sampled: bool = False):
-    """Batched per-slot greedy sampling on (B, V) logits rows.
+    """Batched per-slot sampling on (B, V) logits rows, on their device.
 
-    sparams: the slot-parameter tensors ((B,) rep_pen at least). seen:
-    (B, V) bool repetition-penalty support set (already updated with this
-    step's fed tokens). Returns (ids (B,) int32, logprobs (B,) f32 or
-    None) — chosen-token logprobs are under the penalty-adjusted UNscaled
-    distribution. any_sampled=True (a slot with temperature > 0) raises
-    NotImplementedError until the seeded sampler is ported."""
-    if any_sampled:
-        raise NotImplementedError(
-            "temperature > 0 sampling is not ported yet: it must reproduce "
-            "the reference's threefry draw (ROADMAP A5)")
-    rows = rows.to(torch.float32)
-    rp = sparams["rep_pen"].to(device=rows.device,
-                               dtype=torch.float32)[:, None]
-    penalized = torch.where(rows > 0, rows / rp, rows * rp)
-    rows = torch.where(seen, penalized, rows)
+    sparams: the slot-parameter tensors ((B,) temperature / top_k / top_p
+    / min_p / rep_pen, (B, 2) key words, (B,) sample_idx; rep_pen alone
+    when any_sampled is False). seen: (B, V) bool repetition-penalty
+    support set (already updated with this step's fed tokens). Greedy
+    slots take the argmax of the penalty-adjusted row; sampled slots
+    (temperature > 0) filter the temperature-scaled row and draw under
+    fold_in(key, sample_idx) (prng.categorical). any_sampled is a static
+    flag the caller sets from host-side request metadata: False (an
+    all-greedy batch) runs no sort, filter or draw. Returns (ids (B,)
+    int32, logprobs (B,) f32 or None) — chosen-token logprobs are under
+    the penalty-adjusted UNscaled distribution."""
+    rows = penalize(rows.to(torch.float32), sparams["rep_pen"], seen)
     ids = torch.argmax(rows, dim=-1).to(torch.int32)
+    if any_sampled:
+        temp = sparams["temperature"].to(device=rows.device,
+                                         dtype=torch.float32)
+        z = rows / torch.where(temp > 0, temp, 1.0)[:, None]
+        z = _filter_logits(z, sparams["top_k"], sparams["top_p"],
+                           sparams["min_p"])
+        keys = prng.fold_in(prng.as_key_data(sparams["key"]).to(rows.device),
+                            sparams["sample_idx"])
+        sampled = prng.categorical(keys, z).to(torch.int32)
+        ids = torch.where(temp > 0, sampled, ids)
     if not want_logprobs:
         return ids, None
     lps = torch.log_softmax(rows, dim=-1)

@@ -40,6 +40,7 @@ from repro_torch import config as tcfg
 from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels import ops
 from repro_torch.models import decode as tdec
+from repro_torch.serve import engine as tengine
 from repro_torch.serve.engine import Engine as TEngine
 from repro_torch.serve.sampling import SamplingParams as TSP
 
@@ -54,18 +55,19 @@ class FreshEngine(TEngine):
     anew from the host arrays, as the engine did before its static
     buffers."""
 
-    def _static_step(self, inputs, kv_len, want_lp):
+    def _static_step(self, inputs, kv_len, want_lp, any_sampled):
         h = inputs.host
         pkw = ({"block_table": torch.from_numpy(self._pool.block_table()),
                 "page_size": self._page_size} if self._paged else {})
+        names = tengine._sparam_names(any_sampled)
         ids, lps, self._caches, self._seen = tdec.decode_sample_step(
             self.params, self._caches, self._seen,
             torch.from_numpy(h["tokens"].copy()),
             torch.from_numpy(h["pos"].copy()),
             torch.from_numpy(h["nval"].copy()),
-            {"rep_pen": torch.from_numpy(h["rep_pen"].copy())},
+            {n: torch.from_numpy(h[n].copy()) for n in names},
             cfg=self.cfg, kv_len=kv_len, want_logprobs=want_lp,
-            any_sampled=False, **pkw)
+            any_sampled=any_sampled, **pkw)
         return ids, lps
 
 
@@ -79,10 +81,13 @@ class CheckedEngine(TEngine):
         super().__init__(*a, **kw)
         self.shapes = []
         self.tables = set()          # data pointers of the block tables read
+        self.sampled_steps = 0
 
-    def _static_step(self, inputs, kv_len, want_lp):
+    def _static_step(self, inputs, kv_len, want_lp, any_sampled):
         h = inputs.host
-        for name in ("tokens", "pos", "nval", "rep_pen"):
+        self.sampled_steps += any_sampled
+        for name in ("tokens", "pos", "nval") + tengine._sparam_names(
+                any_sampled):
             assert getattr(inputs, name) is not None
             assert torch.equal(getattr(inputs, name),
                                torch.from_numpy(h[name])), name
@@ -92,7 +97,7 @@ class CheckedEngine(TEngine):
                                torch.from_numpy(self._pool.block_table()))
             self.tables.add(self._bt.data_ptr())
         self.shapes.append((h["tokens"].shape[1], kv_len))
-        return super()._static_step(inputs, kv_len, want_lp)
+        return super()._static_step(inputs, kv_len, want_lp, any_sampled)
 
 
 @pytest.fixture(autouse=True)
@@ -164,15 +169,16 @@ def _prompts(seed, n, shared):
     return out
 
 
-def _trace(eng, SP, prompts, news):
-    """Two requests, two steps, then the rest: slots recycle. Returns
-    each request's tokens."""
-    rids = [eng.submit(p, sampling=SP(max_new=n))
-            for p, n in zip(prompts[:2], news[:2])]
+def _trace(eng, SP, prompts, news, sp_kw=None):
+    """Two requests, two steps, then the rest: slots recycle. sp_kw: more
+    SamplingParams fields per request. Returns each request's tokens."""
+    sps = [SP(max_new=n, **(sp_kw[i] if sp_kw else {}))
+           for i, n in enumerate(news)]
+    rids = [eng.submit(p, sampling=sp) for p, sp in zip(prompts[:2], sps)]
     eng.step()
     eng.step()
-    rids += [eng.submit(p, sampling=SP(max_new=n))
-             for p, n in zip(prompts[2:], news[2:])]
+    rids += [eng.submit(p, sampling=sp)
+             for p, sp in zip(prompts[2:], sps[2:])]
     out = eng.run()
     return [list(out[r].tokens) for r in rids]
 
@@ -182,7 +188,8 @@ def _stats(eng):
             if k not in ("prefill_s", "decode_s")}
 
 
-def _three_engines(jc, tc, jp, tp, prompts, news, max_len=MAX_LEN, **kw):
+def _three_engines(jc, tc, jp, tp, prompts, news, max_len=MAX_LEN,
+                   sp_kw=None, **kw):
     """The trace through the JAX Engine, FreshEngine and CheckedEngine.
     Returns the checked engine after asserting all three agree."""
     got = {}
@@ -191,7 +198,7 @@ def _three_engines(jc, tc, jp, tp, prompts, news, max_len=MAX_LEN, **kw):
             ("fresh", FreshEngine, TSP, tc, tp, {"device": "cpu"}),
             ("checked", CheckedEngine, TSP, tc, tp, {"device": "cpu"})):
         eng = E(cfg, params, max_len=max_len, **kw, **extra)
-        got[name] = (_trace(eng, SP, prompts, news), _stats(eng),
+        got[name] = (_trace(eng, SP, prompts, news, sp_kw), _stats(eng),
                      eng.paged_stats, eng)
     for name in ("fresh", "checked"):
         assert got[name][0] == got["jax"][0], name

@@ -179,15 +179,10 @@ def test_sampler_pieces_match_jax():
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=1e-5)
 
 
-def test_sampled_requests_raise_until_ported():
+def test_request_past_max_len_raises():
     _, tc = _cfgs()
     tree, _, prompts, _ = _setup()
     tp = bridge.params_from_numpy(tree, device="cpu")
     eng = TEngine(tc, tp, max_len=MAX_LEN, device="cpu")
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.submit(prompts[0], sampling=TSP(max_new=2, temperature=0.7))
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.generate(np.asarray(prompts[0])[None],
-                     sampling=TSP(max_new=2, temperature=0.7, seed=1))
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(prompts[0], sampling=TSP(max_new=MAX_LEN))

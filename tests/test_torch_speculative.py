@@ -170,7 +170,7 @@ class RoundCheckedEngine(TEngine):
                 out[(name, leaf_name)] = _bits(rows).copy()
         return out
 
-    def _static_draft(self, k, kv_len):
+    def _static_draft(self, k, kv_len, any_sampled):
         inp = self._round.inputs
         for name, host in inp.host.items():
             if name != "starts":
@@ -181,7 +181,7 @@ class RoundCheckedEngine(TEngine):
             assert self.snap_ptrs.setdefault(k, ptrs) == ptrs
         seen = self._seen.clone()
         rings = self._ring_rows()
-        tok_mat = super()._static_draft(k, kv_len)
+        tok_mat = super()._static_draft(k, kv_len, any_sampled)
         assert torch.equal(self._seen, seen)
         after = self._ring_rows()
         assert all(np.array_equal(after[key], v) for key, v in rings.items())
@@ -791,27 +791,6 @@ def test_paged_spec_matches_contiguous_non_spec(name, page):
     assert eng.stats["spec_rounds"] > 0
     # a ring donor that decoded past max(p, W) is refused
     assert (eng.stats["prefix_hits"] > 0) == (name != "ring")
-
-
-def test_sampled_requests_raise_naming_a5():
-    """temperature > 0 is the seeded sampler's (ROADMAP A5): the
-    speculative engine refuses it at submit, and the round functions
-    refuse a sampled batch."""
-    _, tc = _cfgs("dense")
-    _, tp = _params("dense")
-    eng = TEngine(tc, tp, max_len=MAX_LEN, speculative=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.submit([1, 2, 3], sampling=TSP(max_new=4, temperature=0.8))
-    caches = tdec.init_cache(tc, 2, MAX_LEN, device="cpu")
-    seen = torch.zeros((2, tc.vocab_size), dtype=torch.bool)
-    z = torch.zeros((2,), dtype=torch.long)
-    sp = {"rep_pen": torch.ones(2)}
-    with pytest.raises(NotImplementedError, match="A5"):
-        tspec.draft_round(tp, caches, seen, z[:, None], z, z + 1, sp,
-                          cfg=tc, draft_layers=1, k=1, any_sampled=True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tspec.spec_verify_step(tp, caches, seen, z[:, None].repeat(1, 2),
-                               z, z + 2, sp, cfg=tc, any_sampled=True)
 
 
 @pytest.mark.parametrize("name,paged", [("dense", False), ("ring", True)])
