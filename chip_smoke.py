@@ -15,8 +15,10 @@ over a paged KV pool with prefix reuse. It then does the same for the
 second served family, RWKV-6 "Finch" 1.6B wrapped with AltUp K=2, whose
 recurrence runs through the WKV kernel, and for the windowed one,
 gemma3-4b wrapped with AltUp K=2 (5 local layers with a 1024-row ring
-cache to 1 global layer); last it trains the served model at full width
-and serves the trained weights. Phases:
+cache to 1 global layer); it trains the served model at full width and
+serves the trained weights; last comes the MoE family, qwen2-moe-a2.7b
+wrapped with AltUp K=2, served at full depth and trained at 2 layers.
+Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
@@ -79,6 +81,10 @@ and serves the trained weights. Phases:
                j-paged, ring lengths (<= 1024) and global lengths; int8
                codes (contiguous) and fp8 codes (paged) at j-paged's
                ring shape; each timed with its bound
+      c-* case m  the fused AltUp and the decode attention at
+               qwen2-moe-a2.7b's served shapes (m-serve): AltUp at 8
+               tokens of d 2048; the decode attention halfway through
+               m-serve (16 kv heads of 128, rep 1); timed with its bound
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
@@ -131,6 +137,10 @@ and serves the trained weights. Phases:
                tokens; the WKV kernel launches 24 times per step;
                i-graph replayed (every step of a recurrent plan is
                chunk 1, so every step replays), as e-graph
+      i-paged  4 bf16 requests through Engine(paged=True) and the
+               contiguous engine, both replayed: tokens identical, every
+               step replayed, no prefix hit (a recurrent plan's state is
+               per slot; it reuses no pages)
   (j) gemma3-4b + AltUp K=2, sliding windows over ring caches:
       j-parity full-width f32 decode_step logits of the kernel path and
                the paged kernel path vs the dense path: a prefill of
@@ -250,6 +260,40 @@ and serves the trained weights. Phases:
                greedy tokens, through the kernels (graphs replayed) and
                with both kernel flags off: tokens identical, chosen-token
                logprobs within 1e-3, the kernels launched
+  (m) qwen2-moe-a2.7b + AltUp K=2 (24 layers, d 2048, 16 heads of 128,
+      60 routed experts padded to 64, top 4, 4 shared), the MoE family:
+      its FFN is plain torch (routing, a stable sort, grouped products),
+      served through the AltUp and decode-attention kernels:
+      m-parity f32, TF32 off: moe_block's layer of experts on 128 tokens
+               on the card against the CPU, with capacity_for's drops
+               and drop-free, expert ids identical, outputs within 1e-5
+               of the max, aux within 1e-6; a decode-shaped block under
+               torch.cuda.set_sync_debug_mode("error") (no host sync, so
+               a captured step may route); at 2 layers, (d)'s parity
+               (kernel and paged kernel paths against the dense path,
+               then int8), and a paged engine whose requests hit 130
+               rows of a donor, kernels against dense: tokens identical,
+               logits (logprobs) within 1e-3
+      m-grad   2 layers, f32: loss_fn with the aux loss and every leaf's
+               gradient (router and experts included) on the card
+               against the CPU: each leaf within 1e-4 of its max, the
+               aux within 1e-6, no kernel launched
+      m-train  Trainer at full width and 2 layers, bf16, 12 steps of 8 x
+               512 tokens in 2 microbatches: a falling loss, tokens/s,
+               MFU from model_flops_per_token (routed experts at top_k /
+               num_experts), peak memory
+      m-serve  (e)'s traffic at full depth, replayed (m-serve-graph): the
+               numbers of (e), 24 AltUp and 24 decode-attention launches
+               a decode step, parameter bytes and the peak memory after
+               init, the step graph's device ms, the MoE FFN's share of
+               a step's kernel time (an eager step under torch.profiler,
+               each moe_block in a record_function range), a
+               decode-shaped block's device ms against its bytes bound;
+               m-serve-twin: the eager engine against the replayed one
+               at 4 layers, as e-graph; m-serve-paged: at 4 layers, 8
+               requests extending a 250-token prompt through a page
+               pool and through contiguous caches, both with prefix
+               reuse and replayed: tokens and hits identical
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -273,6 +317,7 @@ result when no CUDA device is present, and fails when the repository's
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1161,10 +1206,12 @@ def no_cache_writes():
         D._update_at = real
 
 
-def parity_f32(torch, kind=None):
+def parity_f32(torch, kind=None, base=None):
     """Full-width f32 decode_step logits and greedy tokens of the kernel
     path ("k") and the paged kernel path ("p") against the dense path
-    ("d"), over a chunked prefill and 16 decode steps.
+    ("d"), over a chunked prefill and 16 decode steps. base: the config
+    factory (served_config by default; m-parity passes qwen2-moe-a2.7b's
+    at 2 layers).
 
     kind "int8" / "fp8" (d-quant): every side serves from quantized
     caches, and the dense side differs from the kernel side only in its
@@ -1185,7 +1232,7 @@ def parity_f32(torch, kind=None):
     from repro_torch.serve.engine import kv_bucket
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
-    cfg = served_config(dtype="float32", param_dtype="float32")
+    cfg = (base or served_config)(dtype="float32", param_dtype="float32")
     quant = kind is not None
     cfg_q = cfg.replace(kv_cache_dtype=kind) if quant else cfg
     cfgs = {"k": cfg_q.replace(ragged_decode_attn=None,
@@ -1282,8 +1329,8 @@ def parity_f32(torch, kind=None):
                              f"paged kernel and dense paths: {streams}")
     del params, caches
     torch.cuda.empty_cache()
-    res = {"kv_cache_dtype": kind or "auto", "slots": B,
-           "prompt_lens": plens, "decode_steps": n_dec,
+    res = {"cfg": cfg_name(cfg), "kv_cache_dtype": kind or "auto",
+           "slots": B, "prompt_lens": plens, "decode_steps": n_dec,
            "max_abs_logit_err": worst["k"],
            "paged_max_abs_logit_err": worst["p"], "page": page,
            "tol": PARITY_TOL,
@@ -1456,18 +1503,26 @@ def cache_bytes(eng):
                for seg in eng._caches.values() for t in seg.values())
 
 
-def serve_bf16(torch, ops, profile=False, kind=None, replay=False):
+def serve_bf16(torch, ops, profile=False, kind=None, replay=False,
+               cfg=None, after=None):
     """Phase (e); kind "int8" / "fp8" serves the same traffic from
     quantized caches (e-quant); replay=True through the engine whose
     pure-decode steps replay CUDA graphs (e-graph, e-quant-graph),
-    replay=False through the eager reference."""
+    replay=False through the eager reference. cfg: another bf16 model
+    for the same traffic (m-serve: qwen2-moe-a2.7b); after(eng, params):
+    more fields for the result, from the engine after its run."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.sampling import SamplingParams
-    cfg = served_config()                              # bf16
+    cfg = served_config() if cfg is None else cfg      # bf16
     if kind is not None:
         cfg = cfg.replace(kv_cache_dtype=kind)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=1, device=DEV)
     perturb_altup(torch, params, seed=11)
+    init_mem = {"params_bytes": sum(t.numel() * t.element_size()
+                                    for t in params.parameters()),
+                "peak_mem_gb_init": torch.cuda.max_memory_allocated() / 1e9}
     eng = engine_class(replay)(cfg, params, max_len=2048, n_slots=8,
                                prefill_chunk=64, prefix_cache=False,
                                device=DEV)
@@ -1526,10 +1581,10 @@ def serve_bf16(torch, ops, profile=False, kind=None, replay=False):
                              f"decode steps")
     st = eng.stats
     decode_ms.sort()
-    res = {"requests": len(rids), "prompt_lens": plens, "new_tokens": n_new,
-           "replay": replay, "graph": graph,
+    res = {"cfg": cfg_name(cfg), "requests": len(rids), "prompt_lens": plens,
+           "new_tokens": n_new, "replay": replay, "graph": graph,
            "steps": steps, "decode_steps": len(decode_ms),
-           "launches": counts,
+           "launches": counts, **init_mem,
            "kv_cache_dtype": kind or "auto", "cache_bytes": cache_bytes(eng),
            "ragged_launches_per_decode_step":
                counts["ragged_decode_attention"] / len(decode_ms),
@@ -1542,6 +1597,8 @@ def serve_bf16(torch, ops, profile=False, kind=None, replay=False):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     trace = {"tokens": [out[r].tokens for r in rids],
              "stats": step_stats(eng)}
+    if after is not None:
+        res.update(after(eng, params))
     prof = profile_decode(torch, ops, eng, prompts, replay) if profile \
         else None
     del eng, params
@@ -3611,6 +3668,533 @@ def sampling_phases(torch, ops, greedy=None):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# (m) qwen2-moe-a2.7b + AltUp K=2: the MoE family, no new kernel
+# ---------------------------------------------------------------------------
+
+# m-parity, m-grad and m-train run the full width at 2 layers; m-serve's
+# eager twin and its paged run at M_TWIN_LAYERS; m-serve itself at the
+# full depth of 24
+M_LAYERS, M_TWIN_LAYERS = 2, 4
+M_BLOCK_TOKENS = 128        # m-parity's moe_block, card against CPU
+M_BLOCK_TOL = 1e-5          # of the CPU output's max
+M_AUX_RTOL = 1e-6
+M_GRAD_B, M_GRAD_S = 2, 128
+M_STEPS, M_BATCH, M_SEQ, M_MB = 12, 8, 512, 2
+# m-serve's paged run: a shared prompt of 250 tokens (a donor serves it
+# first), then 8 requests of it plus a tail, 32 new tokens
+M_SYSTEM, M_PAGED_NEW = 250, 32
+M_TAILS = (32, 64, 96, 128, 160, 192, 224, 256)
+
+
+def moe_config(**kw):
+    """qwen2-moe-a2.7b wrapped with AltUp K=2 (recycled: vocab > 100k)."""
+    from repro_torch.configs import get_config
+    return get_config("qwen2-moe-a2.7b", altup_k=2).replace(**kw)
+
+
+def moe_layer0(torch, cfg, seed):
+    """Layer 0's moe leaves of `cfg` drawn on the card, as a dict."""
+    from repro_torch.models.moe import init_moe
+    from repro_torch.models.transformer import prm_dtype
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return init_moe(cfg.d_model, cfg.moe, prm_dtype(cfg), gen, DEV)
+
+
+def moe_expert_bytes(cfg):
+    """Bytes of one layer's routed expert weights (w1, w3, w2 of every
+    padded expert) in the parameters' dtype."""
+    m = cfg.moe
+    esz = 2 if cfg.param_dtype == "bfloat16" else 4
+    return 3 * m.padded_experts * cfg.d_model * m.d_expert * esz
+
+
+def moe_block_parity(torch):
+    """m-parity's moe_block: full width (d 2048, 64 padded experts, top
+    4), f32, TF32 off, layer 0's experts on M_BLOCK_TOKENS tokens, on the
+    card against the same call on the CPU, with capacity_for's drops and
+    drop-free (capacity = tokens): expert ids identical, outputs within
+    M_BLOCK_TOL of the CPU output's max, aux within M_AUX_RTOL. Then the
+    drop-free block at a decode step's shape (8 tokens) under
+    torch.cuda.set_sync_debug_mode("error"): it reads nothing back to the
+    host, so a captured step may route; and its device ms replayed from
+    a graph against its bytes bound (every padded expert's weights)."""
+    from repro_torch.models import moe as moe_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_config(n_layers=1, dtype="float32", param_dtype="float32")
+    m = cfg.moe
+    p = moe_layer0(torch, cfg, seed=50)
+    p_cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+                 else v.cpu()) for k, v in p.items()}
+    gen = torch.Generator(device=DEV).manual_seed(51)
+    x = torch.randn(1, M_BLOCK_TOKENS, cfg.d_model, generator=gen,
+                    device=DEV)
+    res = {"cfg": cfg_name(cfg), "tokens": M_BLOCK_TOKENS,
+           "experts_padded": m.padded_experts, "top_k": m.top_k}
+    with torch.no_grad():
+        ids_d = moe_lib.router_probs(p, m, x[0])[1]
+        ids_c = moe_lib.router_probs(p_cpu, m, x[0].cpu())[1]
+        if not torch.equal(ids_d.cpu(), ids_c):
+            raise AssertionError("m-parity: expert ids differ between the "
+                                 "card and the CPU")
+        for case, cap in (("drops", None), ("drop_free", M_BLOCK_TOKENS)):
+            t0 = time.perf_counter()
+            y_c, aux_c = moe_lib.moe_block(p_cpu, m, x.cpu(), capacity=cap)
+            cpu_s = time.perf_counter() - t0
+            y_d, aux_d = moe_lib.moe_block(p, m, x, capacity=cap)
+            torch.cuda.synchronize()
+            scale = float(y_c.abs().max())
+            err = max_err(torch, y_d.cpu(), y_c) / scale
+            aux_err = abs(float(aux_d) - float(aux_c)) / float(aux_c)
+            c = cap or moe_lib.capacity_for(M_BLOCK_TOKENS, m)
+            slot = moe_lib._dispatch_indices(ids_c, m.padded_experts)[1]
+            res[case] = {"capacity": c, "dropped": int((slot >= c).sum()),
+                         "max_err_over_max": err, "aux_rel_err": aux_err,
+                         "aux": float(aux_d), "cpu_s": cpu_s}
+            if not (err <= M_BLOCK_TOL and aux_err <= M_AUX_RTOL):
+                raise AssertionError(f"m-parity moe_block {case}: {res}")
+        # a decode step's block: no host sync on the card
+        xd = x[:, :8].reshape(8, 1, cfg.d_model)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe_lib.moe_block(p, m, xd, capacity=8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        res["decode_block_host_syncs"] = 0
+    del p, p_cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_decode_block_ms(torch, cfg, B):
+    """A decode step's MoE block on the card, bf16 at cfg's width: device
+    ms of the drop-free block on (B, 1, d) replayed from a CUDA graph,
+    against its bytes bound (every padded expert's weights read once)."""
+    from repro_torch.models import moe as moe_lib
+    p = moe_layer0(torch, cfg, seed=52)
+    gen = torch.Generator(device=DEV).manual_seed(53)
+    x = torch.randn(B, 1, cfg.d_model, generator=gen, device=DEV).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        ms = graph_ms(torch, lambda: moe_lib.moe_block(p, cfg.moe, x,
+                                                       capacity=B))
+    shared = 3 * cfg.d_model * cfg.moe.num_shared * cfg.moe.d_shared
+    b_ms, b_by = bound_ms(moe_expert_bytes(cfg) + 2 * shared, 0,
+                          "bfloat16")
+    del p
+    return {"moe_block_ms": ms, "moe_block_bound_ms": b_ms,
+            "moe_block_bound_by": b_by}
+
+
+def moe_paged_hit_f32(torch, ops):
+    """m-parity's third case: a paged engine with a prefix hit, f32 at 2
+    layers, the kernel path (the fused AltUp and the paged decode
+    attention, replayed) against the dense path (both kernel flags off):
+    a donor, then two requests sharing 130 of its rows; greedy tokens
+    identical, chosen-token logprobs within PARITY_TOL, a hit on each
+    side, the kernels launched."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_config(n_layers=M_LAYERS, dtype="float32",
+                     param_dtype="float32")
+    params = init_params(cfg, seed=54, device=DEV)
+    perturb_altup(torch, params, seed=55)
+    gen = torch.Generator().manual_seed(56)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+    donor = ids(200)
+    prompts = [donor[:130] + ids(20), donor[:130] + ids(45)]
+    sp = SamplingParams(max_new=16, logprobs=True)
+    out = {}
+    for side, flag in (("kernel", None), ("dense", False)):
+        c = cfg.replace(ragged_decode_attn=flag, fused_decode_altup=flag)
+        eng = Engine(c, params, max_len=512, n_slots=2, prefill_chunk=64,
+                     paged=True, page_size=16, device=DEV)
+        eng.submit(donor, sampling=SamplingParams(max_new=4))
+        eng.run()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=sp) for p in prompts]
+        done = eng.run()
+        out[side] = ([list(done[r].tokens) for r in rids],
+                     [list(done[r].logprobs) for r in rids],
+                     eng.stats["prefix_hits"], ops.launch_counts())
+        del eng
+    (tk, lk, hk, ck), (td, ld, hd, cd) = out["kernel"], out["dense"]
+    lp_err = max(abs(a - b) for x, y in zip(lk, ld) for a, b in zip(x, y))
+    if tk != td or lp_err > PARITY_TOL["atol"] or min(hk, hd) < 2 or \
+            ck["paged_ragged_decode_attention"] <= 0 or \
+            ck["altup_predict_correct"] <= 0 or any(cd.values()):
+        raise AssertionError(f"m-parity paged hit: tokens {tk} vs {td}, "
+                             f"logprob error {lp_err}, hits {hk}/{hd}, "
+                             f"launches {ck} / {cd}")
+    del params
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg), "prefix_hits": hk,
+            "shared_rows": 130, "tokens_identical": True,
+            "logprob_max_abs_err": lp_err, "tol": PARITY_TOL["atol"],
+            "launches": {k: n for k, n in ck.items() if n}}
+
+
+def moe_grad_f32(torch, ops):
+    """m-grad: loss_fn (aux loss weighted in) and every leaf's gradient,
+    router, experts and shared experts included, on the card against the
+    CPU, full width at 2 layers, f32, TF32 off, remat "none" on both, from
+    one seeded init drawn on the card and copied to the CPU: each leaf
+    within K_GRAD_TOL of its max, loss within K_LOSS_RTOL, aux within
+    M_AUX_RTOL; no kernel launched."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_config(n_layers=M_LAYERS, dtype="float32",
+                     param_dtype="float32", remat="none")
+    dev = init_params(cfg, seed=57, device=DEV).requires_grad_(True)
+    perturb_altup(torch, dev, seed=58)
+    cpu = to_device(dev, "cpu")
+    nb = lm_batch(cfg, M_GRAD_B, M_GRAD_S, seed=2, step=0)
+    nb["mask"][1, :20] = 0.0
+
+    def run(params, device):
+        paths, leaves = zip(*tree_lib.leaves(params))
+        total, m = M.loss_fn(params, cfg, batch_on(torch, nb, device))
+        grads = torch.autograd.grad(total, leaves)
+        vals = {k: float(v.detach()) for k, v in m.items()}
+        vals["total"] = float(total.detach())
+        return vals, dict(zip(paths, grads))
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    c0 = ops.launch_counts()
+    m_dev, g_dev = run(dev, DEV)
+    torch.cuda.synchronize()
+    c1 = ops.launch_counts()
+    ratio, path = worst_leaf(torch, g_dev, g_cpu)
+    moe_ratio, moe_path = worst_leaf(
+        torch, {p: g for p, g in g_dev.items() if "moe" in p},
+        {p: g for p, g in g_cpu.items() if "moe" in p})
+    res = {"cfg": cfg_name(cfg), "B": M_GRAD_B, "S": M_GRAD_S,
+           "leaves": len(g_cpu), "cpu_s": cpu_s,
+           "loss_cuda": m_dev["loss"], "loss_cpu": m_cpu["loss"],
+           "aux_cuda": m_dev["aux_loss"], "aux_cpu": m_cpu["aux_loss"],
+           "loss_rel_err": abs(m_dev["loss"] - m_cpu["loss"]) / m_cpu["loss"],
+           "aux_rel_err": abs(m_dev["aux_loss"] - m_cpu["aux_loss"])
+           / m_cpu["aux_loss"],
+           "total_rel_err": abs(m_dev["total"] - m_cpu["total"])
+           / m_cpu["total"],
+           "worst_leaf": path, "max_err_over_max": ratio,
+           "worst_moe_leaf": moe_path, "moe_max_err_over_max": moe_ratio,
+           "launches_while_differentiating": {
+               k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not (ratio <= K_GRAD_TOL and res["loss_rel_err"] <= K_LOSS_RTOL
+            and res["total_rel_err"] <= K_LOSS_RTOL
+            and res["aux_rel_err"] <= M_AUX_RTOL) or \
+            res["launches_while_differentiating"]:
+        raise AssertionError(f"m-grad: {res}")
+    del dev, cpu, g_cpu, g_dev
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_train(torch, ops, workdir):
+    """m-train: Trainer(device="cuda") on qwen2-moe-a2.7b + AltUp K=2 at
+    full width and 2 layers, bf16 (full depth does not fit: its f32
+    optimizer moments alone would need ~120 GB), the launcher's
+    TrainConfig at M_STEPS steps of M_BATCH x M_SEQ tokens in M_MB
+    microbatches. Gates: finite losses and aux losses, the mean of the
+    last 3 losses below the first; tokens/s, peak memory and MFU from
+    model_flops_per_token (routed experts at top_k / num_experts)."""
+    import numpy as np
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer
+    cfg = moe_config(n_layers=M_LAYERS)
+    tcfg = train_config(M_STEPS, M_BATCH, M_SEQ, M_MB, K_LR,
+                        str(workdir / "m-train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    tr = Trainer(cfg, tcfg, device=DEV)
+    logs = []
+    out = tr.run(log=logs.append)
+    c1 = ops.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    auxes = [h["aux_loss"] for h in out["history"]]
+    med_s = float(np.median(tr.step_times[2:]))
+    tokens = M_BATCH * M_SEQ
+    flops_tok = M.model_flops_per_token(cfg)
+    res = {"cfg": cfg_name(cfg), "steps": out["step"],
+           "tokens_per_step": tokens, "microbatches": M_MB,
+           "first_step_s": tr.step_times[0],
+           "median_step_ms_3_on": 1e3 * med_s,
+           "tokens_per_s": tokens / med_s,
+           "active_params": M.active_param_count(cfg),
+           "model_flops_per_token": flops_tok,
+           "mfu_bf16_dense_peak": flops_tok * tokens / med_s
+           / PEAK_OPS_PER_S["bfloat16"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss_first": losses[0],
+           "loss_last3_mean": sum(losses[-3:]) / 3, "losses": losses,
+           "aux_losses": auxes, "log": logs[-2:],
+           "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not all(math.isfinite(x) for x in losses + auxes) or \
+            not res["loss_last3_mean"] < losses[0] or res["launches"]:
+        raise AssertionError(f"m-train: {res}")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_share(torch, eng):
+    """The MoE FFN's share of a replayed decode step's device time: the
+    engine's most replayed step graph, replayed back to back (CUDA
+    events), and eager calls of the same static-buffer step under
+    torch.profiler with every moe_block in a record_function range (the
+    ranges' kernel time over the step's kernel time, the median of three
+    sessions, with the step's top kernels). The eager calls write the
+    rows their step wrote again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import repro_torch.models.moe as moe_lib
+    gs = eng.graph_stats
+    key = max(gs["replays_by_shape"], key=gs["replays_by_shape"].get)
+    graph = eng._graphs._graphs[key][0]
+    replay_ms = time_ms(torch, graph.replay, iters=20, warmup=3)
+    step = functools.partial(eng._static_step, eng._inputs[1], *key)
+    real = moe_lib.moe_block
+
+    def ranged(*a, **kw):
+        with record_function("moe_ffn"):
+            return real(*a, **kw)
+    with torch.no_grad():
+        step()
+    torch.cuda.synchronize()
+    # three profiler sessions (late in a process a session now and then
+    # loses or gains records, profiled()): the median share is kept
+    sessions = []
+    moe_lib.moe_block = ranged
+    try:
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1)
+                with torch.no_grad():
+                    step()
+                torch.cuda.synchronize()
+            # the ranges also appear on the device's timeline, spanning
+            # the idle time between an eager step's launches: only
+            # kernels are summed
+            kern = sorted((e for e in _device_kernels(prof)
+                           if MARKER not in e.key and e.key != "moe_ffn"),
+                          key=lambda e: -e.self_device_time_total)
+            dev_us = sum(e.self_device_time_total for e in kern)
+            # the host-side ranges: their device time sums the kernels of
+            # the ops inside them
+            rng = [e for e in prof.key_averages() if e.key == "moe_ffn"
+                   and e.device_type == DeviceType.CPU]
+            calls = sum(e.count for e in rng)
+            if not dev_us or calls != eng.cfg.n_layers:
+                raise AssertionError(f"m-serve profile: {dev_us} us of "
+                                     f"kernels, {calls} moe_ffn ranges")
+            moe_us = sum(e.device_time_total for e in rng)
+            sessions.append((moe_us / dev_us, moe_us, dev_us, kern))
+    finally:
+        moe_lib.moe_block = real
+    share, moe_us, dev_us, kern = sorted(sessions, key=lambda t: t[0])[1]
+    return {"replayed_shape": list(key), "device_ms_per_replay": replay_ms,
+            "eager_step_kernel_ms": dev_us / 1e3,
+            "eager_step_kernels": sum(e.count for e in kern),
+            "moe_ffn_kernel_ms": moe_us / 1e3,
+            "moe_ffn_share_of_step_kernels": share,
+            "moe_ffn_share_sessions": [t[0] for t in sessions],
+            "moe_ffn_ranges": eng.cfg.n_layers,
+            "top_kernels": [[e.key[:70], e.count,
+                             e.self_device_time_total / 1e3]
+                            for e in kern[:8]]}
+
+
+def moe_serve(torch, ops):
+    """m-serve: (e)'s traffic (8 requests, prompts of 32-512 tokens, 64
+    new) on qwen2-moe-a2.7b + AltUp K=2 in bf16 through
+    Engine(n_slots=8, max_len=2048, prefill_chunk=64,
+    prefix_cache=False): the eager twin and a replayed run held against
+    it (hold_replay) at M_TWIN_LAYERS, then the replayed run at full
+    depth with serve_bf16's gates (24 AltUp launches a step, 24 ragged a
+    decode step) and its numbers, the step graph's device ms and the MoE
+    FFN's share of it. Returns (twin line, full-depth line)."""
+    from repro_torch.serve.engine import kv_bucket
+    twin_cfg = moe_config(n_layers=M_TWIN_LAYERS)
+    res_t, trace_t, _ = serve_bf16(torch, ops, cfg=twin_cfg)
+    res_tr, trace_tr, _ = serve_bf16(torch, ops, cfg=twin_cfg, replay=True)
+    held = hold_replay({**res_t, **trace_t}, {**res_tr, **trace_tr},
+                       res_tr["decode_steps"])
+    twin = {"eager": res_t, "replayed": res_tr, **held}
+    cfg = moe_config()
+
+    def after(eng, params):
+        extra = moe_share(torch, eng)
+        extra.update(moe_decode_block_ms(torch, cfg, eng.n_slots))
+        e_bytes = moe_expert_bytes(cfg) * cfg.n_layers
+        extra.update({"expert_bytes_per_step": e_bytes,
+                      "expert_bytes_bound_ms_per_step":
+                          bound_ms(e_bytes, 0, "bfloat16")[0],
+                      "moe_block_ms_x_layers_over_replay":
+                          extra["moe_block_ms"] * cfg.n_layers
+                          / extra["device_ms_per_replay"]})
+        return extra
+    res, _, _ = serve_bf16(torch, ops, cfg=cfg, replay=True, after=after)
+    lens = [n + E_NEW // 2 for n in E_PROMPTS]
+    res["kv_bucket_halfway"] = kv_bucket(max(lens), 32, 2048)
+    res["altup_launches_per_step"] = (
+        res["launches"]["altup_predict_correct"]
+        - res["graph"]["warmup_launches"]["altup_predict_correct"]) \
+        / res["steps"]
+    return twin, res
+
+
+def moe_paged_twin(torch, ops):
+    """m-serve's paged run: M_TWIN_LAYERS layers, bf16, a donor serves a
+    shared prompt of M_SYSTEM tokens, then 8 requests extend it, through
+    Engine(paged=True, pages of 16) and through the contiguous engine,
+    both replayed, the prefix cache on in both: tokens and hits
+    identical (the same steps run on the same rows), pages aliased, the
+    paged decode attention launched."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = moe_config(n_layers=M_TWIN_LAYERS)
+    params = init_params(cfg, seed=59, device=DEV)
+    perturb_altup(torch, params, seed=60)
+    gen = torch.Generator().manual_seed(61)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+    system = ids(M_SYSTEM)
+    prompts = [system + ids(n) for n in M_TAILS]
+    out = {}
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=16) if paged else {}
+        eng = Engine(cfg, params, max_len=1024, n_slots=8, prefill_chunk=64,
+                     device=DEV, **kw)
+        eng.submit(system, sampling=SamplingParams(max_new=1))
+        eng.run()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=M_PAGED_NEW))
+                for p in prompts]
+        done = eng.run()
+        out[paged] = ([list(done[r].tokens) for r in rids],
+                      eng.stats["prefix_hits"], eng.paged_stats,
+                      ops.launch_counts(), eng.graph_stats["replays"])
+        del eng
+    (tc, hc, _, cc, rc), (tp, hp, ps, cp, rp) = out[False], out[True]
+    if tc != tp or hc != hp or hp < len(prompts) or \
+            ps["alias_acquisitions"] <= 0 or \
+            cp["paged_ragged_decode_attention"] <= 0 or rp <= 0:
+        raise AssertionError(f"m-serve paged: tokens equal {tc == tp}, "
+                             f"hits {hc}/{hp}, {ps}, {cp}, replays {rp}")
+    del params
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg), "system_prompt": M_SYSTEM,
+            "tails": list(M_TAILS), "new_tokens": M_PAGED_NEW,
+            "tokens_identical_to_contiguous": True, "prefix_hits": hp,
+            "alias_acquisitions": ps["alias_acquisitions"],
+            "replays": rp,
+            "launches": {k: n for k, n in cp.items() if n}}
+
+
+def check_moe_kernels(torch, ops, ref):
+    """Both kernels of the MoE served path at m-serve's shapes, bf16:
+    the AltUp kernel at its decode step (8 tokens of d 2048) and the
+    decode attention halfway through it (16 kv heads of 128, rep 1).
+    Returns {"altup": ..., "ragged": ...}."""
+    from repro_torch.serve.engine import kv_bucket
+    lens = [n + E_NEW // 2 for n in E_PROMPTS]
+    return {"altup": check_altup(torch, ops, ref, torch.bfloat16, 8,
+                                 d=2048),
+            "ragged": check_ragged(torch, ops, ref, torch.bfloat16, lens,
+                                   Hk=16, rep=1, Dh=128,
+                                   T=kv_bucket(max(lens), 32, 2048))}
+
+
+def moe_phases(torch, ops, workdir):
+    """The m phases, each line with its seconds; returns m-serve's
+    full-depth result."""
+    t_m = time.perf_counter()
+    t0 = time.perf_counter()
+    line("m-parity", case="moe_block", **moe_block_parity(torch),
+         seconds=time.perf_counter() - t0)
+    base = functools.partial(moe_config, n_layers=M_LAYERS)
+    for case, kind in (("contiguous-and-paged", None), ("int8", "int8")):
+        t0 = time.perf_counter()
+        r = parity_f32(torch, kind, base=base)
+        line("m-parity", case=case, seconds=time.perf_counter() - t0, **r)
+    t0 = time.perf_counter()
+    line("m-parity", case="paged-prefix-hit",
+         **moe_paged_hit_f32(torch, ops), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("m-grad", **moe_grad_f32(torch, ops),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("m-train", **moe_train(torch, ops, workdir),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    twin, res = moe_serve(torch, ops)
+    line("m-serve-twin", twin_layers=M_TWIN_LAYERS, **twin)
+    line("m-serve-graph", seconds=time.perf_counter() - t0, **res)
+    t0 = time.perf_counter()
+    line("m-serve-paged", **moe_paged_twin(torch, ops),
+         seconds=time.perf_counter() - t0)
+    line("m-phases", seconds=time.perf_counter() - t_m)
+    return res
+
+
+def rwkv_paged_bf16(torch, ops):
+    """i-paged: rwkv6-1.6b + AltUp K=2 in bf16 through Engine(paged=True,
+    pages of 16) and the contiguous engine, both replayed, 4 requests
+    (prompts of 16-64 tokens, 16 new) through 4 slots: tokens identical,
+    no prefix hit on the paged side (a recurrent plan reuses no pages),
+    every step replayed, the WKV kernel launched."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = rwkv_config()
+    params = init_params(cfg, seed=3, device=DEV)
+    perturb_rwkv(torch, params, cfg, seed=23)
+    gen = torch.Generator().manual_seed(24)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (16, 33, 48, 64)]
+    out = {}
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=16) if paged else {}
+        eng = Engine(cfg, params, max_len=128, n_slots=4, device=DEV, **kw)
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=16))
+                for p in prompts]
+        done = eng.run()
+        out[paged] = ([list(done[r].tokens) for r in rids],
+                      dict(eng.stats), eng.graph_stats, ops.launch_counts())
+        del eng
+    (tc, sc, gc, cc), (tp, sp, gp, cp) = out[False], out[True]
+    if tc != tp or sp["prefix_hits"] != 0 or \
+            gp["replays"] != sp["steps"] or cp["rwkv6_wkv"] <= 0:
+        raise AssertionError(f"i-paged: tokens equal {tc == tp}, stats "
+                             f"{sp}, graphs {gp}, launches {cp}")
+    del params
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg), "requests": len(prompts),
+            "prompt_lens": [len(p) for p in prompts], "new_tokens": 16,
+            "tokens_identical_to_contiguous": True, "steps": sp["steps"],
+            "replays": gp["replays"], "captures": gp["captures"],
+            "launches": {k: n for k, n in cp.items() if n}}
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -3894,6 +4478,10 @@ def main(argv) -> int:
     for tag, case, key, r in check_gemma_kernels(torch, ops, ref):
         j_kern[key] = r
         line(tag, case=case, **r)
+    # qwen2-moe-a2.7b's served shapes (m)
+    m_kern = check_moe_kernels(torch, ops, ref)
+    line("c-altup", case="m", **m_kern["altup"])
+    line("c-ragged", case="m", **m_kern["ragged"])
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -4003,6 +4591,11 @@ def main(argv) -> int:
     # (i) rwkv6-1.6b: bf16 serving through Engine with prefix reuse
     res_i, res_i_r = serve_pair(serve_rwkv_bf16, "i-rwkv-serve", "i-graph",
                                 "f-profile-rwkv")
+    # (i-paged) the same plan through a page pool: its recurrent state
+    # stays per slot, replayed, tokens as the contiguous engine's
+    t0 = time.perf_counter()
+    line("i-paged", **rwkv_paged_bf16(torch, ops),
+         seconds=time.perf_counter() - t0)
     # (j) gemma3-4b + AltUp K=2, sliding windows over ring caches:
     # full-width f32 parity across the wrap, then bf16 serving through
     # Engine, eager and replayed (every step of a ring plan is S=1, so
@@ -4075,6 +4668,13 @@ def main(argv) -> int:
         del trainer
         torch.cuda.empty_cache()
     line("k-phases", seconds=time.perf_counter() - t_k)
+
+    # (m) qwen2-moe-a2.7b + AltUp K=2, the MoE family: moe_block and the
+    # kernel paths against the CPU and the dense path in f32, gradients
+    # against the CPU, a few training steps, then the served path at full
+    # depth, replayed, beside an eager twin and a paged run
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        res_m = moe_phases(torch, ops, Path(work))
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
@@ -4158,6 +4758,18 @@ def main(argv) -> int:
              "replaces": "src/repro/kernels/" + replaces,
              "launches": res_run["launches"][counter],
              **{k: j_kern[case][k] for k in keys}})
+    # the same kernels at qwen2-moe-a2.7b's shapes, with m-serve's launches
+    for name, src, replaces, key in (
+            ("altup_predict_correct", "altup_fused.cu", "altup_fused.py:39",
+             "altup"),
+            ("ragged_decode_attention", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:210", "ragged")):
+        kernels.append(
+            {"name": name + "_qwen2_moe", "route": "cuda",
+             "source": "src/repro_torch/csrc/" + src,
+             "replaces": "src/repro/kernels/" + replaces,
+             "launches": res_m["launches"][name],
+             **{k: m_kern[key][k] for k in keys}})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ from repro_torch.config import AltUpConfig, ModelConfig
 _ARCH_MODULES = {
     "gemma3-4b": "gemma3_4b",
     "gemma3-12b": "gemma3_12b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-0.6b": "qwen3_0_6b",
     "rwkv6-1.6b": "rwkv6_1_6b",
 }

@@ -1,7 +1,8 @@
 """Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the attention and RWKV-6 parts of `repro/models/decode.py`. One
-cache dict per segment, stacked over the segment's layers:
+Port of the attention, MoE and RWKV-6 parts of `repro/models/decode.py`.
+An MoE layer's FFN routes drop-free (capacity = the step's B·S tokens).
+One cache dict per segment, stacked over the segment's layers:
 
   attn : k, v  (n, B, T + 1, Hk, Dh)  contiguous slot caches, post-RoPE
                keys; row T of each slot is its SINK row (below). A
@@ -13,7 +14,8 @@ cache dict per segment, stacked over the segment's layers:
   attn : k_scale, v_scale  (n, B, T + 1, Hk) | (n, R + page, Hk) f32,
                beside k, v when cfg.kv_cache_dtype is int8 or fp8
   rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
-               tails shift_tm, shift_cm (n, B, d) in the activation dtype
+               tails shift_tm, shift_cm (n, B, d) in the activation dtype,
+               per slot in contiguous and paged caches alike
 
 Ring caches, as in the reference: position q lands in row q % Tc, so a
 slot that passed Tc holds exactly the window's last Tc keys, in rotated
@@ -82,6 +84,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
 from repro_torch.kernels import quant, resolve_kernel_flag
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import (Segment, act_dtype, embed_tokens,
                                             layer_plan, layer_slice,
                                             rwkv_layer, unembed)
@@ -129,20 +132,25 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
-        n = seg.n
         if seg.kind == "rwkv":
-            d, rdh = cfg.d_model, cfg.rwkv.head_dim
-            ad = dtype or act_dtype(cfg)
-            caches[f"seg{si}"] = {
-                "wkv": torch.zeros((n, B, d // rdh, rdh, rdh),
-                                   dtype=torch.float32, device=dev),
-                "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
-                "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
+            caches[f"seg{si}"] = _rwkv_leaves(cfg, seg.n, B, dtype, dev)
             continue
         Tc = min(T, seg.window) if seg.window > 0 else T
-        caches[f"seg{si}"] = _attn_leaves(spec, dtype, (n, B, Tc + 1, hk),
+        caches[f"seg{si}"] = _attn_leaves(spec, dtype, (seg.n, B, Tc + 1, hk),
                                           dh, dev)
     return caches
+
+
+def _rwkv_leaves(cfg: ModelConfig, n: int, B: int, dtype, dev):
+    """Zero per-slot recurrent state of an rwkv segment: wkv (n, B, H,
+    Dh, Dh) f32 and the token-shift tails (n, B, d) in `dtype` (default
+    the activation dtype)."""
+    d, rdh = cfg.d_model, cfg.rwkv.head_dim
+    ad = dtype or act_dtype(cfg)
+    return {"wkv": torch.zeros((n, B, d // rdh, rdh, rdh),
+                               dtype=torch.float32, device=dev),
+            "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
+            "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
 
 
 def _attn_leaves(spec, dtype, rows, dh: int, dev):
@@ -169,8 +177,9 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     bt[b, q // page] * page + q % page; scales ride the same rows. A ring
     segment uses the first min(T, W) logical rows of each slot (its
     capacity, decode_segment), so one layout serves both kinds of
-    segment. B and T size nothing here (they would size per-slot
-    recurrent state, which the port does not serve paged yet).
+    segment. Recurrent (rwkv) state stays per slot, as init_cache's
+    (n, B, ...): it is O(1) a request, not O(T), so B sizes it (and T
+    nothing).
 
     Deviation from the reference: one SINK page follows the R real rows.
     No one allocates or reads it. The reference drops a padded or idle
@@ -178,20 +187,15 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     PyTorch indexing has no drop mode, and a shared pool has no per-slot
     sink row (an idle slot's all-zero table row would aim into page 0, a
     live page of another request). Here row R is the sink's first row, so
-    such writes land where nothing is read.
-
-    Recurrent (rwkv) plans have no paged layout in the port yet: it
-    arrives with the paged recurrent serving item of ROADMAP A8."""
-    if any(seg.kind != "attn" for seg in layer_plan(cfg)):
-        raise NotImplementedError(
-            "paged caches for recurrent (rwkv) segments are not ported "
-            "yet: they arrive with ROADMAP A8")
+    such writes land where nothing is read."""
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     rows = (n_pages + 1) * page
-    return {f"seg{si}": _attn_leaves(spec, dtype, (seg.n, rows, hk), dh,
-                                     dev)
+    return {f"seg{si}": (_rwkv_leaves(cfg, seg.n, B, dtype, dev)
+                         if seg.kind == "rwkv" else
+                         _attn_leaves(spec, dtype, (seg.n, rows, hk), dh,
+                                      dev))
             for si, seg in enumerate(layer_plan(cfg))}
 
 
@@ -366,9 +370,20 @@ def decode_positions(pos, S: int, Tc: int, ring: bool, *, n_valid=None,
 
 
 def _decode_ffn(p_l, cfg: ModelConfig, x):
-    """Dense FFN half of a decode layer (B*S tokens)."""
+    """Dense-or-MoE FFN half of a decode layer (B*S tokens; S=1 decode
+    ticks, S=chunk during chunked prefill). MoE capacity is pinned to the
+    step's token count (drop-free), as in the reference: a token's
+    routing does not depend on the other requests in the batch, so
+    continuous batching gives per-request decode's tokens and padded
+    chunk tokens cannot evict real ones."""
     h = L.rms_norm(x, p_l["ln_ffn"], cfg.logical_norm_eps)
-    return x + L.ffn_block(p_l["ffn"], h, cfg.ffn_activation)
+    if "moe" in p_l:
+        f, _ = moe_lib.moe_block(p_l["moe"], cfg.moe, h,
+                                 activation=cfg.ffn_activation,
+                                 capacity=h.shape[0] * h.shape[1])
+    else:
+        f = L.ffn_block(p_l["ffn"], h, cfg.ffn_activation)
+    return x + f
 
 
 def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,

@@ -1,7 +1,7 @@
 """Model-level API of the port: the loss and parameter accounting. Port of
 `repro/models/model.py`.
 
-`loss_fn` runs `forward(..., train=True)`, which calls no kernel: the
+`loss_fn` runs `forward_aux(..., train=True)`, which calls no kernel: the
 port's kernels, like the reference's Pallas kernels, have no backward
 pass, and the reference trains through its einsums and jnp attention.
 """
@@ -12,7 +12,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.transformer import forward, init_tree, padded_vocab
+from repro_torch.models.transformer import (forward_aux, init_tree,
+                                            padded_vocab)
 from repro_torch.tree import leaves
 
 
@@ -80,15 +81,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {"tokens", "labels", optional "mask"} on the params' device;
     labels are next-token targets aligned with tokens. Returns (total,
-    {"loss", "aux_loss", "accuracy"}), 0-d f32 tensors. The ported
-    families have no auxiliary loss (MoE's arrives with A9): total is
-    the loss and aux_loss 0."""
+    {"loss", "aux_loss", "accuracy"}), 0-d f32 tensors: total = loss +
+    moe.aux_loss_weight · aux_loss, the MoE load-balance loss summed over
+    layers (0 for the families without experts)."""
     for key in ("extra_embeds", "encoder_frames"):
         if batch.get(key) is not None:
             raise NotImplementedError(
                 f"batch[{key!r}] belongs to the VLM and encoder-decoder "
                 f"families, which arrive with ROADMAP A9")
-    logits = forward(params, cfg, batch["tokens"], train=True)
+    logits, aux = forward_aux(params, cfg, batch["tokens"], train=True)
     V, Vp = cfg.vocab_size, padded_vocab(cfg)
     if Vp != V:
         # mask out the vocab padding
@@ -96,8 +97,9 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
         logits = logits.masked_fill(pad, -1e30)
     loss, acc = cross_entropy(logits, batch["labels"], batch.get("mask"),
                               fused=cfg.fused_xent)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "aux_loss": aux, "accuracy": acc}
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+    total = loss + aux_w * aux
+    return total, {"loss": loss, "aux_loss": aux, "accuracy": acc}
 
 
 # --------------------------------------------------------------------------
@@ -125,14 +127,19 @@ def model_flops_per_token(cfg: ModelConfig, kind: str = "train") -> float:
 
 def active_param_count(cfg: ModelConfig) -> float:
     """Active (per-token) parameter count: the embedding counts only as
-    the tied output projection (its lookup is not a matmul). Shapes come
-    from init_tree on the meta device, so a full-size config allocates
-    nothing."""
+    the tied output projection (its lookup is not a matmul), and an
+    expert leaf (w1, w2, w3 under "moe") counts top_k / num_experts of
+    its size. As in the reference, that size is the padded leaf's and
+    the shared experts' leaves, also named w1-w3 under "moe", are scaled
+    too. Shapes come from init_tree on the meta device, so a full-size
+    config allocates nothing."""
     shapes = init_tree(cfg, None, torch.device("meta"))
     total = 0.0
     for path, leaf in leaves(shapes):
         n = float(leaf.numel())
         if "embed" in path and not cfg.tie_embeddings:
             n = 0.0
+        if "moe" in path and path[-1] in ("w1", "w2", "w3"):
+            n = n * cfg.moe.top_k / cfg.moe.num_experts
         total += n
     return total

@@ -9,14 +9,17 @@ reference scans.
 
 Ported: `family="dense"`, with full attention or sliding windows (one
 windowed segment, or gemma3's alternating local and global segments when
-`global_every` is set), and `family="rwkv6"` (one segment of RWKV-6
-layers, `models/rwkv.py`); other families raise NotImplementedError
-naming the ROADMAP item that brings them.
+`global_every` is set), `family="moe"` (one segment of attention layers
+whose FFN is the mixture of experts of `models/moe.py`) and
+`family="rwkv6"` (one segment of RWKV-6 layers, `models/rwkv.py`); other
+families raise NotImplementedError naming the ROADMAP item that brings
+them.
 
 `forward` has two modes: the decode path's oracle (no autograd; the
 RWKV recurrence may run through its kernel) and, with `train=True`, the
 differentiable forward of `models/model.loss_fn`, which runs no kernel
 and recomputes each layer in the backward pass as `cfg.remat` says.
+`forward_aux` returns the MoE load-balance loss beside the logits.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 
 VOCAB_PAD = 256
@@ -112,7 +116,7 @@ def layer_slice(tree, i: int) -> Dict:
 class Segment:
     kind: str            # attn | rwkv
     n: int               # number of layers in this segment
-    ffn: str             # dense | none (rwkv carries its channel mix)
+    ffn: str             # dense | moe | none (rwkv carries its channel mix)
     layer_offset: int    # zero-based global index of the first layer
     window: int = 0      # static attention window (0 = full)
 
@@ -120,11 +124,14 @@ class Segment:
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     if cfg.family == "rwkv6":
         return [Segment("rwkv", cfg.n_layers, "none", 0)]
+    if cfg.family == "moe":
+        return [Segment("attn", cfg.n_layers, "moe", 0,
+                        window=cfg.window_size)]
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the port serves "
-            f"family='dense' and 'rwkv6'; the other families arrive with "
-            f"ROADMAP A9")
+            f"family='dense', 'moe' and 'rwkv6'; the other families arrive "
+            f"with ROADMAP A9")
     if cfg.window_size > 0 and cfg.global_every > 0:
         # gemma3's 5:1 local:global pattern -> alternating static segments
         segs: List[Segment] = []
@@ -147,39 +154,55 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
 # init
 # --------------------------------------------------------------------------
 
-def init_segment(seg: Segment, cfg: ModelConfig, generator,
-                 device) -> Dict:
-    """Stacked (n, ...) parameters of one segment."""
+def init_layer(seg: Segment, cfg: ModelConfig, generator, device) -> Dict:
+    """One layer's parameters of a segment, in the reference's leaf
+    order."""
     pd = prm_dtype(cfg)
     d = cfg.d_model
-    layers = []
-    for _ in range(seg.n):
-        if seg.kind == "rwkv":
-            p: Dict = {
-                "ln_tm": L.init_rms_norm(d, pd, device),
-                "ln_cm": L.init_rms_norm(d, pd, device),
-                "rwkv": rwkv_lib.init_rwkv_block(cfg, pd, generator, device),
-            }
+    if seg.kind == "rwkv":
+        p: Dict = {
+            "ln_tm": L.init_rms_norm(d, pd, device),
+            "ln_cm": L.init_rms_norm(d, pd, device),
+            "rwkv": rwkv_lib.init_rwkv_block(cfg, pd, generator, device),
+        }
+    else:
+        p = {"ln_attn": L.init_rms_norm(d, pd, device),
+             "attn": L.init_attention(cfg, pd, generator, device),
+             "ln_ffn": L.init_rms_norm(d, pd, device)}
+        if seg.ffn == "moe":
+            p["moe"] = moe_lib.init_moe(d, cfg.moe, pd, generator, device)
         else:
-            p = {
-                "ln_attn": L.init_rms_norm(d, pd, device),
-                "attn": L.init_attention(cfg, pd, generator, device),
-                "ln_ffn": L.init_rms_norm(d, pd, device),
-                "ffn": L.init_ffn(d, cfg.d_ff, pd, generator, device),
-            }
-        if cfg.altup.enabled:
-            K = cfg.altup.K
-            p["altup_p"] = torch.eye(K, dtype=torch.float32, device=device)
-            p["altup_g"] = torch.full((K,), cfg.altup.g_init,
-                                      dtype=torch.float32, device=device)
-        layers.append(p)
+            p["ffn"] = L.init_ffn(d, cfg.d_ff, pd, generator, device)
+    if cfg.altup.enabled:
+        K = cfg.altup.K
+        p["altup_p"] = torch.eye(K, dtype=torch.float32, device=device)
+        p["altup_g"] = torch.full((K,), cfg.altup.g_init,
+                                  dtype=torch.float32, device=device)
+    return p
 
-    def stack(trees):
-        return {k: (stack([t[k] for t in trees])
-                    if isinstance(trees[0][k], dict)
-                    else torch.stack([t[k] for t in trees]))
-                for k in trees[0]}
-    return stack(layers)
+
+def init_segment(seg: Segment, cfg: ModelConfig, generator,
+                 device) -> Dict:
+    """Stacked (n, ...) parameters of one segment. Each stacked leaf is
+    allocated once and layer i's draws, made in the layer-by-layer order
+    of the reference's stack, land in slice i: the segment is held once,
+    beside one layer's draws (at qwen2-moe-a2.7b's width, a segment's
+    experts are 27 GB in bf16)."""
+    stacked: Dict = {}
+
+    def fill(dst: Dict, layer: Dict, i: int) -> None:
+        for name, val in layer.items():
+            if isinstance(val, dict):
+                fill(dst.setdefault(name, {}), val, i)
+                continue
+            if name not in dst:
+                dst[name] = torch.empty((seg.n,) + tuple(val.shape),
+                                        dtype=val.dtype, device=val.device)
+            dst[name][i] = val
+
+    for i in range(seg.n):
+        fill(stacked, init_layer(seg, cfg, generator, device), i)
+    return stacked
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -223,13 +246,21 @@ def init_tree(cfg: ModelConfig, gen, dev) -> Dict:
 # --------------------------------------------------------------------------
 
 def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos):
-    """One pre-norm transformer layer on the ACTIVE d-wide block."""
+    """One pre-norm transformer layer on the ACTIVE d-wide block, its FFN
+    dense or a mixture of experts (the layer holds "moe"). Returns (x,
+    the layer's aux loss: 0-d f32, zero for a dense FFN)."""
     h = L.rms_norm(x, p["ln_attn"], cfg.logical_norm_eps)
     a, _ = L.attention_block(p["attn"], cfg, h, window=window, q_pos=q_pos,
                              k_pos=k_pos)
     x = x + a
     h = L.rms_norm(x, p["ln_ffn"], cfg.logical_norm_eps)
-    return x + L.ffn_block(p["ffn"], h, cfg.ffn_activation)
+    if "moe" in p:
+        f, aux = moe_lib.moe_block(p["moe"], cfg.moe, h,
+                                   activation=cfg.ffn_activation)
+    else:
+        f = L.ffn_block(p["ffn"], h, cfg.ffn_activation)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux
 
 
 def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
@@ -295,14 +326,19 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
                   remat: str = "none"):
     """Run a full-sequence segment. x: (B, S, [K,] d). An rwkv segment
     starts every layer's recurrence from a zero state. remat: the policy
-    around each layer body, AltUp included (remat_wrap)."""
+    around each layer body, AltUp included (remat_wrap). Returns (x, the
+    segment's aux loss summed over its layers; under AltUp a layer's aux
+    is that of the one block it computed)."""
     K = cfg.altup.K
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(seg.n):
         p_l = layer_slice(p_seg, i)
 
         def layer_fn(xa, p_l=p_l):
             if seg.kind == "rwkv":
-                return rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
+                out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
+                return out, torch.zeros((), dtype=torch.float32,
+                                        device=xa.device)
             return attn_ffn_layer(p_l, cfg, xa, window=seg.window,
                                   q_pos=q_pos, k_pos=k_pos)
 
@@ -310,21 +346,31 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
             sel = alt.block_selector(seg.layer_offset + i, K,
                                      cfg.altup.selection, x.device)
 
+            # the aux leaves the body as an output: under remat a list
+            # outside it would be appended again when the layer is
+            # recomputed
             def body(xw, p_l=p_l, sel=sel, layer_fn=layer_fn):
-                return alt.altup_layer(layer_fn, xw, sel, p_l["altup_p"],
-                                       p_l["altup_g"])
+                box = []
+
+                def active(xa):
+                    out, aux = layer_fn(xa)
+                    box.append(aux)
+                    return out
+                out = alt.altup_layer(active, xw, sel, p_l["altup_p"],
+                                      p_l["altup_g"])
+                return out, box[0]
         else:
             body = layer_fn
-        x = remat_wrap(body, remat)(x)
-    return x
+        x, aux = remat_wrap(body, remat)(x)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def forward(params, cfg: ModelConfig, tokens, *,
             wkv_kernel: Optional[bool] = None,
             train: bool = False) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V_pad). (The reference also
-    returns an MoE aux loss, which the dense and rwkv6 families do not
-    have.)
+    """Full-sequence forward -> logits (B, S, V_pad); forward_aux also
+    returns the MoE aux loss, as the reference's forward does.
 
     train=False: the oracle the decode path is held against, run without
     autograd; wkv_kernel sends the RWKV-6 recurrence through the kernel
@@ -334,7 +380,16 @@ def forward(params, cfg: ModelConfig, tokens, *,
     sdpa and the chunked WKV form, as the reference's training forward
     does; each layer is recomputed in the backward pass as `cfg.remat`
     says ("none", "full" or "dots"), which leaves the gradients as they
-    are."""
+    are. An MoE layer routes with capacity_for's drops, as the
+    reference's forward does (decode is drop-free)."""
+    return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
+                       train=train)[0]
+
+
+def forward_aux(params, cfg: ModelConfig, tokens, *,
+                wkv_kernel: Optional[bool] = None, train: bool = False):
+    """forward's (logits (B, S, V_pad), aux loss 0-d f32: the MoE
+    load-balance loss summed over layers, 0 for the other families)."""
     if not train:
         with torch.no_grad():
             return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,
@@ -349,10 +404,13 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat):
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
-        x = apply_segment(params[f"seg{si}"], seg, cfg, x, q_pos=q_pos,
-                          k_pos=q_pos, wkv_kernel=wkv_kernel, remat=remat)
-    return unembed(params, cfg, x)
+        x, aux = apply_segment(params[f"seg{si}"], seg, cfg, x, q_pos=q_pos,
+                               k_pos=q_pos, wkv_kernel=wkv_kernel,
+                               remat=remat)
+        aux_total = aux_total + aux
+    return unembed(params, cfg, x), aux_total
 
 
 def unembed(params, cfg: ModelConfig, x) -> torch.Tensor:

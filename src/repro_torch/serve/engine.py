@@ -48,12 +48,14 @@ Recurrent plans (rwkv segments), as in the reference: prefill feeds one
 token per step (the state advances token by token), admission zeroes the
 slot's state (models/decode.reset_slot) unless the slot is its own donor,
 and a prefix hit is valid only when the donor stopped at the prefix
-boundary (depth == p), its state then copied with the rows. They have no
-paged layout yet (ROADMAP A8). Deviation from the reference: every step
-runs all slots, idle ones on a dummy token, and a retained donor's state
-would drift with them; the reference lets it drift, so a hit on a donor
-retired a few steps earlier serves other tokens than a cold prefill. The
-port saves the retained slots' state before each step and restores it
+boundary (depth == p), its state then copied with the rows. Paged, the
+state stays per slot beside the pool, and recurrent plans get no prefix
+reuse: a retained entry owns only pages, its slot's state recycled.
+Deviation from the reference, contiguous: every step runs all slots,
+idle ones on a dummy token, and a retained donor's state would drift
+with them; the reference lets it drift, so a hit on a donor retired a
+few steps earlier serves other tokens than a cold prefill. The port
+saves the retained slots' state before each step and restores it
 after.
 
 Seeded sampling, as in the reference: a request's base key is
@@ -351,10 +353,10 @@ class Engine:
     capacity, n_slots full-length requests; smaller over-commits the
     slots, admission-limited); host_spill_pages: host tier for evicted
     prefix pages (0 = off). Recurrent and sliding-window plans prefill
-    one token per step whatever prefill_chunk says; recurrent plans take
-    no paged=True yet. speculative: True or a SpecConfig turns on
-    self-speculative decoding (serve/speculative.py); recurrent plans
-    decode normally whatever it says. Steps (graph captures included) and
+    one token per step whatever prefill_chunk says. speculative: True or
+    a SpecConfig turns on self-speculative decoding
+    (serve/speculative.py); recurrent plans decode normally whatever it
+    says. Steps (graph captures included) and
     generate() run without autograd, so trainable parameters (a
     Trainer's) serve as they are."""
 
@@ -377,10 +379,6 @@ class Engine:
         self._ring_caps = tuple(min(max_len, s.window) for s in plan
                                 if s.kind == "attn" and s.window > 0)
         self._quantized = kv_quant_spec(cfg).quantized
-        if paged and self._has_recurrent:
-            raise NotImplementedError(
-                "paged serving of recurrent (rwkv) plans is not ported yet: "
-                "it arrives with ROADMAP A8")
         self.device = resolve_device(device)
         emb = params["embed"]
         if emb.device.type != self.device.type:
@@ -518,22 +516,23 @@ class Engine:
 
     @staticmethod
     def _prefix_usable_len(p: int, depth: int, *, recurrent: bool,
-                           ring_caps: Tuple[int, ...]) -> int:
+                           ring_caps: Tuple[int, ...],
+                           paged: bool = False) -> int:
         """Model-kind validity of a prefix match, contiguous or paged
         (scheduler hook, bound to the plan's `recurrent` flag and ring
-        capacities; p is already capped to min(LCP, donor depth,
-        prompt_len - 1)).
+        capacities and the layout; p is already capped to min(LCP, donor
+        depth, prompt_len - 1)).
 
         * recurrent segments: the donor's state reflects ALL its `depth`
           fed tokens, so reuse is exact only when it stopped at the
-          prefix boundary (depth == p).
+          prefix boundary (depth == p). Paged, never: a retained entry
+          owns only pages, and its slot's state was recycled at
+          retirement.
         * ring segments (capacity W): a donor that decoded past the
           prefix overwrote ring rows the prefix still needs once it
           wraps; rows [max(0, p - W), p) survive iff depth <= max(p, W).
-
-        The reference gives recurrent plans no paged reuse; the port has
-        no paged recurrent plans, so one rule serves both layouts."""
-        if p <= 0 or (recurrent and depth != p):
+        """
+        if p <= 0 or (recurrent and (paged or depth != p)):
             return 0
         if any(depth > max(p, W) for W in ring_caps):
             return 0
@@ -544,7 +543,8 @@ class Engine:
             return
         usable = functools.partial(self._prefix_usable_len,
                                    recurrent=self._has_recurrent,
-                                   ring_caps=self._ring_caps)
+                                   ring_caps=self._ring_caps,
+                                   paged=self._paged)
         if self._paged:
             P = self._page_size
             npages_max = -(-self.max_len // P)
@@ -587,6 +587,10 @@ class Engine:
                 # Fresh pages' scale rows are zeroed before any copy or
                 # restore lands in them
                 acts = st.paged or {}
+                # the slot's recurrent state carries the previous request
+                # (recurrent plans get no paged prefix hit)
+                if self._has_recurrent:
+                    reset_slot(self._caches, st.slot)
                 if self._quantized and acts.get("fresh"):
                     reset_pages(self._caches, acts["fresh"],
                                 page=self._page_size)
@@ -724,10 +728,12 @@ class Engine:
         names = inputs.fill_sampling(sparams, any_sampled)
         t0 = serve_clock()
         inputs.upload("tokens", "pos", "nval", *names)
-        # retained recurrent donors keep the state they retired with
+        # retained recurrent donors keep the state they retired with (a
+        # paged retained entry owns pages, not a slot)
         kept = (self._tensor(np.asarray(sorted(self._sched.retained),
                                         np.int64))
-                if self._has_recurrent and self._sched.retained else None)
+                if self._has_recurrent and not self._paged
+                and self._sched.retained else None)
         saved = None if kept is None else save_recurrent(self._caches, kept)
         ids, lps = self._run_step(
             (kv_len, want_lp, any_sampled) if C == 1 else None,

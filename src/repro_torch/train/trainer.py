@@ -102,8 +102,10 @@ class Trainer:
             self.step += 1
             self.history.append(metrics)
             if self.step % tcfg.log_every == 0:
+                aux = (f"aux={metrics['aux_loss']:.4f} " if self.cfg.moe
+                       else "")
                 log(f"step {self.step:5d} loss={metrics['loss']:.4f} "
-                    f"acc={metrics['accuracy']:.3f} "
+                    f"{aux}acc={metrics['accuracy']:.3f} "
                     f"lr={metrics['lr']:.2e} {dt*1e3:.0f}ms")
             if tcfg.checkpoint_every and \
                     self.step % tcfg.checkpoint_every == 0:

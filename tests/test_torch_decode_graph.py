@@ -284,6 +284,30 @@ def test_rwkv_static_step_with_retained_donor():
                    n_slots=2, prefix_cache=False)
 
 
+def test_rwkv_paged_step_matches_jax_paged_and_contiguous():
+    """rwkv6-1.6b SMOKE + AltUp K=2 through Engine(paged=True), pages of
+    8: the recurrent state stays per slot beside the (empty) pool, is
+    reset at each admission, and gets no prefix reuse (a retained entry
+    owns pages only) though every other prompt shares an 11-token prefix
+    and the prefix cache is on. Tokens, stats and pool counters equal the
+    JAX paged Engine's and the fresh-tensor step's; tokens equal the
+    port's contiguous engine's (prefix cache off)."""
+    jc, tc, jp, tp = _rwkv()
+    prompts = _prompts(seed=8, n=5, shared=11)
+    news = [5, 9, 3, 7, 4]
+    eng = _three_engines(jc, tc, jp, tp, prompts, news, n_slots=2,
+                         paged=True, page_size=PAGE)
+    assert eng.stats["prefix_hits"] == 0
+    assert eng.paged_stats["fresh_acquisitions"] > 0
+    assert {c for c, _ in eng.shapes} == {1}
+    assert set(eng._caches["seg0"]) == {"wkv", "shift_tm", "shift_cm"}
+    cont = TEngine(tc, tp, max_len=MAX_LEN, n_slots=2, prefix_cache=False,
+                   device="cpu")
+    assert _trace(cont, TSP, prompts, news) == _trace(
+        CheckedEngine(tc, tp, max_len=MAX_LEN, n_slots=2, paged=True,
+                      page_size=PAGE, device="cpu"), TSP, prompts, news)
+
+
 @functools.lru_cache(maxsize=None)
 def _gemma():
     """gemma3-4b SMOKE + AltUp K=2 (window 8, a ring segment of 5 layers

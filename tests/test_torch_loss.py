@@ -4,6 +4,8 @@ loss_fn's value and gradients held against the JAX package's
 own parameters (AltUp p/g perturbed) on the pipeline's batches; remat
 policies; parameter accounting at full size; the kernel wrappers'
 refusal of inputs that require grad."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,7 @@ LOSS_CFGS = {
     "rwkv6-k2": ("rwkv6-1.6b", 2, None, {}),
     "qwen3-k2-vocab500": ("qwen3-0.6b", 2, True, dict(vocab_size=500)),
     "qwen3-k2-fused-xent": ("qwen3-0.6b", 2, True, dict(fused_xent=True)),
+    "qwen2-moe-k2": ("qwen2-moe-a2.7b", 2, None, {}),
 }
 
 
@@ -98,11 +101,18 @@ def test_absent_tokens_get_exactly_zero_embedding_grads():
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
-@pytest.mark.parametrize("name", ["qwen3-k2-full", "rwkv6-k2"])
+@pytest.mark.parametrize("name", ["qwen3-k2-full", "rwkv6-k2",
+                                  "qwen2-moe-k2"])
 def test_remat_leaves_grads_unchanged(name, remat):
+    """Each layer recomputed in the backward pass: the same gradients and
+    the same aux loss (an MoE layer's aux leaves the recomputed body as
+    an output, so recomputing does not count it twice)."""
     _, tc, _, tp, batch = _setup(name)
-    _, _, want = _port_value_and_grad(tp, tc.replace(remat="none"), batch)
-    _, _, got = _port_value_and_grad(tp, tc.replace(remat=remat), batch)
+    tot0, m0, want = _port_value_and_grad(tp, tc.replace(remat="none"),
+                                          batch)
+    tot1, m1, got = _port_value_and_grad(tp, tc.replace(remat=remat), batch)
+    assert torch.equal(tot1, tot0)
+    assert torch.equal(m1["aux_loss"], m0["aux_loss"])
     want, got = port_leaves(want), port_leaves(got)
     for path in want:
         np.testing.assert_allclose(got[path], want[path], rtol=1e-6,
@@ -199,6 +209,25 @@ def test_param_accounting_matches_reference_at_full_size(arch, altup_k):
     assert tmodel.param_counts(init_tree(tc, None, torch.device("meta"))) \
         == jmodel.param_counts(shapes)
     assert tmodel.active_param_count(tc) == jmodel.active_param_count(jc)
+    for kind in ("train", "serve"):
+        assert tmodel.model_flops_per_token(tc, kind) == \
+            jmodel.model_flops_per_token(jc, kind)
+
+
+@pytest.mark.parametrize("pad", [0, 8])
+@pytest.mark.parametrize("altup_k", [0, 2])
+def test_moe_param_accounting_matches_reference_at_smoke_size(altup_k, pad):
+    """qwen2-moe-a2.7b SMOKE, its experts padded to 8 or not: routed
+    expert leaves count top_k / num_experts of the padded leaf's size."""
+    jc, tc = cfg_pair("qwen2-moe-a2.7b", altup_k)
+    jc = jc.replace(moe=dataclasses.replace(jc.moe, ep_pad_to=pad))
+    tc = tc.replace(moe=dataclasses.replace(tc.moe, ep_pad_to=pad))
+    shapes = jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0),
+                                                    jc))
+    counts = tmodel.param_counts(init_tree(tc, None, torch.device("meta")))
+    assert counts == jmodel.param_counts(shapes)
+    assert tmodel.active_param_count(tc) == jmodel.active_param_count(jc)
+    assert tmodel.active_param_count(tc) < counts["total"]
     for kind in ("train", "serve"):
         assert tmodel.model_flops_per_token(tc, kind) == \
             jmodel.model_flops_per_token(jc, kind)

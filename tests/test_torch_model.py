@@ -14,8 +14,12 @@ from repro.models.transformer import forward as jforward
 from repro.models.transformer import init_params as jax_init_params
 from repro_torch import bridge
 from repro_torch import config as tcfg
+from repro_torch.configs import get_config as tget_config
 from repro_torch.kernels import ops
 from repro_torch.models import decode as tdec
+from repro_torch.models import layers as tlayers
+from repro_torch.models import rwkv as trwkv
+from repro_torch.models import transformer as ttr
 from repro_torch.models.transformer import forward as tforward
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -164,3 +168,70 @@ def test_dropped_writes_leave_cache_untouched():
     # clamped contiguous write at a scalar start, as dynamic_update_slice
     tdec._update_at(cache, torch.full((3, 2, 1), 7.0), 5)
     assert torch.equal(cache[:, 4:6], torch.full((3, 2, 1), 7.0))
+
+
+def _stacked_layer_by_layer(seg, cfg, gen):
+    """The segment init as it was before init_segment filled its stacked
+    leaves in place: a tree per layer, then torch.stack (the reference
+    the in-place fill must equal bit for bit)."""
+    pd, d = ttr.prm_dtype(cfg), cfg.d_model
+    layers = []
+    for _ in range(seg.n):
+        if seg.kind == "rwkv":
+            p = {"ln_tm": tlayers.init_rms_norm(d, pd, "cpu"),
+                 "ln_cm": tlayers.init_rms_norm(d, pd, "cpu"),
+                 "rwkv": trwkv.init_rwkv_block(cfg, pd, gen, "cpu")}
+        else:
+            p = {"ln_attn": tlayers.init_rms_norm(d, pd, "cpu"),
+                 "attn": tlayers.init_attention(cfg, pd, gen, "cpu"),
+                 "ln_ffn": tlayers.init_rms_norm(d, pd, "cpu"),
+                 "ffn": tlayers.init_ffn(d, cfg.d_ff, pd, gen, "cpu")}
+        if cfg.altup.enabled:
+            K = cfg.altup.K
+            p["altup_p"] = torch.eye(K, dtype=torch.float32)
+            p["altup_g"] = torch.full((K,), cfg.altup.g_init,
+                                      dtype=torch.float32)
+        layers.append(p)
+
+    def stack(trees):
+        return {k: (stack([t[k] for t in trees])
+                    if isinstance(trees[0][k], dict)
+                    else torch.stack([t[k] for t in trees]))
+                for k in trees[0]}
+    return stack(layers)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-4b"])
+def test_init_params_is_bitwise_the_layer_by_layer_stack(arch):
+    """init_params(cfg, seed) on SMOKE + AltUp K=2: every leaf bitwise
+    what a tree per layer stacked afterwards gives, from the same seed in
+    the same order of draws (embedding, then the segments)."""
+    cfg = tget_config(arch, smoke=True, altup_k=2)
+    got = ttr.init_params(cfg, seed=3, device="cpu")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    V, d = ttr.padded_vocab(cfg), cfg.d_model
+    width = d if (not cfg.altup.enabled or cfg.altup.recycled) else 2 * d
+    want = {"embed": tlayers.embed_init((V, width), ttr.prm_dtype(cfg), gen,
+                                        "cpu")}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = tlayers.dense_init(
+            (width if not cfg.altup.recycled else d, V), ttr.prm_dtype(cfg),
+            gen, "cpu", in_axis=0)
+    for si, seg in enumerate(ttr.layer_plan(cfg)):
+        want[f"seg{si}"] = _stacked_layer_by_layer(seg, cfg, gen)
+    flat = {".".join(p): t for p, t in _leaves(want)}
+    got_flat = {k: v.detach() for k, v in got.state_dict().items()}
+    assert sorted(flat) == sorted(k for k in got_flat
+                                  if k != "final_norm")
+    for k, v in flat.items():
+        assert got_flat[k].dtype == v.dtype, k
+        assert torch.equal(got_flat[k].view(torch.uint8),
+                           v.contiguous().view(torch.uint8)), k
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v

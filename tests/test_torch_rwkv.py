@@ -466,12 +466,25 @@ def test_engine_recurrent_prefix_boundary_matches_jax():
 
 
 def test_paged_engine_on_recurrent_plan_raises():
-    _, tc = _serve_cfgs()
+    """A recurrent plan serves paged (tests/test_torch_decode_graph.py
+    holds its tokens): its paged caches are the per-slot recurrent leaves
+    of the reference's init_paged_cache, sized by B. What still raises is
+    quantized storage beside recurrent segments (ROADMAP A9)."""
+    jc, tc = _serve_cfgs()
     _, tp = _serve_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TEngine(tc, tp, max_len=32, n_slots=2, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tdec.init_paged_cache(tc, 2, 32, n_pages=4, page=16, device="cpu")
+    got = tdec.init_paged_cache(tc, 3, 32, n_pages=4, page=16, device="cpu")
+    want = jdec.init_paged_cache(jc, 3, 32, n_pages=4, page=16)
+    assert {k: {n: tuple(t.shape) for n, t in v.items()}
+            for k, v in got.items()} == \
+        {k: {n: tuple(t.shape) for n, t in v.items()}
+         for k, v in want.items()}
+    TEngine(tc, tp, max_len=32, n_slots=2, paged=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        TEngine(tc.replace(kv_cache_dtype="int8"), tp, max_len=32,
+                n_slots=2, paged=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tdec.init_paged_cache(tc.replace(kv_cache_dtype="fp8"), 2, 32,
+                              n_pages=4, page=16, device="cpu")
 
 
 def test_retained_donor_keeps_its_state_while_others_step():

@@ -4,8 +4,8 @@ A seeded temperature > 0 request must give the reference's TOKENS: the
 port draws through its own threefry2x32 (repro_torch/prng.py), bitwise
 JAX's, under the reference's keys (fold_in(key(seed), t)). On the
 reference's seeded-sampling oracle configs (tests/test_serve.py
-SAMPLED_ORACLE, as far as the port builds them: `moe` waits for ROADMAP
-A9) with the reference test's seeds and SamplingParams, the port's Engine
+SAMPLED_ORACLE) with the reference test's seeds and SamplingParams, the
+port's Engine
 serves the JAX Engine's tokens, run to run, and its own B=1
 generate(sampling=sp) (the reference's oracle); paged with a prefix hit
 and from int8 caches too, with equal stats, pool counters and
@@ -35,11 +35,12 @@ from test_torch_decode_graph import (_cfgs as _graph_cfgs, _dense_params,
 KEY = jax.random.PRNGKey(0)
 BASE = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
             vocab_size=128)
-# tests/test_serve.py ORACLE_CFGS, the SAMPLED_ORACLE entries the port
-# builds
+# tests/test_serve.py ORACLE_CFGS, its SAMPLED_ORACLE entries
 ORACLE = {
     "dense-altup": dict(name="srv", family="dense"),
     "dense-windowed": dict(name="srv-win", family="dense", window_size=4),
+    "moe": dict(name="srv-moe", family="moe",
+                moe=dict(num_experts=4, top_k=2, d_expert=32)),
     "rwkv": dict(name="srv-rwkv", family="rwkv6",
                  rwkv=dict(head_dim=16, decay_lora=8, token_shift_lora=8)),
     "ragged-gqa": dict(name="srv-rg-gqa", family="dense", n_heads=4,
@@ -54,10 +55,12 @@ LP_ATOL = 2e-5
 
 def _cfgs(name, **extra):
     kw = {**BASE, **ORACLE[name], **extra}
-    rwkv = kw.pop("rwkv", None)
+    rwkv, moe = kw.pop("rwkv", None), kw.pop("moe", None)
     out = []
     for mod in (jcfg, tcfg):
         more = {"rwkv": mod.RWKVConfig(**rwkv)} if rwkv else {}
+        if moe:
+            more["moe"] = mod.MoEConfig(**moe)
         out.append(mod.ModelConfig(**kw, altup=mod.AltUpConfig(K=2), **more))
     return tuple(out)
 

@@ -56,8 +56,10 @@ KEY = jax.random.PRNGKey(0)
 # full AltUp K=2 (not recycled)
 KW = dict(name="spec", family="dense", n_layers=2, d_model=32, n_heads=2,
           n_kv_heads=2, d_ff=64, vocab_size=128)
-# the reference's ORACLE_CFGS the port builds (moe and mla-moe: ROADMAP A9)
+# the reference's ORACLE_CFGS the port builds (mla-moe: ROADMAP A9)
 VARIANTS = {"dense": {}, "gqa": dict(n_heads=4, n_kv_heads=2),
+            "moe": dict(name="spec-moe", family="moe",
+                        moe=dict(num_experts=4, top_k=2, d_expert=32)),
             "ring": dict(window_size=4),
             "ring-int8": dict(window_size=4, kv_cache_dtype="int8"),
             "int8": dict(kv_cache_dtype="int8"),
@@ -69,8 +71,11 @@ LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)        # f32 logits, two packages
 
 def _cfgs(name, **extra):
     kw = {**KW, **VARIANTS.get(name, {}), **extra}
-    return (jcfg.ModelConfig(**kw, altup=jcfg.AltUpConfig(K=2)),
-            tcfg.ModelConfig(**kw, altup=tcfg.AltUpConfig(K=2)))
+    moe = kw.pop("moe", None)
+    return tuple(mod.ModelConfig(**kw, altup=mod.AltUpConfig(K=2),
+                                 **({"moe": mod.MoEConfig(**moe)} if moe
+                                    else {}))
+                 for mod in (jcfg, tcfg))
 
 
 def _perturb_altup(tree, rng):
