@@ -16,8 +16,11 @@ second served family, RWKV-6 "Finch" 1.6B wrapped with AltUp K=2, whose
 recurrence runs through the WKV kernel, and for the windowed one,
 gemma3-4b wrapped with AltUp K=2 (5 local layers with a 1024-row ring
 cache to 1 global layer); it trains the served model at full width and
-serves the trained weights; last comes the MoE family, qwen2-moe-a2.7b
-wrapped with AltUp K=2, served at full depth and trained at 2 layers.
+serves the trained weights; then the MoE family, qwen2-moe-a2.7b
+wrapped with AltUp K=2, served at full depth and trained at 2 layers;
+last the encoder-decoder family, t5-large wrapped with AltUp K=2
+(with Sequence-AltUp beside it) and whisper-tiny wrapped with AltUp
+K=2, served through Engine.generate and (T5) trained at full depth.
 Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
@@ -85,6 +88,12 @@ Phases:
                qwen2-moe-a2.7b's served shapes (m-serve): AltUp at 8
                tokens of d 2048; the decode attention halfway through
                m-serve (16 kv heads of 128, rep 1); timed with its bound
+      c-* cases n-*, w-*  the same at t5-large's (n-serve: AltUp at 8
+               tokens of d 1024 in f32; the decode attention halfway, 16
+               kv heads of 64, rep 1, f32 storage and queries, then int8
+               codes) and whisper-tiny's served shapes (w-serve: AltUp
+               at 8 tokens of d 384, the decode attention over 6 kv
+               heads of 64, bf16); each timed with its bound, SDPA beside
   (d) parity   full-width f32 decode_step logits over a chunked prefill
                and 16 greedy steps for 4 slots: the kernel path and the
                paged kernel path (permuted block table) vs the dense path
@@ -294,6 +303,49 @@ Phases:
                requests extending a 250-token prompt through a page
                pool and through contiguous caches, both with prefix
                reuse and replayed: tokens and hits identical
+  (n) t5-large + AltUp K=2 (24 + 24 layers, d 1024, 16 heads of 64, f32,
+      relative position bias, no RoPE), the encoder-decoder family,
+      served by Engine.generate(encoder_frames=) through the AltUp and
+      decode-attention kernels (cross-attention stays dense, as in the
+      reference; decode reads no relative bias, as the reference's
+      decode does not); the kernels at its shapes are timed in phase c
+      (c-altup / c-ragged cases n-*, w-*):
+      n-parity f32, TF32 off, full width and depth: 4 rows of 512 encoder
+               tokens, an 8-token prompt fed token by token, then 16
+               greedy steps through decode_step, the kernel path against
+               the dense path over one encode's cross caches: logits
+               within 1e-3, tokens identical, 24 AltUp and 24
+               decode-attention launches a step; then from int8 and fp8
+               self caches (cross caches float), as d-quant
+      n-serve  Engine.generate on 8 rows of 512 encoder tokens,
+               16-token prompts, 64 new tokens, f32, eager (generate
+               captures no CUDA graph): ms a step (each decode_step
+               synchronized), decode tok/s, the encode's ms, self and
+               cross cache bytes, peak memory; launches == 24 x steps
+               for each kernel
+      n-seq    t5-large with a Sequence-AltUp encoder (stride 4) in each
+               mode (altup, stride_skip, avgpool) and the unreduced
+               baseline: the encoder output on the card against the CPU
+               at 4 encoder layers (1e-4 of the max), each mode's encoder
+               device ms at full depth (B=8 x 512) beside the
+               baseline's, then greedy generate of the altup mode, kernel
+               path against dense path: tokens identical, 0 AltUp and 24
+               decode-attention launches a step
+      n-grad   loss_fn gradients at full width, 2 + 2 layers, on a
+               span_corruption batch, card against CPU: each leaf within
+               1e-4 of its max (the bias tables named), and a
+               Sequence-AltUp case whose scalars get gradients
+      n-train  Trainer at full width and depth, f32, span_corruption
+               (8 rows, 512 encoder and 128 decoder tokens, Adafactor,
+               lr 0.1), 10 steps: ms a step, tokens/s (encoder and decoder), MFU
+               over the f32 peak (encoder parameters per encoder token,
+               decoder parameters per decoder token), peak memory, a
+               falling loss (second half's mean below the first's)
+  (w) whisper-tiny + AltUp K=2 (4 + 4 layers, d 384, 6 heads of 64),
+      1500 frames of seeded f32 noise for the stubbed audio frontend:
+      w-parity f32, as n-parity (float self caches; 4 + 4 launches a step)
+      w-serve  bf16, Engine.generate on 8 rows, 4-token prompts, 64 new
+               tokens, as n-serve
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -420,19 +472,29 @@ def perturb_rwkv(torch, params, cfg, seed):
 
 def perturb_altup(torch, params, seed):
     """p = I + 0.2·N(0,1), g = 1 + 0.2·N(0,1): at init (p = I, g = 1)
-    predict and correct are trivial and would test nothing."""
+    predict and correct are trivial and would test nothing. Every AltUp
+    segment, the encoder's (`enc/seg`) after the decoder's; then the
+    Sequence-AltUp scalars (a1, a2, b) + 0.2·N(0,1) away from (1, 0, 1),
+    where the layer would be stride-and-skip."""
     gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    segs = [params[n] for n in params.keys() if n.startswith("seg")]
+    if "enc" in params:
+        segs.append(params["enc"]["seg"])
     with torch.no_grad():
-        for name in params.keys():
-            if not name.startswith("seg"):
+        for seg in segs:
+            if "altup_p" not in seg:
                 continue
-            seg = params[name]
             p, g = seg["altup_p"], seg["altup_g"]
             eye = torch.eye(p.shape[-1], device=p.device)
             p.copy_(eye + 0.2 * torch.randn(p.shape, generator=gen,
                                             device=p.device))
             g.copy_(1 + 0.2 * torch.randn(g.shape, generator=gen,
                                           device=g.device))
+        if "seq_altup" in params:
+            for name, base in (("a1", 1.0), ("a2", 0.0), ("b", 1.0)):
+                t = params["seq_altup"][name]
+                t.copy_(base + 0.2 * torch.randn(t.shape, generator=gen,
+                                                 device=t.device))
 
 
 # ---------------------------------------------------------------------------
@@ -4195,6 +4257,537 @@ def rwkv_paged_bf16(torch, ops):
             "launches": {k: n for k, n in cp.items() if n}}
 
 
+# ---------------------------------------------------------------------------
+# (n) t5-large + AltUp K=2 and (w) whisper-tiny + AltUp K=2: the
+# encoder-decoder family, served by Engine.generate(encoder_frames=)
+# ---------------------------------------------------------------------------
+
+# n-serve's traffic: 8 rows of 512 encoder tokens, 16-token decoder
+# prompts, 64 new tokens; w-serve's: 8 rows of 1500 frames, 4-token
+# prompts, 64 new tokens
+N_ENC, N_ROWS, N_PROMPT, N_NEW = 512, 8, 16, 64
+W_ENC, W_ROWS, W_PROMPT, W_NEW = 1500, 8, 4, 64
+# n-parity / w-parity: 4 rows, an 8-token prompt fed token by token (as
+# the reference's prefill feeds it), then 16 greedy steps
+P_ROWS, P_PROMPT, P_STEPS = 4, 8, 16
+N_GRAD_B, N_GRAD_ENC, N_GRAD_DEC = 2, 256, 64
+# n-train: lr 0.1 (0.3, k-train's, swings the loss by 4-7 nats a step
+# on T5; the batches' own spread is ~1-2 nats, so halves are compared)
+N_TRAIN_STEPS, N_TRAIN_B, N_TRAIN_DEC, N_TRAIN_LR = 10, 8, 128, 0.1
+SEQ_MODES = ("altup", "stride_skip", "avgpool")
+SEQ_STRIDE = 4
+SEQ_CPU_LAYERS = 4           # n-seq's card-against-CPU encoder depth
+N_SEQ_TOL = 1e-4             # of the CPU encoder output's max
+
+
+def t5_config(altup_k=2, **kw):
+    """t5-large (24 + 24 layers, d 1024, 16 heads of 64, f32 as the
+    paper's T5), wrapped with AltUp K=2 unless altup_k < 2."""
+    from repro_torch.configs import t5
+    cfg = t5.altup(t5.T5_LARGE, altup_k) if altup_k > 1 else t5.T5_LARGE
+    return cfg.replace(**kw)
+
+
+def t5_seq_config(mode, **kw):
+    """t5-large with a Sequence-AltUp encoder (stride 4) in `mode`, or
+    the unreduced baseline (mode None)."""
+    from repro_torch.configs import t5
+    cfg = t5.T5_LARGE.replace(**kw)
+    return cfg if mode is None else t5.seq_altup(cfg, SEQ_STRIDE, mode)
+
+
+def whisper_config(**kw):
+    """whisper-tiny (4 + 4 layers, d 384, 6 heads of 64, bf16) wrapped
+    with AltUp K=2 (not recycled: vocab 51865)."""
+    from repro_torch.configs import get_config
+    return get_config("whisper-tiny", altup_k=2).replace(**kw)
+
+
+def encdec_inputs(torch, cfg, B, S_enc, seed):
+    """The encoder's input on the card: token ids (B, S_enc) for T5,
+    seeded f32 noise frames (B, S_enc, d) for whisper's stubbed
+    frontend."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    if cfg.use_rel_pos_bias:
+        return torch.randint(0, cfg.vocab_size, (B, S_enc), generator=gen,
+                             device=DEV)
+    return torch.randn(B, S_enc, cfg.d_model, generator=gen, device=DEV)
+
+
+def check_encdec_kernels(torch, ops, ref):
+    """Both kernels at the encoder-decoder family's served shapes: the
+    AltUp kernel at n-serve's decode step (8 tokens of d 1024, f32) and
+    at w-serve's (8 tokens of d 384, bf16); the decode attention halfway
+    through n-serve (16 kv heads of 64, rep 1, f32 storage and queries,
+    then int8 codes) and through w-serve (6 kv heads of 64, bf16)."""
+    from repro_torch.serve.engine import kv_bucket
+    n_lens = [N_PROMPT + N_NEW // 2] * N_ROWS
+    w_lens = [W_PROMPT + N_NEW // 2] * W_ROWS
+    n_T = kv_bucket(max(n_lens), 32, N_PROMPT + N_NEW)
+    w_T = kv_bucket(max(w_lens), 32, W_PROMPT + W_NEW)
+    return {
+        "n-altup": check_altup(torch, ops, ref, torch.float32, N_ROWS,
+                               d=1024),
+        "n-ragged": check_ragged(torch, ops, ref, torch.float32, n_lens,
+                                 Hk=16, rep=1, Dh=64, T=n_T),
+        "n-ragged-int8": check_ragged(torch, ops, ref, torch.float32,
+                                      n_lens, Hk=16, rep=1, Dh=64, T=n_T,
+                                      store="int8"),
+        "w-altup": check_altup(torch, ops, ref, torch.bfloat16, W_ROWS,
+                               d=384),
+        "w-ragged": check_ragged(torch, ops, ref, torch.bfloat16, w_lens,
+                                 Hk=6, rep=1, Dh=64, T=w_T)}
+
+
+def encdec_parity_f32(torch, ops, cfg, params, S_enc, kinds=(None,)):
+    """n-parity / w-parity: f32, TF32 off, the kernel path ("k": the fused
+    AltUp and the decode-attention kernels) against the dense path ("d")
+    through decode_step over one encode's cross caches: P_PROMPT prompt
+    tokens fed one at a time, then P_STEPS greedy steps, P_ROWS rows of
+    S_enc encoder positions. Gates: every step's logits within
+    PARITY_TOL, greedy tokens identical, and each kernel launched once a
+    decoder layer a kernel-path step. kind "int8" / "fp8": both sides
+    serve from quantized self caches (cross caches float); the dense side
+    reads a copy of the kernel side's caches taken after the kernel
+    side's step, its own writes suppressed, and runs the fused AltUp
+    kernel too, as d-quant does (rounding to codes is discontinuous)."""
+    from repro_torch.models.decode import (cross_caches, decode_step,
+                                           init_cache)
+    from repro_torch.serve.engine import kv_bucket
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frames = encdec_inputs(torch, cfg, P_ROWS, S_enc, seed=32)
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    prompt = torch.randint(0, cfg.vocab_size, (P_ROWS, P_PROMPT),
+                           generator=gen, device=DEV)
+    cross = cross_caches(params, cfg, frames)     # shared, never written
+    T = P_PROMPT + P_STEPS
+    out = {}
+    for kind in kinds:
+        quant = kind is not None
+        c = cfg.replace(kv_cache_dtype=kind) if quant else cfg
+        cfgs = {"k": c.replace(ragged_decode_attn=None,
+                               fused_decode_altup=None),
+                "d": c.replace(ragged_decode_attn=False,
+                               fused_decode_altup=None if quant else False)}
+        caches = {}
+        for s, cs in cfgs.items():
+            caches[s] = init_cache(cs, P_ROWS, T, device=DEV)
+            caches[s]["cross"] = cross
+        tok = {s: prompt[:, :1] for s in cfgs}
+        streams = {s: [] for s in cfgs}
+        worst, launched, min_gap = 0.0, {}, math.inf
+        for t in range(T - 1):
+            lg = {}
+            for s in ("k", "d"):
+                writes = contextlib.nullcontext()
+                if quant and s == "d":
+                    caches["d"] = {si: {n: x.clone() for n, x in seg.items()}
+                                   for si, seg in caches["k"].items()
+                                   if si != "cross"}
+                    caches["d"]["cross"] = cross
+                    writes = no_cache_writes()
+                c0 = ops.launch_counts()
+                with writes, torch.no_grad():
+                    logits, _ = decode_step(params, cfgs[s], caches[s],
+                                            tok[s], t,
+                                            kv_len=kv_bucket(t + 1, 32, T))
+                if s == "k":
+                    c1 = ops.launch_counts()
+                    for n in c1:
+                        launched[n] = launched.get(n, 0) + c1[n] - c0[n]
+                lg[s] = logits[:, 0, :cfg.vocab_size]
+            torch.testing.assert_close(lg["k"], lg["d"], **PARITY_TOL)
+            worst = max(worst, max_err(torch, lg["k"], lg["d"]))
+            if t + 1 < P_PROMPT:
+                tok = {s: prompt[:, t + 1:t + 2] for s in cfgs}
+                continue
+            top2 = lg["d"].topk(2, dim=-1).values
+            min_gap = min(min_gap, float((top2[:, 0] - top2[:, 1]).min()))
+            for s in cfgs:
+                # quantized: the dense side takes the kernel side's tokens
+                src = "k" if quant else s
+                tok[s] = lg[src].argmax(dim=-1)[:, None]
+                streams[s].append(lg[s].argmax(dim=-1).tolist())
+        if streams["k"] != streams["d"]:
+            raise AssertionError(f"greedy tokens differ between the kernel "
+                                 f"and dense paths: {streams}")
+        steps = T - 1
+        want = {"altup_predict_correct":
+                cfg.n_layers * steps if cfg.altup.enabled else 0,
+                "ragged_decode_attention": cfg.n_layers * steps}
+        got = {n: launched.get(n, 0) for n in want}
+        if got != want or launched.get("paged_ragged_decode_attention"):
+            raise AssertionError(f"kernel-path launches {launched}, want "
+                                 f"{want}")
+        out[kind or "float"] = {
+            "max_abs_logit_err": worst, "tol": PARITY_TOL,
+            "greedy_tokens_identical": True,
+            "tokens_checked": P_ROWS * len(streams["k"]),
+            "min_top2_gap_dense": min_gap, "steps": steps,
+            "launches_per_step": {n: got[n] / steps for n in got}}
+        del caches
+    return {"cfg": cfg_name(cfg), "rows": P_ROWS, "encoder_positions":
+            S_enc, "cross_len": int(cross["k"].shape[2]),
+            "prompt_tokens": P_PROMPT, "greedy_steps": P_STEPS,
+            "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32], **out}
+
+
+@contextlib.contextmanager
+def timed_steps(torch):
+    """Time every decode_step the Engine calls and every cross-cache fill
+    (the encode) prefill runs, each ending in a synchronize: yields the
+    two lists of seconds."""
+    from repro_torch.models import decode as D
+    from repro_torch.serve import engine as E
+    real_step, real_cross = E.decode_step, D.cross_caches
+    step_s, enc_s, caches = [], [], []
+
+    def step(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if not caches:
+            caches.append(out[1])
+        return out
+
+    def cross(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_cross(*a, **kw)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+        return out
+    E.decode_step, D.cross_caches = step, cross
+    try:
+        yield step_s, enc_s, caches
+    finally:
+        E.decode_step, D.cross_caches = real_step, real_cross
+
+
+def encdec_serve(torch, ops, cfg, params, S_enc, rows, n_prompt, n_new,
+                 seed):
+    """n-serve / w-serve: Engine(n_slots=rows).generate(prompts, n_new,
+    encoder_frames=) on `rows` rows of S_enc encoder positions and
+    n_prompt-token decoder prompts, greedy, eager (generate captures no
+    CUDA graph). A warm-up generate of 2 tokens runs first; the counts
+    are set to 0 just before the counted run and read just after it.
+    Gates: n_new in-vocabulary tokens a row, each kernel launched once a
+    decoder layer a step (prefill's token steps included), no paged
+    launch. Prints ms a step (each decode_step synchronized), decode
+    tok/s, the encode's ms, cache bytes and the peak memory."""
+    from repro_torch.serve.engine import Engine
+    frames = encdec_inputs(torch, cfg, rows, S_enc, seed=seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, n_prompt),
+                            generator=gen, device=DEV)
+    eng = Engine(cfg, params, max_len=n_prompt + n_new, n_slots=rows,
+                 device=DEV)
+    eng.generate(prompts, 2, encoder_frames=frames)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_steps(torch) as (step_s, enc_s, caches):
+        ops.reset_launch_counts()            # counts start at 0 right here
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, n_new, encoder_frames=frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()         # read right after the run
+    steps = len(step_s)
+    if toks.shape != (rows, n_new) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate gave {tuple(toks.shape)} tokens")
+    want = {"altup_predict_correct":
+            cfg.n_layers * steps if cfg.altup.enabled else 0,
+            "ragged_decode_attention": cfg.n_layers * steps,
+            "paged_ragged_decode_attention": 0}
+    if {n: counts[n] for n in want} != want or steps != n_prompt + n_new - 1:
+        raise AssertionError(f"launch counts {counts} for {steps} steps, "
+                             f"want {want}")
+    dec = sorted(step_s[n_prompt:])
+    esz = lambda t: t.numel() * t.element_size()
+    c = caches[0]
+    return {"cfg": cfg_name(cfg), "rows": rows, "encoder_positions": S_enc,
+            "prompt_tokens": n_prompt, "new_tokens": n_new,
+            "graphs": "none: generate runs eager", "steps": steps,
+            "decode_steps": len(dec), "launches": counts,
+            "launches_per_step": {n: counts[n] / steps for n in want},
+            "encode_ms": 1e3 * enc_s[0],
+            "prefill_ms": 1e3 * (sum(step_s[:n_prompt]) + enc_s[0]),
+            "decode_step_ms_median": 1e3 * dec[len(dec) // 2],
+            "decode_step_ms_p80": 1e3 * dec[int(0.8 * len(dec))],
+            "decode_step_ms_min": 1e3 * dec[0],
+            "decode_tok_s": rows * len(dec) / sum(dec),
+            "wall_s": wall, "wall_tok_s": rows * n_new / wall,
+            "self_cache_bytes": sum(esz(x) for k, seg in c.items()
+                                    if k != "cross" for x in seg.values()),
+            "cross_cache_bytes": sum(esz(x) for x in c["cross"].values()),
+            "params_bytes": sum(esz(t) for t in params.parameters()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tokens_row0": toks[0, :16].tolist()}
+
+
+def t5_seq(torch, ops):
+    """n-seq: t5-large with a Sequence-AltUp encoder in each mode (stride
+    4; altup, stride_skip, avgpool) and the unreduced baseline. The
+    encoder output on the card against the CPU at full width and
+    SEQ_CPU_LAYERS encoder layers (1 row of 512 tokens; N_SEQ_TOL of the
+    CPU output's max); then at full depth each mode's encoder device ms
+    (CUDA events, B=8 x 512, f32, TF32 off) beside the baseline's: the
+    paper's Table 2 comparison on this card, not a claim; then greedy
+    generate of the altup mode, kernel path against dense path: tokens
+    identical, 0 AltUp and 24 decode-attention launches a step."""
+    from repro_torch.models.transformer import encode, init_params
+    from repro_torch.serve.engine import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"stride": SEQ_STRIDE, "cpu_check": {}, "encoder_ms_full_depth": {}}
+    for mode in (None,) + SEQ_MODES:
+        cfg = t5_seq_config(mode, n_layers=SEQ_CPU_LAYERS,
+                            n_encoder_layers=SEQ_CPU_LAYERS)
+        p = init_params(cfg, seed=40, device=DEV)
+        perturb_altup(torch, p, seed=41)
+        x = encdec_inputs(torch, cfg, 1, N_ENC, seed=42)
+        with torch.no_grad():
+            got = encode(p, cfg, x)
+            want = encode(to_device(p, "cpu"), cfg, x.cpu())
+        ratio = max_err(torch, got.cpu(), want) / float(want.abs().max())
+        res["cpu_check"][mode or "baseline"] = {
+            "shape": list(got.shape), "max_err_over_max": ratio}
+        if not ratio <= N_SEQ_TOL:
+            raise AssertionError(f"n-seq {mode}: card vs CPU {ratio:.3e}")
+        del p
+    x = None
+    for mode in (None,) + SEQ_MODES:
+        cfg = t5_seq_config(mode)
+        p = init_params(cfg, seed=43, device=DEV)
+        perturb_altup(torch, p, seed=44)
+        if x is None:
+            x = encdec_inputs(torch, cfg, 8, N_ENC, seed=45)
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: encode(p, cfg, x), iters=5,
+                         warmup=2)
+        res["encoder_ms_full_depth"][mode or "baseline"] = ms
+        del p
+        torch.cuda.empty_cache()
+    base = res["encoder_ms_full_depth"]["baseline"]
+    res["encoder_ms_over_baseline"] = {
+        m: v / base for m, v in res["encoder_ms_full_depth"].items()}
+    # greedy generate, the altup mode: kernel path against dense path
+    cfg = t5_seq_config("altup")
+    p = init_params(cfg, seed=46, device=DEV)
+    perturb_altup(torch, p, seed=47)
+    frames = encdec_inputs(torch, cfg, 2, N_ENC, seed=48)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8), device=DEV,
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(49))
+    toks = {}
+    for side, flag in (("k", None), ("d", False)):
+        c = cfg.replace(ragged_decode_attn=flag, fused_decode_altup=flag)
+        eng = Engine(c, p, max_len=24, n_slots=2, device=DEV)
+        ops.reset_launch_counts()
+        toks[side] = eng.generate(prompts, 16, encoder_frames=frames)
+        counts = ops.launch_counts()
+        if side == "k":
+            steps = 8 + 16 - 1
+            res["generate_launches_per_step"] = {
+                n: counts[n] / steps for n in ("altup_predict_correct",
+                                              "ragged_decode_attention")}
+            if counts["altup_predict_correct"] != 0 or \
+                    counts["ragged_decode_attention"] != cfg.n_layers * steps:
+                raise AssertionError(f"n-seq generate launches {counts}")
+    if not torch.equal(toks["k"], toks["d"]):
+        raise AssertionError(f"n-seq generate: kernel path {toks['k']} != "
+                             f"dense {toks['d']}")
+    res["generate_tokens_identical"] = True
+    del p
+    torch.cuda.empty_cache()
+    return res
+
+
+def encdec_param_split(cfg):
+    """(encoder parameters, decoder parameters) of cfg from init_tree on
+    the meta device: the encoder's stacked layers, its final norm and its
+    bias table against everything else (the decoder's layers, the cross
+    blocks, the tied embedding as the output projection, the final norm,
+    the decoder's bias table)."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.transformer import init_tree
+    enc = dec = 0
+    for path, leaf in tree_lib.leaves(init_tree(cfg, None,
+                                                torch.device("meta"))):
+        n = int(leaf.numel())
+        if path[0] == "enc" and path[1] != "cross":
+            enc += n
+        else:
+            dec += n
+    return enc, dec
+
+
+def t5_grad_f32(torch, ops):
+    """n-grad: loss_fn and every leaf's gradient of t5-large + AltUp K=2 at
+    full width and 2 + 2 layers on a span_corruption batch (B 2, 256
+    encoder and 64 decoder tokens), card against CPU, f32, TF32 off,
+    remat "none", from one seeded init drawn on the card; a second case
+    with a Sequence-AltUp encoder (3 encoder layers, so that one is
+    reduced, and its scalars get gradients). Gate: each leaf within
+    K_GRAD_TOL of its max, loss within K_LOSS_RTOL; no kernel launched.
+    Names the worst leaf and the bias tables' and scalars' own ratios."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import span_corruption_batch
+    from repro_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for case, cfg in (
+            ("altup2", t5_config(n_layers=2, n_encoder_layers=2,
+                                 remat="none")),
+            ("seq-altup", t5_seq_config("altup", n_layers=2,
+                                        n_encoder_layers=3, remat="none"))):
+        dev = init_params(cfg, seed=50, device=DEV).requires_grad_(True)
+        perturb_altup(torch, dev, seed=51)
+        cpu = to_device(dev, "cpu")
+        nb = span_corruption_batch(cfg, N_GRAD_B, N_GRAD_ENC, N_GRAD_DEC,
+                                   seed=3, step=0)
+        t0 = time.perf_counter()
+        loss_cpu, g_cpu = grads_on(torch, cpu, cfg, batch_on(torch, nb,
+                                                            "cpu"))
+        cpu_s = time.perf_counter() - t0
+        c0 = ops.launch_counts()
+        loss_dev, g_dev = grads_on(torch, dev, cfg, batch_on(torch, nb, DEV))
+        torch.cuda.synchronize()
+        c1 = ops.launch_counts()
+        ratio, path = worst_leaf(torch, g_dev, g_cpu)
+        named = {}
+        for p in g_cpu:
+            if p[-1] in ("rel_bias_dec", "rel_bias_enc") or \
+                    p[0] == "seq_altup":
+                named["/".join(p)] = worst_leaf(
+                    torch, {p: g_dev[p]}, {p: g_cpu[p]})[0]
+        r = {"cfg": cfg_name(cfg) + (f", seq {cfg.seq_altup.mode}"
+                                     if cfg.seq_altup.enabled else ""),
+             "encoder_layers": cfg.n_encoder_layers, "B": N_GRAD_B,
+             "encoder_tokens": N_GRAD_ENC, "decoder_tokens": N_GRAD_DEC,
+             "leaves": len(g_cpu), "cpu_s": cpu_s, "loss_cuda": loss_dev,
+             "loss_cpu": loss_cpu,
+             "loss_rel_err": abs(loss_dev - loss_cpu) / abs(loss_cpu),
+             "worst_leaf": path, "max_err_over_max": ratio,
+             "named_leaves_max_err_over_max": named,
+             "launches_while_differentiating": {
+                 k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+        if not (ratio <= K_GRAD_TOL and r["loss_rel_err"] <= K_LOSS_RTOL) \
+                or r["launches_while_differentiating"]:
+            raise AssertionError(f"n-grad {case}: {r}")
+        res[case] = r
+        del dev, cpu, g_cpu, g_dev
+        torch.cuda.empty_cache()
+    return res
+
+
+def t5_train(torch, ops, workdir):
+    """n-train: Trainer(device="cuda") on t5-large + AltUp K=2 at full
+    width and depth, f32 (TF32 off), span_corruption batches of
+    N_TRAIN_B rows, 512 encoder and N_TRAIN_DEC decoder tokens,
+    Adafactor (the launcher's TrainConfig, lr N_TRAIN_LR), N_TRAIN_STEPS
+    steps. Gates: finite losses, the mean of the second half of the
+    steps below the mean of the first half, no kernel launched. MFU
+    charges each encoder parameter 6 FLOPs per encoder token and each
+    decoder parameter (cross blocks and the tied output embedding
+    included) 6 per decoder token, against the f32 peak."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.train import train_config
+    from repro_torch.train.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = t5_config()
+    tcfg = dataclasses.replace(
+        train_config(N_TRAIN_STEPS, N_TRAIN_B, N_TRAIN_DEC, 1, N_TRAIN_LR,
+                     str(workdir / "n-train")),
+        task="span_corruption", checkpoint_every=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    tr = Trainer(cfg, tcfg, device=DEV)
+    logs = []
+    out = tr.run(log=logs.append)
+    c1 = ops.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    first, second = np.split(np.asarray(losses), 2)
+    med_s = float(np.median(tr.step_times[2:]))
+    enc_p, dec_p = encdec_param_split(cfg)
+    enc_tok, dec_tok = N_TRAIN_B * cfg.encoder_seq, N_TRAIN_B * N_TRAIN_DEC
+    flops = 6.0 * (enc_p * enc_tok + dec_p * dec_tok)
+    res = {"cfg": cfg_name(cfg), "steps": out["step"],
+           "rows": N_TRAIN_B, "encoder_tokens_per_step": enc_tok,
+           "decoder_tokens_per_step": dec_tok,
+           "first_step_s": tr.step_times[0],
+           "median_step_ms_3_on": 1e3 * med_s,
+           "tokens_per_s": (enc_tok + dec_tok) / med_s,
+           "encoder_params": enc_p, "decoder_params": dec_p,
+           "model_flops_per_step": flops,
+           "mfu_f32_peak": flops / med_s / PEAK_OPS_PER_S["float32"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "lr": N_TRAIN_LR, "loss_first_half_mean": float(np.mean(first)),
+           "loss_second_half_mean": float(np.mean(second)),
+           "losses": losses, "log": logs[-1:],
+           "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not all(math.isfinite(x) for x in losses) or res["launches"] or \
+            not res["loss_second_half_mean"] < res["loss_first_half_mean"]:
+        raise AssertionError(f"n-train: {res}")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def encdec_phases(torch, ops, workdir):
+    """The n and w phases, each line with its seconds; returns (n-serve's
+    result, w-serve's result)."""
+    from repro_torch.models.transformer import init_params
+    t_n = time.perf_counter()
+    # n-parity: full width and depth, f32; float, then int8 / fp8 self
+    # caches
+    t0 = time.perf_counter()
+    cfg = t5_config()
+    params = init_params(cfg, seed=30, device=DEV)
+    perturb_altup(torch, params, seed=31)
+    line("n-parity", **encdec_parity_f32(torch, ops, cfg, params, N_ENC,
+                                         kinds=(None, "int8", "fp8")),
+         seconds=time.perf_counter() - t0)
+    # n-serve: the same f32 weights through Engine.generate
+    t0 = time.perf_counter()
+    res_n = encdec_serve(torch, ops, cfg, params, N_ENC, N_ROWS, N_PROMPT,
+                         N_NEW, seed=34)
+    line("n-serve", seconds=time.perf_counter() - t0, **res_n)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line("n-seq", **t5_seq(torch, ops), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("n-grad", **t5_grad_f32(torch, ops),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("n-train", **t5_train(torch, ops, workdir),
+         seconds=time.perf_counter() - t0)
+    # w: whisper-tiny + AltUp K=2 over 1500 frames of seeded noise
+    t0 = time.perf_counter()
+    cfg = whisper_config(dtype="float32", param_dtype="float32")
+    params = init_params(cfg, seed=60, device=DEV)
+    perturb_altup(torch, params, seed=61)
+    line("w-parity", **encdec_parity_f32(torch, ops, cfg, params, W_ENC),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cfg = whisper_config()
+    params = init_params(cfg, seed=62, device=DEV)
+    perturb_altup(torch, params, seed=63)
+    res_w = encdec_serve(torch, ops, cfg, params, W_ENC, W_ROWS, W_PROMPT,
+                         W_NEW, seed=64)
+    line("w-serve", seconds=time.perf_counter() - t0, **res_w)
+    del params
+    torch.cuda.empty_cache()
+    line("nw-phases", seconds=time.perf_counter() - t_n)
+    return res_n, res_w
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -4482,6 +5075,10 @@ def main(argv) -> int:
     m_kern = check_moe_kernels(torch, ops, ref)
     line("c-altup", case="m", **m_kern["altup"])
     line("c-ragged", case="m", **m_kern["ragged"])
+    # t5-large's and whisper-tiny's served shapes (n, w)
+    nw_kern = check_encdec_kernels(torch, ops, ref)
+    for case, r in nw_kern.items():
+        line("c-altup" if "altup" in case else "c-ragged", case=case, **r)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -4676,6 +5273,12 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         res_m = moe_phases(torch, ops, Path(work))
 
+    # (n) t5-large + AltUp K=2 and (w) whisper-tiny + AltUp K=2, the
+    # encoder-decoder family: kernel path against dense path in f32,
+    # Sequence-AltUp, gradients, training, then Engine.generate
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        res_n, res_w = encdec_phases(torch, ops, Path(work))
+
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
     counts, counts_eq = res_r["launches"], res_eq_r["launches"]
@@ -4770,6 +5373,25 @@ def main(argv) -> int:
              "replaces": "src/repro/kernels/" + replaces,
              "launches": res_m["launches"][name],
              **{k: m_kern[key][k] for k in keys}})
+    # the same kernels at t5-large's and whisper-tiny's shapes, with
+    # n-serve's and w-serve's launches
+    for name, src, replaces, suffix, res_run, key in (
+            ("altup_predict_correct", "altup_fused.cu", "altup_fused.py:39",
+             "t5_large", res_n, "n-altup"),
+            ("ragged_decode_attention", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:210", "t5_large", res_n,
+             "n-ragged"),
+            ("altup_predict_correct", "altup_fused.cu", "altup_fused.py:39",
+             "whisper_tiny", res_w, "w-altup"),
+            ("ragged_decode_attention", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:210", "whisper_tiny", res_w,
+             "w-ragged")):
+        kernels.append(
+            {"name": f"{name}_{suffix}", "route": "cuda",
+             "source": "src/repro_torch/csrc/" + src,
+             "replaces": "src/repro/kernels/" + replaces,
+             "launches": res_run["launches"][name],
+             **{k: nw_kern[key][k] for k in keys}})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

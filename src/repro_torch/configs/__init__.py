@@ -16,6 +16,7 @@ _ARCH_MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-0.6b": "qwen3_0_6b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "whisper-tiny": "whisper_tiny",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

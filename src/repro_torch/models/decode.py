@@ -1,6 +1,7 @@
 """Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the attention, MoE and RWKV-6 parts of `repro/models/decode.py`.
+Port of the attention, MoE, RWKV-6 and encoder-decoder parts of
+`repro/models/decode.py`.
 An MoE layer's FFN routes drop-free (capacity = the step's B·S tokens).
 One cache dict per segment, stacked over the segment's layers:
 
@@ -16,6 +17,21 @@ One cache dict per segment, stacked over the segment's layers:
   rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
                tails shift_tm, shift_cm (n, B, d) in the activation dtype,
                per slot in contiguous and paged caches alike
+  cross: k, v  (n_layers, B, S_enc, Hk, Dh) an encoder-decoder model's
+               cross-attention keys and values over the encoder's output,
+               one per decoder layer, written once by `prefill` (RoPE'd
+               by encoder position unless use_rel_pos_bias) and only
+               read by the steps: float in the activation dtype even
+               when the self caches hold int8 / fp8 codes, and contiguous
+               only (paged decode and speculative drafts refuse encdec,
+               as the reference's do)
+
+Encoder-decoder decode mirrors the reference: each decoder layer's
+self-attention (the S=1 kernel path when the flags say so) reads no
+relative position bias, whatever use_rel_pos_bias says (T5's forward
+adds it; the reference's decode passes none, and the port matches the
+reference's decode), then a dense, unmasked cross-attention over the
+layer's cross entry, then the FFN.
 
 Ring caches, as in the reference: position q lands in row q % Tc, so a
 slot that passed Tc holds exactly the window's last Tc keys, in rotated
@@ -138,6 +154,14 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
         Tc = min(T, seg.window) if seg.window > 0 else T
         caches[f"seg{si}"] = _attn_leaves(spec, dtype, (seg.n, B, Tc + 1, hk),
                                           dh, dev)
+    if cfg.family == "encdec":
+        # cross-attention k/v over the encoder's output, one per decoder
+        # layer, float; prefill replaces them with the encoder output's
+        # length (avgpool shortens it)
+        shape = (cfg.n_layers, B, cfg.encoder_seq, hk, dh)
+        ad = dtype or act_dtype(cfg)
+        caches["cross"] = {"k": torch.zeros(shape, dtype=ad, device=dev),
+                           "v": torch.zeros(shape, dtype=ad, device=dev)}
     return caches
 
 
@@ -187,7 +211,12 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     PyTorch indexing has no drop mode, and a shared pool has no per-slot
     sink row (an idle slot's all-zero table row would aim into page 0, a
     live page of another request). Here row R is the sink's first row, so
-    such writes land where nothing is read."""
+    such writes land where nothing is read. An encoder-decoder config
+    raises: paged caches serve decoder-only models, as in the
+    reference."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("paged caches serve decoder-only models; "
+                                  "use contiguous caches for encdec")
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
@@ -388,7 +417,7 @@ def _decode_ffn(p_l, cfg: ModelConfig, x):
 
 def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
                 pinfo=None, n_valid=None, kv_len=None, use_ragged=False,
-                cache_ks=None, cache_vs=None, paged=None):
+                cache_ks=None, cache_vs=None, paged=None, cross=None):
     """One decode layer: attention over + write into the cache slice, then
     the FFN.
 
@@ -414,8 +443,13 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     with their positions at depth pos - 1, then the chunk's own fresh
     keys at theirs (padded ones pushed past every query), all through the
     dense path; quantized fresh keys take the quantize -> dequantize
-    round trip every later read sees. Returns (x, cache dict of the
-    layer's leaves)."""
+    round trip every later read sees.
+
+    cross: (cross_p, k, v) of an encoder-decoder layer — its ln_cross +
+    cross block and its (B, S_enc, Hk, Dh) cross cache: after the
+    self-attention, a dense unmasked attention over the encoder's keys
+    at positions 0..S_enc-1, as the reference computes it. Returns (x,
+    cache dict of the layer's leaves)."""
     ring = int(window) > 0
     spec = kv_quant_spec(cfg)
     if spec.quantized and (cache_ks is None or cache_vs is None):
@@ -457,7 +491,8 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     v_new = torch.einsum("bsd,dhk->bshk", h, p_l["attn"]["wv"].to(x.dtype))
     if cfg.qk_norm:
         k_new = L.rms_norm(k_new, p_l["attn"]["k_norm"])
-    k_new = L.apply_rope(k_new, q_pos, cfg.rope_theta)
+    if not cfg.use_rel_pos_bias:            # T5 has no RoPE
+        k_new = L.apply_rope(k_new, q_pos, cfg.rope_theta)
     # quantize-on-write: post-RoPE k/v -> codes (B,S,Hk,Dh) + scales (B,S,Hk)
     k_new, ks_new = quant.quantize(k_new, spec)
     v_new, vs_new = quant.quantize(v_new, spec)
@@ -493,6 +528,14 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
                                  ragged_lengths=lengths, kv_scales=scales,
                                  paged_kv=paged_kv)
     x = x + a
+    if cross is not None:
+        cp, ck, cv = cross
+        h = L.rms_norm(x, cp["ln_cross"], cfg.logical_norm_eps)
+        c, _ = L.attention_block(
+            cp["cross"], cfg, h, window=0, q_pos=q_pos,
+            k_pos=torch.arange(ck.shape[1], device=x.device), kv=(ck, cv),
+            causal=False)
+        x = x + c
     out = {"k": cache_k, "v": cache_v}
     if spec.quantized:
         out.update(k_scale=cache_ks, v_scale=cache_vs)
@@ -556,12 +599,14 @@ def altup_selectors(K: int, selection: str, layer_offset: int, n: int,
 def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    n_valid=None, kv_len=None, use_ragged=False,
                    use_fused=False, paged=None,
-                   wkv_kernel: Optional[bool] = None):
+                   wkv_kernel: Optional[bool] = None, cross_stack=None):
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
     place. paged: optional (block_table, page) — the segment's caches are
     row pools and the logical capacity Tc is the table's row span, capped
     at the window on a ring segment. An rwkv segment reads and writes
-    only its recurrent state leaves."""
+    only its recurrent state leaves. cross_stack: an encoder-decoder
+    decoder's (stacked enc/cross blocks, the caches' "cross" entry),
+    indexed by global layer."""
     K = cfg.altup.K
     S = x.shape[1]
     if seg.kind == "rwkv":
@@ -589,12 +634,17 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
         quantized = "k_scale" in cache
 
         def run_layer(i, p_l, xa):
+            cross = None
+            if cross_stack is not None:
+                cp, cc = cross_stack
+                j = seg.layer_offset + i
+                cross = (layer_slice(cp, j), cc["k"][j], cc["v"][j])
             out, _ = decode_attn(
                 p_l, cfg, xa, cache["k"][i], cache["v"][i], pos, seg.window,
                 pinfo=pinfo, use_ragged=use_ragged,
                 cache_ks=cache["k_scale"][i] if quantized else None,
                 cache_vs=cache["v_scale"][i] if quantized else None,
-                paged=pg_seg)
+                paged=pg_seg, cross=cross)
             return out
     sels = None
     if cfg.altup.enabled:
@@ -629,15 +679,19 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     pools and block_table is the (B, ceil(max_len/page)) int32 per-slot
     page map on the caches' device; pos must be a per-slot (B,) tensor.
     wkv_kernel: the RWKV-6 recurrence through the WKV kernel wrapper
-    (resolve_kernel_flag; None = on CUDA tensors). Returns (logits
-    (B, S, V_pad), caches), the caches written in place.
+    (resolve_kernel_flag; None = on CUDA tensors). An encoder-decoder
+    model reads its caches' "cross" entry, which prefill filled. Returns
+    (logits (B, S, V_pad), caches), the caches written in place.
     """
     kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
+    cross_stack = ((params["enc"]["cross"], caches["cross"])
+                   if cfg.family == "encdec" else None)
     x = embed_tokens(params, cfg, tokens)
     for si, seg in enumerate(layer_plan(cfg)):
         x, _ = decode_segment(params[f"seg{si}"], caches[f"seg{si}"], seg,
                               cfg, x, pos, n_valid=n_valid, kv_len=kv_len,
-                              wkv_kernel=wkv_kernel, **kw)
+                              wkv_kernel=wkv_kernel, cross_stack=cross_stack,
+                              **kw)
     return unembed(params, cfg, x), caches
 
 
@@ -647,6 +701,9 @@ def _step_kwargs(cfg: ModelConfig, tokens, pos, block_table, page_size):
     dev = tokens.device
     paged = None
     if block_table is not None:
+        if cfg.family == "encdec":
+            raise NotImplementedError("paged decode serves decoder-only "
+                                      "models")
         if int(page_size) < 1:
             raise ValueError(f"paged decode needs a page_size >= 1, got "
                              f"{page_size}")
@@ -677,7 +734,9 @@ def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     stacked caches and parameters as they are: decode_segment touches no
     layer past its count, so the tail layers' caches stay as they were.
     Same arguments as decode_step; returns (logits (B, S, V_pad),
-    caches)."""
+    caches). An encoder-decoder config raises, as in the reference."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("draft_step serves decoder-only models")
     D = int(draft_layers)
     if not 1 <= D <= cfg.n_layers:
         raise ValueError(f"draft_layers={D} out of range [1, "
@@ -722,14 +781,24 @@ def decode_sample_step(params, caches, seen, tokens, pos, n_valid, sparams,
     return ids, lps, caches, seen
 
 
-def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None):
+def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
+            encoder_frames=None):
     """Run the full prompt one token at a time and build caches of
     capacity T (for the static generate() path and tests — decode_step
     consumes the result). step_fn: optional (params, caches, tokens, pos)
     -> (logits, caches) replacement for decode_step; pos reaches it as an
-    int."""
+    int. encoder_frames: an encoder-decoder model's encoder input (int
+    ids or float frames, as forward's): `encode` runs once, without
+    autograd, and each decoder layer's cross k/v over its output (RoPE'd
+    by encoder position unless use_rel_pos_bias) fill the caches' "cross"
+    entry, at the encoder output's length."""
     B, S = tokens.shape
     caches = init_cache(cfg, B, T, device=tokens.device)
+    if cfg.family == "encdec":
+        if encoder_frames is None:
+            raise ValueError("an encoder-decoder prefill needs "
+                             "encoder_frames")
+        caches["cross"] = cross_caches(params, cfg, encoder_frames)
     if step_fn is None:
         def step_fn(p, c, tk, ps):
             return decode_step(p, cfg, c, tk, ps)
@@ -737,6 +806,26 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None):
     for t in range(S):
         logits, caches = step_fn(params, caches, tokens[:, t:t + 1], t)
     return logits, caches
+
+
+@torch.no_grad()
+def cross_caches(params, cfg: ModelConfig, encoder_frames):
+    """{"k", "v"}: (n_layers, B, S_enc', Hk, Dh) cross-attention keys and
+    values of every decoder layer over `encode`'s output (S_enc' its
+    length), in the activation dtype."""
+    from repro_torch.models.transformer import encode
+    enc_out = encode(params, cfg, encoder_frames)
+    pos = torch.arange(enc_out.shape[1], device=enc_out.device)
+    cp = params["enc"]["cross"]["cross"]
+    ad = enc_out.dtype
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        k = torch.einsum("bsd,dhk->bshk", enc_out, cp["wk"][i].to(ad))
+        if not cfg.use_rel_pos_bias:
+            k = L.apply_rope(k, pos, cfg.rope_theta)
+        ks.append(k)
+        vs.append(torch.einsum("bsd,dhk->bshk", enc_out, cp["wv"][i].to(ad)))
+    return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Transformer layer primitives of the port: norms, RoPE, GQA attention and
-the gated FFN. Port of the dense parts of `repro/models/layers.py`.
+"""Transformer layer primitives of the port: norms, RoPE, T5's relative
+position bias, GQA attention (self and cross) and the gated FFN. Port of
+the dense parts of `repro/models/layers.py`.
 
 Functions are plain functions on tensors; parameters are mappings from the
 reference's leaf names to tensors. Shapes use B=batch, S=query length,
@@ -89,7 +90,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# attention (GQA + per-slot positions)
+# T5 relative position bias
+# --------------------------------------------------------------------------
+
+def t5_rel_bucket(rel: torch.Tensor, n_buckets: int, max_dist: int = 128,
+                  bidirectional: bool = False) -> torch.Tensor:
+    """T5's bucket of each relative position rel = k_pos - q_pos (int
+    tensor): exact buckets below half the range, log-spaced ones above,
+    in f32 as the reference computes them. bidirectional splits the
+    buckets between keys before and after the query (the encoder); the
+    causal form buckets only keys before it."""
+    ret = torch.zeros_like(rel)
+    n = n_buckets
+    if bidirectional:
+        n = n // 2
+        ret = ret + (rel > 0).to(rel.dtype) * n
+        rel = torch.abs(rel)
+    else:
+        rel = -torch.clamp(rel, max=0)
+    max_exact = n // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        torch.log(rel.to(torch.float32) / max_exact + 1e-6)
+        / math.log(max_dist / max_exact) * (n - max_exact)
+    ).to(rel.dtype)
+    large = torch.clamp(large, max=n - 1)
+    return ret + torch.where(is_small, rel, large)
+
+
+def t5_rel_bias(rel_table: torch.Tensor, q_pos: torch.Tensor,
+                k_pos: torch.Tensor, n_buckets: int,
+                bidirectional: bool) -> torch.Tensor:
+    """rel_table: (n_buckets, H) -> bias (1, H, S, T)."""
+    rel = k_pos[None, :] - q_pos[:, None]                  # (S, T)
+    buckets = t5_rel_bucket(rel, n_buckets, bidirectional=bidirectional)
+    bias = rel_table[buckets]                              # (S, T, H)
+    return bias.permute(2, 0, 1)[None]                     # (1, H, S, T)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA + per-slot positions + optional bias)
 # --------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
@@ -107,13 +147,15 @@ def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
     return p
 
 
-def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos,
+def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos, bias=None,
          scale: Optional[float] = None):
     """Scaled dot-product attention with GQA + sliding-window masking.
 
     q: (B, S, H, Dh); k, v: (B, T, Hk, Dh); window: 0/None = full, else
     only attend to keys with q_pos - k_pos < window. q_pos: (S,) or (B, S);
-    k_pos: (T,) or (B, T). Query head h reads kv head h // rep.
+    k_pos: (T,) or (B, T). Query head h reads kv head h // rep. bias:
+    (1|B, H, S, T), added to the scores after the mask, as the reference
+    adds it.
     """
     B, S, H, Dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
@@ -135,6 +177,9 @@ def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos,
         m = m & (rel < int(window))
     scores = torch.where(m[:, None, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
+    if bias is not None:
+        bias = bias.reshape(bias.shape[0], Hk, rep, S, T)
+        scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(f32))
     return out.reshape(B, S, H, Dh).to(q.dtype)
@@ -142,6 +187,7 @@ def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos,
 
 def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                     k_pos, kv: Optional[tuple] = None,
+                    x_kv: Optional[torch.Tensor] = None, bias=None,
                     causal: Optional[bool] = None,
                     ragged_lengths: Optional[torch.Tensor] = None,
                     kv_scales: Optional[tuple] = None,
@@ -150,7 +196,11 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     those).
 
     Returns (out, (k, v)) so callers can populate KV caches. kv: a
-    precomputed (k, v) (the decode path with a cache). ragged_lengths:
+    precomputed (k, v) (the decode path with a cache); x_kv: the source
+    of k and v when it is not x (cross-attention over an encoder's
+    output); bias: (1|B, H, S, T) added to the scores (T5's relative
+    position bias). A config with use_rel_pos_bias rotates neither q nor
+    k (T5 has no RoPE). ragged_lengths:
     per-slot (B,) valid-cache-row counts — when given and S == 1, attention
     runs through the length-aware kernel wrapper (kernels/ops.py) instead
     of the dense masked sdpa. The caller guarantees row t of the cache is
@@ -166,25 +216,25 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     paged kernel path: a pool has no dense (B, T, ...) layout for sdpa, so
     anything else raises.
     """
-    if cfg.use_rel_pos_bias:
-        raise NotImplementedError(
-            "relative position bias (T5) is not ported yet: the "
-            "encoder-decoder slice (ROADMAP A9) brings it")
     causal = cfg.causal if causal is None else causal
+    use_rope = not cfg.use_rel_pos_bias
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
-    q = apply_rope(q, q_pos, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
     if kv is None:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        src = x if x_kv is None else x_kv
+        k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
         if cfg.qk_norm:
             k = rms_norm(k, p["k_norm"])
-        k = apply_rope(k, k_pos, cfg.rope_theta)
+        if use_rope:
+            k = apply_rope(k, k_pos, cfg.rope_theta)
     else:
         k, v = kv
     use_ragged = (ragged_lengths is not None and q.shape[1] == 1
-                  and kv is not None and causal)
+                  and kv is not None and bias is None and causal)
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     if use_ragged and paged_kv is not None:
         bt, page, t_max = paged_kv
@@ -195,14 +245,14 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     elif paged_kv is not None:
         raise ValueError(
             "paged_kv requires the ragged decode path (S == 1, kv cache, "
-            "causal, ragged_lengths given): a paged pool has no dense "
-            "(B, T, ...) layout for sdpa")
+            "causal, no bias, ragged_lengths given): a paged pool has no "
+            "dense (B, T, ...) layout for sdpa")
     else:
         if kv_scales is not None:
             k = quant.dequantize(k, ks, x.dtype)
             v = quant.dequantize(v, vs, x.dtype)
         out = sdpa(q, k, v, causal=causal, window=window, q_pos=q_pos,
-                   k_pos=k_pos)
+                   k_pos=k_pos, bias=bias)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, (k, v)
 

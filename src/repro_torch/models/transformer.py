@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly of the port: segments of homogeneous layers
-with AltUp wrapping every block (paper Alg. 1 applied per layer).
+"""LM assembly of the port: segments of homogeneous layers with AltUp
+wrapping every block (paper Alg. 1 applied per layer), and the
+encoder-decoder family's encoder.
 
 Port of the dense parts of `repro/models/transformer.py`. Parameters keep
 the reference's leaf names and stacked layouts (e.g. `seg0/attn/wq` of
@@ -10,10 +11,15 @@ reference scans.
 Ported: `family="dense"`, with full attention or sliding windows (one
 windowed segment, or gemma3's alternating local and global segments when
 `global_every` is set), `family="moe"` (one segment of attention layers
-whose FFN is the mixture of experts of `models/moe.py`) and
-`family="rwkv6"` (one segment of RWKV-6 layers, `models/rwkv.py`); other
-families raise NotImplementedError naming the ROADMAP item that brings
-them.
+whose FFN is the mixture of experts of `models/moe.py`),
+`family="rwkv6"` (one segment of RWKV-6 layers, `models/rwkv.py`) and
+`family="encdec"` (T5 and whisper: a decoder segment whose layers
+cross-attend over the encoder's output through the `enc/cross` stack,
+T5's relative position bias when `use_rel_pos_bias`, and an encoder
+built from the same layers over token ids or precomputed frames, which
+`encode_seq_reduced` runs with Sequence-AltUp or a Table-2 baseline);
+other families raise NotImplementedError naming the ROADMAP item that
+brings them.
 
 `forward` has two modes: the decode path's oracle (no autograd; the
 RWKV recurrence may run through its kernel) and, with `train=True`, the
@@ -34,6 +40,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
+from repro_torch.core import sequence_altup as seqalt
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -127,11 +134,11 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
     if cfg.family == "moe":
         return [Segment("attn", cfg.n_layers, "moe", 0,
                         window=cfg.window_size)]
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the port serves "
-            f"family='dense', 'moe' and 'rwkv6'; the other families arrive "
-            f"with ROADMAP A9")
+            f"family='dense', 'moe', 'rwkv6' and 'encdec'; the other "
+            f"families arrive with ROADMAP A9")
     if cfg.window_size > 0 and cfg.global_every > 0:
         # gemma3's 5:1 local:global pattern -> alternating static segments
         segs: List[Segment] = []
@@ -181,13 +188,12 @@ def init_layer(seg: Segment, cfg: ModelConfig, generator, device) -> Dict:
     return p
 
 
-def init_segment(seg: Segment, cfg: ModelConfig, generator,
-                 device) -> Dict:
-    """Stacked (n, ...) parameters of one segment. Each stacked leaf is
-    allocated once and layer i's draws, made in the layer-by-layer order
-    of the reference's stack, land in slice i: the segment is held once,
-    beside one layer's draws (at qwen2-moe-a2.7b's width, a segment's
-    experts are 27 GB in bf16)."""
+def _stack_init(n: int, one_layer) -> Dict:
+    """Stacked (n, ...) leaves of n calls of one_layer() (a nested dict of
+    one layer's tensors). Each stacked leaf is allocated once and layer
+    i's draws, made in the layer-by-layer order of the reference's stack,
+    land in slice i: the stack is held once, beside one layer's draws (at
+    qwen2-moe-a2.7b's width, a segment's experts are 27 GB in bf16)."""
     stacked: Dict = {}
 
     def fill(dst: Dict, layer: Dict, i: int) -> None:
@@ -196,13 +202,20 @@ def init_segment(seg: Segment, cfg: ModelConfig, generator,
                 fill(dst.setdefault(name, {}), val, i)
                 continue
             if name not in dst:
-                dst[name] = torch.empty((seg.n,) + tuple(val.shape),
+                dst[name] = torch.empty((n,) + tuple(val.shape),
                                         dtype=val.dtype, device=val.device)
             dst[name][i] = val
 
-    for i in range(seg.n):
-        fill(stacked, init_layer(seg, cfg, generator, device), i)
+    for i in range(n):
+        fill(stacked, one_layer(), i)
     return stacked
+
+
+def init_segment(seg: Segment, cfg: ModelConfig, generator,
+                 device) -> Dict:
+    """Stacked (n, ...) parameters of one segment (_stack_init)."""
+    return _stack_init(seg.n,
+                       lambda: init_layer(seg, cfg, generator, device))
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -238,21 +251,69 @@ def init_tree(cfg: ModelConfig, gen, dev) -> Dict:
         pd, dev)
     for si, seg in enumerate(layer_plan(cfg)):
         params[f"seg{si}"] = init_segment(seg, cfg, gen, dev)
+    if cfg.family == "encdec":
+        params["enc"] = init_encoder_params(cfg, gen, dev)
+    if cfg.seq_altup.enabled and cfg.seq_altup.mode == "altup":
+        params["seq_altup"] = seqalt.init_seq_altup_params(
+            cfg.n_layers, torch.float32, dev)
+    if cfg.use_rel_pos_bias:
+        # f32 whatever the parameters' dtype, as in the reference
+        params["rel_bias_dec"] = L.dense_init(
+            (cfg.rel_pos_buckets, cfg.n_heads), torch.float32, gen, dev,
+            in_axis=0)
     return params
+
+
+def encoder_segment(cfg: ModelConfig) -> Segment:
+    return Segment("attn", cfg.n_encoder_layers, "dense", 0)
+
+
+def init_encoder_params(cfg: ModelConfig, gen, dev) -> Dict:
+    """The encoder-decoder family's `enc` subtree: the encoder's stacked
+    layers (`seg`, built like a decoder segment, so AltUp wraps them
+    too: the paper widens the whole T5), a d-wide `final_norm` (applied
+    after the K blocks are averaged), one cross-attention block per
+    decoder layer (`cross`: ln_cross + attention, stacked) and, with
+    use_rel_pos_bias, the encoder's f32 bias table `rel_bias_enc`."""
+    pd = prm_dtype(cfg)
+    d = cfg.d_model
+    enc: Dict = {"seg": init_segment(encoder_segment(cfg), cfg, gen, dev),
+                 "final_norm": L.init_rms_norm(d, pd, dev)}
+    enc["cross"] = _stack_init(cfg.n_layers, lambda: {
+        "ln_cross": L.init_rms_norm(d, pd, dev),
+        "cross": L.init_attention(cfg, pd, gen, dev)})
+    if cfg.use_rel_pos_bias:
+        enc["rel_bias_enc"] = L.dense_init(
+            (cfg.rel_pos_buckets, cfg.n_heads), torch.float32, gen, dev,
+            in_axis=0)
+    return enc
 
 
 # --------------------------------------------------------------------------
 # the width-d layer body (the `L` that AltUp wraps)
 # --------------------------------------------------------------------------
 
-def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos):
+def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
+                   bias=None, cross_p=None, enc_out=None, causal=None):
     """One pre-norm transformer layer on the ACTIVE d-wide block, its FFN
-    dense or a mixture of experts (the layer holds "moe"). Returns (x,
-    the layer's aux loss: 0-d f32, zero for a dense FFN)."""
+    dense or a mixture of experts (the layer holds "moe"). bias: T5's
+    relative position bias of the self-attention; causal: None = the
+    config's (the encoder passes False). cross_p / enc_out: an
+    encoder-decoder decoder layer's cross-attention block (ln_cross +
+    cross) and the encoder's output (B, S_enc, d) it attends over, keys
+    at positions 0..S_enc-1, unmasked. Returns (x, the layer's aux loss:
+    0-d f32, zero for a dense FFN)."""
     h = L.rms_norm(x, p["ln_attn"], cfg.logical_norm_eps)
     a, _ = L.attention_block(p["attn"], cfg, h, window=window, q_pos=q_pos,
-                             k_pos=k_pos)
+                             k_pos=k_pos, bias=bias, causal=causal)
     x = x + a
+    if cross_p is not None:
+        h = L.rms_norm(x, cross_p["ln_cross"], cfg.logical_norm_eps)
+        c, _ = L.attention_block(
+            cross_p["cross"], cfg, h, window=0, q_pos=q_pos, x_kv=enc_out,
+            causal=False,
+            k_pos=torch.arange(enc_out.shape[1], device=x.device))
+        x = x + c
     h = L.rms_norm(x, p["ln_ffn"], cfg.logical_norm_eps)
     if "moe" in p:
         f, aux = moe_lib.moe_block(p["moe"], cfg.moe, h,
@@ -294,6 +355,15 @@ def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], K, d)
 
 
+def lift_embeds(x_emb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Lift externally provided d-wide embeddings (whisper's audio frames)
+    into the widened stream by replication."""
+    if not cfg.altup.enabled:
+        return x_emb
+    return x_emb[..., None, :].expand(*x_emb.shape[:-1], cfg.altup.K,
+                                      cfg.d_model)
+
+
 # matmuls whose outputs remat="dots" keeps for the backward pass (the
 # reference's dots_with_no_batch_dims_saveable keeps its dot_generals)
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -323,24 +393,32 @@ def remat_wrap(fn, remat: str):
 
 def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
                   k_pos, wkv_kernel: Optional[bool] = None,
-                  remat: str = "none"):
+                  remat: str = "none", enc_out=None, cross_stack=None,
+                  rel_bias=None, causal=None):
     """Run a full-sequence segment. x: (B, S, [K,] d). An rwkv segment
     starts every layer's recurrence from a zero state. remat: the policy
-    around each layer body, AltUp included (remat_wrap). Returns (x, the
-    segment's aux loss summed over its layers; under AltUp a layer's aux
-    is that of the one block it computed)."""
+    around each layer body, AltUp included (remat_wrap). enc_out /
+    cross_stack: an encoder-decoder decoder segment's encoder output and
+    the stacked `enc/cross` blocks, indexed by global layer; rel_bias:
+    the self-attention's (1, H, S, S) bias; causal: None = the config's.
+    Returns (x, the segment's aux loss summed over its layers; under
+    AltUp a layer's aux is that of the one block it computed)."""
     K = cfg.altup.K
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(seg.n):
         p_l = layer_slice(p_seg, i)
+        cross_l = (None if cross_stack is None
+                   else layer_slice(cross_stack, seg.layer_offset + i))
 
-        def layer_fn(xa, p_l=p_l):
+        def layer_fn(xa, p_l=p_l, cross_l=cross_l):
             if seg.kind == "rwkv":
                 out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
                 return out, torch.zeros((), dtype=torch.float32,
                                         device=xa.device)
             return attn_ffn_layer(p_l, cfg, xa, window=seg.window,
-                                  q_pos=q_pos, k_pos=k_pos)
+                                  q_pos=q_pos, k_pos=k_pos, bias=rel_bias,
+                                  cross_p=cross_l, enc_out=enc_out,
+                                  causal=causal)
 
         if cfg.altup.enabled:
             sel = alt.block_selector(seg.layer_offset + i, K,
@@ -368,9 +446,14 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
 
 def forward(params, cfg: ModelConfig, tokens, *,
             wkv_kernel: Optional[bool] = None,
-            train: bool = False) -> torch.Tensor:
+            train: bool = False, encoder_frames=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V_pad); forward_aux also
     returns the MoE aux loss, as the reference's forward does.
+
+    encoder_frames: the encoder-decoder family's encoder input, int token
+    ids (B, S_enc) (T5) or float frame embeddings (B, S_enc, d) (whisper's
+    stubbed frontend); `encode` runs it once and every decoder layer
+    cross-attends over its output.
 
     train=False: the oracle the decode path is held against, run without
     autograd; wkv_kernel sends the RWKV-6 recurrence through the kernel
@@ -383,34 +466,130 @@ def forward(params, cfg: ModelConfig, tokens, *,
     are. An MoE layer routes with capacity_for's drops, as the
     reference's forward does (decode is drop-free)."""
     return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
-                       train=train)[0]
+                       train=train, encoder_frames=encoder_frames)[0]
 
 
 def forward_aux(params, cfg: ModelConfig, tokens, *,
-                wkv_kernel: Optional[bool] = None, train: bool = False):
+                wkv_kernel: Optional[bool] = None, train: bool = False,
+                encoder_frames=None):
     """forward's (logits (B, S, V_pad), aux loss 0-d f32: the MoE
     load-balance loss summed over layers, 0 for the other families)."""
     if not train:
         with torch.no_grad():
             return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,
-                            remat="none")
+                            remat="none", encoder_frames=encoder_frames)
     if wkv_kernel:
         raise ValueError("train=True runs no kernel: the WKV kernel has no "
                          "backward pass")
-    return _forward(params, cfg, tokens, wkv_kernel=False, remat=cfg.remat)
+    return _forward(params, cfg, tokens, wkv_kernel=False, remat=cfg.remat,
+                    encoder_frames=encoder_frames)
 
 
-def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat):
+def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
+             encoder_frames=None):
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)
+    rel_bias = enc_out = cross_stack = None
+    if cfg.use_rel_pos_bias:
+        rel_bias = L.t5_rel_bias(params["rel_bias_dec"], q_pos, q_pos,
+                                 cfg.rel_pos_buckets, bidirectional=False)
+    if cfg.family == "encdec":
+        if encoder_frames is None:
+            raise ValueError("an encoder-decoder forward needs "
+                             "encoder_frames")
+        enc_out = encode(params, cfg, encoder_frames, remat=remat)
+        cross_stack = params["enc"]["cross"]
+    elif encoder_frames is not None:
+        raise ValueError(f"encoder_frames given to family {cfg.family!r}")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
         x, aux = apply_segment(params[f"seg{si}"], seg, cfg, x, q_pos=q_pos,
                                k_pos=q_pos, wkv_kernel=wkv_kernel,
-                               remat=remat)
+                               remat=remat, enc_out=enc_out,
+                               cross_stack=cross_stack, rel_bias=rel_bias)
         aux_total = aux_total + aux
     return unembed(params, cfg, x), aux_total
+
+
+def encode(params, cfg: ModelConfig, enc_input, *,
+           remat: str = "none") -> torch.Tensor:
+    """The encoder over token ids (T5: an integer (B, S) tensor, through
+    the shared embedding) or precomputed frame embeddings (whisper's
+    stubbed conv frontend: a float (B, S, d) tensor, replicated into the
+    widened stream). Bidirectional (non-causal) attention with T5's
+    bidirectional bias; AltUp wraps the encoder's layers when enabled,
+    and its K blocks are averaged before the d-wide final norm so that
+    cross-attention stays d-wide. cfg.seq_altup enabled runs
+    encode_seq_reduced instead. Runs with autograd as its caller does
+    (prefill calls it under no_grad). Returns (B, S', d), S' = S but
+    under avgpool."""
+    enc = params["enc"]
+    if enc_input.dtype.is_floating_point:
+        x = lift_embeds(enc_input.to(act_dtype(cfg)), cfg)
+    else:
+        x = embed_tokens(params, cfg, enc_input)
+    if cfg.seq_altup.enabled:
+        x = encode_seq_reduced(params, cfg, x)
+    else:
+        pos = torch.arange(x.shape[1], device=x.device)
+        bias = None
+        if cfg.use_rel_pos_bias:
+            bias = L.t5_rel_bias(enc["rel_bias_enc"], pos, pos,
+                                 cfg.rel_pos_buckets, bidirectional=True)
+        x, _ = apply_segment(enc["seg"], encoder_segment(cfg), cfg, x,
+                             q_pos=pos, k_pos=pos, remat=remat,
+                             rel_bias=bias, causal=False)
+    if cfg.altup.enabled:
+        x = x.mean(dim=-2)             # collapse the K blocks
+    return L.rms_norm(x, enc["final_norm"], cfg.logical_norm_eps)
+
+
+def encode_seq_reduced(params, cfg: ModelConfig, x) -> torch.Tensor:
+    """Sequence-length-reduced encoder (paper Sec. 4.2 / Table 2).
+
+    cfg.seq_altup.mode "altup" (Sequence-AltUp with the per-layer
+    scalars `seq_altup/{a1,a2,b}` indexed by encoder layer) or
+    "stride_skip" reduces the encoder layers [first_layer,
+    n_encoder_layers - last_layer_offset) and runs the others in full;
+    "avgpool" pools the sequence by the stride first and runs every
+    layer on the pooled sequence. x: (B, S, d). Width-AltUp is not
+    combined with it, as in the paper: an AltUp config raises."""
+    if cfg.altup.enabled:
+        raise ValueError("Sequence-AltUp and width AltUp are not combined "
+                         "(cfg.altup.K must be 1 with cfg.seq_altup)")
+    sa = cfg.seq_altup
+    if sa.mode not in ("altup", "stride_skip", "avgpool"):
+        raise ValueError(f"unknown Sequence-AltUp mode {sa.mode!r}")
+    enc = params["enc"]
+    n = cfg.n_encoder_layers
+    lo, hi = sa.first_layer, n - sa.last_layer_offset
+
+    def run_layer(p_l, xx):
+        pos = torch.arange(xx.shape[1], device=xx.device)
+        bias = None
+        if cfg.use_rel_pos_bias:
+            bias = L.t5_rel_bias(enc["rel_bias_enc"], pos, pos,
+                                 cfg.rel_pos_buckets, bidirectional=True)
+        return attn_ffn_layer(p_l, cfg, xx, window=0, q_pos=pos, k_pos=pos,
+                              bias=bias, causal=False)[0]
+
+    if sa.mode == "avgpool":
+        x = seqalt.avgpool_reduce(x, sa.stride)
+        for i in range(n):
+            x = run_layer(layer_slice(enc["seg"], i), x)
+        return x
+    for i in range(n):
+        layer_fn = functools.partial(run_layer, layer_slice(enc["seg"], i))
+        if not lo <= i < hi:
+            x = layer_fn(x)
+        elif sa.mode == "altup":
+            pp = params["seq_altup"]
+            x = seqalt.seq_altup_layer(layer_fn, x, sa.stride, pp["a1"][i],
+                                       pp["a2"][i], pp["b"][i])
+        else:
+            x = seqalt.stride_and_skip_layer(layer_fn, x, sa.stride)
+    return x
 
 
 def unembed(params, cfg: ModelConfig, x) -> torch.Tensor:

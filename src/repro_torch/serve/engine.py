@@ -353,7 +353,10 @@ class Engine:
     capacity, n_slots full-length requests; smaller over-commits the
     slots, admission-limited); host_spill_pages: host tier for evicted
     prefix pages (0 = off). Recurrent and sliding-window plans prefill
-    one token per step whatever prefill_chunk says. speculative: True or
+    one token per step whatever prefill_chunk says. An encoder-decoder
+    config (T5, whisper) is served by generate(..., encoder_frames=)
+    only, as in the reference: submit() raises, and paged=True and
+    speculative decoding refuse it. speculative: True or
     a SpecConfig turns on self-speculative decoding
     (serve/speculative.py); recurrent plans decode normally whatever it
     says. Steps (graph captures included) and
@@ -373,6 +376,11 @@ class Engine:
                 f"kv_bucket_min must be >= 1, got {kv_bucket_min}")
         if paged and page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if cfg.family == "encdec" and (paged or speculative):
+            raise NotImplementedError(
+                "paged caches and speculative decoding serve decoder-only "
+                "families; an encoder-decoder model takes Engine(paged="
+                "False, speculative=False).generate(..., encoder_frames=)")
         plan = layer_plan(cfg)
         self._has_recurrent = any(s.kind == "rwkv" for s in plan)
         # the capacity of every ring (sliding-window segment)
@@ -541,6 +549,10 @@ class Engine:
     def _ensure_slots(self):
         if self._sched is not None:
             return
+        if self.cfg.family == "encdec":
+            raise NotImplementedError(
+                "continuous batching serves decoder-only families; "
+                "use generate() for encoder-decoder models")
         usable = functools.partial(self._prefix_usable_len,
                                    recurrent=self._has_recurrent,
                                    ring_caps=self._ring_caps,
@@ -1040,10 +1052,14 @@ class Engine:
     @torch.no_grad()
     def generate(self, prompt_tokens, n_new: Optional[int] = None, *,
                  sampling: Optional[SamplingParams] = None,
-                 temperature: float = 0.0, key=None) -> torch.Tensor:
+                 temperature: float = 0.0, key=None,
+                 encoder_frames=None) -> torch.Tensor:
         """prompt_tokens: (B, S). Returns (B, n) generated ids (int32, on
         the engine's device), through contiguous caches of its own even
-        when the engine is paged.
+        when the engine is paged. encoder_frames: an encoder-decoder
+        model's encoder input, int token ids (B, S_enc) for T5 or float
+        frame embeddings (B, S_enc, d) for whisper, as in the reference;
+        prefill encodes it once and fills the cross-attention caches.
 
         generate(prompts, sampling=SamplingParams(...)): row b samples
         under base key jax.random.key(sampling.seed + b) (seed defaults to
@@ -1098,8 +1114,11 @@ class Engine:
         def step_fn(p, c, tk, t):
             return decode_step(p, cfg, c, tk, t, kv_len=self._bucket(t + 1))
 
+        if encoder_frames is not None:
+            encoder_frames = self._tensor(encoder_frames)
         logits, caches = prefill(self.params, cfg, prompt_tokens,
-                                 T=self.max_len, step_fn=step_fn)
+                                 T=self.max_len, step_fn=step_fn,
+                                 encoder_frames=encoder_frames)
         update_seen(seen, prompt_tokens)
         outs, lp_outs = [], []
 

@@ -43,14 +43,44 @@ def test_config_fields_and_defaults_match_reference(name):
                                 dict(altup_k=2, recycled=False),
                                 dict(smoke=True, altup_k=2)])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-4b",
-                                  "gemma3-12b", "qwen2-moe-a2.7b"])
+                                  "gemma3-12b", "qwen2-moe-a2.7b",
+                                  "whisper-tiny"])
 def test_get_config_matches_reference(arch, kw):
     got = dataclasses.asdict(tconfigs.get_config(arch, **kw))
     want = dataclasses.asdict(jconfigs.get_config(arch, **kw))
     assert got == want
     if kw == dict(altup_k=2):
         # recycled by default only above 100k tokens of vocabulary
-        assert got["altup"]["recycled"] == (arch != "rwkv6-1.6b")
+        assert got["altup"]["recycled"] == (
+            arch not in ("rwkv6-1.6b", "whisper-tiny"))
+
+
+@pytest.mark.parametrize("name", ["T5_SMALL", "T5_BASE", "T5_LARGE", "T5_XL",
+                                  "T5_TINY", "T5_MINI"])
+def test_t5_configs_match_reference(name):
+    """The port's copy of repro/configs/t5.py, field for field, and its
+    altup() / seq_altup() variants (the module is outside both
+    registries)."""
+    from repro.configs import t5 as jt5
+    from repro_torch.configs import t5 as tt5
+    j, t = getattr(jt5, name), getattr(tt5, name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for args in ((2,), (4, True), (2, False, "same")):
+        assert dataclasses.asdict(tt5.altup(t, *args)) == \
+            dataclasses.asdict(jt5.altup(j, *args))
+    for mode in ("altup", "stride_skip", "avgpool"):
+        assert dataclasses.asdict(tt5.seq_altup(t, 4, mode)) == \
+            dataclasses.asdict(jt5.seq_altup(j, 4, mode))
+    assert "t5-large" not in tconfigs.ARCH_IDS
+
+
+def test_whisper_config_matches_reference():
+    from repro.configs import whisper_tiny as jw
+    from repro_torch.configs import whisper_tiny as tw
+    for name in ("CONFIG", "SMOKE"):
+        assert dataclasses.asdict(getattr(tw, name)) == \
+            dataclasses.asdict(getattr(jw, name))
+    assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
 
 
 def test_get_config_unported_arch_raises():
