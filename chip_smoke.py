@@ -18,10 +18,12 @@ gemma3-4b wrapped with AltUp K=2 (5 local layers with a 1024-row ring
 cache to 1 global layer); it trains the served model at full width and
 serves the trained weights; then the MoE family, qwen2-moe-a2.7b
 wrapped with AltUp K=2, served at full depth and trained at 2 layers;
-last the encoder-decoder family, t5-large wrapped with AltUp K=2
+then the encoder-decoder family, t5-large wrapped with AltUp K=2
 (with Sequence-AltUp beside it) and whisper-tiny wrapped with AltUp
-K=2, served through Engine.generate and (T5) trained at full depth.
-Phases:
+K=2, served through Engine.generate and (T5) trained at full depth;
+last deepseek-v3-671b wrapped with AltUp K=2 (multi-head latent
+attention), at every published width, served at 5 layers with all 256
+routed experts and trained at 2. Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
@@ -88,6 +90,8 @@ Phases:
                qwen2-moe-a2.7b's served shapes (m-serve): AltUp at 8
                tokens of d 2048; the decode attention halfway through
                m-serve (16 kv heads of 128, rep 1); timed with its bound
+      c-altup case l  the fused AltUp at deepseek-v3-671b's served step
+               (8 tokens of d 7168, bf16), timed with its bound
       c-* cases n-*, w-*  the same at t5-large's (n-serve: AltUp at 8
                tokens of d 1024 in f32; the decode attention halfway, 16
                kv heads of 64, rep 1, f32 storage and queries, then int8
@@ -346,6 +350,37 @@ Phases:
       w-parity f32, as n-parity (float self caches; 4 + 4 launches a step)
       w-serve  bf16, Engine.generate on 8 rows, 4-token prompts, 64 new
                tokens, as n-serve
+  (l) deepseek-v3-671b + AltUp K=2 (d 7168, 128 heads, q_lora_rank
+      1536, kv_lora_rank 512, head dims 128 / 64 / 128, 3 dense layers of
+      d_ff 18432 then MoE layers of 256 routed experts top 8 and 1 shared
+      expert, vocab 129280), every width as published, depth (and, where
+      a line's `reduced` says so, routed experts) cut to fit the card; MLA
+      attention runs no kernel, as in the reference (the latent slice is
+      dequantized and attended densely), the AltUp kernel every layer:
+      l-parity f32, TF32 off, 4 layers, 32 experts: (d)'s parity, float,
+               int8 and fp8 latents (1e-3, tokens identical, exactly 4
+               AltUp launches a step on each fused side and no other
+               launch); then a donor and two requests sharing 130 of its
+               rows through the contiguous and the paged engine, both
+               replayed: tokens identical, logprobs within 1e-5
+      l-serve-twin  (e)'s traffic at 4 layers (all 256 experts), eager
+               against replayed, as e-graph
+      l-serve-graph the same at 5 layers (3 dense + 2 MoE, 51.4 GB of
+               bf16 weights), replayed: (e)'s numbers, one AltUp launch
+               a layer a step and no attention kernel, the step graph's
+               device ms, the MoE FFN's and MLA attention's shares of an
+               eager step's kernel time (record_function ranges), the
+               weight and expert bytes a decode step reads and their
+               bounds, peak memory at init and in the run
+      l-serve-paged 4 layers, int8 latents, m-serve-paged's traffic
+               through Engine(paged=True), eager against replayed:
+               tokens, hits and pool counters identical, pages aliased
+      l-grad   2 layers (1 dense, 1 MoE of 16 experts), f32: loss_fn and
+               every leaf's gradient on the card against the CPU, 1e-4 of
+               each leaf's max, aux within 1e-6, no kernel launched
+      l-train  Trainer at 2 layers (32 experts), bf16, 12 steps of 8 x
+               512 tokens at lr 0.02: a falling loss, tokens/s, MFU,
+               peak memory
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -1326,8 +1361,10 @@ def parity_f32(torch, kind=None, base=None):
     pos = [0] * B
     worst = {s: 0.0 for s in sides if s != "d"}
     last = {}
+    steps = 0                       # decode_step calls of each side
     # chunked prefill: every slot feeds up to C prompt tokens per step
     while any(pos[b] < plens[b] for b in range(B)):
+        steps += 1
         toks = torch.zeros(B, C, dtype=torch.long, device=DEV)
         nval = [min(C, plens[b] - pos[b]) for b in range(B)]
         for b in range(B):
@@ -1358,6 +1395,7 @@ def parity_f32(torch, kind=None, base=None):
     streams = {s: [tok[s].tolist()] for s in sides}
     min_gap = math.inf
     for _ in range(n_dec):
+        steps += 1
         kv_len = kv_bucket(max(pos) + 1, 32, T)
         if quant:
             # the dense and unquantized sides take the kernel side's tokens
@@ -1398,6 +1436,9 @@ def parity_f32(torch, kind=None, base=None):
            "tol": PARITY_TOL,
            "greedy_tokens_identical": True,
            "tokens_checked": B * (n_dec + 1),
+           "steps_per_side": steps,
+           "fused_altup_sides": sum(c.fused_decode_altup is not False
+                                    for c in cfgs.values()),
            "min_top2_gap_dense": min_gap,
            "tf32": [torch.backends.cuda.matmul.allow_tf32,
                     torch.backends.cudnn.allow_tf32]}
@@ -1572,8 +1613,10 @@ def serve_bf16(torch, ops, profile=False, kind=None, replay=False,
     pure-decode steps replay CUDA graphs (e-graph, e-quant-graph),
     replay=False through the eager reference. cfg: another bf16 model
     for the same traffic (m-serve: qwen2-moe-a2.7b); after(eng, params):
-    more fields for the result, from the engine after its run."""
-    from repro_torch.models.transformer import init_params
+    more fields for the result, from the engine after its run. The
+    decode attention launches once a decode step in each attention
+    layer; MLA layers launch none (as in the reference)."""
+    from repro_torch.models.transformer import init_params, layer_plan
     from repro_torch.serve.sampling import SamplingParams
     cfg = served_config() if cfg is None else cfg      # bf16
     if kind is not None:
@@ -1626,8 +1669,9 @@ def serve_bf16(torch, ops, profile=False, kind=None, replay=False,
             raise AssertionError(f"request {rid}: {c.finish_reason}, "
                                  f"{len(c.tokens)} tokens")
     n_layers = cfg.n_layers
+    ragged_layers = sum(s.n for s in layer_plan(cfg) if s.kind == "attn")
     if counts["altup_predict_correct"] <= 0 or \
-            counts["ragged_decode_attention"] <= 0:
+            (ragged_layers and counts["ragged_decode_attention"] <= 0):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
     # one launch per layer per step: fused AltUp on every step, ragged
     # attention on the pure-decode (S=1) steps, and once more per layer in
@@ -1636,7 +1680,7 @@ def serve_bf16(torch, ops, profile=False, kind=None, replay=False,
     if counts["altup_predict_correct"] - warm["altup_predict_correct"] != \
             n_layers * steps or \
             counts["ragged_decode_attention"] - \
-            warm["ragged_decode_attention"] != n_layers * len(decode_ms) \
+            warm["ragged_decode_attention"] != ragged_layers * len(decode_ms) \
             or counts["paged_ragged_decode_attention"] != 0:
         raise AssertionError(f"launch counts {counts} (warm-ups {warm}) do "
                              f"not match {steps} steps, {len(decode_ms)} "
@@ -2662,11 +2706,13 @@ def grads_on(torch, params, cfg, batch, loss=None):
 
 def worst_leaf(torch, got, want):
     """The leaf with the largest max|got - want| / max|want|: (ratio,
-    path)."""
+    path). Compared on got's device (want's leaves copied there)."""
     worst = (0.0, None)
     for path, w in want.items():
-        scale = float(w.float().abs().max())
-        err = float((got[path].float().cpu() - w.float().cpu()).abs().max())
+        g = got[path].float()
+        w = w.to(g.device).float()
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
         ratio = err / scale if scale else (0.0 if err == 0 else math.inf)
         if ratio > worst[0] or worst[1] is None:
             worst = (ratio, "/".join(path))
@@ -4015,33 +4061,50 @@ def moe_train(torch, ops, workdir):
 
 
 def moe_share(torch, eng):
-    """The MoE FFN's share of a replayed decode step's device time: the
-    engine's most replayed step graph, replayed back to back (CUDA
-    events), and eager calls of the same static-buffer step under
-    torch.profiler with every moe_block in a record_function range (the
-    ranges' kernel time over the step's kernel time, the median of three
-    sessions, with the step's top kernels). The eager calls write the
-    rows their step wrote again."""
+    """The MoE FFN's share of a replayed decode step's device time:
+    range_shares with every moe_block in a range (one a layer)."""
+    import repro_torch.models.moe as moe_lib
+    r = range_shares(torch, eng, {"moe_ffn": (moe_lib, "moe_block",
+                                              eng.cfg.n_layers)})
+    m = r.pop("ranges")["moe_ffn"]
+    return {**r, "moe_ffn_kernel_ms": m["kernel_ms"],
+            "moe_ffn_share_of_step_kernels": m["share"],
+            "moe_ffn_share_sessions": m["sessions"],
+            "moe_ffn_ranges": m["calls"]}
+
+
+def range_shares(torch, eng, ranges):
+    """Shares of a replayed decode step's device time: the engine's most
+    replayed step graph, replayed back to back (CUDA events), and eager
+    calls of the same static-buffer step under torch.profiler with every
+    call of each `ranges` entry {name: (module, function name, calls a
+    step)} in a record_function range of that name (a range's kernel
+    time over the step's kernel time, the median of three sessions by
+    the first range's share, with the step's top kernels). The eager
+    calls write the rows their step wrote again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    import repro_torch.models.moe as moe_lib
     gs = eng.graph_stats
     key = max(gs["replays_by_shape"], key=gs["replays_by_shape"].get)
     graph = eng._graphs._graphs[key][0]
     replay_ms = time_ms(torch, graph.replay, iters=20, warmup=3)
     step = functools.partial(eng._static_step, eng._inputs[1], *key)
-    real = moe_lib.moe_block
+    real = {name: getattr(mod, attr)
+            for name, (mod, attr, _) in ranges.items()}
 
-    def ranged(*a, **kw):
-        with record_function("moe_ffn"):
-            return real(*a, **kw)
+    def ranged(name):
+        def call(*a, **kw):
+            with record_function(name):
+                return real[name](*a, **kw)
+        return call
     with torch.no_grad():
         step()
     torch.cuda.synchronize()
     # three profiler sessions (late in a process a session now and then
     # loses or gains records, profiled()): the median share is kept
     sessions = []
-    moe_lib.moe_block = ranged
+    for name, (mod, attr, _) in ranges.items():
+        setattr(mod, attr, ranged(name))
     try:
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CPU,
@@ -4054,29 +4117,37 @@ def moe_share(torch, eng):
             # the idle time between an eager step's launches: only
             # kernels are summed
             kern = sorted((e for e in _device_kernels(prof)
-                           if MARKER not in e.key and e.key != "moe_ffn"),
+                           if MARKER not in e.key and e.key not in ranges),
                           key=lambda e: -e.self_device_time_total)
             dev_us = sum(e.self_device_time_total for e in kern)
-            # the host-side ranges: their device time sums the kernels of
-            # the ops inside them
-            rng = [e for e in prof.key_averages() if e.key == "moe_ffn"
-                   and e.device_type == DeviceType.CPU]
-            calls = sum(e.count for e in rng)
-            if not dev_us or calls != eng.cfg.n_layers:
-                raise AssertionError(f"m-serve profile: {dev_us} us of "
-                                     f"kernels, {calls} moe_ffn ranges")
-            moe_us = sum(e.device_time_total for e in rng)
-            sessions.append((moe_us / dev_us, moe_us, dev_us, kern))
+            per = {}
+            for name, (_, _, want) in ranges.items():
+                # the host-side ranges: their device time sums the
+                # kernels of the ops inside them
+                rng = [e for e in prof.key_averages() if e.key == name
+                       and e.device_type == DeviceType.CPU]
+                calls = sum(e.count for e in rng)
+                if not dev_us or calls != want:
+                    raise AssertionError(f"step profile: {dev_us} us of "
+                                         f"kernels, {calls} {name} ranges "
+                                         f"for {want}")
+                per[name] = sum(e.device_time_total for e in rng)
+            sessions.append((per, dev_us, kern))
     finally:
-        moe_lib.moe_block = real
-    share, moe_us, dev_us, kern = sorted(sessions, key=lambda t: t[0])[1]
+        for name, (mod, attr, _) in ranges.items():
+            setattr(mod, attr, real[name])
+    first = next(iter(ranges))
+    sessions.sort(key=lambda t: t[0][first] / t[1])
+    per, dev_us, kern = sessions[1]
     return {"replayed_shape": list(key), "device_ms_per_replay": replay_ms,
             "eager_step_kernel_ms": dev_us / 1e3,
             "eager_step_kernels": sum(e.count for e in kern),
-            "moe_ffn_kernel_ms": moe_us / 1e3,
-            "moe_ffn_share_of_step_kernels": share,
-            "moe_ffn_share_sessions": [t[0] for t in sessions],
-            "moe_ffn_ranges": eng.cfg.n_layers,
+            "ranges": {name: {"kernel_ms": per[name] / 1e3,
+                              "share": per[name] / dev_us,
+                              "sessions": [t[0][name] / t[1]
+                                           for t in sessions],
+                              "calls": ranges[name][2]}
+                       for name in ranges},
             "top_kernels": [[e.key[:70], e.count,
                              e.self_device_time_total / 1e3]
                             for e in kern[:8]]}
@@ -4788,6 +4859,388 @@ def encdec_phases(torch, ops, workdir):
     return res_n, res_w
 
 
+# ---------------------------------------------------------------------------
+# (l) deepseek-v3-671b + AltUp K=2: multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+# depth and expert cuts; every width is the published one
+L_SERVE_LAYERS = 5        # l-serve-graph: 3 dense + 2 MoE, 51.4 GB of bf16
+L_TWIN_LAYERS = 4         # l-parity, l-serve-twin, l-serve-paged: 3 + 1
+L_PARITY_EXPERTS = 32     # l-parity's routed experts (top 8, shared kept)
+L_GRAD_EXPERTS = 16       # l-grad: 1 dense + 1 MoE layer, f32
+L_TRAIN_EXPERTS = 32      # l-train: 1 dense + 1 MoE layer, bf16
+L_PAGED_TOL = 1e-5        # contiguous against paged logprobs, f32
+L_GRAD_B, L_GRAD_S = 2, 64
+# l-train's Adafactor learning rate: at k-train's 0.3 the 2-layer model's
+# losses swung from 12.4 to 29.8 in 12 steps and its router collapsed
+# (aux 4.0); 0.1 and 0.05 spiked to 25-30; 0.02 fell 12.4 -> 6.3
+L_LR = 0.02
+
+
+def deepseek_config(n_layers, experts=None, first_dense=None, **kw):
+    """deepseek-v3-671b wrapped with AltUp K=2 (recycled: vocab > 100k)
+    at every published width, cut to n_layers (first_dense of them
+    dense, the published 3 unless given) and, when given, to `experts`
+    routed experts (top 8 and the shared expert kept)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b", altup_k=2)
+    moe = cfg.moe
+    if experts is not None:
+        moe = dataclasses.replace(moe, num_experts=experts)
+    if first_dense is not None:
+        moe = dataclasses.replace(moe, first_dense_layers=first_dense)
+    return cfg.replace(n_layers=n_layers, moe=moe, **kw)
+
+
+def deepseek_reduced(cfg):
+    """What cfg cuts from the published deepseek-v3-671b, for a phase
+    line's `reduced`."""
+    m = cfg.moe
+    out = [f"n_layers 61 -> {cfg.n_layers} ({m.first_dense_layers} dense "
+           f"+ {cfg.n_layers - m.first_dense_layers} MoE)"]
+    if m.num_experts != 256:
+        out.append(f"routed experts 256 -> {m.num_experts} (top "
+                   f"{m.top_k} and {m.num_shared} shared kept)")
+    out.append("weights: seeded random")
+    return out
+
+
+def mla_parity_f32(torch, ops, kind):
+    """l-parity: (d)'s parity_f32 (chunked prefill and 16 greedy steps,
+    kernel and paged kernel paths against the dense path, 1e-3, tokens
+    identical; int8 / fp8 as d-quant) at full width, L_TWIN_LAYERS
+    layers, L_PARITY_EXPERTS routed experts. MLA attention runs no kernel
+    (as in the reference): gated on exactly n_layers AltUp launches a
+    step on each fused side and no other launch."""
+    cfg = deepseek_config(L_TWIN_LAYERS, L_PARITY_EXPERTS)
+    ops.reset_launch_counts()
+    r = parity_f32(torch, kind, base=functools.partial(
+        deepseek_config, L_TWIN_LAYERS, L_PARITY_EXPERTS))
+    c = ops.launch_counts()
+    want = cfg.n_layers * r["steps_per_side"] * r["fused_altup_sides"]
+    others = {k: n for k, n in c.items() if k != "altup_predict_correct"}
+    if c["altup_predict_correct"] != want or any(others.values()):
+        raise AssertionError(f"l-parity {kind}: launches {c}, want "
+                             f"{want} AltUp and nothing else")
+    r.update(launches={k: n for k, n in c.items() if n},
+             altup_launches_per_step_and_side=cfg.n_layers,
+             reduced=deepseek_reduced(cfg))
+    return r
+
+
+def mla_paged_hit_f32(torch, ops):
+    """l-parity's paged case: f32, TF32 off, L_TWIN_LAYERS layers and
+    L_PARITY_EXPERTS experts, a donor of 200 tokens, then two requests
+    sharing 130 of its rows (16 new tokens, logprobs), through the
+    contiguous engine and through Engine(paged=True, pages of 16), both
+    replayed, the prefix cache on in both: tokens identical, chosen-token
+    logprobs within L_PAGED_TOL, a hit on each side, the AltUp kernel
+    launched and no attention kernel."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.sampling import SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = deepseek_config(L_TWIN_LAYERS, L_PARITY_EXPERTS, dtype="float32",
+                          param_dtype="float32")
+    params = init_params(cfg, seed=70, device=DEV)
+    perturb_altup(torch, params, seed=71)
+    gen = torch.Generator().manual_seed(72)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+    donor = ids(200)
+    prompts = [donor[:130] + ids(20), donor[:130] + ids(45)]
+    sp = SamplingParams(max_new=16, logprobs=True)
+    out = {}
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=16) if paged else {}
+        eng = Engine(cfg, params, max_len=512, n_slots=2, prefill_chunk=64,
+                     device=DEV, **kw)
+        eng.submit(donor, sampling=SamplingParams(max_new=4))
+        eng.run()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=sp) for p in prompts]
+        done = eng.run()
+        out[paged] = ([list(done[r].tokens) for r in rids],
+                      [list(done[r].logprobs) for r in rids],
+                      eng.stats["prefix_hits"], ops.launch_counts(),
+                      eng.graph_stats["replays"])
+        del eng
+    (tc, lc, hc, cc, rc), (tp, lp, hp, cp, rp) = out[False], out[True]
+    lp_err = max(abs(a - b) for x, y in zip(lc, lp) for a, b in zip(x, y))
+    attn = ("ragged_decode_attention", "paged_ragged_decode_attention")
+    if tc != tp or lp_err > L_PAGED_TOL or min(hc, hp) < 2 or \
+            min(cc["altup_predict_correct"], cp["altup_predict_correct"]) \
+            <= 0 or any(c[k] for c in (cc, cp) for k in attn) or \
+            min(rc, rp) <= 0:
+        raise AssertionError(f"l-parity paged hit: tokens {tc} vs {tp}, "
+                             f"logprob error {lp_err}, hits {hc}/{hp}, "
+                             f"launches {cc} / {cp}, replays {rc}/{rp}")
+    del params
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg), "reduced": deepseek_reduced(cfg),
+            "prefix_hits": hp, "shared_rows": 130,
+            "tokens_identical": True, "logprob_max_abs_err": lp_err,
+            "tol": L_PAGED_TOL, "replays": [rc, rp],
+            "launches": {k: n for k, n in cp.items() if n}}
+
+
+def mla_grad_f32(torch, ops):
+    """l-grad: m-grad's scheme on deepseek-v3-671b + AltUp K=2 at full
+    width, 2 layers (1 dense, 1 MoE of L_GRAD_EXPERTS routed experts,
+    top 8, the shared expert), f32, TF32 off, remat "none": loss_fn and
+    every leaf's gradient (the MLA leaves, router, experts and shared
+    expert) on the card against the CPU from one seeded init drawn on the
+    card: each leaf within K_GRAD_TOL of its max, loss within K_LOSS_RTOL,
+    aux within M_AUX_RTOL; no kernel launched."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = deepseek_config(2, L_GRAD_EXPERTS, first_dense=1, dtype="float32",
+                          param_dtype="float32", remat="none")
+    dev = init_params(cfg, seed=73, device=DEV).requires_grad_(True)
+    perturb_altup(torch, dev, seed=74)
+    cpu = to_device(dev, "cpu")
+    nb = lm_batch(cfg, L_GRAD_B, L_GRAD_S, seed=3, step=0)
+    nb["mask"][1, :20] = 0.0
+
+    def run(params, device):
+        paths, leaves = zip(*tree_lib.leaves(params))
+        total, m = M.loss_fn(params, cfg, batch_on(torch, nb, device))
+        grads = torch.autograd.grad(total, leaves)
+        vals = {k: float(v.detach()) for k, v in m.items()}
+        vals["total"] = float(total.detach())
+        return vals, dict(zip(paths, grads))
+    t0 = time.perf_counter()
+    m_cpu, g_cpu = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    c0 = ops.launch_counts()
+    m_dev, g_dev = run(dev, DEV)
+    torch.cuda.synchronize()
+    c1 = ops.launch_counts()
+    ratio, path = worst_leaf(torch, g_dev, g_cpu)
+    part = {}
+    for name, key in (("mla", "attn"), ("moe", "moe")):
+        part[name] = worst_leaf(
+            torch, {p: g for p, g in g_dev.items() if key in p},
+            {p: g for p, g in g_cpu.items() if key in p})
+    res = {"cfg": cfg_name(cfg), "reduced": deepseek_reduced(cfg),
+           "B": L_GRAD_B, "S": L_GRAD_S, "leaves": len(g_cpu),
+           "cpu_s": cpu_s,
+           "loss_cuda": m_dev["loss"], "loss_cpu": m_cpu["loss"],
+           "aux_cuda": m_dev["aux_loss"], "aux_cpu": m_cpu["aux_loss"],
+           "loss_rel_err": abs(m_dev["loss"] - m_cpu["loss"]) / m_cpu["loss"],
+           "aux_rel_err": abs(m_dev["aux_loss"] - m_cpu["aux_loss"])
+           / m_cpu["aux_loss"],
+           "total_rel_err": abs(m_dev["total"] - m_cpu["total"])
+           / m_cpu["total"],
+           "worst_leaf": path, "max_err_over_max": ratio,
+           "worst_mla_leaf": part["mla"][1],
+           "mla_max_err_over_max": part["mla"][0],
+           "worst_moe_leaf": part["moe"][1],
+           "moe_max_err_over_max": part["moe"][0],
+           "launches_while_differentiating": {
+               k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not (ratio <= K_GRAD_TOL and res["loss_rel_err"] <= K_LOSS_RTOL
+            and res["total_rel_err"] <= K_LOSS_RTOL
+            and res["aux_rel_err"] <= M_AUX_RTOL) or \
+            res["launches_while_differentiating"]:
+        raise AssertionError(f"l-grad: {res}")
+    del dev, cpu, g_cpu, g_dev
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_train(torch, ops, workdir):
+    """l-train: Trainer(device="cuda") on deepseek-v3-671b + AltUp K=2
+    at full width, 2 layers (1 dense, 1 MoE of L_TRAIN_EXPERTS routed
+    experts, top 8, the shared expert), bf16, the launcher's TrainConfig
+    at m-train's steps and batch and L_LR. Gates: finite losses and aux losses, the mean of
+    the last 3 losses below the first, no kernel launched; tokens/s,
+    MFU from model_flops_per_token, peak memory."""
+    import numpy as np
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer
+    cfg = deepseek_config(2, L_TRAIN_EXPERTS, first_dense=1)
+    tcfg = train_config(M_STEPS, M_BATCH, M_SEQ, M_MB, L_LR,
+                        str(workdir / "l-train"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    tr = Trainer(cfg, tcfg, device=DEV)
+    logs = []
+    out = tr.run(log=logs.append)
+    c1 = ops.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    auxes = [h["aux_loss"] for h in out["history"]]
+    med_s = float(np.median(tr.step_times[2:]))
+    tokens = M_BATCH * M_SEQ
+    flops_tok = M.model_flops_per_token(cfg)
+    res = {"cfg": cfg_name(cfg), "reduced": deepseek_reduced(cfg),
+           "lr": L_LR, "steps": out["step"], "tokens_per_step": tokens,
+           "microbatches": M_MB, "first_step_s": tr.step_times[0],
+           "median_step_ms_3_on": 1e3 * med_s,
+           "tokens_per_s": tokens / med_s,
+           "active_params": M.active_param_count(cfg),
+           "model_flops_per_token": flops_tok,
+           "mfu_bf16_dense_peak": flops_tok * tokens / med_s
+           / PEAK_OPS_PER_S["bfloat16"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss_first": losses[0],
+           "loss_last3_mean": sum(losses[-3:]) / 3, "losses": losses,
+           "aux_losses": auxes, "log": logs[-2:],
+           "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not all(math.isfinite(x) for x in losses + auxes) or \
+            not res["loss_last3_mean"] < losses[0] or res["launches"]:
+        raise AssertionError(f"l-train: {res}")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_serve(torch, ops):
+    """l-serve: (e)'s traffic (8 requests, prompts of 32-512 tokens, 64
+    new) on deepseek-v3-671b + AltUp K=2 in bf16 through Engine(n_slots=8,
+    max_len=2048, prefill_chunk=64, prefix_cache=False), every routed
+    expert kept: the eager twin and a replayed run held against it
+    (hold_replay) at L_TWIN_LAYERS, then the replayed run at
+    L_SERVE_LAYERS with serve_bf16's gates (one AltUp launch a layer a
+    step, no attention kernel) and its numbers: the step graph's device
+    ms, the MoE FFN's and MLA attention's shares of an eager step's
+    kernel time, the expert and weight bytes a decode step reads and
+    their bounds. Returns (twin line, served line)."""
+    import repro_torch.models.layers as layers_lib
+    import repro_torch.models.moe as moe_lib
+    twin_cfg = deepseek_config(L_TWIN_LAYERS)
+    res_t, trace_t, _ = serve_bf16(torch, ops, cfg=twin_cfg)
+    res_tr, trace_tr, _ = serve_bf16(torch, ops, cfg=twin_cfg, replay=True)
+    held = hold_replay({**res_t, **trace_t}, {**res_tr, **trace_tr},
+                       res_tr["decode_steps"])
+    twin = {"eager": res_t, "replayed": res_tr, **held,
+            "reduced": deepseek_reduced(twin_cfg)}
+    cfg = deepseek_config(L_SERVE_LAYERS)
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+
+    def after(eng, params):
+        r = range_shares(torch, eng, {
+            "moe_ffn": (moe_lib, "moe_block", n_moe),
+            "mla_attn": (layers_lib, "mla_attention", cfg.n_layers)})
+        ranges = r.pop("ranges")
+        for name, v in ranges.items():
+            r.update({f"{name}_kernel_ms": v["kernel_ms"],
+                      f"{name}_share_of_step_kernels": v["share"],
+                      f"{name}_share_sessions": v["sessions"],
+                      f"{name}_ranges": v["calls"]})
+        e_bytes = moe_expert_bytes(cfg) * n_moe
+        w_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
+        r.update({"expert_bytes_per_step": e_bytes,
+                  "expert_bytes_bound_ms_per_step":
+                      bound_ms(e_bytes, 0, "bfloat16")[0],
+                  "weight_bytes_per_step": w_bytes,
+                  "weight_bytes_bound_ms_per_step":
+                      bound_ms(w_bytes, 0, "bfloat16")[0]})
+        r["weight_bound_share_of_replay"] = \
+            r["weight_bytes_bound_ms_per_step"] / r["device_ms_per_replay"]
+        return r
+    res, _, _ = serve_bf16(torch, ops, cfg=cfg, replay=True, after=after)
+    res["altup_launches_per_step"] = (
+        res["launches"]["altup_predict_correct"]
+        - res["graph"]["warmup_launches"]["altup_predict_correct"]) \
+        / res["steps"]
+    res["reduced"] = deepseek_reduced(cfg)
+    return twin, res
+
+
+def mla_paged_int8(torch, ops):
+    """l-serve-paged: L_TWIN_LAYERS layers, bf16, int8 latents, a donor
+    serves a shared prompt of M_SYSTEM tokens, then 8 requests extend it
+    (M_TAILS, M_PAGED_NEW new tokens) through Engine(paged=True, pages of
+    16), eager and replayed: tokens, hits and pool counters identical,
+    pages aliased, the AltUp kernel launched, no attention kernel."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = deepseek_config(L_TWIN_LAYERS, kv_cache_dtype="int8")
+    params = init_params(cfg, seed=75, device=DEV)
+    perturb_altup(torch, params, seed=76)
+    gen = torch.Generator().manual_seed(77)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+    system = ids(M_SYSTEM)
+    prompts = [system + ids(n) for n in M_TAILS]
+    out = {}
+    for replay in (False, True):
+        eng = engine_class(replay)(cfg, params, max_len=1024, n_slots=8,
+                                   prefill_chunk=64, paged=True,
+                                   page_size=16, device=DEV)
+        eng.submit(system, sampling=SamplingParams(max_new=1))
+        eng.run()
+        ops.reset_launch_counts()
+        rids = [eng.submit(p, sampling=SamplingParams(max_new=M_PAGED_NEW))
+                for p in prompts]
+        done = eng.run()
+        out[replay] = ([list(done[r].tokens) for r in rids],
+                       eng.stats["prefix_hits"], eng.paged_stats,
+                       ops.launch_counts(), eng.graph_stats["replays"])
+        del eng
+    (te, he, pe, ce, _), (tr, hr, pr, cr, rr) = out[False], out[True]
+    attn = ("ragged_decode_attention", "paged_ragged_decode_attention")
+    if te != tr or he != hr or pe != pr or hr < len(prompts) or \
+            pr["alias_acquisitions"] <= 0 or rr <= 0 or \
+            min(ce["altup_predict_correct"], cr["altup_predict_correct"]) \
+            <= 0 or any(c[k] for c in (ce, cr) for k in attn):
+        raise AssertionError(f"l-serve-paged: tokens equal {te == tr}, "
+                             f"hits {he}/{hr}, {pe} / {pr}, {ce} / {cr}, "
+                             f"replays {rr}")
+    del params
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg), "reduced": deepseek_reduced(cfg),
+            "kv_cache_dtype": "int8", "system_prompt": M_SYSTEM,
+            "tails": list(M_TAILS), "new_tokens": M_PAGED_NEW,
+            "tokens_identical_to_eager": True, "prefix_hits": hr,
+            "alias_acquisitions": pr["alias_acquisitions"],
+            "replays": rr, "launches": {k: n for k, n in cr.items() if n}}
+
+
+def mla_phases(torch, ops, workdir):
+    """The l phases, each line with its seconds; returns l-serve-graph's
+    result."""
+    t_l = time.perf_counter()
+    # the served cut's init peaks near 77 GB: what earlier phases left
+    line("l-start", allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    for case, kind in (("contiguous-and-paged", None), ("int8", "int8"),
+                       ("fp8", "fp8")):
+        t0 = time.perf_counter()
+        r = mla_parity_f32(torch, ops, kind)
+        line("l-parity", case=case, seconds=time.perf_counter() - t0, **r)
+    t0 = time.perf_counter()
+    line("l-parity", case="paged-prefix-hit",
+         **mla_paged_hit_f32(torch, ops), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    twin, res = mla_serve(torch, ops)
+    line("l-serve-twin", twin_layers=L_TWIN_LAYERS, **twin)
+    line("l-serve-graph", seconds=time.perf_counter() - t0, **res)
+    t0 = time.perf_counter()
+    line("l-serve-paged", **mla_paged_int8(torch, ops),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("l-grad", **mla_grad_f32(torch, ops),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("l-train", **mla_train(torch, ops, workdir),
+         seconds=time.perf_counter() - t0)
+    line("l-phases", seconds=time.perf_counter() - t_l)
+    return res
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -5075,6 +5528,9 @@ def main(argv) -> int:
     m_kern = check_moe_kernels(torch, ops, ref)
     line("c-altup", case="m", **m_kern["altup"])
     line("c-ragged", case="m", **m_kern["ragged"])
+    # deepseek-v3-671b's served shape (l): AltUp at 8 tokens of d 7168
+    l_altup = check_altup(torch, ops, ref, torch.bfloat16, 8, d=7168)
+    line("c-altup", case="l", **l_altup)
     # t5-large's and whisper-tiny's served shapes (n, w)
     nw_kern = check_encdec_kernels(torch, ops, ref)
     for case, r in nw_kern.items():
@@ -5279,6 +5735,14 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         res_n, res_w = encdec_phases(torch, ops, Path(work))
 
+    # (l) deepseek-v3-671b + AltUp K=2, multi-head latent attention before
+    # a dense or MoE FFN: no attention kernel (as in the reference), the
+    # AltUp kernel in every layer; kernel path against dense path in f32,
+    # contiguous against paged, served at every published width (depth
+    # cut to fit the card), gradients and training at 2 layers
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        res_l = mla_phases(torch, ops, Path(work))
+
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
     counts, counts_eq = res_r["launches"], res_eq_r["launches"]
@@ -5392,6 +5856,14 @@ def main(argv) -> int:
              "replaces": "src/repro/kernels/" + replaces,
              "launches": res_run["launches"][name],
              **{k: nw_kern[key][k] for k in keys}})
+    # the AltUp kernel at deepseek-v3-671b's shape, with l-serve-graph's
+    # launches
+    kernels.append(
+        {"name": "altup_predict_correct_deepseek_v3", "route": "cuda",
+         "source": "src/repro_torch/csrc/altup_fused.cu",
+         "replaces": "src/repro/kernels/altup_fused.py:39",
+         "launches": res_l["launches"]["altup_predict_correct"],
+         **{k: l_altup[k] for k in keys}})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

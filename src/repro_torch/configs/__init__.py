@@ -11,6 +11,7 @@ from typing import Optional
 from repro_torch.config import AltUpConfig, ModelConfig
 
 _ARCH_MODULES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "gemma3-4b": "gemma3_4b",
     "gemma3-12b": "gemma3_12b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",

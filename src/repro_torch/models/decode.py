@@ -1,6 +1,6 @@
 """Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the attention, MoE, RWKV-6 and encoder-decoder parts of
+Port of the attention, MLA, MoE, RWKV-6 and encoder-decoder parts of
 `repro/models/decode.py`.
 An MoE layer's FFN routes drop-free (capacity = the step's B·S tokens).
 One cache dict per segment, stacked over the segment's layers:
@@ -14,6 +14,12 @@ One cache dict per segment, stacked over the segment's layers:
                last page a sink page
   attn : k_scale, v_scale  (n, B, T + 1, Hk) | (n, R + page, Hk) f32,
                beside k, v when cfg.kv_cache_dtype is int8 or fp8
+  mla  : latent  (n, B, T + 1, r + qr) | (n, R + page, r + qr) the
+               head-free compressed latents [c_kv | RoPE'd k_rope]
+               (models/layers.mla_latent), row T / the last page the
+               sink as for k, v; never a ring
+  mla  : latent_scale  (n, B, T + 1) | (n, R + page) f32, one scale a
+               row over the whole latent, when quantized
   rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
                tails shift_tm, shift_cm (n, B, d) in the activation dtype,
                per slot in contiguous and paged caches alike
@@ -66,8 +72,14 @@ capacity, the sink: the drop marker T lands there, and nothing reads it
 (reads stop at the kv bucket, <= T). Only rows < T compare with the
 reference's cache.
 
+MLA segments (decode_mla) attend densely, as the reference does (it has
+no MLA kernel): every step dequantizes its read slice of the latent cache
+(gathered through the block table when paged) and runs the absorbed
+attention of layers.mla_attention over it.
+
 Quantized caches (cfg.kv_cache_dtype int8 | fp8, kernels/quant.py): k and
-v hold 1-byte codes beside f32 per-row, per-head scale leaves. Post-RoPE
+v hold 1-byte codes beside f32 per-row, per-head scale leaves (a latent
+row has one scale). Post-RoPE
 k/v are quantized as they land, codes and scales at one write index
 (contiguous or translated paged rows, the sink included). S=1 kernel
 steps hand the scales to the kernel, which dequantizes as it loads; every
@@ -108,12 +120,13 @@ from repro_torch.serve.sampling import sample_rows, update_seen
 
 
 def kv_quant_spec(cfg: ModelConfig) -> quant.KVQuantSpec:
-    """Resolved cfg.kv_cache_dtype for the attention caches ("auto" = the
-    activation dtype, the unquantized path bit for bit). Quantized
-    storage of a plan with rwkv segments raises NotImplementedError: it
-    arrives with the hybrid quantization of ROADMAP A9."""
+    """Resolved cfg.kv_cache_dtype for the attention and MLA latent
+    caches ("auto" = the activation dtype, the unquantized path bit for
+    bit). Quantized storage of a plan with rwkv segments raises
+    NotImplementedError: it arrives with the hybrid quantization of
+    ROADMAP A9."""
     spec = quant.resolve_kv_spec(cfg.kv_cache_dtype, act_dtype(cfg))
-    if spec.quantized and any(s.kind != "attn" for s in layer_plan(cfg)):
+    if spec.quantized and any(s.kind == "rwkv" for s in layer_plan(cfg)):
         raise NotImplementedError(
             f"kv_cache_dtype={cfg.kv_cache_dtype!r} on a plan with "
             f"recurrent (rwkv) segments is not ported yet: it arrives with "
@@ -125,6 +138,11 @@ def kv_quant_spec(cfg: ModelConfig) -> quant.KVQuantSpec:
 RECURRENT_LEAVES = ("wkv", "shift_tm", "shift_cm")
 # f32 scales of quantized k/v, row for row beside the codes
 SCALE_LEAVES = ("k_scale", "v_scale")
+# an mla segment's latent codes or values and, quantized, their f32
+# scales: always stacked, (n, B, T + 1[, w]) or pooled (n, R + page[, w]).
+# latent_scale has one axis fewer than a k/v scale at the same layout, so
+# the helpers below tell the two apart by name, not by ndim
+LATENT_LEAVES = ("latent", "latent_scale")
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:
@@ -151,6 +169,10 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
         if seg.kind == "rwkv":
             caches[f"seg{si}"] = _rwkv_leaves(cfg, seg.n, B, dtype, dev)
             continue
+        if seg.kind == "mla":
+            caches[f"seg{si}"] = _mla_leaves(cfg, spec, dtype,
+                                             (seg.n, B, T + 1), dev)
+            continue
         Tc = min(T, seg.window) if seg.window > 0 else T
         caches[f"seg{si}"] = _attn_leaves(spec, dtype, (seg.n, B, Tc + 1, hk),
                                           dh, dev)
@@ -175,6 +197,18 @@ def _rwkv_leaves(cfg: ModelConfig, n: int, B: int, dtype, dev):
                                dtype=torch.float32, device=dev),
             "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
             "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
+
+
+def _mla_leaves(cfg: ModelConfig, spec, dtype, rows, dev):
+    """Zero latent (rows + (r + qr,)) and, when quantized, its f32
+    latent_scale (rows), stored as _attn_leaves stores k."""
+    kd = spec.store_dtype if spec.quantized else (dtype or spec.store_dtype)
+    w = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    c = {"latent": torch.zeros(rows + (w,), dtype=kd, device=dev)}
+    if spec.quantized:
+        c["latent_scale"] = torch.zeros(rows, dtype=torch.float32,
+                                        device=dev)
+    return c
 
 
 def _attn_leaves(spec, dtype, rows, dh: int, dev):
@@ -221,22 +255,30 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     rows = (n_pages + 1) * page
-    return {f"seg{si}": (_rwkv_leaves(cfg, seg.n, B, dtype, dev)
-                         if seg.kind == "rwkv" else
-                         _attn_leaves(spec, dtype, (seg.n, rows, hk), dh,
-                                      dev))
-            for si, seg in enumerate(layer_plan(cfg))}
+    caches = {}
+    for si, seg in enumerate(layer_plan(cfg)):
+        if seg.kind == "rwkv":
+            c = _rwkv_leaves(cfg, seg.n, B, dtype, dev)
+        elif seg.kind == "mla":
+            c = _mla_leaves(cfg, spec, dtype, (seg.n, rows), dev)
+        else:
+            c = _attn_leaves(spec, dtype, (seg.n, rows, hk), dh, dev)
+        caches[f"seg{si}"] = c
+    return caches
 
 
 def _paged_row_axis(name: str, ndim: int) -> Optional[int]:
     """Physical-row axis of a PAGED cache leaf, None for leaves that are
     not row-pooled. Paged k/v are (n, R + page, Hk, Dh) stacked |
     (R + page, Hk, Dh) for one layer; scales (n, R + page, Hk) |
-    (R + page, Hk)."""
+    (R + page, Hk); latents (n, R + page, w) and latent_scale
+    (n, R + page), always stacked."""
     if name in ("k", "v"):
         return 1 if ndim == 4 else 0
     if name in SCALE_LEAVES:
         return 1 if ndim == 3 else 0
+    if name in LATENT_LEAVES:
+        return 1
     return None
 
 
@@ -569,6 +611,65 @@ def _chunk_ring_attn(p_l, cfg: ModelConfig, h, pre, k_new, v_new, ks_new,
     return a
 
 
+def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
+               n_valid=None, kv_len=None, cache_lat_s=None, paged=None):
+    """One DeepSeek decode layer: multi-head latent attention over + write
+    into the latent cache, then the dense or MoE FFN.
+
+    x: (B, S, d). cache_lat: this layer's (B, T + 1, r + qr) latent view,
+    written IN PLACE (row T the sink), or with paged = (block_table,
+    page, Tc) its (R + page, r + qr) row pool, pinfo (with the segment's
+    _paged_positions translation) then required. Quantized
+    (cfg.kv_cache_dtype int8 / fp8), the new latent rows are codes with
+    one f32 scale a row in cache_lat_s ((B, T + 1) | (R + page)), written
+    at the same index. Every step reads the kv bucket's rows 0..Tb-1 (a
+    view, or gathered in logical order through the block table),
+    dequantizes them densely and runs layers.mla_attention: the
+    reference has no MLA kernel, and neither has the port. MLA caches are
+    never rings. Returns (x, cache dict of the layer's leaves)."""
+    spec = kv_quant_spec(cfg)
+    if spec.quantized and cache_lat_s is None:
+        raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} needs the "
+                         f"layer's latent_scale cache")
+    if paged is not None:
+        if pinfo is None:
+            raise ValueError("a paged decode_mla needs the segment's pinfo "
+                             "(decode_segment builds it)")
+    elif pinfo is None:
+        pinfo = decode_positions(pos, x.shape[1], cache_lat.shape[1] - 1,
+                                 False, n_valid=n_valid, kv_len=kv_len,
+                                 device=x.device)
+    q_pos, Tb = pinfo["q_pos"], pinfo["Tb"]
+    h = L.rms_norm(x, p_l["ln_attn"], cfg.logical_norm_eps)
+    lat_new, ls_new = quant.quantize(
+        L.mla_latent(p_l["attn"], cfg, h, k_pos=q_pos), spec)  # (B,S,w)
+    writes = [(cache_lat, lat_new)]
+    if spec.quantized:
+        writes.append((cache_lat_s, ls_new))
+    if paged is not None:
+        grows = pinfo["grows"]
+        for leaf, new in writes:
+            _raw(leaf).index_put_((pinfo["prows"],), _raw(new.to(leaf.dtype)))
+
+        def read(leaf):
+            return _raw(leaf)[grows].view(leaf.dtype)
+    else:
+        for leaf, new in writes:
+            _update_at(leaf, new, pinfo["wrows"])
+
+        def read(leaf):
+            return leaf[:, :Tb]
+    latr = read(cache_lat)
+    if spec.quantized:
+        latr = quant.dequantize(latr, read(cache_lat_s), x.dtype)
+    x = x + L.mla_attention(p_l["attn"], cfg, h, latr, q_pos=q_pos,
+                            k_pos=pinfo["k_pos"])
+    out = {"latent": cache_lat}
+    if spec.quantized:
+        out["latent_scale"] = cache_lat_s
+    return _decode_ffn(p_l, cfg, x), out
+
+
 def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
                 wkv_kernel: Optional[bool] = None):
     """One RWKV-6 decode layer: layer i's recurrent leaves of the segment
@@ -613,6 +714,8 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
         def run_layer(i, p_l, xa):
             return decode_rwkv(p_l, cfg, xa, cache, i, wkv_kernel)
     else:
+        mla = seg.kind == "mla"
+        rows = cache["latent" if mla else "k"]   # a leaf with the row axis
         pg_seg = None
         ring = int(seg.window) > 0
         if paged is not None:
@@ -622,18 +725,25 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                 Tc = min(Tc, int(seg.window))
             pg_seg = (bt, pg, Tc)
         else:
-            Tc = cache["k"].shape[2] - 1          # row Tc is the sink
+            Tc = rows.shape[2] - 1                # row Tc is the sink
         # the position/index machinery is the same for every layer of the
         # segment: build it once here
         pinfo = decode_positions(pos, S, Tc, ring, n_valid=n_valid,
                                  kv_len=kv_len, device=x.device)
         if paged is not None:
-            _paged_positions(pinfo, bt, pg, Tc, cache["k"].shape[1],
-                             kernel_read=use_ragged and S == 1)
+            # MLA reads its rows densely, gathered through the table
+            _paged_positions(pinfo, bt, pg, Tc, rows.shape[1],
+                             kernel_read=use_ragged and S == 1 and not mla)
 
         quantized = "k_scale" in cache
 
         def run_layer(i, p_l, xa):
+            if mla:
+                return decode_mla(
+                    p_l, cfg, xa, cache["latent"][i], pos, pinfo=pinfo,
+                    cache_lat_s=(cache["latent_scale"][i]
+                                 if "latent_scale" in cache else None),
+                    paged=pg_seg)[0]
             cross = None
             if cross_stack is not None:
                 cp, cc = cross_stack
@@ -835,7 +945,8 @@ def cross_caches(params, cfg: ModelConfig, encoder_frames):
 def copy_prefix(caches, dst: int, src: int, p: int, *,
                 copy_recurrent: bool = False):
     """Clone the first `p` cache rows of slot `src` into slot `dst`, IN
-    PLACE, across every attention k/v leaf and its scales (codes and
+    PLACE, across every attention k/v and MLA latent leaf and its scales
+    (codes and
     scales in lockstep, so an int8/fp8 prefix is reused without a
     dequantize round trip): the slot-to-slot copy behind the contiguous
     engine's prefix-cache hits. Rows < min(p, Tc) copy, Tc the leaf's
@@ -851,8 +962,8 @@ def copy_prefix(caches, dst: int, src: int, p: int, *,
         return caches
     for seg in caches.values():
         for name, leaf in seg.items():
-            if name in ("k", "v") or name in SCALE_LEAVES:
-                # (n, B, Tc + 1, Hk[, Dh]), row Tc the sink
+            if name in ("k", "v") + SCALE_LEAVES + LATENT_LEAVES:
+                # (n, B, Tc + 1[, Hk][, Dh | w]), row Tc the sink
                 n = min(p, leaf.shape[2] - 1)
                 if n > 0:
                     raw = _raw(leaf)
@@ -991,17 +1102,19 @@ def restore_rows(cfg: ModelConfig, caches, snap, pos, start, S: int, *,
 
 def reset_slot(caches, slot: int):
     """Zero slot `slot`'s recurrent state (the rwkv leaves) and its
-    quantized-cache scales in every segment, IN PLACE: a recycled slot's
-    state would otherwise carry the previous request's tokens, and zero
-    scales make stale code rows dequantize to exact 0. Codes and float
-    k/v are left as they are: per-slot positions keep their stale rows
-    unread. Pooled (paged) scale leaves have no slot axis and are left
-    alone: reset_pages zeroes the pages a request acquires. Returns the
-    caches."""
+    quantized-cache scales (k/v and latent) in every segment, IN PLACE: a
+    recycled slot's state would otherwise carry the previous request's
+    tokens, and zero scales make stale code rows dequantize to exact 0.
+    Codes and float k/v or latents are left as they are: per-slot
+    positions keep their stale rows unread. Pooled (paged) scale leaves
+    have no slot axis ((n, R + page, Hk) k/v scales, (n, R + page)
+    latent scales) and are left alone: reset_pages zeroes the pages a
+    request acquires. Returns the caches."""
     for seg in caches.values():
         for name, leaf in seg.items():
-            if name in RECURRENT_LEAVES or (name in SCALE_LEAVES
-                                            and leaf.ndim == 4):
+            if name in RECURRENT_LEAVES or \
+                    (name in SCALE_LEAVES and leaf.ndim == 4) or \
+                    (name == "latent_scale" and leaf.ndim == 3):
                 leaf[:, slot].zero_()
     return caches
 
@@ -1083,6 +1196,6 @@ def reset_pages(caches, pages: Sequence[int], *, page: int):
     if not pages:
         return caches
     for _, name, leaf, ax in _row_leaves(caches):
-        if name in SCALE_LEAVES:
+        if name in SCALE_LEAVES or name == "latent_scale":
             leaf.index_fill_(ax, _page_rows(pages, page, leaf.device), 0.0)
     return caches

@@ -1,6 +1,7 @@
 """Transformer layer primitives of the port: norms, RoPE, T5's relative
-position bias, GQA attention (self and cross) and the gated FFN. Port of
-the dense parts of `repro/models/layers.py`.
+position bias, GQA attention (self and cross), DeepSeek's multi-head
+latent attention (MLA) and the gated FFN. Port of `repro/models/layers.py`
+(the banded local attention is a config field only).
 
 Functions are plain functions on tensors; parameters are mappings from the
 reference's leaf names to tensors. Shapes use B=batch, S=query length,
@@ -26,9 +27,30 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
 # initializers (seeded torch draws on the reference's shapes and scales)
 # --------------------------------------------------------------------------
 
+# a leaf of more elements is drawn in slices along its first axis, so its
+# f32 draw is never held whole (deepseek-v3-671b's expert stack w1 is
+# 256 x 7168 x 2048: 15 GB in f32 beside its 7.5 GB in bf16)
+DRAW_SLICE = 1 << 28
+
+
 def dense_init(shape, dtype, generator, device, in_axis=-2):
-    """Truncated-normal fan-in init: std 1/sqrt(fan_in), cut at 2 std."""
+    """Truncated-normal fan-in init: std 1/sqrt(fan_in), cut at 2 std.
+    Leaves of more than DRAW_SLICE elements are drawn slice by slice
+    along axis 0 (same law, another order of draws)."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    numel = math.prod(shape)
+    if numel <= DRAW_SLICE or len(shape) < 2:
+        return _trunc_normal(tuple(shape), fan_in, dtype, generator, device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, DRAW_SLICE // (numel // shape[0]))
+    for i in range(0, shape[0], step):
+        n = min(step, shape[0] - i)
+        out[i:i + n] = _trunc_normal((n,) + tuple(shape[1:]), fan_in, dtype,
+                                     generator, device)
+    return out
+
+
+def _trunc_normal(shape, fan_in, dtype, generator, device):
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
@@ -255,6 +277,88 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                    k_pos=k_pos, bias=bias)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     return out, (k, v)
+
+
+# --------------------------------------------------------------------------
+# MLA: DeepSeek-V3 multi-head latent attention
+# --------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, dtype, generator, device) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk, qr, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    def dense(shape):
+        return dense_init(shape, dtype, generator, device, in_axis=0)
+    return {
+        "wq_a": dense((d, m.q_lora_rank)),
+        "q_a_norm": init_rms_norm(m.q_lora_rank, dtype, device),
+        "wq_b": dense((m.q_lora_rank, h, qk + qr)),
+        "wkv_a": dense((d, m.kv_lora_rank + qr)),
+        "kv_a_norm": init_rms_norm(m.kv_lora_rank, dtype, device),
+        "wk_b": dense((m.kv_lora_rank, h, qk)),
+        "wv_b": dense((m.kv_lora_rank, h, vd)),
+        "wo": dense((h, vd, d)),
+    }
+
+
+def mla_latent(p, cfg: ModelConfig, x: torch.Tensor,
+               k_pos) -> torch.Tensor:
+    """Project x (B, S, d) to the cached latent [rms_norm(c_kv) |
+    RoPE(k_rope)] (B, S, r + qr): the key's rotary half shares one head,
+    rotated at the positions k_pos ((S,) or (B, S)) of the tokens."""
+    r = cfg.mla.kv_lora_rank
+    ckv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"].to(x.dtype))
+    c = rms_norm(ckv[..., :r], p["kv_a_norm"])
+    k_rope = apply_rope(ckv[..., None, r:], k_pos,
+                        cfg.rope_theta)[:, :, 0]
+    return torch.cat([c, k_rope], dim=-1)
+
+
+def mla_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                  latent: torch.Tensor, *, q_pos, k_pos,
+                  mesh=None) -> torch.Tensor:
+    """Absorbed-matrix MLA: attention runs in the compressed latent space.
+
+    latent: (B, T, r + qr) keys (mla_latent's rows, dequantized when the
+    cache holds codes) at positions k_pos ((T,) or (B, T)); x: (B, S, d)
+    queries at q_pos ((S,) or (B, S)). W_uk folds into the query and W_uv
+    into the output, so the cache stays (r + qr) wide whatever the head
+    count. Scores and the softmax run in f32 over q_c . c + q_rope .
+    k_rope, keys after a query masked (rel >= 0); the latent-space output
+    is cast to x's dtype before W_uv, as in the reference. mesh: head
+    sharding arrives with ROADMAP A11 and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "MLA over a mesh (mla_attn_pins) is not ported yet: it "
+            "arrives with ROADMAP A11")
+    m = cfg.mla
+    r, qk = m.kv_lora_rank, m.qk_nope_head_dim
+    f32 = torch.float32
+    c, k_rope = latent[..., :r], latent[..., r:]          # (B,T,r),(B,T,qr)
+    q_a = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype)),
+                   p["q_a_norm"])
+    q = torch.einsum("bsr,rhk->bshk", q_a, p["wq_b"].to(x.dtype))
+    q_nope = q[..., :qk]
+    q_rope = apply_rope(q[..., qk:], q_pos, cfg.rope_theta)
+    # absorb W_uk: q_c (B, S, H, r)
+    q_c = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(x.dtype))
+    scale = 1.0 / math.sqrt(qk + m.qk_rope_head_dim)
+    scores = (torch.einsum("bshr,btr->bhst", q_c.to(f32), c.to(f32))
+              + torch.einsum("bshk,btk->bhst", q_rope.to(f32),
+                             k_rope.to(f32))) * scale
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None]
+    if k_pos.dim() == 1:
+        k_pos = k_pos[None]
+    rel = q_pos[:, :, None] - k_pos[:, None, :]            # (B|1, S, T)
+    scores = torch.where((rel >= 0)[:, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out_c = torch.einsum("bhst,btr->bshr", probs, c.to(f32))
+    out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype),
+                       p["wv_b"].to(x.dtype))              # absorb W_uv
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -12,10 +12,13 @@ Ported: `family="dense"`, with full attention or sliding windows (one
 windowed segment, or gemma3's alternating local and global segments when
 `global_every` is set), `family="moe"` (one segment of attention layers
 whose FFN is the mixture of experts of `models/moe.py`),
-`family="rwkv6"` (one segment of RWKV-6 layers, `models/rwkv.py`) and
-`family="encdec"` (T5 and whisper: a decoder segment whose layers
-cross-attend over the encoder's output through the `enc/cross` stack,
-T5's relative position bias when `use_rel_pos_bias`, and an encoder
+`family="mla_moe"` (DeepSeek-V3: a segment of `first_dense_layers`
+multi-head latent attention layers with a dense FFN of `dense_d_ff`, then
+one of MLA layers with the mixture of experts), `family="rwkv6"` (one
+segment of RWKV-6 layers, `models/rwkv.py`) and `family="encdec"` (T5
+and whisper: a decoder segment whose layers cross-attend over the
+encoder's output through the `enc/cross` stack, T5's relative position
+bias when `use_rel_pos_bias`, and an encoder
 built from the same layers over token ids or precomputed frames, which
 `encode_seq_reduced` runs with Sequence-AltUp or a Table-2 baseline);
 other families raise NotImplementedError naming the ROADMAP item that
@@ -121,7 +124,7 @@ def layer_slice(tree, i: int) -> Dict:
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str            # attn | rwkv
+    kind: str            # attn | mla | rwkv
     n: int               # number of layers in this segment
     ffn: str             # dense | moe | none (rwkv carries its channel mix)
     layer_offset: int    # zero-based global index of the first layer
@@ -134,11 +137,15 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
     if cfg.family == "moe":
         return [Segment("attn", cfg.n_layers, "moe", 0,
                         window=cfg.window_size)]
+    if cfg.family == "mla_moe":
+        nd = cfg.moe.first_dense_layers
+        segs = [Segment("mla", nd, "dense", 0)] if nd else []
+        return segs + [Segment("mla", cfg.n_layers - nd, "moe", nd)]
     if cfg.family not in ("dense", "encdec"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: the port serves "
-            f"family='dense', 'moe', 'rwkv6' and 'encdec'; the other "
-            f"families arrive with ROADMAP A9")
+            f"family='dense', 'moe', 'mla_moe', 'rwkv6' and 'encdec'; the "
+            f"other families arrive with ROADMAP A9")
     if cfg.window_size > 0 and cfg.global_every > 0:
         # gemma3's 5:1 local:global pattern -> alternating static segments
         segs: List[Segment] = []
@@ -163,7 +170,8 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
 
 def init_layer(seg: Segment, cfg: ModelConfig, generator, device) -> Dict:
     """One layer's parameters of a segment, in the reference's leaf
-    order."""
+    order. An mla segment's dense FFN is moe.dense_d_ff wide (DeepSeek's
+    first layers), not d_ff (its experts' width)."""
     pd = prm_dtype(cfg)
     d = cfg.d_model
     if seg.kind == "rwkv":
@@ -173,13 +181,17 @@ def init_layer(seg: Segment, cfg: ModelConfig, generator, device) -> Dict:
             "rwkv": rwkv_lib.init_rwkv_block(cfg, pd, generator, device),
         }
     else:
+        init_attn = L.init_mla if seg.kind == "mla" else L.init_attention
         p = {"ln_attn": L.init_rms_norm(d, pd, device),
-             "attn": L.init_attention(cfg, pd, generator, device),
+             "attn": init_attn(cfg, pd, generator, device),
              "ln_ffn": L.init_rms_norm(d, pd, device)}
         if seg.ffn == "moe":
             p["moe"] = moe_lib.init_moe(d, cfg.moe, pd, generator, device)
         else:
-            p["ffn"] = L.init_ffn(d, cfg.d_ff, pd, generator, device)
+            dff = cfg.d_ff
+            if seg.kind == "mla" and cfg.moe and cfg.moe.dense_d_ff:
+                dff = cfg.moe.dense_d_ff
+            p["ffn"] = L.init_ffn(d, dff, pd, generator, device)
     if cfg.altup.enabled:
         K = cfg.altup.K
         p["altup_p"] = torch.eye(K, dtype=torch.float32, device=device)
@@ -314,6 +326,12 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
             causal=False,
             k_pos=torch.arange(enc_out.shape[1], device=x.device))
         x = x + c
+    return _ffn_half(p, cfg, x)
+
+
+def _ffn_half(p, cfg: ModelConfig, x):
+    """The pre-norm FFN half of a layer, dense or a mixture of experts (the
+    layer holds "moe"), with capacity_for's drops: (x + f, aux)."""
     h = L.rms_norm(x, p["ln_ffn"], cfg.logical_norm_eps)
     if "moe" in p:
         f, aux = moe_lib.moe_block(p["moe"], cfg.moe, h,
@@ -322,6 +340,18 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
         f = L.ffn_block(p["ffn"], h, cfg.ffn_activation)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, aux
+
+
+def mla_layer(p, cfg: ModelConfig, x, *, q_pos, k_pos):
+    """One pre-norm DeepSeek layer on the ACTIVE d-wide block: multi-head
+    latent attention over the sequence's own latents (k_pos their
+    positions), then the dense or MoE FFN. Returns (x, aux) as
+    attn_ffn_layer does."""
+    h = L.rms_norm(x, p["ln_attn"], cfg.logical_norm_eps)
+    lat = L.mla_latent(p["attn"], cfg, h, k_pos=q_pos)
+    x = x + L.mla_attention(p["attn"], cfg, h, lat, q_pos=q_pos,
+                            k_pos=k_pos)
+    return _ffn_half(p, cfg, x)
 
 
 def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
@@ -415,6 +445,8 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
                 out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
                 return out, torch.zeros((), dtype=torch.float32,
                                         device=xa.device)
+            if seg.kind == "mla":
+                return mla_layer(p_l, cfg, xa, q_pos=q_pos, k_pos=k_pos)
             return attn_ffn_layer(p_l, cfg, xa, window=seg.window,
                                   q_pos=q_pos, k_pos=k_pos, bias=rel_bias,
                                   cross_p=cross_l, enc_out=enc_out,

@@ -44,7 +44,7 @@ def test_config_fields_and_defaults_match_reference(name):
                                 dict(smoke=True, altup_k=2)])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-4b",
                                   "gemma3-12b", "qwen2-moe-a2.7b",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "deepseek-v3-671b"])
 def test_get_config_matches_reference(arch, kw):
     got = dataclasses.asdict(tconfigs.get_config(arch, **kw))
     want = dataclasses.asdict(jconfigs.get_config(arch, **kw))

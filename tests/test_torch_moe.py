@@ -17,9 +17,12 @@ same numpy inputs.
   stats and pool counters equal to the JAX Engine's and to the
   fresh-tensor step's (test_torch_decode_graph's three engines):
   staggered with slot recycling and a contiguous prefix hit, paged with
-  aliased pages, int8 slot caches and an fp8 pool. (Greedy speculative
-  and seeded sampled serving: tests/test_torch_speculative.py and
-  tests/test_torch_sampled_serve.py.)
+  aliased pages, int8 slot caches and an fp8 pool; and on its `mla-moe`
+  config (DeepSeek's multi-head latent attention before a dense or MoE
+  FFN: `srv-mla`, and the same model as `pfx-mla`, `pgd-mla` and
+  `qsrv-mla`), the same four runs, continuous == static generate.
+  (Greedy speculative and seeded sampled serving:
+  tests/test_torch_speculative.py and tests/test_torch_sampled_serve.py.)
 
 Forward routes with drops and decode drop-free, so MoE decode is held
 against decode only, never against forward."""
@@ -44,7 +47,9 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttr
 
 from _torch_train_util import both_params, cfg_pair, numpy_params
-from test_torch_decode_graph import _three_engines, _prompts
+from repro_torch.serve.engine import Engine as TEngine
+from repro_torch.serve.sampling import SamplingParams as TSP
+from test_torch_decode_graph import _three_engines, _prompts, _trace
 
 ARCH = "qwen2-moe-a2.7b"
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -55,6 +60,11 @@ PAGE = 8
 ORACLE_KW = dict(name="srv-moe", family="moe", n_layers=2, d_model=32,
                  n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=128)
 ORACLE_MOE = dict(num_experts=4, top_k=2, d_expert=32)
+# its "mla-moe" oracle config: a dense MLA layer, then an MoE one
+MLA_KW = dict(ORACLE_KW, name="srv-mla", family="mla_moe")
+MLA_DIMS = dict(q_lora_rank=16, kv_lora_rank=8, qk_nope_head_dim=8,
+                qk_rope_head_dim=4, v_head_dim=8)
+MLA_MOE = dict(ORACLE_MOE, first_dense_layers=1, dense_d_ff=64)
 
 jdecode_step = jax.jit(jdec.decode_step,
                        static_argnames=("cfg", "kv_len", "page_size"))
@@ -113,6 +123,17 @@ def _oracle():
                                  moe=mod.MoEConfig(**ORACLE_MOE))
                  for mod in (jcfg, tcfg))
     return cfgs + both_params(numpy_params(cfgs[0], seed=7))
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_oracle():
+    """The mla-moe oracle config (AltUp K=2) in both packages and its
+    params."""
+    cfgs = tuple(mod.ModelConfig(**MLA_KW, altup=mod.AltUpConfig(K=2),
+                                 mla=mod.MLAConfig(**MLA_DIMS),
+                                 moe=mod.MoEConfig(**MLA_MOE))
+                 for mod in (jcfg, tcfg))
+    return cfgs + both_params(numpy_params(cfgs[0], seed=8))
 
 
 def _layer0_moe(jp, tp):
@@ -314,3 +335,32 @@ def test_engine_matches_jax_engine(layout, kind):
     assert eng.stats["prefix_hits"] >= 1
     if layout == "paged":
         assert eng.paged_stats["alias_acquisitions"] > 0
+
+
+@pytest.mark.parametrize("layout,kind", [
+    ("contiguous", "auto"), ("paged", "auto"), ("contiguous", "int8"),
+    ("paged", "fp8")])
+def test_mla_engine_matches_jax_engine(layout, kind):
+    """The mla-moe oracle config through test_engine_matches_jax_engine's
+    trace: tokens, stats and pool counters equal to the JAX Engine's and
+    the fresh-tensor step's, from float, int8 and fp8 latents, a prefix
+    hit copying latent rows (contiguous) or aliasing latent pages
+    (paged). Contiguous float: every request's tokens equal the port's
+    static generate() of its prompt (the reference's oracle)."""
+    jc, tc, jp, tp = _mla_oracle()
+    jc, tc = jc.replace(kv_cache_dtype=kind), tc.replace(kv_cache_dtype=kind)
+    kw = dict(n_slots=2, prefill_chunk=4, kv_bucket_min=MAX_LEN)
+    if layout == "paged":
+        kw.update(paged=True, page_size=PAGE)
+    prompts, news = _prompts(seed=6, n=5, shared=11), [6, 14, 3, 12, 5]
+    eng = _three_engines(jc, tc, jp, tp, prompts, news, **kw)
+    assert eng.stats["prefix_hits"] >= 1
+    if layout == "paged":
+        assert eng.paged_stats["alias_acquisitions"] > 0
+    if layout == "contiguous" and kind == "auto":
+        cont = TEngine(tc, tp, max_len=MAX_LEN, device="cpu", **kw)
+        got = _trace(cont, TSP, prompts, news)
+        static = TEngine(tc, tp, max_len=MAX_LEN, device="cpu")
+        for toks, p, n in zip(got, prompts, news):
+            assert toks == static.generate(np.asarray(p)[None], n).numpy() \
+                .ravel().tolist()

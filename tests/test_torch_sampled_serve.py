@@ -41,6 +41,13 @@ ORACLE = {
     "dense-windowed": dict(name="srv-win", family="dense", window_size=4),
     "moe": dict(name="srv-moe", family="moe",
                 moe=dict(num_experts=4, top_k=2, d_expert=32)),
+    # the "mla-moe" oracle config, served with the same seeded requests
+    "mla-moe": dict(name="srv-mla", family="mla_moe",
+                    mla=dict(q_lora_rank=16, kv_lora_rank=8,
+                             qk_nope_head_dim=8, qk_rope_head_dim=4,
+                             v_head_dim=8),
+                    moe=dict(num_experts=4, top_k=2, d_expert=32,
+                             first_dense_layers=1, dense_d_ff=64)),
     "rwkv": dict(name="srv-rwkv", family="rwkv6",
                  rwkv=dict(head_dim=16, decay_lora=8, token_shift_lora=8)),
     "ragged-gqa": dict(name="srv-rg-gqa", family="dense", n_heads=4,
@@ -56,11 +63,14 @@ LP_ATOL = 2e-5
 def _cfgs(name, **extra):
     kw = {**BASE, **ORACLE[name], **extra}
     rwkv, moe = kw.pop("rwkv", None), kw.pop("moe", None)
+    mla = kw.pop("mla", None)
     out = []
     for mod in (jcfg, tcfg):
         more = {"rwkv": mod.RWKVConfig(**rwkv)} if rwkv else {}
         if moe:
             more["moe"] = mod.MoEConfig(**moe)
+        if mla:
+            more["mla"] = mod.MLAConfig(**mla)
         out.append(mod.ModelConfig(**kw, altup=mod.AltUpConfig(K=2), **more))
     return tuple(out)
 

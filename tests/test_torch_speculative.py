@@ -56,10 +56,16 @@ KEY = jax.random.PRNGKey(0)
 # full AltUp K=2 (not recycled)
 KW = dict(name="spec", family="dense", n_layers=2, d_model=32, n_heads=2,
           n_kv_heads=2, d_ff=64, vocab_size=128)
-# the reference's ORACLE_CFGS the port builds (mla-moe: ROADMAP A9)
+# the reference's ORACLE_CFGS
 VARIANTS = {"dense": {}, "gqa": dict(n_heads=4, n_kv_heads=2),
             "moe": dict(name="spec-moe", family="moe",
                         moe=dict(num_experts=4, top_k=2, d_expert=32)),
+            "mla-moe": dict(name="spec-mla", family="mla_moe",
+                            mla=dict(q_lora_rank=16, kv_lora_rank=8,
+                                     qk_nope_head_dim=8, qk_rope_head_dim=4,
+                                     v_head_dim=8),
+                            moe=dict(num_experts=4, top_k=2, d_expert=32,
+                                     first_dense_layers=1, dense_d_ff=64)),
             "ring": dict(window_size=4),
             "ring-int8": dict(window_size=4, kv_cache_dtype="int8"),
             "int8": dict(kv_cache_dtype="int8"),
@@ -71,9 +77,11 @@ LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)        # f32 logits, two packages
 
 def _cfgs(name, **extra):
     kw = {**KW, **VARIANTS.get(name, {}), **extra}
-    moe = kw.pop("moe", None)
+    moe, mla = kw.pop("moe", None), kw.pop("mla", None)
     return tuple(mod.ModelConfig(**kw, altup=mod.AltUpConfig(K=2),
                                  **({"moe": mod.MoEConfig(**moe)} if moe
+                                    else {}),
+                                 **({"mla": mod.MLAConfig(**mla)} if mla
                                     else {}))
                  for mod in (jcfg, tcfg))
 

@@ -381,6 +381,36 @@ def test_moe_trainer_matches_jax_and_checkpoints_round_trip(tmp_path):
     assert "final: step=1 loss=" in res.stdout
 
 
+def test_mla_checkpoint_restores_in_port_and_launcher_trains(tmp_path):
+    """deepseek-v3-671b SMOKE + AltUp K=2: a checkpoint written by the
+    reference (MLA leaves, router, experts, shared expert and a seeded
+    Adafactor state) restores in the port's Trainer bit for bit; the
+    launcher trains the architecture."""
+    jt, tt = _tcfgs(steps=2, checkpoint_dir=str(tmp_path / "c"))
+    jc, tc = cfg_pair("deepseek-v3-671b", 2)
+    jp = jax.tree_util.tree_map(jnp.asarray, numpy_params(jc, seed=4))
+    rng = np.random.default_rng(5)
+    jopt = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a,
+        jts.init_opt_state(jp, jt.optimizer))
+    jckpt.save(str(tmp_path / "c"), 2, jp, jopt)
+    tr = Trainer(tc, tt, device="cpu")
+    assert tr.maybe_resume() and tr.step == 2
+    for want, got in ((jax_leaves(jp), port_leaves(tr.params)),
+                      (jax_leaves(jopt), port_leaves(tr.opt_state))):
+        assert sorted(want) == sorted(got)
+        for path in want:
+            np.testing.assert_array_equal(got[path],
+                                          np.asarray(want[path], np.float32),
+                                          err_msg=str(path))
+    assert ("seg0", "attn", "wkv_a") in port_leaves(tr.params)
+    res = _launch(tmp_path / "l", "--steps", "1", "--seq", "8", "--batch",
+                  "2", arch="deepseek-v3-671b")
+    assert res.returncode == 0, res.stderr
+    assert "final: step=1 loss=" in res.stdout
+
+
 def test_engine_serves_trainable_params():
     """A Trainer's leaves require grad; the Engine's steps run without
     autograd and serve the same tokens as from frozen copies."""
