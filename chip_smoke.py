@@ -21,9 +21,14 @@ wrapped with AltUp K=2, served at full depth and trained at 2 layers;
 then the encoder-decoder family, t5-large wrapped with AltUp K=2
 (with Sequence-AltUp beside it) and whisper-tiny wrapped with AltUp
 K=2, served through Engine.generate and (T5) trained at full depth;
-last deepseek-v3-671b wrapped with AltUp K=2 (multi-head latent
+then deepseek-v3-671b wrapped with AltUp K=2 (multi-head latent
 attention), at every published width, served at 5 layers with all 256
-routed experts and trained at 2. Phases:
+routed experts and trained at 2; last the zamba2-1.2b hybrid (Mamba-2
+layers and one weight-tied shared attention block) wrapped with AltUp
+K=2, served at full width and depth and trained at 12 layers, and
+llava-next-mistral-7b (the VLM family, served text-only, trained with
+its 576 stub image tokens) and granite-3-2b, each wrapped with AltUp
+K=2. Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
   (b) build    nvcc build of every kernel, seconds and ptxas report
@@ -92,6 +97,15 @@ routed experts and trained at 2. Phases:
                m-serve (16 kv heads of 128, rep 1); timed with its bound
       c-altup case l  the fused AltUp at deepseek-v3-671b's served step
                (8 tokens of d 7168, bf16), timed with its bound
+      c-* cases z*, v*, granite*  the fused AltUp at zamba2-1.2b's step
+               (8 tokens of d 2048, bf16 and f32) and llava's (d 4096);
+               both decode-attention entry points halfway through
+               z-serve (32 kv heads of 64, rep 1: the shared block),
+               bf16 and f32 queries, float, int8 and fp8 k/v, the paged
+               one bitwise equal to the contiguous one; the decode
+               attention halfway through v-serve (8 kv heads of 128, rep
+               4) and granite's serve (8 kv heads of 64, rep 4); each
+               timed with its bound, SDPA beside
       c-* cases n-*, w-*  the same at t5-large's (n-serve: AltUp at 8
                tokens of d 1024 in f32; the decode attention halfway, 16
                kv heads of 64, rep 1, f32 storage and queries, then int8
@@ -381,6 +395,47 @@ routed experts and trained at 2. Phases:
       l-train  Trainer at 2 layers (32 experts), bf16, 12 steps of 8 x
                512 tokens at lr 0.02: a falling loss, tokens/s, MFU,
                peak memory
+  (z) zamba2-1.2b + AltUp K=2 (38 Mamba-2 layers, d 2048, state 64,
+      conv 4, 64 heads of 64; one shared attention + FFN block, 32 heads
+      of 64, d_ff 8192, after every 6 mamba layers: 13 segments, 44
+      AltUp layers), the Mamba-2 block in plain torch (as in the
+      reference), B1 every layer, B2 / B4 in the shared invocations:
+      z-parity full width and depth, f32, TF32 off, 2 prompts of 24
+               tokens fed one a step (the engine's chunk-1 prefill of a
+               recurrent plan), then 8 greedy steps: the kernel path
+               and the paged kernel path against the dense path (1e-3,
+               tokens identical), exactly 44 AltUp and 6 decode-attention
+               launches a step on each kernel side; float (the prefill's
+               last logits also against the dense forward), int8 and fp8
+               (the dense side reads the kernel side's caches, as d-quant)
+      z-serve  (i)'s traffic (a 64-token donor, then 7 requests of 32-256
+               tokens, one extending the donor's prompt by 32; 32 new)
+               through Engine(n_slots=8, max_len=512): an eager twin at
+               6 mamba layers against a replayed run at the same depth
+               (contiguous float, paged int8), then replayed at full
+               depth, contiguous and paged, float and int8: median and
+               p80 step ms, decode tok/s, the recurrent hit (contiguous:
+               one, its tokens a cold engine's; paged: none), the step
+               graph's device ms against its bytes bound (weights and
+               the f32 ssm state read and written), the mamba layers'
+               and shared invocations' shares of an eager step's kernel
+               time; paged tokens equal to contiguous ones
+      z-grad   12 mamba layers (2 shared invocations), f32: loss_fn and
+               every leaf's gradient on the card against the CPU, 1e-4 of
+               each leaf's max, the tied block's named; no kernel
+      z-train  Trainer at 12 mamba layers, bf16, AdamW: a falling loss,
+               ms a step, tokens/s, MFU, peak memory
+  (v) llava-next-mistral-7b + AltUp K=2 (32 layers, d 4096, 32 / 8 heads
+      of 128, 576 stub image tokens of d 4096 projected by img_proj):
+      v-serve  (e)'s traffic, text-only (as the reference serves it), full
+               width and depth, replayed: (e)'s gates and numbers, the
+               step graph's device ms against its weight bytes
+      v-train  Trainer at 4 layers, bf16, AdamW, batches of 512 tokens
+               after 576 image embeddings (the pipeline's): a falling
+               loss, ms a step, MFU over text and image positions
+  granite      granite-3-2b + AltUp K=2 (40 layers, d 2048, 32 / 8 heads
+               of 64, vocabulary 49155 padded to 49408), (e)'s traffic
+               replayed at full width and depth, as v-serve
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -508,13 +563,16 @@ def perturb_rwkv(torch, params, cfg, seed):
 def perturb_altup(torch, params, seed):
     """p = I + 0.2·N(0,1), g = 1 + 0.2·N(0,1): at init (p = I, g = 1)
     predict and correct are trivial and would test nothing. Every AltUp
-    segment, the encoder's (`enc/seg`) after the decoder's; then the
-    Sequence-AltUp scalars (a1, a2, b) + 0.2·N(0,1) away from (1, 0, 1),
-    where the layer would be stride-and-skip."""
+    segment, the encoder's (`enc/seg`) after the decoder's, the hybrid's
+    shared block (its unstacked (K, K) p); then the Sequence-AltUp
+    scalars (a1, a2, b) + 0.2·N(0,1) away from (1, 0, 1), where the
+    layer would be stride-and-skip."""
     gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
     segs = [params[n] for n in params.keys() if n.startswith("seg")]
     if "enc" in params:
         segs.append(params["enc"]["seg"])
+    if "shared_blk" in params:
+        segs.append(params["shared_blk"])
     with torch.no_grad():
         for seg in segs:
             if "altup_p" not in seg:
@@ -1303,7 +1361,18 @@ def no_cache_writes():
         D._update_at = real
 
 
-def parity_f32(torch, kind=None, base=None):
+def dequantized(torch, caches):
+    """An f32 copy of quantized caches: each code leaf (k, v, latent)
+    times its scale, the scale leaves left out."""
+    from repro_torch.kernels import quant
+    scale_of = {"k": "k_scale", "v": "v_scale", "latent": "latent_scale"}
+    return {si: {n: (quant.dequantize(t, seg[scale_of[n]], torch.float32)
+                     if scale_of.get(n) in seg else t.clone())
+                 for n, t in seg.items() if not n.endswith("_scale")}
+            for si, seg in caches.items()}
+
+
+def parity_f32(torch, kind=None, base=None, dequant_dense=False):
     """Full-width f32 decode_step logits and greedy tokens of the kernel
     path ("k") and the paged kernel path ("p") against the dense path
     ("d"), over a chunked prefill and 16 decode steps. base: the config
@@ -1322,7 +1391,15 @@ def parity_f32(torch, kind=None, base=None):
     607744 logits 1.1e-3 apart after one such step), which is the
     rounding's doing, not the kernel's. An unquantized dense side ("f"),
     fed the kernel side's tokens, gives the quantized logits' distance
-    from the unquantized ones, printed and not gated."""
+    from the unquantized ones, printed and not gated.
+
+    dequant_dense (l-parity, quantized): the dense side is the
+    unquantized f32 dense path (plain AltUp, float caches) and reads, at
+    every step, prefill chunks included, an f32 copy of the kernel
+    side's caches dequantized after the kernel side's step, its own
+    writes suppressed: the kernel path's quantized caches against a
+    dense path over the same values, where MLA (no attention kernel)
+    would otherwise hold one computation against itself."""
     from repro_torch.models.decode import (decode_step, init_cache,
                                            init_paged_cache)
     from repro_torch.models.transformer import init_params
@@ -1336,6 +1413,9 @@ def parity_f32(torch, kind=None, base=None):
                                fused_decode_altup=None),
             "d": cfg_q.replace(ragged_decode_attn=False,
                                fused_decode_altup=None if quant else False)}
+    if dequant_dense:
+        cfgs["d"] = cfg.replace(ragged_decode_attn=False,
+                                fused_decode_altup=False)
     cfgs["p"] = cfgs["k"]
     if quant:
         cfgs["f"] = cfgs["d"].replace(kv_cache_dtype="auto")
@@ -1372,11 +1452,16 @@ def parity_f32(torch, kind=None, base=None):
         kv_len = kv_bucket(max(p + n for p, n in zip(pos, nval)), 32, T)
         out = {}
         for side in sides:
-            out[side], _ = decode_step(
-                params, cfgs[side], caches[side], toks,
-                torch.tensor(pos, device=DEV),
-                n_valid=torch.tensor(nval, device=DEV), kv_len=kv_len,
-                **pkw[side])
+            writes = contextlib.nullcontext()
+            if dequant_dense and side == "d":
+                caches["d"] = dequantized(torch, caches["k"])
+                writes = no_cache_writes()
+            with writes:
+                out[side], _ = decode_step(
+                    params, cfgs[side], caches[side], toks,
+                    torch.tensor(pos, device=DEV),
+                    n_valid=torch.tensor(nval, device=DEV), kv_len=kv_len,
+                    **pkw[side])
         for b in range(B):
             if nval[b]:
                 rows = {s: out[s][b, :nval[b], :cfg.vocab_size]
@@ -1404,9 +1489,12 @@ def parity_f32(torch, kind=None, base=None):
         for side in sides:
             writes = contextlib.nullcontext()
             if quant and side == "d":
-                # the kernel side's caches after its step; no writes
-                caches["d"] = {si: {n: t.clone() for n, t in seg.items()}
-                               for si, seg in caches["k"].items()}
+                # the kernel side's caches after its step (dequantized for
+                # dequant_dense); no writes
+                caches["d"] = (dequantized(torch, caches["k"])
+                               if dequant_dense else
+                               {si: {n: t.clone() for n, t in seg.items()}
+                                for si, seg in caches["k"].items()})
                 writes = no_cache_writes()
             with writes:
                 logits, _ = decode_step(
@@ -1430,6 +1518,10 @@ def parity_f32(torch, kind=None, base=None):
     del params, caches
     torch.cuda.empty_cache()
     res = {"cfg": cfg_name(cfg), "kv_cache_dtype": kind or "auto",
+           "dense_side": ("f32 dense over the kernel side's dequantized "
+                          "caches" if dequant_dense else
+                          "the kernel side's caches" if quant else
+                          "its own caches"),
            "slots": B, "prompt_lens": plens, "decode_steps": n_dec,
            "max_abs_logit_err": worst["k"],
            "paged_max_abs_logit_err": worst["p"], "page": page,
@@ -2179,19 +2271,37 @@ def rwkv_traffic(torch, vocab):
     return donor, batch
 
 
-def serve_rwkv_bf16(torch, ops, profile=False, replay=False):
+def serve_recurrent_bf16(torch, ops, profile=False, replay=False, cfg=None,
+                         kind=None, paged=False, after=None):
     """Phase (i); replay as in serve_bf16 (i-graph: every step of a
-    recurrent plan is chunk 1, so every step replays)."""
-    from repro_torch.models.transformer import init_params
+    recurrent plan is chunk 1, so every step replays). cfg: another bf16
+    recurrent plan for the same traffic (z-serve: zamba2-1.2b, its
+    Mamba-2 leaves perturbed), kind its kv_cache_dtype; paged: through
+    Engine(paged=True, pages of 16), where a recurrent plan gets no
+    prefix hit; after(eng, params): more fields for the result. Gates:
+    one AltUp launch a layer a step, one WKV launch a rwkv layer a step,
+    one decode-attention launch (the paged entry point when paged) a
+    shared attention invocation a step, nothing else."""
+    from repro_torch.models.transformer import init_params, layer_plan
     from repro_torch.serve.sampling import SamplingParams
-    cfg = rwkv_config()                                # bf16
+    cfg = rwkv_config() if cfg is None else cfg        # bf16
+    if kind is not None:
+        cfg = cfg.replace(kv_cache_dtype=kind)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=1, device=DEV)
-    perturb_rwkv(torch, params, cfg, seed=22)
+    if cfg.family == "rwkv6":
+        perturb_rwkv(torch, params, cfg, seed=22)
+    else:
+        perturb_mamba(torch, params, seed=22)
+    params_bytes = sum(t.numel() * t.element_size()
+                       for t in params.parameters())
     donor, batch = rwkv_traffic(torch, cfg.vocab_size)
+    pkw = dict(paged=True, page_size=16) if paged else {}
 
     def engine(**kw):
         return engine_class(replay)(cfg, params, max_len=I_MAX_LEN,
-                                    n_slots=I_SLOTS, device=DEV, **kw)
+                                    n_slots=I_SLOTS, device=DEV, **pkw, **kw)
     eng = engine()
     # warm-up request (cuBLAS handles, allocator) outside the counted run
     eng.submit(batch[1][:8], sampling=SamplingParams(max_new=4))
@@ -2232,28 +2342,35 @@ def serve_rwkv_bf16(torch, ops, profile=False, replay=False):
             raise AssertionError(f"request {rid}: {c.finish_reason}, "
                                  f"{len(c.tokens)} tokens")
     st = dict(eng.stats)
-    if st["prefix_hits"] != 1 or st["prefill_tokens_saved"] != I_PREFIX:
-        raise AssertionError(f"not one prefix hit at the donor's depth: "
-                             f"{st}")
-    n_layers = cfg.n_layers
+    hits = (0, 0) if paged else (1, I_PREFIX)
+    if (st["prefix_hits"], st["prefill_tokens_saved"]) != hits:
+        raise AssertionError(f"not {hits[0]} prefix hit at the donor's "
+                             f"depth: {st}")
+    plan = layer_plan(cfg)
+    attn = ("paged_ragged_decode_attention" if paged
+            else "ragged_decode_attention")
+    want = {"altup_predict_correct": max(s.layer_offset + s.n
+                                         for s in plan),
+            "rwkv6_wkv": sum(s.n for s in plan if s.kind == "rwkv"),
+            attn: sum(s.n for s in plan if s.kind == "shared_attn")}
     warm = graph["warmup_launches"] if graph else dict.fromkeys(counts, 0)
-    if counts["rwkv6_wkv"] - warm["rwkv6_wkv"] != n_layers * steps or \
-            counts["altup_predict_correct"] <= 0 or \
-            counts["ragged_decode_attention"] != 0 or \
-            counts["paged_ragged_decode_attention"] != 0:
-        raise AssertionError(f"launch counts {counts} do not match "
-                             f"{steps} steps of {n_layers} layers")
+    if any(counts[k] - warm[k] != want.get(k, 0) * steps for k in counts):
+        raise AssertionError(f"launch counts {counts} (warm-ups {warm}) do "
+                             f"not match {steps} steps of {want}")
     hit_tokens = list(out[rids[0]].tokens)
     trace = {"tokens": [out[r].tokens for r in [r_donor] + rids],
              "stats": step_stats(eng)}
     decode_ms.sort()
-    res = {"requests": 1 + len(rids), "donor_prompt": len(donor),
+    res = {"cfg": cfg_name(cfg), "requests": 1 + len(rids),
+           "donor_prompt": len(donor),
            "prompt_lens": [len(p) for p in batch], "new_tokens": I_NEW,
-           "replay": replay, "graph": graph,
+           "replay": replay, "graph": graph, "paged": paged,
+           "kv_cache_dtype": kind or "auto", "params_bytes": params_bytes,
+           "cache_bytes": cache_bytes(eng),
            "steps": steps, "decode_steps": len(decode_ms),
            "launches": counts,
-           "wkv_launches_per_step":
-               (counts["rwkv6_wkv"] - warm["rwkv6_wkv"]) / steps,
+           "launches_per_step": {k: (counts[k] - warm[k]) / steps
+                                 for k in want},
            "prefix_hits": st["prefix_hits"],
            "prefill_tokens_saved": st["prefill_tokens_saved"],
            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
@@ -2263,18 +2380,25 @@ def serve_rwkv_bf16(torch, ops, profile=False, replay=False):
            "decode_step_ms_min": decode_ms[0],
            "wall_s": wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if paged:
+        trace["paged_stats"] = dict(eng.paged_stats)
+    if after is not None:
+        res.update(after(eng, params))
     prof = (profile_decode(torch, ops, eng, batch[1:], replay) if profile
             else None)
     del eng
-    # the extender served cold, alone, on an engine of the same shape
-    cold = engine(prefix_cache=False)
-    rid = cold.submit(batch[0], sampling=SamplingParams(max_new=I_NEW))
-    cold_tokens = list(cold.run()[rid].tokens)
-    if cold_tokens != hit_tokens:
-        raise AssertionError(f"the prefix hit serves other tokens than a "
-                             f"cold engine: {hit_tokens} vs {cold_tokens}")
-    res["hit_tokens_equal_cold"] = True
-    del cold, params
+    if not paged:
+        # the extender served cold, alone, on an engine of the same shape
+        cold = engine(prefix_cache=False)
+        rid = cold.submit(batch[0], sampling=SamplingParams(max_new=I_NEW))
+        cold_tokens = list(cold.run()[rid].tokens)
+        if cold_tokens != hit_tokens:
+            raise AssertionError(f"the prefix hit serves other tokens than "
+                                 f"a cold engine: {hit_tokens} vs "
+                                 f"{cold_tokens}")
+        res["hit_tokens_equal_cold"] = True
+        del cold
+    del params
     torch.cuda.empty_cache()
     return res, trace, prof
 
@@ -4909,14 +5033,19 @@ def deepseek_reduced(cfg):
 def mla_parity_f32(torch, ops, kind):
     """l-parity: (d)'s parity_f32 (chunked prefill and 16 greedy steps,
     kernel and paged kernel paths against the dense path, 1e-3, tokens
-    identical; int8 / fp8 as d-quant) at full width, L_TWIN_LAYERS
-    layers, L_PARITY_EXPERTS routed experts. MLA attention runs no kernel
-    (as in the reference): gated on exactly n_layers AltUp launches a
-    step on each fused side and no other launch."""
+    identical) at full width, L_TWIN_LAYERS layers, L_PARITY_EXPERTS
+    routed experts; int8 / fp8 latents against an f32 dense MLA over the
+    kernel side's dequantized latents (parity_f32's dequant_dense: MLA
+    attention runs no kernel, so d-quant's dense side would be the
+    kernel side's own computation), at 1e-3, inside one code step (int8
+    1e-2, fp8 5e-2). MLA attention runs no kernel (as in the reference):
+    gated on exactly n_layers AltUp launches a step on each fused side
+    and no other launch."""
     cfg = deepseek_config(L_TWIN_LAYERS, L_PARITY_EXPERTS)
     ops.reset_launch_counts()
     r = parity_f32(torch, kind, base=functools.partial(
-        deepseek_config, L_TWIN_LAYERS, L_PARITY_EXPERTS))
+        deepseek_config, L_TWIN_LAYERS, L_PARITY_EXPERTS),
+        dequant_dense=kind is not None)
     c = ops.launch_counts()
     want = cfg.n_layers * r["steps_per_side"] * r["fused_altup_sides"]
     others = {k: n for k, n in c.items() if k != "altup_predict_correct"}
@@ -5241,6 +5370,513 @@ def mla_phases(torch, ops, workdir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# (z) zamba2-1.2b + AltUp K=2: Mamba-2 layers and one weight-tied shared
+# attention block; (v) llava-next-mistral-7b + AltUp K=2; granite-3-2b
+# ---------------------------------------------------------------------------
+
+# depth cuts; every width is the published one
+Z_PARITY_B, Z_PARITY_S, Z_PARITY_NEW = 2, 24, 8    # z-parity, full depth
+Z_PARITY_T, Z_PARITY_PAGE = 32, 16
+Z_TWIN_LAYERS = 6        # z-serve's eager twins: 6 mamba + the shared block
+Z_GRAD_LAYERS = 12       # z-grad, z-train: two runs of 6 mamba layers, so
+                         # two shared invocations keep the tie
+Z_GRAD_B, Z_GRAD_S = 2, 64
+# z-grad's gate, per leaf, of the leaf's max: the chunked SSD's f32
+# cumsums and exps, differentiated through 12 mamba layers, round more
+# than attention does (K_GRAD_TOL); each f32 side is also held against
+# the CPU's float64 gradients, printed beside
+Z_GRAD_TOL = 3e-4
+V_TRAIN_LAYERS = 4       # v-train: ~1.15 B parameters, AdamW moments f32
+TRAIN_STEPS, TRAIN_MB = 10, 2
+Z_TRAIN_BATCH, Z_TRAIN_SEQ = 8, 512
+V_TRAIN_BATCH, V_TRAIN_SEQ = 4, 512      # text tokens, after 576 images
+ADAMW_LR = 1e-3          # z-train, v-train: AdamW, constant
+
+
+def zamba_config(n_layers=None, **kw):
+    """zamba2-1.2b wrapped with AltUp K=2 (not recycled: vocab 32000),
+    cut to n_layers mamba layers when given."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-1.2b", altup_k=2)
+    return cfg.replace(n_layers=n_layers or cfg.n_layers, **kw)
+
+
+def llava_config(n_layers=None, **kw):
+    """llava-next-mistral-7b wrapped with AltUp K=2 (not recycled)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llava-next-mistral-7b", altup_k=2)
+    return cfg.replace(n_layers=n_layers or cfg.n_layers, **kw)
+
+
+def granite_config(**kw):
+    """granite-3-2b wrapped with AltUp K=2 (not recycled)."""
+    from repro_torch.configs import get_config
+    return get_config("granite-3-2b", altup_k=2).replace(**kw)
+
+
+def reduced_depth(cfg, published):
+    """A phase line's `reduced`: what cfg cuts from the published
+    config."""
+    cut = ([] if cfg.n_layers == published
+           else [f"n_layers {published} -> {cfg.n_layers}"])
+    return cut + ["weights: seeded random"]
+
+
+def perturb_mamba(torch, params, seed):
+    """Seeded dt_bias, D, conv_b and norm in every Mamba-2 layer (the
+    reference starts them at 0, 1, 0 and 0, where the gate's norm and the
+    skip would be trivial), then AltUp p/g (the shared block's too)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        for name in params.keys():
+            if not name.startswith("seg") or "mamba" not in params[name]:
+                continue
+            mb = params[name]["mamba"]
+            for leaf, base, scale in (("dt_bias", 0.0, 0.5), ("D", 1.0, 0.3),
+                                      ("conv_b", 0.0, 0.1),
+                                      ("norm", 0.0, 0.1)):
+                t = mb[leaf]
+                t.copy_(base + scale * torch.randn(
+                    t.shape, generator=gen, device=DEV))
+    perturb_altup(torch, params, seed + 1)
+
+
+def check_new_family_kernels(torch, ops, ref):
+    """The kernels at the served shapes of z-serve, v-serve and granite:
+    the AltUp kernel at 8 tokens of d 2048 (zamba2-1.2b and granite; bf16
+    and f32) and of d 4096 (llava); both decode-attention entry points
+    halfway through z-serve (the shared block: 32 kv heads of 64, rep 1;
+    the 7 requests and an idle slot; the paged one through a permuted
+    table of 16-row pages, bitwise equal to the contiguous one), bf16
+    queries timed, f32 untimed, over float, int8 and fp8 k/v; the decode
+    attention halfway through v-serve (8 kv heads of 128, rep 4) and
+    granite's serve (8 kv heads of 64, rep 4), bf16."""
+    from repro_torch.serve.engine import kv_bucket
+    _, batch = rwkv_traffic(torch, zamba_config().vocab_size)
+    z_lens = [len(p) + I_NEW // 2 for p in batch] + [0]
+    z_T = kv_bucket(max(z_lens), 32, I_MAX_LEN)
+    z_reserve = [pages_for(len(p) + I_NEW, 16) for p in batch] + [0]
+    e_lens = [n + E_NEW // 2 for n in E_PROMPTS]
+    e_T = kv_bucket(max(e_lens), 32, 2048)
+    out = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        out[f"z-altup-{name}"] = check_altup(torch, ops, ref, dtype, 8,
+                                             d=2048)
+        for store in (None, "int8", "fp8"):
+            case = name + ("" if store is None else f"-{store}")
+            timed = dtype == torch.bfloat16
+            out[f"z-ragged-{case}"] = check_ragged(
+                torch, ops, ref, dtype, z_lens, Hk=32, rep=1, Dh=64,
+                T=z_T, store=store, timed=timed)
+            out[f"z-paged-{case}"] = check_paged(
+                torch, ops, ref, dtype, z_lens, z_reserve,
+                n_pages=I_SLOTS * I_MAX_LEN // 16, Hk=32, rep=1, Dh=64,
+                T=I_MAX_LEN, t_max=z_T, page=16, store=store, timed=timed)
+    out["v-altup"] = check_altup(torch, ops, ref, torch.bfloat16, 8, d=4096)
+    out["v-ragged"] = check_ragged(torch, ops, ref, torch.bfloat16, e_lens,
+                                   Hk=8, rep=4, Dh=128, T=e_T)
+    out["granite-ragged"] = check_ragged(torch, ops, ref, torch.bfloat16,
+                                         e_lens, Hk=8, rep=4, Dh=64, T=e_T)
+    return out
+
+
+def hybrid_parity_f32(torch, ops, kind=None):
+    """z-parity: zamba2-1.2b + AltUp K=2 at full width and depth, f32,
+    TF32 off. Z_PARITY_B prompts of Z_PARITY_S tokens fed one token a
+    step (the engine's chunk-1 prefill of a recurrent plan), then
+    Z_PARITY_NEW greedy steps, through decode_step with per-slot
+    positions on three sides: "k" the kernels over contiguous caches (B1
+    in every layer, B2 in every shared invocation), "p" the same over a
+    page pool through a permuted block table (B4), "d" the dense path.
+    Gates: every step's logits of k and p within PARITY_TOL of d's,
+    greedy tokens identical, exactly 44 AltUp and 6 decode-attention
+    launches a step on k and p (the paged entry point on p) and none on
+    d; float: the prefill's last logits within PARITY_TOL of the dense
+    forward's. kind int8 / fp8: every side stores codes, and the dense
+    side, fed the kernel side's tokens, runs the AltUp kernel too and
+    reads the kernel side's attention caches after its step (this step's
+    rows included) with its own writes suppressed, and the mamba state
+    the kernel side started the step from (d-quant's scheme: the two
+    differ only in the shared block's S=1 attention)."""
+    from repro_torch.models.decode import (RECURRENT_LEAVES, decode_step,
+                                           init_cache, init_paged_cache)
+    from repro_torch.models.transformer import (forward, init_params,
+                                                layer_plan)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    quant = kind is not None
+    cfg = zamba_config(dtype="float32", param_dtype="float32",
+                       kv_cache_dtype=kind or "auto")
+    cfgs = {"k": cfg.replace(ragged_decode_attn=None,
+                             fused_decode_altup=None),
+            "d": cfg.replace(ragged_decode_attn=False,
+                             fused_decode_altup=None if quant else False)}
+    cfgs["p"] = cfgs["k"]
+    params = init_params(cfg, seed=0, device=DEV)
+    perturb_mamba(torch, params, seed=30)
+    plan = layer_plan(cfg)
+    n_alt = max(s.layer_offset + s.n for s in plan)
+    n_shared = sum(s.kind == "shared_attn" for s in plan)
+    B, S, n_dec = Z_PARITY_B, Z_PARITY_S, Z_PARITY_NEW
+    T, page = Z_PARITY_T, Z_PARITY_PAGE
+    n_pages = B * T // page
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEV)
+    caches = {"k": init_cache(cfgs["k"], B, T, device=DEV),
+              "d": init_cache(cfgs["d"], B, T, device=DEV),
+              "p": init_paged_cache(cfgs["p"], B, T, n_pages=n_pages,
+                                    page=page, device=DEV)}
+    bt = torch.randperm(n_pages, generator=gen, device=DEV).reshape(
+        B, T // page).to(torch.int32)
+    pkw = {"k": {}, "d": {}, "p": {"block_table": bt, "page_size": page}}
+    launches = {s: dict.fromkeys(ops.launch_counts(), 0) for s in "kpd"}
+
+    def step(toks, t):
+        """One decode_step a side at depth t: {side: (B, V) logits}."""
+        pos = torch.full((B,), t, dtype=torch.long, device=DEV)
+        pre = {si: {n: x.clone() for n, x in seg.items()
+                    if n in RECURRENT_LEAVES}
+               for si, seg in caches["k"].items()}
+        lg = {}
+        for side in "kpd":
+            writes = contextlib.nullcontext()
+            if quant and side == "d":
+                caches["d"] = {si: {n: (pre[si][n] if n in pre[si]
+                                        else x.clone())
+                                    for n, x in seg.items()}
+                               for si, seg in caches["k"].items()}
+                writes = no_cache_writes()
+            c0 = ops.launch_counts()
+            with writes:
+                out, _ = decode_step(params, cfgs[side], caches[side],
+                                     toks[side][:, None], pos, **pkw[side])
+            for k, n in ops.launch_counts().items():
+                launches[side][k] += n - c0[k]
+            lg[side] = out[:, 0, :cfg.vocab_size]
+        return lg
+    worst = {"k": 0.0, "p": 0.0}
+
+    def gate(lg):
+        for s in "kp":
+            torch.testing.assert_close(lg[s], lg["d"], **PARITY_TOL)
+            worst[s] = max(worst[s], max_err(torch, lg[s], lg["d"]))
+    for t in range(S):                   # token-by-token prefill
+        lg = step({s: prompts[:, t] for s in "kpd"}, t)
+        gate(lg)
+    res_fwd = {}
+    if not quant:
+        fwd = forward(params, cfgs["d"], prompts)[:, -1, :cfg.vocab_size]
+        torch.testing.assert_close(lg["d"], fwd, **PARITY_TOL)
+        res_fwd = {"prefill_last_vs_forward_max_abs_err":
+                   max_err(torch, lg["d"], fwd)}
+    tok = {s: lg[s].argmax(-1) for s in "kpd"}
+    streams = {s: [tok[s].tolist()] for s in "kpd"}
+    min_gap = math.inf
+    for t in range(S, S + n_dec):
+        if quant:
+            tok["d"] = tok["k"]
+        lg = step(tok, t)
+        gate(lg)
+        top2 = lg["d"].topk(2, dim=-1).values
+        min_gap = min(min_gap, float((top2[:, 0] - top2[:, 1]).min()))
+        for s in "kpd":
+            tok[s] = lg[s].argmax(-1)
+            streams[s].append(tok[s].tolist())
+    if not streams["k"] == streams["p"] == streams["d"]:
+        raise AssertionError(f"z-parity {kind}: greedy tokens differ: "
+                             f"{streams}")
+    steps = S + n_dec
+    want = {"k": {"altup_predict_correct": n_alt,
+                  "ragged_decode_attention": n_shared},
+            "p": {"altup_predict_correct": n_alt,
+                  "paged_ragged_decode_attention": n_shared},
+            "d": {"altup_predict_correct": n_alt if quant else 0}}
+    for s in "kpd":
+        if any(n != want[s].get(k, 0) * steps
+               for k, n in launches[s].items()):
+            raise AssertionError(f"z-parity {kind}: side {s} launched "
+                                 f"{launches[s]} in {steps} steps, want "
+                                 f"{want[s]} a step")
+    state_err = max_err(torch, caches["k"]["seg0"]["ssm"],
+                        caches["p"]["seg0"]["ssm"])
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"cfg": cfg_name(cfg), "kv_cache_dtype": kind or "auto",
+            "altup_layers": n_alt, "shared_invocations": n_shared,
+            "slots": B, "prompt_len": S, "decode_steps": n_dec,
+            "page": page, "max_abs_logit_err": worst["k"],
+            "paged_max_abs_logit_err": worst["p"],
+            "contiguous_vs_paged_ssm_state_max_abs_err": state_err,
+            **res_fwd, "tol": PARITY_TOL, "greedy_tokens_identical": True,
+            "tokens_checked": B * (n_dec + 1), "steps_per_side": steps,
+            "launches_per_step": {s: {k: n / steps for k, n in
+                                      launches[s].items() if n}
+                                  for s in "kpd"},
+            "min_top2_gap_dense": min_gap,
+            "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32]}
+
+
+def replay_bound(torch, eng, params, extra_bytes=0):
+    """The engine's most replayed step graph replayed back to back (CUDA
+    events) against the bytes a step must read: every weight, plus
+    `extra_bytes` (the recurrent state read and written)."""
+    gs = eng.graph_stats
+    key = max(gs["replays_by_shape"], key=gs["replays_by_shape"].get)
+    ms = time_ms(torch, eng._graphs._graphs[key][0].replay, iters=20,
+                 warmup=3)
+    w_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    b_ms, _ = bound_ms(w_bytes + extra_bytes, 0, "bfloat16")
+    return {"replayed_shape": list(key), "device_ms_per_replay": ms,
+            "weight_bytes_per_step": w_bytes,
+            "state_bytes_per_step": extra_bytes,
+            "bytes_bound_ms_per_step": b_ms,
+            "bytes_bound_share_of_replay": b_ms / ms}
+
+
+def hybrid_serve(torch, ops):
+    """z-serve: (i)'s traffic on zamba2-1.2b + AltUp K=2 in bf16 through
+    Engine(n_slots=8, max_len=512) (chunk-1 prefill; every step replays):
+    eager twins at Z_TWIN_LAYERS against replayed runs at the same depth
+    (hold_replay), contiguous float and paged int8; then replayed at full
+    depth, contiguous and paged, float and int8, with serve_recurrent_bf16's
+    gates (44 AltUp and 6 decode-attention launches a step; contiguous:
+    one recurrent hit whose tokens are a cold engine's; paged: none). The
+    contiguous float run adds its step graph's device ms against the
+    bytes bound (weights, and the f32 ssm state read and written) and the
+    mamba layers' and shared invocations' shares of an eager step's
+    kernel time. Returns (twins, {case: full-depth result})."""
+    import repro_torch.models.decode as dec_lib
+    twins = {}
+    for case, kw in (("contiguous", {}),
+                     ("paged-int8", dict(paged=True, kind="int8"))):
+        cfg_t = zamba_config(Z_TWIN_LAYERS)
+        res_t, trace_t, _ = serve_recurrent_bf16(torch, ops, cfg=cfg_t, **kw)
+        res_tr, trace_tr, _ = serve_recurrent_bf16(torch, ops, cfg=cfg_t,
+                                                   replay=True, **kw)
+        held = hold_replay({**res_t, **trace_t}, {**res_tr, **trace_tr},
+                           res_tr["steps"])
+        twins[case] = {"eager": res_t, "replayed": res_tr, **held,
+                       "reduced": reduced_depth(cfg_t, 38)}
+    cfg = zamba_config()
+
+    def after(eng, params):
+        segs = eng._caches.values()
+        ssm = sum(seg["ssm"].numel() * 4 for seg in segs if "ssm" in seg)
+        r = replay_bound(torch, eng, params, extra_bytes=2 * ssm)
+        n_mamba = sum(seg["ssm"].shape[0] for seg in segs if "ssm" in seg)
+        n_shared = sum(1 for seg in segs if "k" in seg)
+        sh = range_shares(torch, eng, {
+            "mamba": (dec_lib, "decode_mamba", n_mamba),
+            "shared_attn": (dec_lib, "decode_attn", n_shared)})
+        for name, v in sh.pop("ranges").items():
+            r.update({f"{name}_kernel_ms": v["kernel_ms"],
+                      f"{name}_share_of_step_kernels": v["share"],
+                      f"{name}_share_sessions": v["sessions"],
+                      f"{name}_ranges": v["calls"]})
+        r.update({k: sh[k] for k in ("eager_step_kernel_ms",
+                                     "eager_step_kernels", "top_kernels")})
+        return r
+    full = {}
+    for case, kw in (("contiguous", dict(after=after)),
+                     ("contiguous-int8", dict(kind="int8")),
+                     ("paged", dict(paged=True)),
+                     ("paged-int8", dict(paged=True, kind="int8"))):
+        t0 = time.perf_counter()
+        res, trace, _ = serve_recurrent_bf16(torch, ops, cfg=cfg,
+                                             replay=True, **kw)
+        res.update(seconds=time.perf_counter() - t0, tokens=trace["tokens"])
+        full[case] = res
+    for a, b in (("contiguous", "paged"), ("contiguous-int8", "paged-int8")):
+        # printed, not gated: the contiguous extender starts from its hit,
+        # the paged one prefills, so the steps' batches and kv buckets
+        # differ
+        full[b]["tokens_equal_contiguous"] = \
+            full[b]["tokens"] == full[a]["tokens"]
+    for res in full.values():
+        res.pop("tokens")
+    return twins, full
+
+
+def hybrid_grad_f32(torch, ops):
+    """z-grad: zamba2-1.2b + AltUp K=2 at full width, Z_GRAD_LAYERS
+    mamba layers (two shared invocations of the tied block), f32, TF32
+    off, remat "none": loss_fn and every leaf's gradient on the card
+    against the CPU from one seeded init drawn on the card, each leaf
+    within Z_GRAD_TOL of its max, the loss within K_LOSS_RTOL; no kernel
+    launched. Both f32 sides are also held against the CPU's float64
+    gradients (printed: each side's own rounding)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = zamba_config(Z_GRAD_LAYERS, dtype="float32", param_dtype="float32",
+                       remat="none")
+    dev = init_params(cfg, seed=32, device=DEV).requires_grad_(True)
+    perturb_mamba(torch, dev, seed=33)
+    cpu = to_device(dev, "cpu")
+    nb = lm_batch(cfg, Z_GRAD_B, Z_GRAD_S, seed=3, step=0)
+    nb["mask"][1, :20] = 0.0
+
+    def run(params, device, c=cfg):
+        paths, leaves = zip(*tree_lib.leaves(params))
+        total, m = M.loss_fn(params, c, batch_on(torch, nb, device))
+        grads = torch.autograd.grad(total, leaves)
+        return float(m["loss"].detach()), dict(zip(paths, grads))
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = run(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    _, g_64 = run(to_device(dev, "cpu", torch.float64), "cpu",
+                  cfg.replace(dtype="float64", param_dtype="float64"))
+    c0 = ops.launch_counts()
+    l_dev, g_dev = run(dev, DEV)
+    torch.cuda.synchronize()
+    c1 = ops.launch_counts()
+    ratio, path = worst_leaf(torch, g_dev, g_cpu)
+    part = {key: worst_leaf(torch,
+                            {p: g for p, g in g_dev.items() if key in p},
+                            {p: g for p, g in g_cpu.items() if key in p})
+            for key in ("shared_blk", "mamba")}
+    res = {"cfg": cfg_name(cfg), "reduced": reduced_depth(cfg, 38),
+           "B": Z_GRAD_B, "S": Z_GRAD_S, "leaves": len(g_cpu),
+           "cpu_s": cpu_s, "loss_cuda": l_dev, "loss_cpu": l_cpu,
+           "loss_rel_err": abs(l_dev - l_cpu) / l_cpu,
+           "worst_leaf": path, "max_err_over_max": ratio,
+           "worst_shared_blk_leaf": part["shared_blk"][1],
+           "shared_blk_max_err_over_max": part["shared_blk"][0],
+           "worst_mamba_leaf": part["mamba"][1],
+           "mamba_max_err_over_max": part["mamba"][0],
+           "tol": Z_GRAD_TOL,
+           "cuda_f32_vs_cpu_f64": worst_leaf(torch, g_dev, g_64),
+           "cpu_f32_vs_cpu_f64": worst_leaf(torch, g_cpu, g_64),
+           "launches_while_differentiating": {
+               k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not (ratio <= Z_GRAD_TOL and res["loss_rel_err"] <= K_LOSS_RTOL) \
+            or res["launches_while_differentiating"]:
+        raise AssertionError(f"z-grad: {res}")
+    del dev, cpu, g_cpu, g_dev, g_64
+    torch.cuda.empty_cache()
+    return res
+
+
+def adamw_train(torch, ops, cfg, workdir, tag, batch, seq, published):
+    """z-train / v-train: Trainer(device="cuda") on cfg in bf16, TRAIN_STEPS
+    steps of `batch` x `seq` tokens (a VLM's rows carry the pipeline's
+    n_image_tokens patch embeddings before them) in TRAIN_MB
+    microbatches, AdamW at ADAMW_LR (constant). Gates: finite losses, the
+    mean of the last 3 below the first, no kernel launched; ms a step,
+    tokens/s and MFU over every position a step computes (text and
+    image), peak memory."""
+    import numpy as np
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer
+    tcfg = TrainConfig(steps=TRAIN_STEPS, seq_len=seq, global_batch=batch,
+                       microbatches=TRAIN_MB, checkpoint_every=0,
+                       log_every=5, checkpoint_dir=str(workdir / tag),
+                       optimizer=OptimizerConfig(
+                           name="adamw", learning_rate=ADAMW_LR,
+                           schedule="constant", warmup_steps=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = ops.launch_counts()
+    tr = Trainer(cfg, tcfg, device=DEV)
+    out = tr.run(log=lambda _: None)
+    c1 = ops.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    med_s = float(np.median(tr.step_times[2:]))
+    positions = batch * (seq + cfg.n_image_tokens)
+    flops_pos = M.model_flops_per_token(cfg)
+    res = {"cfg": cfg_name(cfg), "reduced": reduced_depth(cfg, published),
+           "optimizer": "adamw", "lr": ADAMW_LR, "steps": out["step"],
+           "text_tokens_per_step": batch * seq,
+           "image_positions_per_step": batch * cfg.n_image_tokens,
+           "microbatches": TRAIN_MB, "first_step_s": tr.step_times[0],
+           "median_step_ms_3_on": 1e3 * med_s,
+           "positions_per_s": positions / med_s,
+           "active_params": M.active_param_count(cfg),
+           "model_flops_per_position": flops_pos,
+           "mfu_bf16_dense_peak": flops_pos * positions / med_s
+           / PEAK_OPS_PER_S["bfloat16"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss_first": losses[0],
+           "loss_last3_mean": sum(losses[-3:]) / 3, "losses": losses,
+           "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}}
+    if not all(math.isfinite(x) for x in losses) or \
+            not res["loss_last3_mean"] < losses[0] or res["launches"]:
+        raise AssertionError(f"{tag}: {res}")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def dense_serve(torch, ops, cfg, published):
+    """v-serve / granite: (e)'s traffic on cfg in bf16, replayed, with
+    serve_bf16's gates (one AltUp launch a layer a step, one decode
+    attention launch a layer a decode step), text only, and the step
+    graph's device ms against its weight bytes."""
+    res, _, _ = serve_bf16(torch, ops, cfg=cfg, replay=True,
+                           after=lambda eng, params: replay_bound(
+                               torch, eng, params))
+    res["altup_launches_per_step"] = (
+        res["launches"]["altup_predict_correct"]
+        - res["graph"]["warmup_launches"]["altup_predict_correct"]) \
+        / res["steps"]
+    res["reduced"] = reduced_depth(cfg, published)
+    return res
+
+
+def hybrid_phases(torch, ops, workdir):
+    """The z phases, each line with its seconds; returns z-serve's
+    full-depth results by case."""
+    t_z = time.perf_counter()
+    for kind in (None, "int8", "fp8"):
+        t0 = time.perf_counter()
+        r = hybrid_parity_f32(torch, ops, kind)
+        line("z-parity", case=kind or "float", seconds=time.perf_counter()
+             - t0, **r)
+    t0 = time.perf_counter()
+    twins, full = hybrid_serve(torch, ops)
+    for case, r in twins.items():
+        line("z-serve-twin", case=case, twin_layers=Z_TWIN_LAYERS, **r)
+    for case, r in full.items():
+        line("z-serve", case=case, **r)
+    line("z-serve-seconds", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("z-grad", **hybrid_grad_f32(torch, ops),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    line("z-train", **adamw_train(torch, ops, zamba_config(Z_GRAD_LAYERS),
+                                  workdir, "z-train", Z_TRAIN_BATCH,
+                                  Z_TRAIN_SEQ, 38),
+         seconds=time.perf_counter() - t0)
+    line("z-phases", seconds=time.perf_counter() - t_z)
+    return full
+
+
+def vlm_granite_phases(torch, ops, workdir):
+    """v-serve, v-train and granite's serve, each line with its seconds;
+    returns (v-serve's result, granite's)."""
+    t_v = time.perf_counter()
+    t0 = time.perf_counter()
+    res_v = dense_serve(torch, ops, llava_config(), 32)
+    line("v-serve", seconds=time.perf_counter() - t0, **res_v)
+    t0 = time.perf_counter()
+    line("v-train", **adamw_train(torch, ops, llava_config(V_TRAIN_LAYERS),
+                                  workdir, "v-train", V_TRAIN_BATCH,
+                                  V_TRAIN_SEQ, 32),
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    res_g = dense_serve(torch, ops, granite_config(), 40)
+    line("granite-serve", seconds=time.perf_counter() - t0, **res_g)
+    line("v-phases", seconds=time.perf_counter() - t_v)
+    return res_v, res_g
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -5535,6 +6171,15 @@ def main(argv) -> int:
     nw_kern = check_encdec_kernels(torch, ops, ref)
     for case, r in nw_kern.items():
         line("c-altup" if "altup" in case else "c-ragged", case=case, **r)
+    # zamba2-1.2b's, llava-next-mistral-7b's and granite-3-2b's served
+    # shapes (z, v, granite)
+    t0 = time.perf_counter()
+    zv_kern = check_new_family_kernels(torch, ops, ref)
+    for case, r in zv_kern.items():
+        tag = ("c-altup" if "altup" in case else
+               "c-paged" if "paged" in case else "c-ragged")
+        line(tag, case=case, **r)
+    line("c-zv-seconds", seconds=time.perf_counter() - t0)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -5616,7 +6261,7 @@ def main(argv) -> int:
             line(prof_tag, **prof)
         res_r, trace_r, prof_r = fn(torch, ops, profile=profile,
                                     replay=True, **kw)
-        steps = res_r["steps"] if fn is serve_rwkv_bf16 \
+        steps = res_r["steps"] if fn is serve_recurrent_bf16 \
             else res_r["decode_steps"]
         res_r.update(hold_replay({**res, **trace}, {**res_r, **trace_r},
                                  steps))
@@ -5642,8 +6287,8 @@ def main(argv) -> int:
     line("h-parity", **rwkv_parity_f32(torch))
 
     # (i) rwkv6-1.6b: bf16 serving through Engine with prefix reuse
-    res_i, res_i_r = serve_pair(serve_rwkv_bf16, "i-rwkv-serve", "i-graph",
-                                "f-profile-rwkv")
+    res_i, res_i_r = serve_pair(serve_recurrent_bf16, "i-rwkv-serve",
+                                "i-graph", "f-profile-rwkv")
     # (i-paged) the same plan through a page pool: its recurrent state
     # stays per slot, replayed, tokens as the contiguous engine's
     t0 = time.perf_counter()
@@ -5742,6 +6387,17 @@ def main(argv) -> int:
     # cut to fit the card), gradients and training at 2 layers
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         res_l = mla_phases(torch, ops, Path(work))
+
+    # (z) zamba2-1.2b + AltUp K=2, the hybrid: Mamba-2 layers in plain
+    # torch (as in the reference) and one weight-tied shared attention
+    # block; the kernel path against the dense path in f32 at full depth,
+    # served at full depth (contiguous and paged, float and int8),
+    # gradients and training at 12 layers. (v) llava-next-mistral-7b +
+    # AltUp K=2 served text-only at full depth and trained with its
+    # image tokens at 4 layers; granite-3-2b + AltUp K=2 served
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        res_z = hybrid_phases(torch, ops, Path(work))
+        res_v, res_gr = vlm_granite_phases(torch, ops, Path(work))
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
@@ -5864,6 +6520,38 @@ def main(argv) -> int:
          "replaces": "src/repro/kernels/altup_fused.py:39",
          "launches": res_l["launches"]["altup_predict_correct"],
          **{k: l_altup[k] for k in keys}})
+    # the kernels at zamba2-1.2b's, llava-next-mistral-7b's and
+    # granite-3-2b's shapes, with z-serve's (full depth, replayed),
+    # v-serve's and granite's launches
+    for name, suffix, res_run, case in (
+            ("altup_predict_correct", "zamba2", res_z["contiguous"],
+             "z-altup-bf16"),
+            ("ragged_decode_attention", "zamba2", res_z["contiguous"],
+             "z-ragged-bf16"),
+            ("paged_ragged_decode_attention", "zamba2", res_z["paged"],
+             "z-paged-bf16"),
+            ("ragged_decode_attention_quant", "zamba2",
+             res_z["contiguous-int8"], "z-ragged-bf16-int8"),
+            ("paged_ragged_decode_attention_quant", "zamba2",
+             res_z["paged-int8"], "z-paged-bf16-int8"),
+            ("altup_predict_correct", "llava_next", res_v, "v-altup"),
+            ("ragged_decode_attention", "llava_next", res_v, "v-ragged"),
+            ("altup_predict_correct", "granite", res_gr, "z-altup-bf16"),
+            ("ragged_decode_attention", "granite", res_gr,
+             "granite-ragged")):
+        counter = name.removesuffix("_quant")
+        altup = counter == "altup_predict_correct"
+        kernels.append(
+            {"name": f"{name}_{suffix}", "route": "cuda",
+             "source": "src/repro_torch/csrc/" + (
+                 "altup_fused.cu" if altup
+                 else "ragged_decode_attention.cu"),
+             "replaces": "src/repro/kernels/" + (
+                 "altup_fused.py:39" if altup else
+                 "ragged_decode_attention.py:122" if "paged" in counter
+                 else "ragged_decode_attention.py:210"),
+             "launches": res_run["launches"][counter],
+             **{k: zv_kern[case][k] for k in keys}})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,5 @@
-"""Architecture registry of the port.
-
-Only the architectures the port can serve are registered; the others of
-the reference registry arrive with the slices that port their families.
-"""
+"""Architecture registry of the port: the reference registry's ten
+architectures, each config a copy of the reference's."""
 from __future__ import annotations
 
 import importlib
@@ -11,13 +8,16 @@ from typing import Optional
 from repro_torch.config import AltUpConfig, ModelConfig
 
 _ARCH_MODULES = {
-    "deepseek-v3-671b": "deepseek_v3_671b",
-    "gemma3-4b": "gemma3_4b",
-    "gemma3-12b": "gemma3_12b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
-    "qwen3-0.6b": "qwen3_0_6b",
-    "rwkv6-1.6b": "rwkv6_1_6b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "whisper-tiny": "whisper_tiny",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "gemma3-12b": "gemma3_12b",
+    "gemma3-4b": "gemma3_4b",
+    "granite-3-2b": "granite_3_2b",
+    "qwen3-0.6b": "qwen3_0_6b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -31,7 +31,7 @@ def get_config(arch: str, smoke: bool = False, altup_k: int = 0,
     defaults to True for very large vocabularies (emb-table cost, Sec 4.1).
     """
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"architecture {arch!r} is not ported yet; "
+        raise KeyError(f"unknown architecture {arch!r}; "
                        f"available: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     cfg: ModelConfig = mod.SMOKE if smoke else mod.CONFIG

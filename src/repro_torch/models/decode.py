@@ -1,7 +1,7 @@
 """Single- and multi-token decode with per-layer slot caches or page pools.
 
-Port of the attention, MLA, MoE, RWKV-6 and encoder-decoder parts of
-`repro/models/decode.py`.
+Port of `repro/models/decode.py`: attention, MLA, MoE, RWKV-6, Mamba-2
+and the hybrid's shared block, and the encoder-decoder family.
 An MoE layer's FFN routes drop-free (capacity = the step's B·S tokens).
 One cache dict per segment, stacked over the segment's layers:
 
@@ -23,6 +23,17 @@ One cache dict per segment, stacked over the segment's layers:
   rwkv : wkv   (n, B, H, Dh, Dh) f32 recurrent state, and the token-shift
                tails shift_tm, shift_cm (n, B, d) in the activation dtype,
                per slot in contiguous and paged caches alike
+  mamba: ssm   (n, B, H, Dh, N) f32 state and the conv tail
+               conv (n, B, Kw - 1, d_in + 2N) in the activation dtype,
+               per slot in both layouts, as rwkv's
+  shared_attn: k, v  (B, T + 1, Hk, Dh) | (R + page, Hk, Dh), and
+               their scales (B, T + 1, Hk) | (R + page, Hk): one
+               UNSTACKED cache per invocation of the hybrid's tied block
+               (a segment of its own). A contiguous shared k/v has the
+               ndim of a paged stacked one, and its scales those of a
+               paged stacked scale: the contiguous row helpers take the
+               shared segments' names (`shared_segments`), never the
+               ndim
   cross: k, v  (n_layers, B, S_enc, Hk, Dh) an encoder-decoder model's
                cross-attention keys and values over the encoder's output,
                one per decoder layer, written once by `prefill` (RoPE'd
@@ -115,27 +126,27 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import (Segment, act_dtype, embed_tokens,
                                             layer_plan, layer_slice,
-                                            rwkv_layer, unembed)
+                                            mamba_layer, rwkv_layer,
+                                            segment_params, unembed)
 from repro_torch.serve.sampling import sample_rows, update_seen
 
 
 def kv_quant_spec(cfg: ModelConfig) -> quant.KVQuantSpec:
     """Resolved cfg.kv_cache_dtype for the attention and MLA latent
     caches ("auto" = the activation dtype, the unquantized path bit for
-    bit). Quantized storage of a plan with rwkv segments raises
-    NotImplementedError: it arrives with the hybrid quantization of
-    ROADMAP A9."""
-    spec = quant.resolve_kv_spec(cfg.kv_cache_dtype, act_dtype(cfg))
-    if spec.quantized and any(s.kind == "rwkv" for s in layer_plan(cfg)):
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} on a plan with "
-            f"recurrent (rwkv) segments is not ported yet: it arrives with "
-            f"ROADMAP A9")
-    return spec
+    bit). Recurrent state (rwkv, mamba) stays float whatever it says."""
+    return quant.resolve_kv_spec(cfg.kv_cache_dtype, act_dtype(cfg))
+
+
+def shared_segments(cfg: ModelConfig) -> frozenset:
+    """Names of the segments whose caches are unstacked: the hybrid's
+    shared_attn invocations. copy_prefix and reset_slot take them."""
+    return frozenset(f"seg{si}" for si, seg in enumerate(layer_plan(cfg))
+                     if seg.kind == "shared_attn")
 
 
 # per-slot recurrent state leaves (stacked (n, B, ...), batch axis 1)
-RECURRENT_LEAVES = ("wkv", "shift_tm", "shift_cm")
+RECURRENT_LEAVES = ("wkv", "shift_tm", "shift_cm", "ssm", "conv")
 # f32 scales of quantized k/v, row for row beside the codes
 SCALE_LEAVES = ("k_scale", "v_scale")
 # an mla segment's latent codes or values and, quantized, their f32
@@ -159,15 +170,20 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     segment's ring holds min(T, window) + 1. dtype: the float k/v
     storage and token-shift dtype (default: cfg.kv_cache_dtype's and the
     activation dtype); quantized k/v are int8 / float8_e4m3fn codes with
-    f32 (n, B, T + 1, Hk) scales, and the rwkv state is f32 whatever it
-    is."""
+    f32 (n, B, T + 1, Hk) scales, and the rwkv and mamba states are f32
+    whatever it is. A shared_attn invocation's k/v are unstacked (B, T +
+    1, Hk, Dh)."""
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
-        if seg.kind == "rwkv":
-            caches[f"seg{si}"] = _rwkv_leaves(cfg, seg.n, B, dtype, dev)
+        if seg.kind in ("rwkv", "mamba"):
+            caches[f"seg{si}"] = _recurrent_leaves(cfg, seg, B, dtype, dev)
+            continue
+        if seg.kind == "shared_attn":
+            caches[f"seg{si}"] = _attn_leaves(spec, dtype, (B, T + 1, hk),
+                                              dh, dev)
             continue
         if seg.kind == "mla":
             caches[f"seg{si}"] = _mla_leaves(cfg, spec, dtype,
@@ -187,12 +203,23 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     return caches
 
 
-def _rwkv_leaves(cfg: ModelConfig, n: int, B: int, dtype, dev):
-    """Zero per-slot recurrent state of an rwkv segment: wkv (n, B, H,
-    Dh, Dh) f32 and the token-shift tails (n, B, d) in `dtype` (default
-    the activation dtype)."""
-    d, rdh = cfg.d_model, cfg.rwkv.head_dim
+def _recurrent_leaves(cfg: ModelConfig, seg: Segment, B: int, dtype, dev):
+    """Zero per-slot recurrent state of an rwkv segment (wkv (n, B, H, Dh,
+    Dh) f32 and the token-shift tails (n, B, d)) or of a mamba segment
+    (ssm (n, B, H, Dh, N) f32 and the conv tail (n, B, Kw - 1, d_in +
+    2N)), the tails in `dtype` (default the activation dtype)."""
+    n, d = seg.n, cfg.d_model
     ad = dtype or act_dtype(cfg)
+    if seg.kind == "mamba":
+        s = cfg.ssm
+        d_in = s.expand * d
+        return {"ssm": torch.zeros((n, B, d_in // s.head_dim, s.head_dim,
+                                    s.d_state), dtype=torch.float32,
+                                   device=dev),
+                "conv": torch.zeros((n, B, s.d_conv - 1,
+                                     d_in + 2 * s.d_state), dtype=ad,
+                                    device=dev)}
+    rdh = cfg.rwkv.head_dim
     return {"wkv": torch.zeros((n, B, d // rdh, rdh, rdh),
                                dtype=torch.float32, device=dev),
             "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
@@ -235,9 +262,10 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     bt[b, q // page] * page + q % page; scales ride the same rows. A ring
     segment uses the first min(T, W) logical rows of each slot (its
     capacity, decode_segment), so one layout serves both kinds of
-    segment. Recurrent (rwkv) state stays per slot, as init_cache's
-    (n, B, ...): it is O(1) a request, not O(T), so B sizes it (and T
-    nothing).
+    segment. Recurrent (rwkv, mamba) state stays per slot, as
+    init_cache's (n, B, ...): it is O(1) a request, not O(T), so B sizes
+    it (and T nothing). A shared_attn invocation pools (R + page, Hk,
+    Dh), unstacked.
 
     Deviation from the reference: one SINK page follows the R real rows.
     No one allocates or reads it. The reference drops a padded or idle
@@ -257,8 +285,10 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     rows = (n_pages + 1) * page
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
-        if seg.kind == "rwkv":
-            c = _rwkv_leaves(cfg, seg.n, B, dtype, dev)
+        if seg.kind in ("rwkv", "mamba"):
+            c = _recurrent_leaves(cfg, seg, B, dtype, dev)
+        elif seg.kind == "shared_attn":
+            c = _attn_leaves(spec, dtype, (rows, hk), dh, dev)
         elif seg.kind == "mla":
             c = _mla_leaves(cfg, spec, dtype, (seg.n, rows), dev)
         else:
@@ -270,9 +300,10 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
 def _paged_row_axis(name: str, ndim: int) -> Optional[int]:
     """Physical-row axis of a PAGED cache leaf, None for leaves that are
     not row-pooled. Paged k/v are (n, R + page, Hk, Dh) stacked |
-    (R + page, Hk, Dh) for one layer; scales (n, R + page, Hk) |
-    (R + page, Hk); latents (n, R + page, w) and latent_scale
-    (n, R + page), always stacked."""
+    (R + page, Hk, Dh) for one layer (a shared_attn invocation); scales
+    (n, R + page, Hk) | (R + page, Hk); latents (n, R + page, w) and
+    latent_scale (n, R + page), always stacked. Paged layouts only: a
+    contiguous shared k/v has a paged stacked k/v's ndim."""
     if name in ("k", "v"):
         return 1 if ndim == 4 else 0
     if name in SCALE_LEAVES:
@@ -676,11 +707,25 @@ def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
     cache are its state, written IN PLACE (the WKV kernel updates the
     "wkv" leaf itself; the dense path's new state is copied in). x:
     (B, S, d). Returns the layer's output."""
-    state = {name: cache[name][i] for name in RECURRENT_LEAVES}
+    state = {name: cache[name][i] for name in ("wkv", "shift_tm",
+                                                "shift_cm")}
     out, new = rwkv_layer(p_l, cfg, x, state, wkv_kernel=wkv_kernel)
     for name, leaf in state.items():
         if new[name] is not leaf:
             leaf.copy_(new[name])
+    return out
+
+
+def decode_mamba(p_l, cfg: ModelConfig, x, cache, i: int):
+    """One Mamba-2 decode layer: layer i's "ssm" and "conv" leaves of the
+    segment cache are its state, the new state copied in IN PLACE (so a
+    captured step graph replays the update). x: (B, S, d); an S = 1 step
+    takes the recurrence's closed form (ssm.ssd_step). Returns the
+    layer's output."""
+    state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+    out, new = mamba_layer(p_l, cfg, x, state)
+    for name, leaf in state.items():
+        leaf.copy_(new[name])
     return out
 
 
@@ -704,18 +749,27 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
     place. paged: optional (block_table, page) — the segment's caches are
     row pools and the logical capacity Tc is the table's row span, capped
-    at the window on a ring segment. An rwkv segment reads and writes
-    only its recurrent state leaves. cross_stack: an encoder-decoder
+    at the window on a ring segment. An rwkv or mamba segment reads and
+    writes only its recurrent state leaves. A shared_attn segment is one
+    invocation of the hybrid's tied block: p_seg is `shared_blk` and its
+    cache leaves are unstacked. cross_stack: an encoder-decoder
     decoder's (stacked enc/cross blocks, the caches' "cross" entry),
     indexed by global layer."""
     K = cfg.altup.K
     S = x.shape[1]
+    shared = seg.kind == "shared_attn"
     if seg.kind == "rwkv":
         def run_layer(i, p_l, xa):
             return decode_rwkv(p_l, cfg, xa, cache, i, wkv_kernel)
+    elif seg.kind == "mamba":
+        def run_layer(i, p_l, xa):
+            return decode_mamba(p_l, cfg, xa, cache, i)
     else:
         mla = seg.kind == "mla"
         rows = cache["latent" if mla else "k"]   # a leaf with the row axis
+        # the row axis: behind the layer axis, unless the leaf is a shared
+        # invocation's (unstacked)
+        ax = 0 if shared else 1
         pg_seg = None
         ring = int(seg.window) > 0
         if paged is not None:
@@ -725,24 +779,26 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                 Tc = min(Tc, int(seg.window))
             pg_seg = (bt, pg, Tc)
         else:
-            Tc = rows.shape[2] - 1                # row Tc is the sink
+            Tc = rows.shape[ax + 1] - 1           # row Tc is the sink
         # the position/index machinery is the same for every layer of the
         # segment: build it once here
         pinfo = decode_positions(pos, S, Tc, ring, n_valid=n_valid,
                                  kv_len=kv_len, device=x.device)
         if paged is not None:
             # MLA reads its rows densely, gathered through the table
-            _paged_positions(pinfo, bt, pg, Tc, rows.shape[1],
+            _paged_positions(pinfo, bt, pg, Tc, rows.shape[ax],
                              kernel_read=use_ragged and S == 1 and not mla)
 
-        quantized = "k_scale" in cache
+        def leaf(name, i):
+            if name not in cache:
+                return None
+            return cache[name] if shared else cache[name][i]
 
         def run_layer(i, p_l, xa):
             if mla:
                 return decode_mla(
-                    p_l, cfg, xa, cache["latent"][i], pos, pinfo=pinfo,
-                    cache_lat_s=(cache["latent_scale"][i]
-                                 if "latent_scale" in cache else None),
+                    p_l, cfg, xa, leaf("latent", i), pos, pinfo=pinfo,
+                    cache_lat_s=leaf("latent_scale", i),
                     paged=pg_seg)[0]
             cross = None
             if cross_stack is not None:
@@ -750,10 +806,9 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                 j = seg.layer_offset + i
                 cross = (layer_slice(cp, j), cc["k"][j], cc["v"][j])
             out, _ = decode_attn(
-                p_l, cfg, xa, cache["k"][i], cache["v"][i], pos, seg.window,
+                p_l, cfg, xa, leaf("k", i), leaf("v", i), pos, seg.window,
                 pinfo=pinfo, use_ragged=use_ragged,
-                cache_ks=cache["k_scale"][i] if quantized else None,
-                cache_vs=cache["v_scale"][i] if quantized else None,
+                cache_ks=leaf("k_scale", i), cache_vs=leaf("v_scale", i),
                 paged=pg_seg, cross=cross)
             return out
     sels = None
@@ -761,7 +816,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
         sels = altup_selectors(K, cfg.altup.selection, seg.layer_offset,
                                seg.n, x.device)
     for i in range(seg.n):
-        p_l = layer_slice(p_seg, i)
+        p_l = p_seg if shared else layer_slice(p_seg, i)
 
         def layer_fn(xa, p_l=p_l, i=i):
             return run_layer(i, p_l, xa)
@@ -798,8 +853,9 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
                    if cfg.family == "encdec" else None)
     x = embed_tokens(params, cfg, tokens)
     for si, seg in enumerate(layer_plan(cfg)):
-        x, _ = decode_segment(params[f"seg{si}"], caches[f"seg{si}"], seg,
-                              cfg, x, pos, n_valid=n_valid, kv_len=kv_len,
+        x, _ = decode_segment(segment_params(params, seg, si),
+                              caches[f"seg{si}"], seg, cfg, x, pos,
+                              n_valid=n_valid, kv_len=kv_len,
                               wkv_kernel=wkv_kernel, cross_stack=cross_stack,
                               **kw)
     return unembed(params, cfg, x), caches
@@ -842,9 +898,11 @@ def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     identity (a plain early exit). A segment that straddles draft_layers
     runs decode_segment with its layer count cut to the head, on the
     stacked caches and parameters as they are: decode_segment touches no
-    layer past its count, so the tail layers' caches stay as they were.
-    Same arguments as decode_step; returns (logits (B, S, V_pad),
-    caches). An encoder-decoder config raises, as in the reference."""
+    layer past its count, so the tail layers' caches stay as they were. A
+    skipped shared_attn invocation's predictor is its unstacked (K, K)
+    altup_p itself. Same arguments as decode_step; returns (logits (B, S,
+    V_pad), caches). An encoder-decoder config raises, as in the
+    reference."""
     if cfg.family == "encdec":
         raise NotImplementedError("draft_step serves decoder-only models")
     D = int(draft_layers)
@@ -854,15 +912,16 @@ def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
     x = embed_tokens(params, cfg, tokens)
     for si, seg in enumerate(layer_plan(cfg)):
-        p_seg = params[f"seg{si}"]
+        p_seg = segment_params(params, seg, si)
         m = min(max(D - seg.layer_offset, 0), seg.n)   # layers that run
         if m > 0:
             head = seg if m == seg.n else dataclasses.replace(seg, n=m)
             x, _ = decode_segment(p_seg, caches[f"seg{si}"], head, cfg, x,
                                   pos, n_valid=n_valid, kv_len=kv_len, **kw)
         if m < seg.n and cfg.altup.enabled:
-            x = alt.predict(x, alt.compose_predictors(p_seg["altup_p"],
-                                                      start=m))
+            comp = (p_seg["altup_p"] if seg.kind == "shared_attn" else
+                    alt.compose_predictors(p_seg["altup_p"], start=m))
+            x = alt.predict(x, comp)
     return unembed(params, cfg, x), caches
 
 
@@ -943,7 +1002,7 @@ def cross_caches(params, cfg: ModelConfig, encoder_frames):
 # --------------------------------------------------------------------------
 
 def copy_prefix(caches, dst: int, src: int, p: int, *,
-                copy_recurrent: bool = False):
+                copy_recurrent: bool = False, shared=frozenset()):
     """Clone the first `p` cache rows of slot `src` into slot `dst`, IN
     PLACE, across every attention k/v and MLA latent leaf and its scales
     (codes and
@@ -956,17 +1015,22 @@ def copy_prefix(caches, dst: int, src: int, p: int, *,
     max(p, W): it never wrapped past the prefix). Recurrent leaves have
     no position axis; copy_recurrent=True clones the whole slot state,
     which is exact only when the donor stopped at the prefix boundary
-    (depth == p, the engine's recurrent validity rule). src == dst is a no-op (the
-    self-donor path reuses the rows in place). Returns the caches."""
+    (depth == p, the engine's recurrent validity rule). shared: the names
+    of the segments whose leaves are unstacked (B, T + 1, ...)
+    (shared_segments(cfg): the hybrid's shared_attn invocations). src ==
+    dst is a no-op (the self-donor path reuses the rows in place).
+    Returns the caches."""
     if dst == src:
         return caches
-    for seg in caches.values():
+    for si, seg in caches.items():
         for name, leaf in seg.items():
             if name in ("k", "v") + SCALE_LEAVES + LATENT_LEAVES:
-                # (n, B, Tc + 1[, Hk][, Dh | w]), row Tc the sink
-                n = min(p, leaf.shape[2] - 1)
+                # ([n,] B, Tc + 1[, Hk][, Dh | w]), row Tc the sink
+                raw = _raw(leaf)
+                if si in shared:
+                    raw = raw[None]               # one layer: a view
+                n = min(p, raw.shape[2] - 1)
                 if n > 0:
-                    raw = _raw(leaf)
                     raw[:, dst, :n] = raw[:, src, :n]
             elif name in RECURRENT_LEAVES and copy_recurrent:
                 leaf[:, dst] = leaf[:, src]
@@ -1100,19 +1164,24 @@ def restore_rows(cfg: ModelConfig, caches, snap, pos, start, S: int, *,
     return caches
 
 
-def reset_slot(caches, slot: int):
-    """Zero slot `slot`'s recurrent state (the rwkv leaves) and its
-    quantized-cache scales (k/v and latent) in every segment, IN PLACE: a
-    recycled slot's state would otherwise carry the previous request's
-    tokens, and zero scales make stale code rows dequantize to exact 0.
-    Codes and float k/v or latents are left as they are: per-slot
-    positions keep their stale rows unread. Pooled (paged) scale leaves
-    have no slot axis ((n, R + page, Hk) k/v scales, (n, R + page)
-    latent scales) and are left alone: reset_pages zeroes the pages a
-    request acquires. Returns the caches."""
-    for seg in caches.values():
+def reset_slot(caches, slot: int, *, shared=frozenset()):
+    """Zero slot `slot`'s recurrent state (the rwkv and mamba leaves) and
+    its quantized-cache scales (k/v and latent) in every segment, IN
+    PLACE: a recycled slot's state would otherwise carry the previous
+    request's tokens, and zero scales make stale code rows dequantize to
+    exact 0. Codes and float k/v or latents are left as they are:
+    per-slot positions keep their stale rows unread. Pooled (paged) scale
+    leaves have no slot axis ((n, R + page, Hk) k/v scales, (n, R + page)
+    latent scales, a shared invocation's (R + page, Hk)) and are left
+    alone: reset_pages zeroes the pages a request acquires. shared: the
+    names of the segments whose leaves are unstacked (shared_segments),
+    whose contiguous scales are (B, T + 1, Hk). Returns the caches."""
+    for si, seg in caches.items():
         for name, leaf in seg.items():
-            if name in RECURRENT_LEAVES or \
+            if si in shared:
+                if name in SCALE_LEAVES and leaf.ndim == 3:
+                    leaf[slot].zero_()
+            elif name in RECURRENT_LEAVES or \
                     (name in SCALE_LEAVES and leaf.ndim == 4) or \
                     (name == "latent_scale" and leaf.ndim == 3):
                 leaf[:, slot].zero_()

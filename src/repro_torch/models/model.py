@@ -79,19 +79,21 @@ def _cross_entropy_ref(logits, labels, mask=None, z_loss: float = 1e-4):
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: {"tokens", "labels", optional "mask", "encoder_frames"} on
-    the params' device; labels are next-token targets aligned with
-    tokens; encoder_frames is the encoder-decoder family's encoder input
-    (int ids from span_corruption, or float frames). Returns (total,
-    {"loss", "aux_loss", "accuracy"}), 0-d f32 tensors: total = loss +
-    moe.aux_loss_weight · aux_loss, the MoE load-balance loss summed over
-    layers (0 for the families without experts)."""
-    if batch.get("extra_embeds") is not None:
-        raise NotImplementedError(
-            "batch['extra_embeds'] belongs to the VLM family, which "
-            "arrives with ROADMAP A9")
+    """batch: {"tokens", "labels", optional "mask", "encoder_frames",
+    "extra_embeds"} on the params' device; labels are next-token targets
+    aligned with tokens; encoder_frames is the encoder-decoder family's
+    encoder input (int ids from span_corruption, or float frames);
+    extra_embeds a VLM's (B, n_img, d) patch embeddings, prepended by
+    forward, whose positions carry no label (their logits are dropped).
+    Returns (total, {"loss", "aux_loss", "accuracy"}), 0-d f32 tensors:
+    total = loss + moe.aux_loss_weight · aux_loss, the MoE load-balance
+    loss summed over layers (0 for the families without experts)."""
     logits, aux = forward_aux(params, cfg, batch["tokens"], train=True,
-                              encoder_frames=batch.get("encoder_frames"))
+                              encoder_frames=batch.get("encoder_frames"),
+                              extra_embeds=batch.get("extra_embeds"))
+    n_extra = logits.shape[1] - batch["labels"].shape[1]
+    if n_extra:
+        logits = logits[:, n_extra:]        # the image positions
     V, Vp = cfg.vocab_size, padded_vocab(cfg)
     if Vp != V:
         # mask out the vocab padding

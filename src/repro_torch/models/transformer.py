@@ -21,8 +21,14 @@ encoder's output through the `enc/cross` stack, T5's relative position
 bias when `use_rel_pos_bias`, and an encoder
 built from the same layers over token ids or precomputed frames, which
 `encode_seq_reduced` runs with Sequence-AltUp or a Table-2 baseline);
-other families raise NotImplementedError naming the ROADMAP item that
-brings them.
+`family="hybrid"` (zamba2: runs of `ssm.shared_every` Mamba-2 layers,
+`models/ssm.py`, each full run followed by an invocation of ONE
+attention + FFN block, `params["shared_blk"]`, unstacked and
+weight-tied across its invocations, its AltUp mixer tied too; every
+invocation counts as a layer of AltUp's alternating schedule) and
+`family="vlm"` (llava-next: the dense plan, with `img_proj` projecting
+stub patch embeddings that `forward(extra_embeds=)` prepends to the
+token stream).
 
 `forward` has two modes: the decode path's oracle (no autograd; the
 RWKV recurrence may run through its kernel) and, with `train=True`, the
@@ -47,11 +53,12 @@ from repro_torch.core import sequence_altup as seqalt
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 
 VOCAB_PAD = 256
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "bf16": torch.bfloat16}
+           "bf16": torch.bfloat16, "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -112,6 +119,13 @@ class ParamTree(nn.Module):
         return [(n, self[n]) for n in self._names]
 
 
+def segment_params(params, seg: "Segment", si: int):
+    """Segment si's parameters: the tied `shared_blk` for every
+    shared_attn invocation, else the stacked `seg{si}`."""
+    return (params["shared_blk"] if seg.kind == "shared_attn"
+            else params[f"seg{si}"])
+
+
 def layer_slice(tree, i: int) -> Dict:
     """Layer i of a stacked segment tree: a nested dict of views."""
     return {n: (layer_slice(v, i) if isinstance(v, (Mapping, ParamTree))
@@ -124,9 +138,11 @@ def layer_slice(tree, i: int) -> Dict:
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str            # attn | mla | rwkv
+    kind: str            # attn | mla | rwkv | mamba | shared_attn (one
+                         # invocation of the hybrid's tied block, n = 1)
     n: int               # number of layers in this segment
-    ffn: str             # dense | moe | none (rwkv carries its channel mix)
+    ffn: str             # dense | moe | none (rwkv carries its channel
+                         # mix; mamba has no FFN)
     layer_offset: int    # zero-based global index of the first layer
     window: int = 0      # static attention window (0 = full)
 
@@ -141,11 +157,24 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
         nd = cfg.moe.first_dense_layers
         segs = [Segment("mla", nd, "dense", 0)] if nd else []
         return segs + [Segment("mla", cfg.n_layers - nd, "moe", nd)]
-    if cfg.family not in ("dense", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the port serves "
-            f"family='dense', 'moe', 'mla_moe', 'rwkv6' and 'encdec'; the "
-            f"other families arrive with ROADMAP A9")
+    if cfg.family == "hybrid":
+        # zamba2: runs of `shared_every` mamba layers, a shared attention
+        # block after each full run; the shared block counts as a layer
+        # of the AltUp alternating schedule
+        se = cfg.ssm.shared_every
+        segs = []
+        off, remaining = 0, cfg.n_layers
+        while remaining > 0:
+            n = min(se, remaining)
+            segs.append(Segment("mamba", n, "none", off))
+            off += n
+            remaining -= n
+            if remaining > 0 or n == se:
+                segs.append(Segment("shared_attn", 1, "dense", off))
+                off += 1
+        return segs
+    if cfg.family not in ("dense", "vlm", "encdec"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.window_size > 0 and cfg.global_every > 0:
         # gemma3's 5:1 local:global pattern -> alternating static segments
         segs: List[Segment] = []
@@ -180,6 +209,9 @@ def init_layer(seg: Segment, cfg: ModelConfig, generator, device) -> Dict:
             "ln_cm": L.init_rms_norm(d, pd, device),
             "rwkv": rwkv_lib.init_rwkv_block(cfg, pd, generator, device),
         }
+    elif seg.kind == "mamba":
+        p = {"ln": L.init_rms_norm(d, pd, device),
+             "mamba": ssm_lib.init_mamba2_block(cfg, pd, generator, device)}
     else:
         init_attn = L.init_mla if seg.kind == "mla" else L.init_attention
         p = {"ln_attn": L.init_rms_norm(d, pd, device),
@@ -262,9 +294,16 @@ def init_tree(cfg: ModelConfig, gen, dev) -> Dict:
         emb_width if (cfg.altup.enabled and not cfg.altup.recycled) else d,
         pd, dev)
     for si, seg in enumerate(layer_plan(cfg)):
-        params[f"seg{si}"] = init_segment(seg, cfg, gen, dev)
+        if seg.kind != "shared_attn":
+            params[f"seg{si}"] = init_segment(seg, cfg, gen, dev)
+        elif "shared_blk" not in params:
+            # zamba2: ONE attention + FFN block, unstacked, tied across
+            # its invocations (its AltUp mixer too)
+            params["shared_blk"] = init_layer(seg, cfg, gen, dev)
     if cfg.family == "encdec":
         params["enc"] = init_encoder_params(cfg, gen, dev)
+    if cfg.family == "vlm":
+        params["img_proj"] = L.dense_init((d, d), pd, gen, dev, in_axis=0)
     if cfg.seq_altup.enabled and cfg.seq_altup.mode == "altup":
         params["seq_altup"] = seqalt.init_seq_altup_params(
             cfg.n_layers, torch.float32, dev)
@@ -354,6 +393,14 @@ def mla_layer(p, cfg: ModelConfig, x, *, q_pos, k_pos):
     return _ffn_half(p, cfg, x)
 
 
+def mamba_layer(p, cfg: ModelConfig, x, state=None):
+    """One pre-norm Mamba-2 layer on the ACTIVE d-wide block. state
+    (decode): {"conv", "ssm"}. Returns (x, the new state)."""
+    h = L.rms_norm(x, p["ln"], cfg.logical_norm_eps)
+    m, new_state = ssm_lib.mamba2_block(p["mamba"], cfg, h, state)
+    return x + m, new_state
+
+
 def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
                wkv_kernel: Optional[bool] = None):
     """One pre-norm RWKV-6 layer (time mix, then channel mix) on the ACTIVE
@@ -386,8 +433,9 @@ def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
 
 
 def lift_embeds(x_emb: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Lift externally provided d-wide embeddings (whisper's audio frames)
-    into the widened stream by replication."""
+    """Lift externally provided d-wide embeddings (whisper's audio frames,
+    a VLM's projected image patches) into the widened stream by
+    replication."""
     if not cfg.altup.enabled:
         return x_emb
     return x_emb[..., None, :].expand(*x_emb.shape[:-1], cfg.altup.K,
@@ -431,18 +479,24 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
     cross_stack: an encoder-decoder decoder segment's encoder output and
     the stacked `enc/cross` blocks, indexed by global layer; rel_bias:
     the self-attention's (1, H, S, S) bias; causal: None = the config's.
-    Returns (x, the segment's aux loss summed over its layers; under
-    AltUp a layer's aux is that of the one block it computed)."""
+    A mamba segment, like an rwkv one, starts from a zero state. A
+    shared_attn segment is one invocation of the hybrid's tied block:
+    p_seg is `shared_blk` itself (unstacked). Returns (x, the segment's
+    aux loss summed over its layers; under AltUp a layer's aux is that of
+    the one block it computed)."""
     K = cfg.altup.K
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(seg.n):
-        p_l = layer_slice(p_seg, i)
+        p_l = p_seg if seg.kind == "shared_attn" else layer_slice(p_seg, i)
         cross_l = (None if cross_stack is None
                    else layer_slice(cross_stack, seg.layer_offset + i))
 
         def layer_fn(xa, p_l=p_l, cross_l=cross_l):
-            if seg.kind == "rwkv":
-                out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
+            if seg.kind in ("rwkv", "mamba"):
+                if seg.kind == "rwkv":
+                    out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
+                else:
+                    out = mamba_layer(p_l, cfg, xa)[0]
                 return out, torch.zeros((), dtype=torch.float32,
                                         device=xa.device)
             if seg.kind == "mla":
@@ -478,9 +532,15 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
 
 def forward(params, cfg: ModelConfig, tokens, *,
             wkv_kernel: Optional[bool] = None,
-            train: bool = False, encoder_frames=None) -> torch.Tensor:
+            train: bool = False, encoder_frames=None,
+            extra_embeds=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V_pad); forward_aux also
     returns the MoE aux loss, as the reference's forward does.
+
+    extra_embeds: a VLM's (B, n_img, d) patch embeddings (the stubbed
+    vision tower's output), projected by `img_proj`, lifted into the
+    widened stream and prepended to the tokens: the logits then cover
+    n_img + S positions.
 
     encoder_frames: the encoder-decoder family's encoder input, int token
     ids (B, S_enc) (T5) or float frame embeddings (B, S_enc, d) (whisper's
@@ -498,28 +558,35 @@ def forward(params, cfg: ModelConfig, tokens, *,
     are. An MoE layer routes with capacity_for's drops, as the
     reference's forward does (decode is drop-free)."""
     return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
-                       train=train, encoder_frames=encoder_frames)[0]
+                       train=train, encoder_frames=encoder_frames,
+                       extra_embeds=extra_embeds)[0]
 
 
 def forward_aux(params, cfg: ModelConfig, tokens, *,
                 wkv_kernel: Optional[bool] = None, train: bool = False,
-                encoder_frames=None):
+                encoder_frames=None, extra_embeds=None):
     """forward's (logits (B, S, V_pad), aux loss 0-d f32: the MoE
     load-balance loss summed over layers, 0 for the other families)."""
+    kw = dict(encoder_frames=encoder_frames, extra_embeds=extra_embeds)
     if not train:
         with torch.no_grad():
             return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,
-                            remat="none", encoder_frames=encoder_frames)
+                            remat="none", **kw)
     if wkv_kernel:
         raise ValueError("train=True runs no kernel: the WKV kernel has no "
                          "backward pass")
     return _forward(params, cfg, tokens, wkv_kernel=False, remat=cfg.remat,
-                    encoder_frames=encoder_frames)
+                    **kw)
 
 
 def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
-             encoder_frames=None):
+             encoder_frames=None, extra_embeds=None):
     x = embed_tokens(params, cfg, tokens)
+    if extra_embeds is not None:
+        ad = act_dtype(cfg)
+        img = torch.einsum("bnd,de->bne", extra_embeds.to(ad),
+                           params["img_proj"].to(ad))
+        x = torch.cat([lift_embeds(img, cfg), x], dim=1)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)
     rel_bias = enc_out = cross_stack = None
@@ -536,10 +603,11 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
         raise ValueError(f"encoder_frames given to family {cfg.family!r}")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
-        x, aux = apply_segment(params[f"seg{si}"], seg, cfg, x, q_pos=q_pos,
-                               k_pos=q_pos, wkv_kernel=wkv_kernel,
-                               remat=remat, enc_out=enc_out,
-                               cross_stack=cross_stack, rel_bias=rel_bias)
+        x, aux = apply_segment(segment_params(params, seg, si), seg, cfg,
+                               x, q_pos=q_pos, k_pos=q_pos,
+                               wkv_kernel=wkv_kernel, remat=remat,
+                               enc_out=enc_out, cross_stack=cross_stack,
+                               rel_bias=rel_bias)
         aux_total = aux_total + aux
     return unembed(params, cfg, x), aux_total
 

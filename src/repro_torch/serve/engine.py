@@ -44,7 +44,9 @@ when the donor decoded past max(p, W) (its ring wrapped over prefix
 rows), and a paged hit copies every prefix page instead of aliasing the
 full ones (a sharer's ring writes wrap back into its low pages).
 
-Recurrent plans (rwkv segments), as in the reference: prefill feeds one
+Recurrent plans (rwkv or mamba segments: RWKV-6 and the zamba hybrid,
+whose shared attention invocations keep unstacked caches the row
+helpers are told of by name), as in the reference: prefill feeds one
 token per step (the state advances token by token), admission zeroes the
 slot's state (models/decode.reset_slot) unless the slot is its own donor,
 and a prefix hit is valid only when the donor stopped at the prefix
@@ -125,7 +127,7 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        prefill, reset_pages, reset_slot,
                                        restore_recurrent, restore_rows,
                                        save_recurrent, scatter_pages,
-                                       snapshot_rows)
+                                       shared_segments, snapshot_rows)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
@@ -382,10 +384,13 @@ class Engine:
                 "families; an encoder-decoder model takes Engine(paged="
                 "False, speculative=False).generate(..., encoder_frames=)")
         plan = layer_plan(cfg)
-        self._has_recurrent = any(s.kind == "rwkv" for s in plan)
+        self._has_recurrent = any(s.kind in ("rwkv", "mamba") for s in plan)
         # the capacity of every ring (sliding-window segment)
         self._ring_caps = tuple(min(max_len, s.window) for s in plan
-                                if s.kind == "attn" and s.window > 0)
+                                if s.kind in ("attn", "shared_attn")
+                                and s.window > 0)
+        # segments whose caches are unstacked (the hybrid's shared block)
+        self._shared = shared_segments(cfg)
         self._quantized = kv_quant_spec(cfg).quantized
         self.device = resolve_device(device)
         emb = params["embed"]
@@ -602,7 +607,7 @@ class Engine:
                 # the slot's recurrent state carries the previous request
                 # (recurrent plans get no paged prefix hit)
                 if self._has_recurrent:
-                    reset_slot(self._caches, st.slot)
+                    reset_slot(self._caches, st.slot, shared=self._shared)
                 if self._quantized and acts.get("fresh"):
                     reset_pages(self._caches, acts["fresh"],
                                 page=self._page_size)
@@ -620,11 +625,12 @@ class Engine:
                 self_donor = hit and st.prefix_src == st.slot
                 if (self._has_recurrent or self._quantized) and \
                         not self_donor:
-                    reset_slot(self._caches, st.slot)
+                    reset_slot(self._caches, st.slot, shared=self._shared)
                 if hit:
                     copy_prefix(self._caches, st.slot, st.prefix_src,
                                 st.prefix_len,
-                                copy_recurrent=self._has_recurrent)
+                                copy_recurrent=self._has_recurrent,
+                                shared=self._shared)
             # the seen row carries the previous occupant's tokens: clear
             # it (in place); a hit seeds it with the prefix ids, the row
             # cold prefill would have built

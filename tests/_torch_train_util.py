@@ -35,11 +35,29 @@ def perturb(tree, seed):
     """AltUp p/g away from I and 1 (else predict/correct is trivial) and,
     for RWKV-6, seeded values for the leaves the reference starts at zero
     (ts_b, w_b, u) and a spread of decay bases (w_base + lora stays below
-    ~1.5, where the chunked form keeps 1/A inside f32)."""
+    ~1.5, where the chunked form keeps 1/A inside f32); for Mamba-2,
+    seeded dt_bias, D, conv_b and norm (zeros and ones at init). The
+    hybrid's shared block (unstacked: p (K, K), g (K,)) is perturbed as
+    one layer."""
     rng = np.random.default_rng(seed)
     for name, seg in tree.items():
+        if name == "shared_blk":
+            K = seg["altup_g"].shape[0]
+            seg["altup_p"] = (np.eye(K) + 0.25 * rng.standard_normal(
+                (K, K))).astype(np.float32)
+            seg["altup_g"] = (1 + 0.25 * rng.standard_normal(K)
+                              ).astype(np.float32)
+            continue
         if not name.startswith("seg"):
             continue
+        if "mamba" in seg:
+            mb = seg["mamba"]
+            for leaf, base, scale in (("dt_bias", 0.0, 0.5),
+                                      ("D", 1.0, 0.3),
+                                      ("conv_b", 0.0, 0.1),
+                                      ("norm", 0.0, 0.1)):
+                mb[leaf] = (base + scale * rng.standard_normal(
+                    mb[leaf].shape)).astype(mb[leaf].dtype)
         if "rwkv" in seg:
             rw = seg["rwkv"]
             for leaf, scale in (("ts_b", 0.3), ("w_b", 0.3), ("u", 0.5)):

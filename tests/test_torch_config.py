@@ -44,7 +44,9 @@ def test_config_fields_and_defaults_match_reference(name):
                                 dict(smoke=True, altup_k=2)])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "gemma3-4b",
                                   "gemma3-12b", "qwen2-moe-a2.7b",
-                                  "whisper-tiny", "deepseek-v3-671b"])
+                                  "whisper-tiny", "deepseek-v3-671b",
+                                  "granite-3-2b", "zamba2-1.2b",
+                                  "llava-next-mistral-7b"])
 def test_get_config_matches_reference(arch, kw):
     got = dataclasses.asdict(tconfigs.get_config(arch, **kw))
     want = dataclasses.asdict(jconfigs.get_config(arch, **kw))
@@ -52,7 +54,8 @@ def test_get_config_matches_reference(arch, kw):
     if kw == dict(altup_k=2):
         # recycled by default only above 100k tokens of vocabulary
         assert got["altup"]["recycled"] == (
-            arch not in ("rwkv6-1.6b", "whisper-tiny"))
+            arch not in ("rwkv6-1.6b", "whisper-tiny", "granite-3-2b",
+                         "zamba2-1.2b", "llava-next-mistral-7b"))
 
 
 @pytest.mark.parametrize("name", ["T5_SMALL", "T5_BASE", "T5_LARGE", "T5_XL",
@@ -84,8 +87,11 @@ def test_whisper_config_matches_reference():
 
 
 def test_get_config_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported"):
-        tconfigs.get_config("granite-3-2b")
+    """Every architecture of the reference's registry is ported (the same
+    ids in the same order); an id outside it raises."""
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown architecture"):
+        tconfigs.get_config("granite-3-8b")
 
 
 @pytest.mark.parametrize("flag,device,want", [

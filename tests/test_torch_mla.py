@@ -363,12 +363,18 @@ def test_decode_step_matches_jax(layout, kind):
 
 
 def test_kv_quant_spec_admits_mla_and_refuses_rwkv():
+    """The spec admits MLA's latents and, as the reference's refuses
+    nothing, recurrent plans too: there it quantizes no leaf (rwkv has no
+    k/v), and the state stays float."""
     _, tc = cfg_pair(ARCH, 2)
     for kind in ("int8", "fp8"):
         assert tdec.kv_quant_spec(tc.replace(kv_cache_dtype=kind)).quantized
-    rw = tconfigs.get_config("rwkv6-1.6b", smoke=True, altup_k=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tdec.kv_quant_spec(rw.replace(kv_cache_dtype="int8"))
+    rw = tconfigs.get_config("rwkv6-1.6b", smoke=True, altup_k=2).replace(
+        kv_cache_dtype="int8")
+    assert tdec.kv_quant_spec(rw).quantized
+    c = tdec.init_cache(rw, 2, 8, device="cpu")
+    assert sorted(c["seg0"]) == ["shift_cm", "shift_tm", "wkv"]
+    assert c["seg0"]["wkv"].dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -413,13 +413,23 @@ def test_fp8_page_copies_are_bitwise():
 
 
 def test_quantized_recurrent_plans_raise():
-    """Quantized storage of a plan with rwkv segments is hybrid
-    quantization, still queued (ROADMAP A9)."""
+    """Quantized storage beside recurrent segments builds, as in the
+    reference: the recurrent state stays float, and an rwkv plan has no
+    k/v leaf to quantize (the zamba hybrid's shared k/v are held in
+    tests/test_torch_hybrid.py)."""
+    import repro.configs as jconfigs
     from repro_torch.configs import get_config
-    cfg = get_config("rwkv6-1.6b", smoke=True, altup_k=2).replace(
-        kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tdec.init_cache(cfg, 1, 8, device="cpu")
+    for kind in ("int8", "fp8"):
+        cfg = get_config("rwkv6-1.6b", smoke=True, altup_k=2).replace(
+            kv_cache_dtype=kind)
+        jc = jconfigs.get_config("rwkv6-1.6b", smoke=True,
+                                 altup_k=2).replace(kv_cache_dtype=kind)
+        got = tdec.init_cache(cfg, 1, 8, device="cpu")
+        want = jdec.init_cache(jc, 1, 8)
+        assert {n: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for n, t in got["seg0"].items()} == \
+            {n: (tuple(a.shape), str(a.dtype))
+             for n, a in want["seg0"].items()}
 
 
 # -----------------------------------------------------------------------------

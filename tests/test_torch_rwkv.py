@@ -347,7 +347,7 @@ def test_decode_step_matches_jax(wkv_kernel):
                                       torch.from_numpy(pos), kv_len=32,
                                       wkv_kernel=wkv_kernel)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-        for n in tdec.RECURRENT_LEAVES:
+        for n in tcache["seg0"]:
             np.testing.assert_allclose(_np(tcache["seg0"][n]),
                                        _np(jcache["seg0"][n]), **TOL)
         if t + 1 < 6:
@@ -468,8 +468,10 @@ def test_engine_recurrent_prefix_boundary_matches_jax():
 def test_paged_engine_on_recurrent_plan_raises():
     """A recurrent plan serves paged (tests/test_torch_decode_graph.py
     holds its tokens): its paged caches are the per-slot recurrent leaves
-    of the reference's init_paged_cache, sized by B. What still raises is
-    quantized storage beside recurrent segments (ROADMAP A9)."""
+    of the reference's init_paged_cache, sized by B. Quantized storage
+    beside recurrent segments builds too, as in the reference: the plan
+    has no k/v leaf, so int8 and fp8 leave the caches float and the same
+    tokens come out."""
     jc, tc = _serve_cfgs()
     _, tp = _serve_params()
     got = tdec.init_paged_cache(tc, 3, 32, n_pages=4, page=16, device="cpu")
@@ -478,13 +480,22 @@ def test_paged_engine_on_recurrent_plan_raises():
             for k, v in got.items()} == \
         {k: {n: tuple(t.shape) for n, t in v.items()}
          for k, v in want.items()}
-    TEngine(tc, tp, max_len=32, n_slots=2, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TEngine(tc.replace(kv_cache_dtype="int8"), tp, max_len=32,
-                n_slots=2, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tdec.init_paged_cache(tc.replace(kv_cache_dtype="fp8"), 2, 32,
-                              n_pages=4, page=16, device="cpu")
+    prompt = [3, 5, 7, 11]
+    toks = []
+    for kind in ("auto", "int8"):
+        eng = TEngine(tc.replace(kv_cache_dtype=kind), tp, max_len=32,
+                      n_slots=2, paged=True, device="cpu")
+        rid = eng.submit(prompt, sampling=TSP(max_new=3))
+        toks.append(list(eng.run()[rid].tokens))
+    assert toks[0] == toks[1]
+    got = tdec.init_paged_cache(tc.replace(kv_cache_dtype="fp8"), 2, 32,
+                                n_pages=4, page=16, device="cpu")
+    want = jdec.init_paged_cache(jc.replace(kv_cache_dtype="fp8"), 2, 32,
+                                 n_pages=4, page=16)
+    assert {k: {n: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for n, t in v.items()} for k, v in got.items()} == \
+        {k: {n: (tuple(t.shape), str(t.dtype)) for n, t in v.items()}
+         for k, v in want.items()}
 
 
 def test_retained_donor_keeps_its_state_while_others_step():

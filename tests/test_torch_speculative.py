@@ -532,8 +532,10 @@ def test_snapshot_restore_round_trip_through_writes(name):
 def test_recurrent_save_restore_round_trip():
     """The port's save_recurrent / restore_recurrent over every slot (the
     counterpart of the reference's recurrent_checkpoint /
-    restore_recurrent, which serve only its tests): a decode step moves
-    the rwkv state, the restore puts it back bitwise."""
+    restore_recurrent, which serve only its tests): every recurrent leaf
+    of the plan is saved (rwkv's three; RECURRENT_LEAVES also names
+    Mamba-2's ssm and conv), a decode step moves the rwkv state, the
+    restore puts it back bitwise."""
     jc = jget_config("rwkv6-1.6b", smoke=True, altup_k=2)
     tc = tget_config("rwkv6-1.6b", smoke=True, altup_k=2)
     jp, tp = _bridged(jc, jax.random.PRNGKey(2))
@@ -543,7 +545,7 @@ def test_recurrent_save_restore_round_trip():
     before = _clone(caches)
     slots = torch.arange(2)
     saved = tdec.save_recurrent(caches, slots)
-    assert {n for _, n in saved} == set(tdec.RECURRENT_LEAVES)
+    assert {n for _, n in saved} == {"wkv", "shift_tm", "shift_cm"}
     tdec.decode_step(tp, tc, caches, toks[:, :1], 4)
     assert not torch.equal(caches["seg0"]["wkv"], before["seg0"]["wkv"])
     tdec.restore_recurrent(caches, saved, slots)
