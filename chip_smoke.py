@@ -225,7 +225,10 @@ K=2. Phases:
                and their seconds; token agreement (not gated: bf16
                rounds the verify's dense chunk attention and the step's
                kernel differently), with the first differing position
-               and the non-speculative run's top-2 logit margin there
+               and the non-speculative run's top-2 logit margin there;
+               the roofline's speculative_bytes at the measured accept
+               rate and mean k (bytes_speedup, the round's bytes over a
+               step's) beside the measured ratios
   (u) seeded sampling (temperature > 0), plain torch ops captured in the
       step's graphs (no new kernel; sampled steps still run the AltUp and
       decode-attention kernels):
@@ -417,9 +420,11 @@ K=2. Phases:
                p80 step ms, decode tok/s, the recurrent hit (contiguous:
                one, its tokens a cold engine's; paged: none), the step
                graph's device ms against its bytes bound (weights and
-               the f32 ssm state read and written), the mamba layers'
-               and shared invocations' shares of an eager step's kernel
-               time; paged tokens equal to contiguous ones
+               the f32 ssm state read and written; and the whole step's,
+               with the KV rows the replay reads by the roofline's
+               decode_kv_bytes), the mamba layers' and shared
+               invocations' shares of an eager step's kernel time; paged
+               tokens equal to contiguous ones
       z-grad   12 mamba layers (2 shared invocations), f32: loss_fn and
                every leaf's gradient on the card against the CPU, 1e-4 of
                each leaf's max, the tied block's named; no kernel
@@ -429,13 +434,20 @@ K=2. Phases:
       of 128, 576 stub image tokens of d 4096 projected by img_proj):
       v-serve  (e)'s traffic, text-only (as the reference serves it), full
                width and depth, replayed: (e)'s gates and numbers, the
-               step graph's device ms against its weight bytes
+               step graph's device ms against its weight bytes and
+               against the whole step's (weights + KV rows read)
       v-train  Trainer at 4 layers, bf16, AdamW, batches of 512 tokens
                after 576 image embeddings (the pipeline's): a falling
                loss, ms a step, MFU over text and image positions
   granite      granite-3-2b + AltUp K=2 (40 layers, d 2048, 32 / 8 heads
                of 64, vocabulary 49155 padded to 49408), (e)'s traffic
                replayed at full width and depth, as v-serve
+  (x) examples the three examples/*_torch.py through their main() on the
+               card: quickstart and serve_altup as written,
+               train_altup_lm at its ~100M model for 15 steps, a
+               checkpoint, and a resume to 30: seconds and losses; gates:
+               finite losses, serve_altup's paged tokens equal to its
+               contiguous ones, no KV-cache bytes added by K=4
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -460,6 +472,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib.util
+import io
 import json
 import math
 import os
@@ -485,10 +499,6 @@ def rwkv_config(**kw):
     from repro_torch.configs import get_config
     return get_config("rwkv6-1.6b", altup_k=2).replace(**kw)
 
-
-# NVIDIA H100 SXM data sheet (dense rates, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)     # kernel vs plain, f32 in and out
 # WKV kernel vs plain, f32: sums over Dh in another order, FMA-contracted,
@@ -528,12 +538,23 @@ def time_ms(torch, fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+def hardware(dtype_name):
+    """The card's roofline model (the port's config.H100_SXM: NVIDIA's H100
+    SXM data sheet, dense rates, 700 W) at the peak rate of the type the
+    operations run in: bf16 tensor cores, or f32."""
+    from repro_torch.config import H100_SXM, H100_SXM_F32
+    return {"float32": H100_SXM_F32, "bfloat16": H100_SXM}[dtype_name]
+
+
 def bound_ms(nbytes, nops, dtype_name):
-    """Least time for the work: max of bytes over HBM rate and operations
-    over the peak rate of their type. Returns (ms, "bytes"|"operations")."""
-    tb = nbytes / HBM_BYTES_PER_S
-    to = nops / PEAK_OPS_PER_S[dtype_name]
-    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
+    """Least time for the work, through the port's roofline_terms: max of
+    bytes over the HBM rate and operations over the peak rate of their
+    type. Returns (ms, "bytes"|"operations")."""
+    from repro_torch.roofline.analysis import roofline_terms
+    t = roofline_terms(nops, nbytes, 0.0, n_chips=1,
+                       hw=hardware(dtype_name))
+    return (1e3 * t["step_s_lower_bound"],
+            "bytes" if t["memory_s"] >= t["compute_s"] else "operations")
 
 
 def max_err(torch, a, b):
@@ -2959,7 +2980,7 @@ def train_full(torch, ops, workdir):
            "tokens_per_s": tokens / med_s,
            "model_flops_per_token": flops_tok,
            "mfu_bf16_dense_peak": flops_tok * tokens / med_s
-           / PEAK_OPS_PER_S["bfloat16"],
+           / hardware("bfloat16").peak_flops,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "loss_first": losses[0], "loss_last5_mean": sum(losses[-5:]) / 5,
            "losses": losses, "accuracy_last": out["history"][-1]["accuracy"],
@@ -3427,6 +3448,7 @@ def spec_serve_bf16(torch, ops, load):
                         top_kernels(torch, replay)
         if spec:
             r.update(spec_rounds(eng, ring=False, before=before))
+            draft_layers = eng._draft_layers
         runs[spec] = ([list(done[rid].tokens) for rid in rids], r)
         del eng
     (tok_n, res_n), (tok_s, res_s) = runs[False], runs[True]
@@ -3438,9 +3460,23 @@ def spec_serve_bf16(torch, ops, load):
                       top2_margin(torch, params, cfg, p + a[:j])})
     if any(len(t) != n_new for t in tok_s + tok_n):
         raise AssertionError(f"s-serve {load}: a request did not complete")
+    # the bytes model at the measured accept rate and mean k, each slot
+    # at its depth halfway through the run, weights read once a step
+    from repro_torch.roofline.analysis import speculative_bytes
+    model = speculative_bytes(
+        cfg, [n + n_new // 2 for n in plens], T=2048,
+        draft_layers=draft_layers, k=res_s["mean_k"],
+        accept_rate=res_s["accept_rate"], kv_dtype=cfg.kv_cache_dtype,
+        param_bytes=sum(t.numel() * t.element_size()
+                        for t in params.parameters()))
     del params
     torch.cuda.empty_cache()
     return {"requests": len(prompts), "prompt_lens": list(plens),
+            "draft_layers": draft_layers,
+            "bytes_model": model,
+            "bytes_speedup": model["bytes_speedup"],
+            "model_round_bytes_over_step_bytes":
+                model["round_bytes"] / model["baseline_bytes_per_token"],
             "new_tokens": n_new, "n_slots": n_slots,
             "tokens_identical_requests": sum(a is None for a in agree),
             "first_differences": [a for a in agree if a is not None],
@@ -4170,7 +4206,7 @@ def moe_train(torch, ops, workdir):
            "active_params": M.active_param_count(cfg),
            "model_flops_per_token": flops_tok,
            "mfu_bf16_dense_peak": flops_tok * tokens / med_s
-           / PEAK_OPS_PER_S["bfloat16"],
+           / hardware("bfloat16").peak_flops,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "loss_first": losses[0],
            "loss_last3_mean": sum(losses[-3:]) / 3, "losses": losses,
@@ -4920,7 +4956,7 @@ def t5_train(torch, ops, workdir):
            "tokens_per_s": (enc_tok + dec_tok) / med_s,
            "encoder_params": enc_p, "decoder_params": dec_p,
            "model_flops_per_step": flops,
-           "mfu_f32_peak": flops / med_s / PEAK_OPS_PER_S["float32"],
+           "mfu_f32_peak": flops / med_s / hardware("float32").peak_flops,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "lr": N_TRAIN_LR, "loss_first_half_mean": float(np.mean(first)),
            "loss_second_half_mean": float(np.mean(second)),
@@ -5219,7 +5255,7 @@ def mla_train(torch, ops, workdir):
            "active_params": M.active_param_count(cfg),
            "model_flops_per_token": flops_tok,
            "mfu_bf16_dense_peak": flops_tok * tokens / med_s
-           / PEAK_OPS_PER_S["bfloat16"],
+           / hardware("bfloat16").peak_flops,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "loss_first": losses[0],
            "loss_last3_mean": sum(losses[-3:]) / 3, "losses": losses,
@@ -5622,18 +5658,34 @@ def hybrid_parity_f32(torch, ops, kind=None):
 def replay_bound(torch, eng, params, extra_bytes=0):
     """The engine's most replayed step graph replayed back to back (CUDA
     events) against the bytes a step must read: every weight, plus
-    `extra_bytes` (the recurrent state read and written)."""
+    `extra_bytes` (the recurrent state read and written), and the KV rows
+    its attention reads (the port's roofline decode_kv_bytes, or
+    paged_gather_bytes' total on a paged engine, at the cache's
+    kv_cache_dtype). The replay reads the depths its static inputs hold
+    (pos + n_valid of the last S=1 step, each slot's rows after its
+    write). Both shares: weights (+ state) only, and the whole step."""
+    from repro_torch.roofline import analysis as ra
     gs = eng.graph_stats
     key = max(gs["replays_by_shape"], key=gs["replays_by_shape"].get)
     ms = time_ms(torch, eng._graphs._graphs[key][0].replay, iters=20,
                  warmup=3)
     w_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    host = eng._inputs[1].host
+    lengths = (host["pos"] + host["nval"]).tolist()
+    kw = dict(T=eng.max_len, kv_dtype=eng.cfg.kv_cache_dtype)
+    kv_bytes = (ra.paged_gather_bytes(eng.cfg, lengths, page=eng._page_size,
+                                      **kw)["total"] if eng._paged
+                else ra.decode_kv_bytes(eng.cfg, lengths, **kw))
     b_ms, _ = bound_ms(w_bytes + extra_bytes, 0, "bfloat16")
+    s_ms, _ = bound_ms(w_bytes + extra_bytes + kv_bytes, 0, "bfloat16")
     return {"replayed_shape": list(key), "device_ms_per_replay": ms,
             "weight_bytes_per_step": w_bytes,
             "state_bytes_per_step": extra_bytes,
+            "kv_bytes_per_step": kv_bytes, "kv_lengths": lengths,
             "bytes_bound_ms_per_step": b_ms,
-            "bytes_bound_share_of_replay": b_ms / ms}
+            "bytes_bound_share_of_replay": b_ms / ms,
+            "step_bytes_bound_ms": s_ms,
+            "step_bytes_bound_share_of_replay": s_ms / ms}
 
 
 def hybrid_serve(torch, ops):
@@ -5801,7 +5853,7 @@ def adamw_train(torch, ops, cfg, workdir, tag, batch, seq, published):
            "active_params": M.active_param_count(cfg),
            "model_flops_per_position": flops_pos,
            "mfu_bf16_dense_peak": flops_pos * positions / med_s
-           / PEAK_OPS_PER_S["bfloat16"],
+           / hardware("bfloat16").peak_flops,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "loss_first": losses[0],
            "loss_last3_mean": sum(losses[-3:]) / 3, "losses": losses,
@@ -5828,6 +5880,66 @@ def dense_serve(torch, ops, cfg, published):
         / res["steps"]
     res["reduced"] = reduced_depth(cfg, published)
     return res
+
+
+def run_example(torch, name, argv):
+    """examples/<name>.py's main(argv) in this process, what it prints kept
+    apart. Returns (its result, its printed lines, seconds)."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    return res, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def example_phases(torch, workdir):
+    """x-examples: quickstart_torch and serve_altup_torch as written, then
+    train_altup_lm_torch at its ~100M model for 30 steps: 15, a checkpoint,
+    and a resume from it to 30. Gates: every loss finite and the resumed
+    run starting at 15; serve_altup's contiguous and paged engines serving
+    the same tokens (the reference's paged == contiguous) and its K=4
+    model adding no KV-cache bytes."""
+    t_x = time.perf_counter()
+    res, printed, sec = run_example(
+        torch, "quickstart_torch", ["--ckpt", str(workdir / "quickstart")])
+    quick = {"seconds": sec, "loss_first": res["losses"][0],
+             "final_loss": res["final_loss"],
+             "logits_finite": res["logits_finite"],
+             "generated": res["generated"][0], "last_lines": printed[-2:]}
+    res, printed, sec = run_example(torch, "serve_altup_torch", [])
+    serve = {"seconds": sec, "cache_bytes": res["cache_bytes"],
+             "kv_read_bytes": res["kv_read_bytes"],
+             "added_cache_bytes": res["added_cache_bytes"],
+             "paged_equals_contiguous": res["paged_equals_contiguous"],
+             "tokens": sum(len(t) for t in res["tokens"]["paged"].values()),
+             "stream_tokens": len(res["stream"]),
+             "lines": [ln for ln in printed if "K=" in ln]}
+    ckpt = ["--ckpt", str(workdir / "train"), "--checkpoint-every", "15"]
+    first, _, sec1 = run_example(torch, "train_altup_lm_torch",
+                                 ["--steps", "15"] + ckpt)
+    second, printed, sec2 = run_example(
+        torch, "train_altup_lm_torch", ["--steps", "30", "--resume"] + ckpt)
+    train = {"params": first["params"], "seconds_first_15": sec1,
+             "seconds_resumed_15": sec2, "loss_first": first["losses"][0],
+             "loss_at_15": first["final_loss"],
+             "resumed_from": second["resumed_from"],
+             "final_loss": second["final_loss"], "last_line": printed[-1]}
+    losses = first["losses"] + second["losses"] + [quick["loss_first"],
+                                                   quick["final_loss"]]
+    ok = (all(math.isfinite(x) for x in losses) and quick["logits_finite"]
+          and serve["paged_equals_contiguous"]
+          and serve["added_cache_bytes"] == 0
+          and second["resumed_from"] == 15 and second["step"] == 30
+          and len(second["losses"]) == 15)
+    line("x-examples", seconds=time.perf_counter() - t_x, ok=ok,
+         quickstart=quick, serve_altup=serve, train_altup_lm=train)
+    if not ok:
+        raise AssertionError("x-examples: a gate failed (see its line)")
 
 
 def hybrid_phases(torch, ops, workdir):
@@ -6398,6 +6510,10 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         res_z = hybrid_phases(torch, ops, Path(work))
         res_v, res_gr = vlm_granite_phases(torch, ops, Path(work))
+
+    # (x) the three examples, as a user runs them, on the card
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        example_phases(torch, Path(work))
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)

@@ -7,7 +7,8 @@ kernel written by hand for Hopper under `csrc/`, built with nvcc at first
 use (see `kernels/build.py`).
 
 Entry points take an explicit `device` that defaults to "cuda" and raise
-when no card is present; tests pass device="cpu".
+when no card is present; tests pass device="cpu". "meta" builds shapes and
+dtypes without storage (configs.input_specs).
 """
 from __future__ import annotations
 
@@ -15,13 +16,15 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on. A CUDA device with no card is an
-    error, never a silent move to the CPU."""
+    """The device an entry point runs on: "cuda", "cpu" or "meta" (shapes
+    and dtypes only). A CUDA device with no card is an error, never a
+    silent move to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: device='cuda' requested but no CUDA device is "
             "available; pass device='cpu' explicitly to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(
+            f"repro_torch runs on 'cuda', 'cpu' or 'meta', got {dev}")
     return dev

@@ -1,10 +1,11 @@
 """Configuration dataclasses of the AltUp framework (PyTorch port).
 
 A field-for-field copy of the JAX package's `repro/config.py` (its model,
-optimizer and training dataclasses): the same names, types and defaults,
-so one configuration names the same model in both packages. The port
-keeps its own copy rather than importing the reference package, which it
-never does.
+optimizer, training and shape dataclasses): the same names, types and
+defaults, so one configuration names the same model in both packages.
+The hardware model keeps the reference's field names with an H100's
+numbers. The port keeps its own copy rather than importing the reference
+package, which it never does.
 
 Everything is a frozen dataclass so configs hash and compare cleanly.
 """
@@ -202,3 +203,43 @@ class TrainConfig:
     keep_checkpoints: int = 3
     task: str = "causal_lm"         # causal_lm | span_corruption
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the assignment."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+    def __post_init__(self):
+        assert self.kind in ("train", "prefill", "decode")
+
+
+# The four assigned shapes, shared by all LM architectures.
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+# --- NVIDIA H100 SXM hardware model for the roofline (per card) ----------
+# The reference's field names (roofline_terms reads them), with the card's
+# numbers from NVIDIA's H100 SXM data sheet (dense rates, 700 W) as the
+# defaults: a deviation by design from the reference's defaults.
+@dataclass(frozen=True)
+class HardwareConfig:
+    peak_flops: float = 989e12      # bf16 FLOP/s, dense tensor cores
+    hbm_bw: float = 3.35e12         # B/s, HBM3
+    # NVLink 4 per card and direction (900 GB/s both ways); no one-card
+    # path reads it: the collective term waits for distribution (A11)
+    ici_bw: float = 450e9
+    hbm_bytes: float = 80e9
+
+
+H100_SXM = HardwareConfig()
+# the same card at its f32 (non-tensor-core) peak, for f32 work
+H100_SXM_F32 = HardwareConfig(peak_flops=67e12)

@@ -16,6 +16,22 @@ from repro_torch import configs as tconfigs
 from repro_torch import tree as tree_lib
 
 jinit = jax.jit(jax_init_params, static_argnums=1)
+# config fields the reference's init_params never reads: configs that
+# differ only in them get the same parameters, drawn once (jax_init)
+_NOT_READ_BY_INIT = dict(remat="full", kv_cache_dtype="auto",
+                         fused_xent=False, banded_local_attn=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(jc, seed):
+    return jinit(jax.random.PRNGKey(seed), jc)
+
+
+def jax_init(jc, seed=0):
+    """init_params(PRNGKey(seed), jc) of the reference (JAX arrays), once
+    per worker process for all configs that differ from jc only in fields
+    the init does not read; a compile of the jitted init costs seconds."""
+    return _jax_init(jc.replace(**_NOT_READ_BY_INIT), seed)
 
 # per-leaf gradient tolerance: rtol, and atol as a share of the leaf's max
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-6
@@ -76,15 +92,18 @@ def perturb(tree, seed):
 
 def numpy_params(jc, seed=0):
     """The reference's parameters of `jc`, perturbed, as numpy."""
-    tree = jax.tree_util.tree_map(np.asarray,
-                                  jinit(jax.random.PRNGKey(seed), jc))
+    tree = jax.tree_util.tree_map(np.asarray, jax_init(jc, seed))
     return perturb(tree, seed + 100)
 
 
 def both_params(tree):
-    """numpy tree -> (JAX tree, port ParamTree on the CPU)."""
+    """numpy tree -> (JAX tree, port ParamTree on the CPU), sharing no
+    memory: on the CPU jnp.asarray may alias an aligned numpy buffer, and
+    a port optimizer updates its tensors in place while the JAX step
+    dispatched before it may still be reading."""
     return (jax.tree_util.tree_map(jnp.asarray, tree),
-            bridge.params_from_numpy(tree, device="cpu"))
+            bridge.params_from_numpy(jax.tree_util.tree_map(np.array, tree),
+                                     device="cpu"))
 
 
 def jax_leaves(tree):

@@ -6,6 +6,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 import repro.config as jcfg
 import repro.configs as jconfigs
@@ -33,9 +34,31 @@ def _fields(cls):
 @pytest.mark.parametrize("name", ["AltUpConfig", "SeqAltUpConfig",
                                   "MoEConfig", "MLAConfig", "SSMConfig",
                                   "RWKVConfig", "ModelConfig",
-                                  "OptimizerConfig", "TrainConfig"])
+                                  "OptimizerConfig", "TrainConfig",
+                                  "ShapeConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
+
+
+def test_shapes_match_reference():
+    assert tcfg.ALL_SHAPES == tuple(
+        tcfg.ShapeConfig(**dataclasses.asdict(s)) for s in jcfg.ALL_SHAPES)
+    assert list(tcfg.SHAPES_BY_NAME) == list(jcfg.SHAPES_BY_NAME)
+    assert tcfg.DECODE_32K == tcfg.SHAPES_BY_NAME["decode_32k"]
+    with pytest.raises(AssertionError):
+        tcfg.ShapeConfig("x", 8, 1, "serve")
+
+
+def test_hardware_config_names_match_reference_numbers_are_h100():
+    """The reference's field names (roofline_terms reads them by name);
+    the defaults are an H100 SXM's data-sheet numbers, not the
+    reference's: a deviation by design."""
+    assert list(_fields(tcfg.HardwareConfig)) == \
+        list(_fields(jcfg.HardwareConfig))
+    assert _fields(tcfg.HardwareConfig) == dict(
+        peak_flops=989e12, hbm_bw=3.35e12, ici_bw=450e9, hbm_bytes=80e9)
+    assert tcfg.H100_SXM == tcfg.HardwareConfig()
+    assert tcfg.H100_SXM_F32 == tcfg.HardwareConfig(peak_flops=67e12)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(smoke=True),

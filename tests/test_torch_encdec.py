@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 import repro.config as jcfg
 from repro.configs import t5 as jt5
@@ -54,7 +55,7 @@ from repro_torch.models import transformer as ttr
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.sampling import SamplingParams
 
-from _torch_train_util import (assert_leaves_close, jax_batch,
+from _torch_train_util import (assert_leaves_close, jax_batch, jax_init,
                                jit_value_and_grad, jax_leaves, port_leaves,
                                torch_batch)
 
@@ -121,16 +122,11 @@ def perturb(tree, seed):
     return tree
 
 
-@functools.lru_cache(maxsize=None)
-def jinit(jc):
-    return jax.jit(jtr.init_params, static_argnums=1)(
-        jax.random.PRNGKey(0), jc)
-
-
 def params(jc, seed=0):
     """(JAX tree, port ParamTree on the CPU) of the reference's
     parameters of `jc`, perturbed."""
-    tree = perturb(jax.tree_util.tree_map(np.asarray, jinit(jc)), seed + 1)
+    tree = perturb(jax.tree_util.tree_map(np.asarray, jax_init(jc)),
+                   seed + 1)
     return (jax.tree_util.tree_map(jnp.asarray, tree),
             bridge.params_from_numpy(tree, device="cpu"))
 

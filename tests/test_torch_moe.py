@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.config as jcfg

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 import repro.config as jcfg
 import repro.configs as jconfigs
@@ -114,7 +115,7 @@ def _as_jax(tree, dtype):
 
 def _as_torch(tree, dtype):
     return tree_lib.tree_map(lambda a: a.to(dtype), tree_lib.from_paths(
-        (p, torch.from_numpy(np.ascontiguousarray(a)))
+        (p, torch.from_numpy(np.array(a)))      # no memory shared with JAX
         for p, a in jax_leaves(tree).items()))
 
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 import repro.config as jcfg
 import repro.configs as jconfigs

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 from repro.serve import sampling as jsamp
 from repro_torch.serve import sampling as tsamp

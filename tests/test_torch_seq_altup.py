@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 from repro.core import sequence_altup as jsa
 from repro.data.pipeline import span_corruption_batch as jspan_batch

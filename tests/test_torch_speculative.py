@@ -32,6 +32,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 import repro.config as jcfg
 from repro.configs import get_config as jget_config
@@ -413,10 +414,12 @@ def _random_leaf(rng, shape, dtype):
 
 
 def _to_jax(t: torch.Tensor):
+    """A copy of t's bytes as a JAX array (jnp.array copies: jnp.asarray
+    may alias the buffer, which the port's helpers then write in place)."""
     if t.dtype == torch.float8_e4m3fn:
-        return jnp.asarray(t.view(torch.uint8).numpy().view(
+        return jnp.array(t.view(torch.uint8).numpy().view(
             ml_dtypes.float8_e4m3fn))
-    return jnp.asarray(t.numpy())
+    return jnp.array(t.numpy())
 
 
 def _same_ring_caches(jc, tc, rng, paged, B=2, T=16, n_pages=16, page=2):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 import repro.config as jcfg
 from repro.data.pipeline import make_batch as jmake_batch

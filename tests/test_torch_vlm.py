@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 
 from repro.data.pipeline import lm_batch as jlm_batch
 from repro.models.transformer import forward as jforward
