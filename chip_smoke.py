@@ -28,10 +28,13 @@ layers and one weight-tied shared attention block) wrapped with AltUp
 K=2, served at full width and depth and trained at 12 layers, and
 llava-next-mistral-7b (the VLM family, served text-only, trained with
 its 576 stub image tokens) and granite-3-2b, each wrapped with AltUp
-K=2. Phases:
+K=2; then serves over a tensor-parallel "model" axis (Engine(mesh=)): one
+NCCL rank, and two gloo ranks sharing the card. Phases:
 
   (a) device   card name and power limit, as nvidia-smi gives them
-  (b) build    nvcc build of every kernel, seconds and ptxas report
+  (b) build    nvcc build of every kernel, seconds and ptxas report;
+               the flash source (b-build-flash) finishes while phase c
+               checks the others, and is waited for before c-flash
   (c) kernels  each kernel vs its plain version at the shapes the serve
                phases give it (and at a spread of depths from 0 to
                2048): max error; device ms per call (torch.profiler) of
@@ -159,9 +162,10 @@ K=2. Phases:
                AltUp against float64, and the logits' magnitude
   (i) rwkv     8 greedy bf16 requests (prompts of 32-256 tokens, 32 new
                tokens) through Engine(n_slots=8, max_len=512) with the
-               prefix cache on: a max_new=1 donor over a prefix, then a
+               prefix cache on, at 8 of the 24 layers (I_SERVE_LAYERS,
+               since PR 28): a max_new=1 donor over a prefix, then a
                request extending it hits and serves a cold engine's
-               tokens; the WKV kernel launches 24 times per step;
+               tokens; the WKV kernel launches 8 times per step;
                i-graph replayed (every step of a recurrent plan is
                chunk 1, so every step replays), as e-graph
       i-paged  4 bf16 requests through Engine(paged=True) and the
@@ -195,7 +199,8 @@ K=2. Phases:
                full depth, and its hits' tokens equal a cold engine's
       j-quant  j-paged's traffic from int8 slot caches (the contiguous
                ring copy, j-quant-int8-graph) and from an fp8 pool
-               (j-quant-fp8-graph), both replayed only, each run's hits'
+               (j-quant-fp8-graph), both replayed only, at 6 layers (5
+               on rings, 1 global; since PR 28), each run's hits'
                tokens equal to a cold engine's
   (s) self-speculative decoding (greedy) through Engine(speculative=True),
       every round from replayed CUDA graphs (snapshot + draft + ring
@@ -242,8 +247,8 @@ K=2. Phases:
                threshold within its rounding: a top-p mass within the
                two sides' measured f32 cumsum errors added (or 1e-6), a
                min-p logit within 2e-6
-      u-parity f32, TF32 off, Qwen3-0.6B + AltUp K=2 at full width and
-               depth, 8 requests (greedy and sampled; temperatures
+      u-parity f32, TF32 off, Qwen3-0.6B + AltUp K=2 at full width, 8
+               layers (28 before PR 28), 8 requests (greedy and sampled; temperatures
                0.7-1.2, top_k 0 / 50, top_p 0.9 / 1.0, min_p 0 / 0.05,
                one with repetition_penalty 1.3 and logprobs): tokens of
                the eager engine identical to the replayed one
@@ -272,10 +277,10 @@ K=2. Phases:
                launch counts unchanged across the differentiated steps
       k-train  Trainer(device="cuda") on the registry's full qwen3-0.6b
                + AltUp K=2 (28 layers, bf16): the launcher's TrainConfig
-               at 30 steps of 8 x 512 tokens in 2 microbatches
-               (Adafactor, lr 0.3, warmup 10); gates: finite losses, the
-               last 5 averaging at least 1 nat below the first; median
-               step ms (steps 3-30), tokens/s, MFU over the bf16 dense
+               at 20 steps (30 before PR 28) of 8 x 512 tokens in 2
+               microbatches (Adafactor, lr 0.3, warmup 10); gates: finite
+               losses, the last 5 averaging at least 1 nat below the
+               first; median step ms (steps 3-20), tokens/s, MFU over the bf16 dense
                peak, peak memory; one more step under torch.profiler
                (device ms against the median: the busy share; the top
                kernels); the plain attention's and the cross entropy's
@@ -448,6 +453,27 @@ K=2. Phases:
                checkpoint, and a resume to 30: seconds and losses; gates:
                finite losses, serve_altup's paged tokens equal to its
                contiguous ones, no KV-cache bytes added by K=4
+  (t) tensor parallelism: Engine(mesh=) over a "model" axis
+      t-serve-a  one NCCL rank (a process group of one, make_mesh((1,),
+               ("model",))): Qwen3-0.6B + AltUp K=2 at full width and
+               depth served from replayed graphs through Engine(mesh=)
+               beside the un-meshed Engine, contiguous and paged; gates:
+               tokens, step counts and kernel launches identical, graphs
+               captured with their collectives; both engines' most
+               replayed step graph, device ms (the collectives' cost at
+               N = 1)
+      t-serve-b  two spawned ranks sharing the card over gloo (NCCL
+               refuses two ranks on one device), eager (gloo's
+               collectives cannot be captured): Qwen3-0.6B + AltUp K=2 at
+               4 layers (8 q / 4 kv heads a rank; contiguous and paged)
+               and qwen2-moe-a2.7b + AltUp K=2 at 2 layers (32 experts
+               a rank), full width; gates: every rank's tokens and kernel
+               launches equal to a one-rank run's at the same depth,
+               captures 0, logits within T_B_LOGIT_TOL of one rank's; a
+               collective that fails on CUDA tensors is printed, with
+               why, in place of the gates. Phase c's c-ragged / c-paged
+               cases t-* time the decode attention at the ranks' local
+               heads
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -470,6 +496,7 @@ result when no CUDA device is present, and fails when the repository's
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import importlib.util
@@ -2278,6 +2305,10 @@ def rwkv_parity_f32(torch):
 I_PREFIX, I_EXTEND, I_NEW = 64, 32, 32
 I_PROMPTS = (32, 128, 160, 192, 224, 256)
 I_SLOTS, I_MAX_LEN = 8, 512
+# (i)'s eager and replayed runs at 8 of the 24 layers (since PR 28, for
+# the run's time: the eager twin took 31-62 s at full depth); h-parity
+# and i-paged keep the full depth
+I_SERVE_LAYERS = 8
 
 
 def rwkv_traffic(torch, vocab):
@@ -2937,13 +2968,14 @@ def train_grad_f32(torch, ops):
     return res
 
 
-K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 30, 8, 512, 2, 0.3
+# 20 steps since PR 28 (30 before), for the run's time
+K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 20, 8, 512, 2, 0.3
 
 
 def train_full(torch, ops, workdir):
     """k-train: Trainer(device="cuda") on the registry's full qwen3-0.6b +
-    AltUp K=2 (28 layers, bf16), the launcher's TrainConfig at 30 steps
-    of 8 x 512 tokens in 2 microbatches (Adafactor, lr 0.3, warmup 10).
+    AltUp K=2 (28 layers, bf16), the launcher's TrainConfig at K_STEPS
+    steps of 8 x 512 tokens in 2 microbatches (Adafactor, lr 0.3, warmup 10).
     Gates: finite losses, the mean of the last 5 at least 1 nat below the
     first. Then one more step under torch.profiler (device time, top
     kernels) and the plain attention's and the cross entropy's device ms
@@ -2974,9 +3006,9 @@ def train_full(torch, ops, workdir):
            "steps": out["step"], "tokens_per_step": tokens,
            "microbatches": K_MB, "run_s": run_s,
            "first_step_s": tr.step_times[0],
-           "median_step_ms_3_30": 1e3 * med_s,
-           "p80_step_ms_3_30": 1e3 * float(np.percentile(tr.step_times[2:],
-                                                         80)),
+           "median_step_ms_from_3": 1e3 * med_s,
+           "p80_step_ms_from_3": 1e3 * float(
+               np.percentile(tr.step_times[2:], 80)),
            "tokens_per_s": tokens / med_s,
            "model_flops_per_token": flops_tok,
            "mfu_bf16_dense_peak": flops_tok * tokens / med_s
@@ -3546,6 +3578,7 @@ U_REQUESTS = (dict(),
               dict(),
               dict(temperature=1.1))
 U_SERVE = dict(temperature=0.8, top_k=50, top_p=0.95)     # u-serve
+U_PARITY_LAYERS = 8          # u-parity's depth (28 before PR 28, for time)
 
 
 def mask_margin(torch, z, k, p, m, j):
@@ -3643,8 +3676,8 @@ def sampling_rng(torch):
 
 
 def sampling_parity_f32(torch, ops):
-    """u-parity: sampled serving eager against replayed, f32, full width
-    and depth (see the module docstring)."""
+    """u-parity: sampled serving eager against replayed, f32, full width,
+    U_PARITY_LAYERS layers (see the module docstring)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.sampling import SamplingParams
@@ -3652,6 +3685,7 @@ def sampling_parity_f32(torch, ops):
     torch.backends.cudnn.allow_tf32 = False
     f32 = dict(dtype="float32", param_dtype="float32")
     gen = torch.Generator().manual_seed(63)
+    f32["n_layers"] = U_PARITY_LAYERS
     cfgs = {"auto": served_config(**f32),
             "int8": served_config(**f32, kv_cache_dtype="int8")}
     params = init_params(cfgs["auto"], seed=6, device=DEV)
@@ -5989,6 +6023,293 @@ def vlm_granite_phases(torch, ops, workdir):
     return res_v, res_g
 
 
+# ---------------------------------------------------------------------------
+# (t) tensor-parallel serving: Engine(mesh=) over a "model" axis
+# ---------------------------------------------------------------------------
+
+# t-serve-a: Qwen3-0.6B + AltUp K=2 at full width and depth, one NCCL rank
+T_PROMPTS, T_NEW, T_MAX_LEN, T_PAGE = (48, 96, 160, 224), 24, 512, 16
+# t-serve-b: two gloo ranks sharing the one card, eager; short prompts in
+# chunks of 16 (a chunk's logits are all-gathered through the host)
+T_RANKS, T_B_PROMPTS, T_B_NEW, T_B_CHUNK = 2, (16, 24, 32, 40), 8, 16
+T_B_LAYERS = 4              # Qwen3-0.6B's depth in t-serve-b
+T_B_MOE_LAYERS = 2          # qwen2-moe-a2.7b's
+T_B_TIMEOUT_S = 300
+# t-serve-b's logits over two ranks against one rank's, bf16: the partial
+# sums of wo and w2 are rounded to bf16 before their all-reduce, a
+# rounding the one-rank run does not make; of max(1, the logits' max |.|)
+T_B_LOGIT_TOL = 5e-2
+
+
+def tp_prompts(torch, vocab, lens, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in lens]
+
+
+def tp_serve(torch, ops, cfg, params, prompts, n_new, mesh=None,
+             paged=False, replay=True, chunk=64, max_len=T_MAX_LEN):
+    """One counted run of `prompts` (greedy, n_new tokens each) through
+    Engine(mesh=) (replay=False: the eager EagerEngine), after a warm-up
+    request outside the count. Returns the tokens, the kernels' launches
+    (counts set to 0 just before the run, read just after), the step
+    counts, the graph stats and, replayed, the device ms of the most
+    replayed step graph replayed back to back (CUDA events)."""
+    from repro_torch.serve.sampling import SamplingParams
+    kw = dict(paged=True, page_size=T_PAGE) if paged else {}
+    eng = engine_class(replay)(cfg, params, max_len=max_len,
+                               n_slots=len(prompts), prefill_chunk=chunk,
+                               mesh=mesh, device=DEV, **kw)
+    eng.submit(prompts[0][:8], sampling=SamplingParams(max_new=2))
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rids = [eng.submit(p, sampling=SamplingParams(max_new=n_new))
+            for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    res = {"launches": ops.launch_counts(),
+           "tokens": [list(out[r].tokens) for r in rids],
+           "stats": step_stats(eng), "graph_stats": eng.graph_stats}
+    gs = eng.graph_stats
+    if replay and gs and gs.get("replays"):
+        key = max(gs["replays_by_shape"], key=gs["replays_by_shape"].get)
+        res["replay_ms"] = time_ms(torch, eng._graphs._graphs[key][0].replay,
+                                   iters=20, warmup=3)
+        res["replayed_shape"] = list(key)
+    del eng
+    return res
+
+
+def tp_one_rank(torch, ops, workdir):
+    """t-serve-a: a process group of one NCCL rank and its mesh
+    (make_mesh((1,), ("model",))); Qwen3-0.6B + AltUp K=2 served from
+    replayed graphs through Engine(mesh=) beside the un-meshed Engine,
+    contiguous and paged. Gates: tokens, step counts and kernel launches
+    identical, graphs captured (with their collectives); prints both
+    replays' device ms: the cost of the captured collectives at N = 1."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    cfg = served_config()
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=11)
+    prompts = tp_prompts(torch, cfg.vocab_size, T_PROMPTS)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(workdir / "store-a"), 1), rank=0, world_size=1)
+    out = {"cfg": cfg_name(cfg), "prompt_lens": list(T_PROMPTS),
+           "new_tokens": T_NEW}
+    try:
+        mesh = make_mesh((1,), ("model",), device=DEV)
+        for paged in (False, True):
+            plain = tp_serve(torch, ops, cfg, params, prompts, T_NEW,
+                             paged=paged)
+            meshed = tp_serve(torch, ops, cfg, params, prompts, T_NEW,
+                              mesh=mesh, paged=paged)
+            for key in ("tokens", "stats", "launches"):
+                if meshed[key] != plain[key]:
+                    raise AssertionError(
+                        f"t-serve-a ({'paged' if paged else 'contiguous'}):"
+                        f" {key} over the mesh {meshed[key]} != un-meshed "
+                        f"{plain[key]}")
+            gm = meshed["graph_stats"]
+            if not gm["captures"] or gm["replays"] != \
+                    plain["graph_stats"]["replays"]:
+                raise AssertionError(f"t-serve-a: graphs {gm}")
+            out["paged" if paged else "contiguous"] = {
+                "tokens_identical": True, "launches": meshed["launches"],
+                "launches_identical": True, "captures": gm["captures"],
+                "replays": gm["replays"],
+                "replayed_shape": meshed["replayed_shape"],
+                "replay_ms": plain["replay_ms"],
+                "replay_ms_mesh": meshed["replay_ms"],
+                "collectives_ms": meshed["replay_ms"] - plain["replay_ms"]}
+    finally:
+        dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_logits_err(torch, cfg, params, shard, mesh, B=4, seed=6):
+    """max |logits over the mesh - un-meshed| and the un-meshed logits'
+    max |.| over a chunk of T_B_CHUNK seeded tokens and four S = 1 steps
+    (B slots); the un-meshed side on rank 0 only. Every rank calls the
+    meshed steps (they hold collectives)."""
+    from repro_torch.models import decode
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (B, T_B_CHUNK + 4),
+                        generator=gen).to(DEV)
+    caches = decode.init_cache(cfg, B, 64, device=DEV, mesh=mesh)
+    plain = (decode.init_cache(cfg, B, 64, device=DEV)
+             if mesh.get_rank() == 0 else None)
+    err = top = 0.0
+    steps = [(0, slice(0, T_B_CHUNK))] + [
+        (T_B_CHUNK + i, slice(T_B_CHUNK + i, T_B_CHUNK + i + 1))
+        for i in range(4)]
+    with torch.no_grad():
+        for pos, cols in steps:
+            got, _ = decode.decode_step(shard, cfg, caches, tok[:, cols], pos,
+                                        mesh=mesh)
+            if plain is None:
+                continue
+            want, _ = decode.decode_step(params, cfg, plain, tok[:, cols],
+                                         pos)
+            err = max(err, max_err(torch, got, want))
+            top = max(top, want.float().abs().max().item())
+    return err, top
+
+
+def tp_rank(rank, world, workdir):
+    """One rank of t-serve-b (a spawned process): a gloo process group on
+    the FileStore under `workdir`, the mesh over it on the card, then the
+    probe of each collective on CUDA tensors; if one raises, the rank
+    writes which and why and stops. Then every rank serves (b)'s traffic
+    on Qwen3-0.6B + AltUp K=2 (T_B_LAYERS layers, contiguous and paged)
+    and qwen2-moe-a2.7b + AltUp K=2 (T_B_MOE_LAYERS layers) through
+    Engine(mesh=), eager (gloo cannot be captured); rank 0 also serves
+    it un-meshed (EagerEngine) and measures the logits' distance. Writes
+    its results to rank<r>.json under workdir."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    res = {"rank": rank}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(workdir / "store-b"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((world,), ("model",), device=DEV)
+        for name, fn in (("all_reduce", sh.model_all_reduce),
+                         ("all_gather", sh.model_all_gather)):
+            try:
+                fn(torch.ones(4, 8, device=DEV, dtype=torch.bfloat16), mesh)
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as e:
+                res.update(collective_failed=name, error=repr(e))
+                return
+        for tag, cfg in (
+                ("qwen3", served_config(n_layers=T_B_LAYERS)),
+                ("qwen2_moe", moe_config(n_layers=T_B_MOE_LAYERS))):
+            t0 = time.perf_counter()
+            params = init_params(cfg, seed=1, device=DEV)
+            perturb_altup(torch, params, seed=11)
+            prompts = tp_prompts(torch, cfg.vocab_size, T_B_PROMPTS)
+            run = functools.partial(tp_serve, torch, ops, cfg, params,
+                                    prompts, T_B_NEW, chunk=T_B_CHUNK,
+                                    max_len=128)
+            r = {"mesh": run(mesh=mesh)}
+            if rank == 0:
+                r["one_rank"] = run(replay=False)
+            if tag == "qwen3":
+                r["mesh_paged"] = run(mesh=mesh, paged=True)
+                if rank == 0:
+                    r["one_rank_paged"] = run(replay=False, paged=True)
+            shard = sh.shard_params(params, cfg, mesh)
+            r["logits_err"], r["logits_max"] = tp_logits_err(
+                torch, cfg, params, shard, mesh)
+            r["kv_heads_local"] = sh.local_kv_heads(cfg, mesh)
+            r["seconds"] = time.perf_counter() - t0
+            res[tag] = r
+            del params, shard
+            torch.cuda.empty_cache()
+    finally:
+        (workdir / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def tp_two_ranks(torch, workdir):
+    """t-serve-b: T_RANKS spawned ranks sharing the one card over gloo
+    (NCCL refuses two ranks on one device). Gates, unless a collective
+    failed on CUDA tensors (then printed, with why): every rank's tokens
+    equal and equal to the one-rank run's at the same depth, each rank's
+    kernel launches equal to it, no graph captured (captures 0, said
+    why), and the logits within T_B_LOGIT_TOL of the un-meshed ones."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_rank, args=(T_RANKS, workdir),
+                             nprocs=T_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + T_B_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"t-serve-b ran past {T_B_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
+             for r in range(T_RANKS)]
+    out = {"ranks": T_RANKS, "backend": "gloo", "seconds":
+           time.perf_counter() - t0}
+    failed = [r for r in ranks if "collective_failed" in r]
+    if failed:
+        out.update(collective_failed=failed[0]["collective_failed"],
+                   error=failed[0]["error"])
+        return out
+    for tag in ("qwen3", "qwen2_moe"):
+        rec = {"layers": T_B_LAYERS if tag == "qwen3" else T_B_MOE_LAYERS,
+               "kv_heads_local": ranks[0][tag]["kv_heads_local"],
+               "logits_err": ranks[0][tag]["logits_err"],
+               "logits_max": ranks[0][tag]["logits_max"],
+               "seconds": max(r[tag]["seconds"] for r in ranks)}
+        for run in ("mesh", "mesh_paged"):
+            if run not in ranks[0][tag]:
+                continue
+            one = ranks[0][tag][run.replace("mesh", "one_rank")]
+            for r in ranks:
+                got = r[tag][run]
+                if got["tokens"] != one["tokens"] or \
+                        got["launches"] != one["launches"]:
+                    raise AssertionError(
+                        f"t-serve-b {tag} {run} rank {r['rank']}: tokens "
+                        f"{got['tokens']} launches {got['launches']} != "
+                        f"one rank's {one['tokens']} {one['launches']}")
+                if got["graph_stats"].get("captures") != 0:
+                    raise AssertionError(f"t-serve-b captured: "
+                                         f"{got['graph_stats']}")
+            rec[run] = {"tokens_identical": True,
+                        "launches": ranks[0][tag][run]["launches"],
+                        "graph_stats": ranks[0][tag][run]["graph_stats"]}
+        if rec["logits_err"] > T_B_LOGIT_TOL * max(1.0, rec["logits_max"]):
+            raise AssertionError(f"t-serve-b {tag}: logits {rec}")
+        out[tag] = rec
+    return out
+
+
+def check_tp_kernels(torch, ops, ref):
+    """Phase c's cases t-*: the decode attention's two entry points at
+    t-serve-b's local heads (a rank of Qwen3's 8 q / 4 kv heads, of
+    qwen2-moe's 8 / 8), halfway through its requests, against their
+    plain versions, timed. {case: record}."""
+    from repro_torch.serve.engine import kv_bucket
+    lens = [n + T_B_NEW // 2 for n in T_B_PROMPTS] * 2
+    t_max = kv_bucket(max(lens), 32, 128)
+    kern = {}
+    for case, hk, rep in (("t-qwen3", 4, 2), ("t-qwen2-moe", 8, 1)):
+        kern[case + "-ragged"] = check_ragged(
+            torch, ops, ref, torch.bfloat16, lens, Hk=hk, rep=rep, T=t_max)
+    reserve = [pages_for(n + T_B_NEW, T_PAGE) for n in T_B_PROMPTS] * 2
+    kern["t-qwen3-paged"] = check_paged(
+        torch, ops, ref, torch.bfloat16, lens, reserve, n_pages=64, Hk=4,
+        rep=2, T=128, t_max=t_max, page=T_PAGE)
+    return kern
+
+
+def tp_phases(torch, ops, workdir):
+    """(t): t-serve-a, then t-serve-b. Returns (b)'s result."""
+    t_t = time.perf_counter()
+    line("t-serve-a", **tp_one_rank(torch, ops, workdir))
+    res_b = tp_two_ranks(torch, workdir)
+    line("t-serve-b", **res_b)
+    line("t-phases", seconds=time.perf_counter() - t_t)
+    return res_b
+
+
 def _device_kernels(prof):
     """key_averages() entries of the kernels run on the card (the CPU-side
     ops that launched them carry the same time again, so only these are
@@ -6179,15 +6500,25 @@ def main(argv) -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          capability=list(torch.cuda.get_device_capability(0)))
 
-    # (b) build, one nvcc per source, all started together
+    # (b) build, one nvcc per source, all started together; the flash
+    # source (45-70 s of nvcc, the others ~8 s) finishes in a thread while
+    # phase c checks the other kernels, and is waited for before c-flash
     from repro_torch.kernels import build, ops, ref
     t0 = time.perf_counter()
-    info = build.build()
-    ptxas = {n: [ln.split("ptxas info    : ")[-1] for ln in i["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, i in info.items()}
-    line("b-build", seconds=time.perf_counter() - t0,
-         per_source={n: i["seconds"] for n, i in info.items()}, ptxas=ptxas)
+    flash_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build.build, ["flash_attention"])
+    info = build.build([n for n in build.sources()
+                        if n != "flash_attention"])
+
+    def built(tag, info):
+        ptxas = {n: [ln.split("ptxas info    : ")[-1]
+                     for ln in i["log"].splitlines()
+                     if "registers" in ln or "spill" in ln]
+                 for n, i in info.items()}
+        line(tag, seconds=time.perf_counter() - t0,
+             per_source={n: i["seconds"] for n, i in info.items()},
+             ptxas=ptxas)
+    built("b-build", info)
 
     # (c) kernels vs their plain versions, f32 products in full precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6292,6 +6623,11 @@ def main(argv) -> int:
                "c-paged" if "paged" in case else "c-ragged")
         line(tag, case=case, **r)
     line("c-zv-seconds", seconds=time.perf_counter() - t0)
+    # the decode attention at t-serve-b's local heads (a rank of two)
+    t_kern = check_tp_kernels(torch, ops, ref)
+    for case, r in t_kern.items():
+        line("c-paged" if "paged" in case else "c-ragged",
+             case=case.removesuffix("-ragged").removesuffix("-paged"), **r)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -6309,6 +6645,8 @@ def main(argv) -> int:
             line("c-wkv", case=case, **r)
         line("c-wkv", case="zero-state",
              **check_wkv_zero_state(torch, ops, dtype))
+
+    built("b-build-flash", flash_build.result())
 
     # flash attention through ops.mha_flash / mha_flash_paged: the timed
     # full-width cases, the edge shapes, the skip ratio, then the paged
@@ -6400,7 +6738,8 @@ def main(argv) -> int:
 
     # (i) rwkv6-1.6b: bf16 serving through Engine with prefix reuse
     res_i, res_i_r = serve_pair(serve_recurrent_bf16, "i-rwkv-serve",
-                                "i-graph", "f-profile-rwkv")
+                                "i-graph", "f-profile-rwkv",
+                                cfg=rwkv_config(n_layers=I_SERVE_LAYERS))
     # (i-paged) the same plan through a page pool: its recurrent state
     # stays per slot, replayed, tokens as the contiguous engine's
     t0 = time.perf_counter()
@@ -6437,12 +6776,15 @@ def main(argv) -> int:
     res_j_r = gemma_pair("j-serve", "j-graph")
     res_jp_r = gemma_pair("j-paged", "j-paged-graph", paged=True,
                           prefix_cache=True)
+    # the quantized runs at J_TWIN_LAYERS (since PR 28, for the run's
+    # time: ~37 s each at full depth)
     res_jq_r = serve_gemma(torch, ops, kind="int8", prefix_cache=True,
-                           replay=True, cold_check=True)[0]
+                           replay=True, cold_check=True,
+                           n_layers=J_TWIN_LAYERS)[0]
     line("j-quant-int8-graph", **res_jq_r)
     res_jqp_r = serve_gemma(torch, ops, kind="fp8", paged=True,
                             prefix_cache=True, replay=True,
-                            cold_check=True)[0]
+                            cold_check=True, n_layers=J_TWIN_LAYERS)[0]
     line("j-quant-fp8-graph", **res_jqp_r)
 
     # (s) self-speculative decoding: f32 parity of speculative against
@@ -6514,6 +6856,12 @@ def main(argv) -> int:
     # (x) the three examples, as a user runs them, on the card
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         example_phases(torch, Path(work))
+
+    # (t) tensor-parallel serving through Engine(mesh=): one NCCL rank
+    # from replayed graphs against the un-meshed engine, two gloo ranks
+    # sharing the card, eager, against one rank
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        res_tp = tp_phases(torch, ops, Path(work))
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
@@ -6668,6 +7016,25 @@ def main(argv) -> int:
                  else "ragged_decode_attention.py:210"),
              "launches": res_run["launches"][counter],
              **{k: zv_kern[case][k] for k in keys}})
+    # the decode attention at t-serve-b's local heads, with the launches of
+    # its rank 0 (none when a collective failed on CUDA tensors)
+    for name, suffix, tag, run, case in (
+            ("ragged_decode_attention", "qwen3", "qwen3", "mesh",
+             "t-qwen3-ragged"),
+            ("paged_ragged_decode_attention", "qwen3", "qwen3",
+             "mesh_paged", "t-qwen3-paged"),
+            ("ragged_decode_attention", "qwen2_moe", "qwen2_moe", "mesh",
+             "t-qwen2-moe-ragged")):
+        if tag not in res_tp:
+            continue
+        kernels.append(
+            {"name": f"{name}_tp{T_RANKS}_{suffix}", "route": "cuda",
+             "source": "src/repro_torch/csrc/ragged_decode_attention.cu",
+             "replaces": "src/repro/kernels/" + (
+                 "ragged_decode_attention.py:122" if "paged" in name
+                 else "ragged_decode_attention.py:210"),
+             "launches": res_tp[tag][run]["launches"][name],
+             **{k: t_kern[case][k] for k in keys}})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -206,6 +206,17 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    data: int = 1
+    model: int = 1
+    pod: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model * self.pod
+
+
+@dataclass(frozen=True)
 class ShapeConfig:
     """One (input-shape) cell of the assignment."""
     name: str

@@ -109,6 +109,12 @@ prefix cache's hits, codes and scales in lockstep.
 
 Caches are built from the ACTIVE d-wide sub-block only, so the widened
 (K*d) stream adds zero bytes to the KV cache (paper Sec. 3.2).
+
+Over a mesh's "model" axis (`mesh=`, sharding.py) every function here
+runs on the rank's shard: caches hold the rank's kv heads
+(sharding.local_kv_heads; latents and recurrent state whole), attention
+and FFN run sharded with their all-reduces, the logits come back whole.
+The row helpers below are slot-local and unchanged on each rank.
 """
 from __future__ import annotations
 
@@ -119,15 +125,16 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
 from repro_torch.kernels import quant, resolve_kernel_flag
 from repro_torch.models import layers as L
-from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import (Segment, act_dtype, embed_tokens,
-                                            layer_plan, layer_slice,
-                                            mamba_layer, rwkv_layer,
-                                            segment_params, unembed)
+                                            ffn_half, layer_plan,
+                                            layer_slice, mamba_layer,
+                                            rwkv_layer, segment_params,
+                                            unembed)
 from repro_torch.serve.sampling import sample_rows, update_seen
 
 
@@ -164,7 +171,8 @@ def _raw(t: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
-               device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+               device="cuda", *,
+               mesh=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Zero caches for a max sequence length T on `device`: T + 1 rows per
     slot, the last one the sink of dropped writes; a sliding-window
     segment's ring holds min(T, window) + 1. dtype: the float k/v
@@ -172,10 +180,12 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     activation dtype); quantized k/v are int8 / float8_e4m3fn codes with
     f32 (n, B, T + 1, Hk) scales, and the rwkv and mamba states are f32
     whatever it is. A shared_attn invocation's k/v are unstacked (B, T +
-    1, Hk, Dh)."""
+    1, Hk, Dh). mesh: the "model" axis; k, v and their scales then hold
+    this rank's kv heads (sharding.local_kv_heads), latents whole."""
+    sh.require_model_axis(cfg, mesh)
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
-    dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
+    dh, hk = cfg.resolved_head_dim, sh.local_kv_heads(cfg, mesh)
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
         if seg.kind in ("rwkv", "mamba"):
@@ -252,8 +262,8 @@ def _attn_leaves(spec, dtype, rows, dh: int, dev):
 
 
 def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
-                     page: int, dtype=None,
-                     device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+                     page: int, dtype=None, device="cuda",
+                     mesh=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Zero PAGED caches on `device`: the attention k/v leaves (and their
     scales, quantized) drop the per-slot batch axis and pool their rows,
     (n, R + page, Hk, Dh) per segment with R = n_pages * page, shared by
@@ -275,13 +285,14 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     live page of another request). Here row R is the sink's first row, so
     such writes land where nothing is read. An encoder-decoder config
     raises: paged caches serve decoder-only models, as in the
-    reference."""
+    reference. mesh: as init_cache's."""
     if cfg.family == "encdec":
         raise NotImplementedError("paged caches serve decoder-only models; "
                                   "use contiguous caches for encdec")
+    sh.require_model_axis(cfg, mesh)
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
-    dh, hk = cfg.resolved_head_dim, cfg.n_kv_heads
+    dh, hk = cfg.resolved_head_dim, sh.local_kv_heads(cfg, mesh)
     rows = (n_pages + 1) * page
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
@@ -471,26 +482,21 @@ def decode_positions(pos, S: int, Tc: int, ring: bool, *, n_valid=None,
             "lengths": lengths, "Tb": Tb}
 
 
-def _decode_ffn(p_l, cfg: ModelConfig, x):
+def _decode_ffn(p_l, cfg: ModelConfig, x, mesh=None):
     """Dense-or-MoE FFN half of a decode layer (B*S tokens; S=1 decode
     ticks, S=chunk during chunked prefill). MoE capacity is pinned to the
     step's token count (drop-free), as in the reference: a token's
     routing does not depend on the other requests in the batch, so
     continuous batching gives per-request decode's tokens and padded
     chunk tokens cannot evict real ones."""
-    h = L.rms_norm(x, p_l["ln_ffn"], cfg.logical_norm_eps)
-    if "moe" in p_l:
-        f, _ = moe_lib.moe_block(p_l["moe"], cfg.moe, h,
-                                 activation=cfg.ffn_activation,
-                                 capacity=h.shape[0] * h.shape[1])
-    else:
-        f = L.ffn_block(p_l["ffn"], h, cfg.ffn_activation)
-    return x + f
+    return ffn_half(p_l, cfg, x, capacity=x.shape[0] * x.shape[1],
+                    mesh=mesh)[0]
 
 
 def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
                 pinfo=None, n_valid=None, kv_len=None, use_ragged=False,
-                cache_ks=None, cache_vs=None, paged=None, cross=None):
+                cache_ks=None, cache_vs=None, paged=None, cross=None,
+                mesh=None):
     """One decode layer: attention over + write into the cache slice, then
     the FFN.
 
@@ -521,8 +527,10 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     cross: (cross_p, k, v) of an encoder-decoder layer — its ln_cross +
     cross block and its (B, S_enc, Hk, Dh) cross cache: after the
     self-attention, a dense unmasked attention over the encoder's keys
-    at positions 0..S_enc-1, as the reference computes it. Returns (x,
-    cache dict of the layer's leaves)."""
+    at positions 0..S_enc-1, as the reference computes it. mesh: the
+    "model" axis (sharding.py): the caches hold the rank's kv heads, and
+    the attention and FFN run sharded. Returns (x, cache dict of the
+    layer's leaves)."""
     ring = int(window) > 0
     spec = kv_quant_spec(cfg)
     if spec.quantized and (cache_ks is None or cache_vs is None):
@@ -562,6 +570,8 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     # project this step's k, v and write them into the cache
     k_new = torch.einsum("bsd,dhk->bshk", h, p_l["attn"]["wk"].to(x.dtype))
     v_new = torch.einsum("bsd,dhk->bshk", h, p_l["attn"]["wv"].to(x.dtype))
+    k_new = sh.select_kv(k_new, cfg, mesh)
+    v_new = sh.select_kv(v_new, cfg, mesh)
     if cfg.qk_norm:
         k_new = L.rms_norm(k_new, p_l["attn"]["k_norm"])
     if not cfg.use_rel_pos_bias:            # T5 has no RoPE
@@ -583,7 +593,7 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
             _update_at(leaf, new, pinfo["wrows"])
     if chunk_ring:
         a = _chunk_ring_attn(p_l, cfg, h, pre, k_new, v_new, ks_new, vs_new,
-                             pinfo, Tc, window, spec)
+                             pinfo, Tc, window, spec, mesh)
     else:
         lengths = (pinfo["lengths"].expand(x.shape[0]) if use_ragged
                    else None)
@@ -599,7 +609,7 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
         a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
                                  q_pos=q_pos, k_pos=k_pos, kv=kv,
                                  ragged_lengths=lengths, kv_scales=scales,
-                                 paged_kv=paged_kv)
+                                 paged_kv=paged_kv, mesh=mesh)
     x = x + a
     if cross is not None:
         cp, ck, cv = cross
@@ -612,11 +622,11 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     out = {"k": cache_k, "v": cache_v}
     if spec.quantized:
         out.update(k_scale=cache_ks, v_scale=cache_vs)
-    return _decode_ffn(p_l, cfg, x), out
+    return _decode_ffn(p_l, cfg, x, mesh), out
 
 
 def _chunk_ring_attn(p_l, cfg: ModelConfig, h, pre, k_new, v_new, ks_new,
-                     vs_new, pinfo, Tc: int, window, spec):
+                     vs_new, pinfo, Tc: int, window, spec, mesh=None):
     """Attention of a chunk (S > 1) on a ring: over the pre-chunk rows
     `pre` ([k, v] or, quantized, [k, v, k_scale, v_scale] codes, read
     before the chunk's writes) at their positions at depth pos - 1, then
@@ -638,12 +648,14 @@ def _chunk_ring_attn(p_l, cfg: ModelConfig, h, pre, k_new, v_new, ks_new,
     kcat = torch.cat([pre_k, fresh_k.to(pre_k.dtype)], dim=1)
     vcat = torch.cat([pre_v, fresh_v.to(pre_v.dtype)], dim=1)
     a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
-                             q_pos=q_pos, k_pos=kp, kv=(kcat, vcat))
+                             q_pos=q_pos, k_pos=kp, kv=(kcat, vcat),
+                             mesh=mesh)
     return a
 
 
 def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
-               n_valid=None, kv_len=None, cache_lat_s=None, paged=None):
+               n_valid=None, kv_len=None, cache_lat_s=None, paged=None,
+               mesh=None):
     """One DeepSeek decode layer: multi-head latent attention over + write
     into the latent cache, then the dense or MoE FFN.
 
@@ -657,7 +669,9 @@ def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
     view, or gathered in logical order through the block table),
     dequantizes them densely and runs layers.mla_attention: the
     reference has no MLA kernel, and neither has the port. MLA caches are
-    never rings. Returns (x, cache dict of the layer's leaves)."""
+    never rings. mesh: the "model" axis the attention's heads and the FFN
+    are sharded over; the latent cache is whole on every rank. Returns
+    (x, cache dict of the layer's leaves)."""
     spec = kv_quant_spec(cfg)
     if spec.quantized and cache_lat_s is None:
         raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} needs the "
@@ -694,11 +708,11 @@ def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
     if spec.quantized:
         latr = quant.dequantize(latr, read(cache_lat_s), x.dtype)
     x = x + L.mla_attention(p_l["attn"], cfg, h, latr, q_pos=q_pos,
-                            k_pos=pinfo["k_pos"])
+                            k_pos=pinfo["k_pos"], mesh=mesh)
     out = {"latent": cache_lat}
     if spec.quantized:
         out["latent_scale"] = cache_lat_s
-    return _decode_ffn(p_l, cfg, x), out
+    return _decode_ffn(p_l, cfg, x, mesh), out
 
 
 def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
@@ -745,7 +759,8 @@ def altup_selectors(K: int, selection: str, layer_offset: int, n: int,
 def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    n_valid=None, kv_len=None, use_ragged=False,
                    use_fused=False, paged=None,
-                   wkv_kernel: Optional[bool] = None, cross_stack=None):
+                   wkv_kernel: Optional[bool] = None, cross_stack=None,
+                   mesh=None):
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
     place. paged: optional (block_table, page) — the segment's caches are
     row pools and the logical capacity Tc is the table's row span, capped
@@ -754,7 +769,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
     invocation of the hybrid's tied block: p_seg is `shared_blk` and its
     cache leaves are unstacked. cross_stack: an encoder-decoder
     decoder's (stacked enc/cross blocks, the caches' "cross" entry),
-    indexed by global layer."""
+    indexed by global layer. mesh: the "model" axis (sharding.py)."""
     K = cfg.altup.K
     S = x.shape[1]
     shared = seg.kind == "shared_attn"
@@ -799,7 +814,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                 return decode_mla(
                     p_l, cfg, xa, leaf("latent", i), pos, pinfo=pinfo,
                     cache_lat_s=leaf("latent_scale", i),
-                    paged=pg_seg)[0]
+                    paged=pg_seg, mesh=mesh)[0]
             cross = None
             if cross_stack is not None:
                 cp, cc = cross_stack
@@ -809,7 +824,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                 p_l, cfg, xa, leaf("k", i), leaf("v", i), pos, seg.window,
                 pinfo=pinfo, use_ragged=use_ragged,
                 cache_ks=leaf("k_scale", i), cache_vs=leaf("v_scale", i),
-                paged=pg_seg, cross=cross)
+                paged=pg_seg, cross=cross, mesh=mesh)
             return out
     sels = None
     if cfg.altup.enabled:
@@ -831,7 +846,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
                 n_valid=None, kv_len=None, block_table=None, page_size=0,
-                wkv_kernel: Optional[bool] = None):
+                wkv_kernel: Optional[bool] = None, mesh=None):
     """Advance every sequence by its next token(s).
 
     tokens: (B, S) int — S is 1 for decode ticks; chunked prefill feeds
@@ -845,20 +860,23 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     page map on the caches' device; pos must be a per-slot (B,) tensor.
     wkv_kernel: the RWKV-6 recurrence through the WKV kernel wrapper
     (resolve_kernel_flag; None = on CUDA tensors). An encoder-decoder
-    model reads its caches' "cross" entry, which prefill filled. Returns
-    (logits (B, S, V_pad), caches), the caches written in place.
+    model reads its caches' "cross" entry, which prefill filled. mesh:
+    the "model" axis `params` (shard_params') and `caches` (init_cache's
+    or init_paged_cache's with the same mesh) are sharded over; the
+    logits are whole on every rank. Returns (logits (B, S, V_pad),
+    caches), the caches written in place.
     """
     kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
     cross_stack = ((params["enc"]["cross"], caches["cross"])
                    if cfg.family == "encdec" else None)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, mesh=mesh)
     for si, seg in enumerate(layer_plan(cfg)):
         x, _ = decode_segment(segment_params(params, seg, si),
                               caches[f"seg{si}"], seg, cfg, x, pos,
                               n_valid=n_valid, kv_len=kv_len,
                               wkv_kernel=wkv_kernel, cross_stack=cross_stack,
-                              **kw)
-    return unembed(params, cfg, x), caches
+                              mesh=mesh, **kw)
+    return unembed(params, cfg, x, mesh=mesh), caches
 
 
 def _step_kwargs(cfg: ModelConfig, tokens, pos, block_table, page_size):
@@ -884,7 +902,7 @@ def _step_kwargs(cfg: ModelConfig, tokens, pos, block_table, page_size):
 
 def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
                draft_layers: int, n_valid=None, kv_len=None,
-               block_table=None, page_size=0):
+               block_table=None, page_size=0, mesh=None):
     """Predict-only DRAFT forward for self-speculative decoding
     (serve/speculative.py).
 
@@ -910,36 +928,39 @@ def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
         raise ValueError(f"draft_layers={D} out of range [1, "
                          f"{cfg.n_layers}]")
     kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, mesh=mesh)
     for si, seg in enumerate(layer_plan(cfg)):
         p_seg = segment_params(params, seg, si)
         m = min(max(D - seg.layer_offset, 0), seg.n)   # layers that run
         if m > 0:
             head = seg if m == seg.n else dataclasses.replace(seg, n=m)
             x, _ = decode_segment(p_seg, caches[f"seg{si}"], head, cfg, x,
-                                  pos, n_valid=n_valid, kv_len=kv_len, **kw)
+                                  pos, n_valid=n_valid, kv_len=kv_len,
+                                  mesh=mesh, **kw)
         if m < seg.n and cfg.altup.enabled:
             comp = (p_seg["altup_p"] if seg.kind == "shared_attn" else
                     alt.compose_predictors(p_seg["altup_p"], start=m))
             x = alt.predict(x, comp)
-    return unembed(params, cfg, x), caches
+    return unembed(params, cfg, x, mesh=mesh), caches
 
 
 def decode_sample_step(params, caches, seen, tokens, pos, n_valid, sparams,
                        *, cfg: ModelConfig, kv_len=None, want_logprobs=False,
-                       any_sampled=False, block_table=None, page_size=0):
+                       any_sampled=False, block_table=None, page_size=0,
+                       mesh=None):
     """Decode + on-device sampling — the serving hot path's step.
 
     Runs decode_step, gathers each slot's sampled logits row (row
     n_valid-1, vocab-truncated) on the device, folds this step's fed
     tokens into the repetition-penalty `seen` table (in place), and
     samples per slot (serve/sampling.sample_rows). block_table/page_size:
-    paged mode, as decode_step. Returns (ids, logprobs|None, caches,
+    paged mode, and mesh, as decode_step: every rank samples the same ids
+    from the same whole logits. Returns (ids, logprobs|None, caches,
     seen)."""
     logits, caches = decode_step(params, cfg, caches, tokens, pos,
                                  n_valid=n_valid, kv_len=kv_len,
                                  block_table=block_table,
-                                 page_size=page_size)
+                                 page_size=page_size, mesh=mesh)
     B = tokens.shape[0]
     rows = logits[torch.arange(B, device=logits.device),
                   torch.clamp(n_valid.to(torch.long) - 1, min=0),
@@ -951,7 +972,7 @@ def decode_sample_step(params, caches, seen, tokens, pos, n_valid, sparams,
 
 
 def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
-            encoder_frames=None):
+            encoder_frames=None, mesh=None):
     """Run the full prompt one token at a time and build caches of
     capacity T (for the static generate() path and tests — decode_step
     consumes the result). step_fn: optional (params, caches, tokens, pos)
@@ -960,9 +981,10 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
     ids or float frames, as forward's): `encode` runs once, without
     autograd, and each decoder layer's cross k/v over its output (RoPE'd
     by encoder position unless use_rel_pos_bias) fill the caches' "cross"
-    entry, at the encoder output's length."""
+    entry, at the encoder output's length. mesh: the "model" axis
+    (decode_step's); step_fn then runs under it as the caller made it."""
     B, S = tokens.shape
-    caches = init_cache(cfg, B, T, device=tokens.device)
+    caches = init_cache(cfg, B, T, device=tokens.device, mesh=mesh)
     if cfg.family == "encdec":
         if encoder_frames is None:
             raise ValueError("an encoder-decoder prefill needs "
@@ -970,7 +992,7 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
         caches["cross"] = cross_caches(params, cfg, encoder_frames)
     if step_fn is None:
         def step_fn(p, c, tk, ps):
-            return decode_step(p, cfg, c, tk, ps)
+            return decode_step(p, cfg, c, tk, ps, mesh=mesh)
     logits = None
     for t in range(S):
         logits, caches = step_fn(params, caches, tokens[:, t:t + 1], t)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant
@@ -213,7 +214,7 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                     causal: Optional[bool] = None,
                     ragged_lengths: Optional[torch.Tensor] = None,
                     kv_scales: Optional[tuple] = None,
-                    paged_kv: Optional[tuple] = None):
+                    paged_kv: Optional[tuple] = None, mesh=None):
     """Full attention sub-block (no residual, no pre-norm — caller owns
     those).
 
@@ -237,7 +238,13 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     POOL ((R, Hk, Dh) each, scales (R, Hk)) and attention must take the
     paged kernel path: a pool has no dense (B, T, ...) layout for sdpa, so
     anything else raises.
+    mesh: the "model" axis (sharding.py). Where it divides n_heads the
+    block runs on the rank's heads (the local wq / wo, and kv heads as
+    sharding.local_kv_heads says: k and v, computed here or given, are
+    the rank's) and all-reduces its output after wo; otherwise it runs
+    whole, with no collective.
     """
+    tp = mesh if sh.heads_sharded(cfg, mesh) else None
     causal = cfg.causal if causal is None else causal
     use_rope = not cfg.use_rel_pos_bias
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
@@ -249,6 +256,7 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
         src = x if x_kv is None else x_kv
         k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
         v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
+        k, v = sh.select_kv(k, cfg, tp), sh.select_kv(v, cfg, tp)
         if cfg.qk_norm:
             k = rms_norm(k, p["k_norm"])
         if use_rope:
@@ -276,6 +284,8 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
         out = sdpa(q, k, v, causal=causal, window=window, q_pos=q_pos,
                    k_pos=k_pos, bias=bias)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if tp is not None:
+        sh.model_all_reduce(out, tp)
     return out, (k, v)
 
 
@@ -326,18 +336,20 @@ def mla_attention(p, cfg: ModelConfig, x: torch.Tensor,
     into the output, so the cache stays (r + qr) wide whatever the head
     count. Scores and the softmax run in f32 over q_c . c + q_rope .
     k_rope, keys after a query masked (rel >= 0); the latent-space output
-    is cast to x's dtype before W_uv, as in the reference. mesh: head
-    sharding arrives with ROADMAP A11 and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "MLA over a mesh (mla_attn_pins) is not ported yet: it "
-            "arrives with ROADMAP A11")
+    is cast to x's dtype before W_uv, as in the reference. mesh: the
+    "model" axis (sharding.py). Where it divides n_heads, wq_b, wk_b, wv_b
+    and wo hold the rank's heads and the output is all-reduced after wo;
+    where it divides q_lora_rank, wq_a holds the rank's columns and q_a
+    is all-gathered before its norm. The latent is whole on every rank."""
+    tp = mesh if sh.heads_sharded(cfg, mesh) else None
     m = cfg.mla
     r, qk = m.kv_lora_rank, m.qk_nope_head_dim
     f32 = torch.float32
     c, k_rope = latent[..., :r], latent[..., r:]          # (B,T,r),(B,T,qr)
-    q_a = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype)),
-                   p["q_a_norm"])
+    q_a = torch.einsum("bsd,dr->bsr", x, p["wq_a"].to(x.dtype))
+    if mesh is not None and sh.divides(m.q_lora_rank, mesh):
+        q_a = sh.model_all_gather(q_a, mesh)
+    q_a = rms_norm(q_a, p["q_a_norm"])
     q = torch.einsum("bsr,rhk->bshk", q_a, p["wq_b"].to(x.dtype))
     q_nope = q[..., :qk]
     q_rope = apply_rope(q[..., qk:], q_pos, cfg.rope_theta)
@@ -358,7 +370,10 @@ def mla_attention(p, cfg: ModelConfig, x: torch.Tensor,
     out_c = torch.einsum("bhst,btr->bshr", probs, c.to(f32))
     out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype),
                        p["wv_b"].to(x.dtype))              # absorb W_uv
-    return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
+    out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
+    if tp is not None:
+        sh.model_all_reduce(out, tp)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -373,10 +388,15 @@ def init_ffn(d: int, f: int, dtype, generator, device) -> dict:
     }
 
 
-def ffn_block(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+def ffn_block(p, x: torch.Tensor, activation: str = "silu",
+              mesh=None) -> torch.Tensor:
+    """mesh: the "model" axis w1 / w3 (columns) and w2 (rows) are sharded
+    over (sharding.sharded_over), the partial sums all-reduced after w2;
+    None when the weights are whole."""
     # the reference's jax.nn.gelu defaults to the tanh approximation
     act = F.silu if activation == "silu" else \
         (lambda t: F.gelu(t, approximate="tanh"))
     h = act(torch.einsum("...d,df->...f", x, p["w1"].to(x.dtype)))
     h = h * torch.einsum("...d,df->...f", x, p["w3"].to(x.dtype))
-    return torch.einsum("...f,fd->...d", h, p["w2"].to(x.dtype))
+    out = torch.einsum("...f,fd->...d", h, p["w2"].to(x.dtype))
+    return out if mesh is None else sh.model_all_reduce(out, mesh)

@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.config import MoEConfig
 from repro_torch.models.layers import dense_init, ffn_block, init_ffn
 
@@ -106,25 +107,35 @@ def _dispatch_indices(top_i: torch.Tensor, E: int):
     return order, slot, expert_sorted
 
 
-def moe_ffn_local(p, moe: MoEConfig, x: torch.Tensor,
-                  capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device routed-experts FFN. x: (n, d) -> ((n, d), aux)."""
+def moe_ffn_local(p, moe: MoEConfig, x: torch.Tensor, capacity: int,
+                  first: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-device routed-experts FFN. x: (n, d) -> ((n, d), aux).
+
+    first: the global id of the first expert in p's w1 / w2 / w3, which
+    may hold a slice of the experts (a rank's, under a mesh): every
+    token is routed over all of them, and only the assignments to the
+    experts held contribute to the output, which is then a partial sum."""
     n, d = x.shape
     E, k, C = moe.padded_experts, moe.top_k, int(capacity)
+    El = p["w1"].shape[0]
     top_p, top_i, (f_e, P_e) = router_probs(p, moe, x)
     aux = aux_loss(moe, f_e, P_e)
     order, slot, expert_sorted = _dispatch_indices(top_i, E)
-    keep = slot < C
+    local = expert_sorted - first
+    held = (local >= 0) & (local < El)
+    keep = (slot < C) & held
+    local = torch.where(held, local, torch.zeros_like(local))
     tok_sorted = order // k
     row = torch.where(keep, slot, torch.full_like(slot, C))
-    # (E, C + 1, d): row C takes the dropped assignments, then goes
-    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
-    buf[expert_sorted, row] = x[tok_sorted]
+    # (El, C + 1, d): row C takes the dropped assignments (and those to
+    # experts not held), then goes
+    buf = torch.zeros((El, C + 1, d), dtype=x.dtype, device=x.device)
+    buf[local, row] = x[tok_sorted]
     buf = buf[:, :C]
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w1"].to(x.dtype)))
     h = h * torch.einsum("ecd,edf->ecf", buf, p["w3"].to(x.dtype))
     out_buf = torch.einsum("ecf,efd->ecd", h, p["w2"].to(x.dtype))
-    y_sorted = out_buf[expert_sorted, torch.clamp(slot, max=C - 1)]
+    y_sorted = out_buf[local, torch.clamp(slot, max=C - 1)]
     y_sorted = torch.where(keep[:, None], y_sorted,
                            torch.zeros_like(y_sorted))
     w_sorted = top_p.reshape(-1)[order].to(x.dtype)
@@ -158,15 +169,28 @@ def moe_block(p, moe: MoEConfig, x: torch.Tensor, *, mesh=None,
     `capacity` per expert (default capacity_for(B * S), with drops).
     Decode passes capacity = B * S, which makes routing drop-free, so a
     token's output does not depend on the other requests in the batch.
-    mesh: expert parallelism arrives with ROADMAP A11 and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh (moe_ffn_ep) is not ported "
-            "yet: it arrives with ROADMAP A11")
+
+    mesh: the "model" axis (sharding.py), drop-free only (capacity >= B *
+    S) over more than one rank. Tokens are whole on every rank, so each
+    rank routes all of them with the replicated router, runs the experts
+    it holds (the expert axis is sharded when the model size divides
+    it) and all-reduces the partial sum; the shared experts run column /
+    row parallel. The all-to-all expert parallelism with capacity drops
+    (moe_ffn_ep) is training's and raises."""
     B, S, d = x.shape
     cap = capacity if capacity is not None else capacity_for(B * S, moe)
-    y_flat, aux = moe_ffn_local(p, moe, x.reshape(B * S, d), cap)
+    if sh.model_size(mesh) > 1 and cap < B * S:
+        raise NotImplementedError(
+            "expert parallelism with capacity drops over a mesh "
+            "(moe_ffn_ep) arrives with a later slice of ROADMAP A11; "
+            "serving routes drop-free (capacity = B * S)")
+    ep = sh.sharded_over(moe.padded_experts, mesh)
+    first = sh.model_rank(ep) * p["w1"].shape[0]
+    y_flat, aux = moe_ffn_local(p, moe, x.reshape(B * S, d), cap, first)
     out = y_flat.reshape(B, S, d)
+    if ep is not None:
+        sh.model_all_reduce(out, ep)
     if moe.num_shared > 0:
-        out = ffn_block(p["shared"], x, activation) + out
+        out = ffn_block(p["shared"], x, activation, mesh=sh.sharded_over(
+            moe.num_shared * moe.d_shared, mesh)) + out
     return out, aux

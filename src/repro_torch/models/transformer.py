@@ -47,6 +47,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core import altup as alt
 from repro_torch.core import sequence_altup as seqalt
@@ -79,6 +80,15 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def prm_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.param_dtype)
+
+
+def ffn_width(cfg: ModelConfig) -> int:
+    """Hidden width of a layer's dense FFN: moe.dense_d_ff in DeepSeek's
+    first layers (the only dense FFNs of an mla_moe plan) when set, else
+    d_ff (which is an mla_moe config's expert width)."""
+    if cfg.family == "mla_moe" and cfg.moe and cfg.moe.dense_d_ff:
+        return cfg.moe.dense_d_ff
+    return cfg.d_ff
 
 
 # --------------------------------------------------------------------------
@@ -220,10 +230,7 @@ def init_layer(seg: Segment, cfg: ModelConfig, generator, device) -> Dict:
         if seg.ffn == "moe":
             p["moe"] = moe_lib.init_moe(d, cfg.moe, pd, generator, device)
         else:
-            dff = cfg.d_ff
-            if seg.kind == "mla" and cfg.moe and cfg.moe.dense_d_ff:
-                dff = cfg.moe.dense_d_ff
-            p["ffn"] = L.init_ffn(d, dff, pd, generator, device)
+            p["ffn"] = L.init_ffn(d, ffn_width(cfg), pd, generator, device)
     if cfg.altup.enabled:
         K = cfg.altup.K
         p["altup_p"] = torch.eye(K, dtype=torch.float32, device=device)
@@ -345,18 +352,21 @@ def init_encoder_params(cfg: ModelConfig, gen, dev) -> Dict:
 # --------------------------------------------------------------------------
 
 def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
-                   bias=None, cross_p=None, enc_out=None, causal=None):
+                   bias=None, cross_p=None, enc_out=None, causal=None,
+                   mesh=None):
     """One pre-norm transformer layer on the ACTIVE d-wide block, its FFN
     dense or a mixture of experts (the layer holds "moe"). bias: T5's
     relative position bias of the self-attention; causal: None = the
     config's (the encoder passes False). cross_p / enc_out: an
     encoder-decoder decoder layer's cross-attention block (ln_cross +
     cross) and the encoder's output (B, S_enc, d) it attends over, keys
-    at positions 0..S_enc-1, unmasked. Returns (x, the layer's aux loss:
-    0-d f32, zero for a dense FFN)."""
+    at positions 0..S_enc-1, unmasked. mesh: the "model" axis the
+    layer's weights are sharded over (sharding.py). Returns (x, the
+    layer's aux loss: 0-d f32, zero for a dense FFN)."""
     h = L.rms_norm(x, p["ln_attn"], cfg.logical_norm_eps)
     a, _ = L.attention_block(p["attn"], cfg, h, window=window, q_pos=q_pos,
-                             k_pos=k_pos, bias=bias, causal=causal)
+                             k_pos=k_pos, bias=bias, causal=causal,
+                             mesh=mesh)
     x = x + a
     if cross_p is not None:
         h = L.rms_norm(x, cross_p["ln_cross"], cfg.logical_norm_eps)
@@ -365,23 +375,26 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
             causal=False,
             k_pos=torch.arange(enc_out.shape[1], device=x.device))
         x = x + c
-    return _ffn_half(p, cfg, x)
+    return ffn_half(p, cfg, x, mesh=mesh)
 
 
-def _ffn_half(p, cfg: ModelConfig, x):
+def ffn_half(p, cfg: ModelConfig, x, *, capacity=None, mesh=None):
     """The pre-norm FFN half of a layer, dense or a mixture of experts (the
-    layer holds "moe"), with capacity_for's drops: (x + f, aux)."""
+    layer holds "moe"), with capacity_for's drops unless `capacity` says
+    otherwise: (x + f, aux). mesh: the "model" axis (sharding.py)."""
     h = L.rms_norm(x, p["ln_ffn"], cfg.logical_norm_eps)
     if "moe" in p:
-        f, aux = moe_lib.moe_block(p["moe"], cfg.moe, h,
-                                   activation=cfg.ffn_activation)
+        f, aux = moe_lib.moe_block(p["moe"], cfg.moe, h, mesh=mesh,
+                                   activation=cfg.ffn_activation,
+                                   capacity=capacity)
     else:
-        f = L.ffn_block(p["ffn"], h, cfg.ffn_activation)
+        f = L.ffn_block(p["ffn"], h, cfg.ffn_activation,
+                        mesh=sh.sharded_over(ffn_width(cfg), mesh))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + f, aux
 
 
-def mla_layer(p, cfg: ModelConfig, x, *, q_pos, k_pos):
+def mla_layer(p, cfg: ModelConfig, x, *, q_pos, k_pos, mesh=None):
     """One pre-norm DeepSeek layer on the ACTIVE d-wide block: multi-head
     latent attention over the sequence's own latents (k_pos their
     positions), then the dense or MoE FFN. Returns (x, aux) as
@@ -389,8 +402,8 @@ def mla_layer(p, cfg: ModelConfig, x, *, q_pos, k_pos):
     h = L.rms_norm(x, p["ln_attn"], cfg.logical_norm_eps)
     lat = L.mla_latent(p["attn"], cfg, h, k_pos=q_pos)
     x = x + L.mla_attention(p["attn"], cfg, h, lat, q_pos=q_pos,
-                            k_pos=k_pos)
-    return _ffn_half(p, cfg, x)
+                            k_pos=k_pos, mesh=mesh)
+    return ffn_half(p, cfg, x, mesh=mesh)
 
 
 def mamba_layer(p, cfg: ModelConfig, x, state=None):
@@ -420,10 +433,24 @@ def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
 # forward (the decode oracle, and the training forward)
 # --------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """tokens (B, S) -> widened stream (B, S, K, d) (or (B, S, d) if K=1)."""
+def embed_tokens(params, cfg: ModelConfig, tokens, *,
+                 mesh=None) -> torch.Tensor:
+    """tokens (B, S) -> widened stream (B, S, K, d) (or (B, S, d) if K=1).
+    mesh: where the model axis divides the padded vocabulary, the rank
+    holds its rows of `embed` and looks up only its own ids (zero rows
+    for the others), and the rows are all-reduced: exact, one rank adds
+    each row to zeros."""
     emb = params["embed"].to(act_dtype(cfg))
-    x = emb[tokens]                                       # (B,S,emb_width)
+    tp = sh.sharded_over(padded_vocab(cfg), mesh)
+    if tp is None:
+        x = emb[tokens]                                   # (B,S,emb_width)
+    else:
+        n = emb.shape[0]
+        local = tokens - sh.model_rank(tp) * n
+        mine = (local >= 0) & (local < n)
+        x = emb[torch.where(mine, local, torch.zeros_like(local))]
+        x = sh.model_all_reduce(
+            torch.where(mine[..., None], x, torch.zeros_like(x)), tp)
     if not cfg.altup.enabled:
         return x
     d, K = cfg.d_model, cfg.altup.K
@@ -472,7 +499,7 @@ def remat_wrap(fn, remat: str):
 def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
                   k_pos, wkv_kernel: Optional[bool] = None,
                   remat: str = "none", enc_out=None, cross_stack=None,
-                  rel_bias=None, causal=None):
+                  rel_bias=None, causal=None, mesh=None):
     """Run a full-sequence segment. x: (B, S, [K,] d). An rwkv segment
     starts every layer's recurrence from a zero state. remat: the policy
     around each layer body, AltUp included (remat_wrap). enc_out /
@@ -481,7 +508,8 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
     the self-attention's (1, H, S, S) bias; causal: None = the config's.
     A mamba segment, like an rwkv one, starts from a zero state. A
     shared_attn segment is one invocation of the hybrid's tied block:
-    p_seg is `shared_blk` itself (unstacked). Returns (x, the segment's
+    p_seg is `shared_blk` itself (unstacked). mesh: the "model" axis
+    attention and FFN layers are sharded over. Returns (x, the segment's
     aux loss summed over its layers; under AltUp a layer's aux is that of
     the one block it computed)."""
     K = cfg.altup.K
@@ -500,11 +528,12 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
                 return out, torch.zeros((), dtype=torch.float32,
                                         device=xa.device)
             if seg.kind == "mla":
-                return mla_layer(p_l, cfg, xa, q_pos=q_pos, k_pos=k_pos)
+                return mla_layer(p_l, cfg, xa, q_pos=q_pos, k_pos=k_pos,
+                                 mesh=mesh)
             return attn_ffn_layer(p_l, cfg, xa, window=seg.window,
                                   q_pos=q_pos, k_pos=k_pos, bias=rel_bias,
                                   cross_p=cross_l, enc_out=enc_out,
-                                  causal=causal)
+                                  causal=causal, mesh=mesh)
 
         if cfg.altup.enabled:
             sel = alt.block_selector(seg.layer_offset + i, K,
@@ -533,7 +562,7 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
 def forward(params, cfg: ModelConfig, tokens, *,
             wkv_kernel: Optional[bool] = None,
             train: bool = False, encoder_frames=None,
-            extra_embeds=None) -> torch.Tensor:
+            extra_embeds=None, mesh=None) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, V_pad); forward_aux also
     returns the MoE aux loss, as the reference's forward does.
 
@@ -556,22 +585,33 @@ def forward(params, cfg: ModelConfig, tokens, *,
     does; each layer is recomputed in the backward pass as `cfg.remat`
     says ("none", "full" or "dots"), which leaves the gradients as they
     are. An MoE layer routes with capacity_for's drops, as the
-    reference's forward does (decode is drop-free)."""
+    reference's forward does (decode is drop-free).
+
+    mesh: the "model" axis `params` are sharded over (sharding.py:
+    shard_params' tree), train=False only. An MoE layer's capacity drops
+    raise over more than one model rank (moe_block): their all-to-all is
+    training's (ROADMAP A11)."""
     return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
                        train=train, encoder_frames=encoder_frames,
-                       extra_embeds=extra_embeds)[0]
+                       extra_embeds=extra_embeds, mesh=mesh)[0]
 
 
 def forward_aux(params, cfg: ModelConfig, tokens, *,
                 wkv_kernel: Optional[bool] = None, train: bool = False,
-                encoder_frames=None, extra_embeds=None):
+                encoder_frames=None, extra_embeds=None, mesh=None):
     """forward's (logits (B, S, V_pad), aux loss 0-d f32: the MoE
     load-balance loss summed over layers, 0 for the other families)."""
     kw = dict(encoder_frames=encoder_frames, extra_embeds=extra_embeds)
+    if mesh is not None:
+        sh.require_model_axis(cfg, mesh)
+        if train:
+            raise NotImplementedError(
+                "forward(train=True) over a mesh: the collectives' "
+                "autograd pair arrives with a later slice of ROADMAP A11")
     if not train:
         with torch.no_grad():
             return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,
-                            remat="none", **kw)
+                            remat="none", mesh=mesh, **kw)
     if wkv_kernel:
         raise ValueError("train=True runs no kernel: the WKV kernel has no "
                          "backward pass")
@@ -580,8 +620,8 @@ def forward_aux(params, cfg: ModelConfig, tokens, *,
 
 
 def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
-             encoder_frames=None, extra_embeds=None):
-    x = embed_tokens(params, cfg, tokens)
+             encoder_frames=None, extra_embeds=None, mesh=None):
+    x = embed_tokens(params, cfg, tokens, mesh=mesh)
     if extra_embeds is not None:
         ad = act_dtype(cfg)
         img = torch.einsum("bnd,de->bne", extra_embeds.to(ad),
@@ -607,9 +647,9 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
                                x, q_pos=q_pos, k_pos=q_pos,
                                wkv_kernel=wkv_kernel, remat=remat,
                                enc_out=enc_out, cross_stack=cross_stack,
-                               rel_bias=rel_bias)
+                               rel_bias=rel_bias, mesh=mesh)
         aux_total = aux_total + aux
-    return unembed(params, cfg, x), aux_total
+    return unembed(params, cfg, x, mesh=mesh), aux_total
 
 
 def encode(params, cfg: ModelConfig, enc_input, *,
@@ -692,11 +732,18 @@ def encode_seq_reduced(params, cfg: ModelConfig, x) -> torch.Tensor:
     return x
 
 
-def unembed(params, cfg: ModelConfig, x) -> torch.Tensor:
+def unembed(params, cfg: ModelConfig, x, *, mesh=None) -> torch.Tensor:
+    """The final norm and the logits (B, S, V_pad). mesh: where the model
+    axis divides the padded vocabulary, the rank computes its columns and
+    the logits are all-gathered, whole rows on every rank (the sampler
+    reads whole rows)."""
     ad = act_dtype(cfg)
     x = alt.narrow_output(x, cfg.altup)                   # (B,S,d or Kd)
     x = L.rms_norm(x, params["final_norm"], cfg.logical_norm_eps)
     if cfg.tie_embeddings:
         w = params["embed"].to(ad)                        # (V, width)
-        return torch.einsum("bsd,vd->bsv", x, w)
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(ad))
+        logits = torch.einsum("bsd,vd->bsv", x, w)
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(ad))
+    tp = sh.sharded_over(padded_vocab(cfg), mesh)
+    return logits if tp is None else sh.model_all_gather(logits, tp)

@@ -108,6 +108,17 @@ sampled), the post-verify restore in one per k, over static buffers
 A draft warm-up leaves the rings as it found them (it ends in its own
 restore); a verify warm-up's ring writes are restored before its
 capture.
+
+Tensor parallelism (mesh=, sharding.py): every rank of the mesh's
+"model" axis runs this engine on the same requests in the same order, so
+every rank's scheduler, prefix index and page allocator make the same
+decisions. The engine shards the full parameters it is given, its caches
+hold the rank's kv heads, each step runs the attention and FFN sharded
+with their all-reduces and all-gathers the logits, and every rank samples
+the same ids from them. Over NCCL the collectives are captured in the
+step graphs like any kernel (the warm-up on the side stream runs them
+first); a gloo group's collectives cannot be captured, so on CUDA under
+gloo every step runs eagerly (graph_stats says so, captures 0).
 """
 from __future__ import annotations
 
@@ -117,8 +128,10 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import prng, resolve_device
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        decode_sample_step, decode_step,
@@ -361,12 +374,17 @@ class Engine:
     speculative decoding refuse it. speculative: True or
     a SpecConfig turns on self-speculative decoding
     (serve/speculative.py); recurrent plans decode normally whatever it
-    says. Steps (graph captures included) and
+    says. mesh: a DeviceMesh (launch/mesh.make_mesh) with a "model" dim
+    to serve over, on the engine's device type; `params` are the FULL
+    parameters, which the engine shards (sharding.shard_params). A
+    "data" or "pod" dim of more than one rank, and recurrent, hybrid or
+    encoder-decoder plans over more than one model rank, raise
+    (ROADMAP A11). Steps (graph captures included) and
     generate() run without autograd, so trainable parameters (a
     Trainer's) serve as they are."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int, *,
-                 n_slots: int = 8, prefill_chunk: int = 8,
+                 n_slots: int = 8, mesh=None, prefill_chunk: int = 8,
                  kv_buckets: bool = True, kv_bucket_min: int = 32,
                  prefix_cache: bool = True,
                  speculative: Union[bool, SpecConfig] = False,
@@ -397,7 +415,11 @@ class Engine:
         if emb.device.type != self.device.type:
             raise ValueError(f"parameters lie on {emb.device}, the engine "
                              f"on {self.device}")
-        self.cfg, self.params = cfg, params
+        # gloo's collectives cannot be captured in a CUDA graph
+        eager_mesh = self._check_mesh(cfg, mesh)
+        if mesh is not None:
+            params = sh.shard_params(params, cfg, mesh)
+        self.cfg, self.params, self.mesh = cfg, params, mesh
         self.max_len = max_len
         self.n_slots = n_slots
         self._kv_buckets = kv_buckets
@@ -421,8 +443,9 @@ class Engine:
         self._bt_host = self._bt = None
         self._bt_stale = True       # admit/retire changed the host table
         # on the card, pure-decode steps replay CUDA graphs
+        self._use_graphs = self.device.type == "cuda" and not eager_mesh
         self._graphs = (StepGraphs(self.device, n_slots)
-                        if self.device.type == "cuda" else None)
+                        if self._use_graphs else None)
         self._init_spec(speculative)
         self._events: List[Tuple[int, int]] = []      # last step's deltas
         # each live request's (2,) uint32 base key data, dropped at
@@ -470,7 +493,28 @@ class Engine:
         # the rounds' graphs: (draft, k, kv bucket, sampled), (verify, k,
         # kv bucket, logprobs, sampled), (restore, k)
         self._spec_graphs = (StepGraphs(self.device, self.n_slots)
-                             if self.device.type == "cuda" else None)
+                             if self._use_graphs else None)
+
+    def _check_mesh(self, cfg: ModelConfig, mesh) -> bool:
+        """Refuse the meshes this slice does not serve (ROADMAP A11).
+        Returns whether the mesh's collectives keep the steps eager on the
+        card (a gloo group)."""
+        if mesh is None:
+            return False
+        if sh.MODEL not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"the engine's mesh needs a {sh.MODEL!r} dim, "
+                             f"got {mesh.mesh_dim_names}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device_type}, the engine on "
+                             f"{self.device}")
+        for name in ("data", "pod"):
+            if sh.mesh_dim_size(mesh, name) > 1:
+                raise NotImplementedError(
+                    f"serving over a {name!r} axis of "
+                    f"{sh.mesh_dim_size(mesh, name)} ranks arrives with a "
+                    f"later slice of ROADMAP A11")
+        sh.require_model_axis(cfg, mesh)
+        return dist.get_backend(mesh.get_group(sh.MODEL)) == "gloo"
 
     def reset_stats(self) -> None:
         for k in self.stats:
@@ -499,7 +543,12 @@ class Engine:
         """CUDA-graph counters (None off the card): captures, replays, the
         captured shapes (kv bucket, logprobs) and the replays of each,
         each shape's kernel launches a replay, and the warm-ups' launches.
-        Lifetime counters, not reset by reset_stats."""
+        Over a gloo mesh on the card: captures 0 and why. Lifetime
+        counters, not reset by reset_stats."""
+        if self._graphs is None and self.device.type == "cuda":
+            return {"captures": 0, "replays": 0,
+                    "eager": "the mesh's gloo collectives cannot be "
+                             "captured in a CUDA graph"}
         return None if self._graphs is None else self._graphs.stats()
 
     @property
@@ -570,7 +619,7 @@ class Engine:
             # the step writes this dict in place and never replaces it
             self._caches = init_paged_cache(
                 self.cfg, self.n_slots, self.max_len, n_pages=n_pages,
-                page=P, device=self.device)
+                page=P, device=self.device, mesh=self.mesh)
             self._pool = PagePool(n_pages, P, self.n_slots, self.max_len)
             self._sched = PagedScheduler(
                 self.n_slots, self.max_len, pool=self._pool,
@@ -588,7 +637,7 @@ class Engine:
                 prefix_cache=self._prefix_cache,
                 prefix_usable_len=usable)
             self._caches = init_cache(self.cfg, self.n_slots, self.max_len,
-                                      device=self.device)
+                                      device=self.device, mesh=self.mesh)
         self._seen = torch.zeros((self.n_slots, self.cfg.vocab_size),
                                  dtype=torch.bool, device=self.device)
 
@@ -793,7 +842,7 @@ class Engine:
             self.params, self._caches, self._seen, inputs.tokens,
             inputs.pos, inputs.nval, inputs.sparams(any_sampled),
             cfg=self.cfg, kv_len=kv_len, want_logprobs=want_lp,
-            any_sampled=any_sampled, **self._step_kw())
+            any_sampled=any_sampled, mesh=self.mesh, **self._step_kw())
         if caches is not self._caches or seen is not self._seen:
             raise RuntimeError("the step must write the caches and the seen "
                                "table in place")
@@ -951,7 +1000,7 @@ class Engine:
             self.params, self._caches, rb.draft_seen, inp.tokens, inp.pos,
             inp.caps, inp.sparams(any_sampled), cfg=self.cfg,
             draft_layers=self._draft_layers, k=k, kv_len=kv_len,
-            any_sampled=any_sampled,
+            any_sampled=any_sampled, mesh=self.mesh,
             q_out=rb.q_mat(k) if any_sampled else None, **self._step_kw())
         if ring:
             restore_rows(self.cfg, self._caches, rb.snaps[k], inp.pos, 0, S,
@@ -972,7 +1021,7 @@ class Engine:
             inp.nval, inp.sparams(any_sampled),
             rb.q_mat(k) if any_sampled else None, cfg=self.cfg,
             kv_len=kv_len, want_logprobs=want_lp, any_sampled=any_sampled,
-            **self._step_kw())
+            mesh=self.mesh, **self._step_kw())
         out = torch.cat([committed, n_comm[:, None].to(torch.int32)], dim=1)
         return out, lps
 
@@ -1118,13 +1167,15 @@ class Engine:
                            device=self.device)
 
         def step_fn(p, c, tk, t):
-            return decode_step(p, cfg, c, tk, t, kv_len=self._bucket(t + 1))
+            return decode_step(p, cfg, c, tk, t, kv_len=self._bucket(t + 1),
+                               mesh=self.mesh)
 
         if encoder_frames is not None:
             encoder_frames = self._tensor(encoder_frames)
         logits, caches = prefill(self.params, cfg, prompt_tokens,
                                  T=self.max_len, step_fn=step_fn,
-                                 encoder_frames=encoder_frames)
+                                 encoder_frames=encoder_frames,
+                                 mesh=self.mesh)
         update_seen(seen, prompt_tokens)
         outs, lp_outs = [], []
 
@@ -1141,7 +1192,8 @@ class Engine:
             tk = tok[:, None].to(torch.long)
             logits, caches = decode_step(self.params, cfg, caches, tk,
                                          S + t - 1,
-                                         kv_len=self._bucket(S + t))
+                                         kv_len=self._bucket(S + t),
+                                         mesh=self.mesh)
             update_seen(seen, tk)
             tok, lp = sample_at(logits, t)
             outs.append(tok)

@@ -160,7 +160,7 @@ def draft_sample_step(params, caches, draft_seen, tokens, pos, n_valid,
                       sparams: Dict[str, torch.Tensor], draft_idx: int = 0,
                       *, cfg: ModelConfig, draft_layers: int, kv_len=None,
                       any_sampled=False, block_table=None, page_size=0,
-                      q_out: Optional[torch.Tensor] = None):
+                      q_out: Optional[torch.Tensor] = None, mesh=None):
     """One draft step: draft_step + the draft's choice on the device.
 
     Folds the fed tokens into `draft_seen` IN PLACE (the caller's
@@ -170,11 +170,12 @@ def draft_sample_step(params, caches, draft_seen, tokens, pos, n_valid,
     processed draft distribution q (B, V) is built for every slot and
     sampled slots draw categorical(log q) under
     _round_keys(_DRAFT_TAG, draft_idx). q is written into q_out when given.
-    Returns (ids (B,) int32, q (B, V) | None, caches, draft_seen)."""
+    mesh: the "model" axis, as decode_step's. Returns (ids (B,) int32, q
+    (B, V) | None, caches, draft_seen)."""
     logits, caches = draft_step(params, cfg, caches, tokens, pos,
                                 draft_layers=draft_layers, n_valid=n_valid,
                                 kv_len=kv_len, block_table=block_table,
-                                page_size=page_size)
+                                page_size=page_size, mesh=mesh)
     B = tokens.shape[0]
     rows = logits[torch.arange(B, device=logits.device),
                   torch.clamp(n_valid.to(torch.long) - 1, min=0),
@@ -198,7 +199,7 @@ def draft_round(params, caches, draft_seen, t0, pos, caps,
                 sparams: Dict[str, torch.Tensor], *, cfg: ModelConfig,
                 draft_layers: int, k: int, kv_len=None, any_sampled=False,
                 block_table=None, page_size=0,
-                q_out: Optional[torch.Tensor] = None):
+                q_out: Optional[torch.Tensor] = None, mesh=None):
     """The k-step draft phase, unrolled (k is static: the engine captures
     one graph per k). t0: (B, 1) each slot's last committed token; caps:
     (B,) per-slot draft budgets (draft i is real for slots with caps > i;
@@ -216,7 +217,7 @@ def draft_round(params, caches, draft_seen, t0, pos, caps,
             cfg=cfg, draft_layers=draft_layers, kv_len=kv_len,
             any_sampled=any_sampled, block_table=block_table,
             page_size=page_size,
-            q_out=None if q_out is None else q_out[:, i])
+            q_out=None if q_out is None else q_out[:, i], mesh=mesh)
         cur = ids[:, None].to(torch.long)
         cols.append(cur)
         qs.append(q)
@@ -267,7 +268,8 @@ def spec_verify_step(params, caches, seen, tokens, pos, n_valid,
                      sparams: Dict[str, torch.Tensor],
                      q_probs: Optional[torch.Tensor] = None, *,
                      cfg: ModelConfig, kv_len=None, want_logprobs=False,
-                     any_sampled=False, block_table=None, page_size=0):
+                     any_sampled=False, block_table=None, page_size=0,
+                     mesh=None):
     """Multi-token verify: ONE chunked decode_step over [t_0, t_1..t_k]
     scores every draft, then the accepted count and the correction / bonus
     token are computed on the device.
@@ -286,11 +288,11 @@ def spec_verify_step(params, caches, seen, tokens, pos, n_valid,
     correction], zero-padded; n_committed (B,) = a + 1; lps (B, S) f32
     chosen-token logprobs under the penalty-adjusted distribution, or
     None; caches; seen). `seen` gains the fed and committed prefix
-    t_0..t_a, IN PLACE."""
+    t_0..t_a, IN PLACE. mesh: the "model" axis, as decode_step's."""
     logits, caches = decode_step(params, cfg, caches, tokens, pos,
                                  n_valid=n_valid, kv_len=kv_len,
                                  block_table=block_table,
-                                 page_size=page_size)
+                                 page_size=page_size, mesh=mesh)
     B, S = tokens.shape
     V = cfg.vocab_size
     dev = logits.device

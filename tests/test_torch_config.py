@@ -35,9 +35,15 @@ def _fields(cls):
                                   "MoEConfig", "MLAConfig", "SSMConfig",
                                   "RWKVConfig", "ModelConfig",
                                   "OptimizerConfig", "TrainConfig",
-                                  "ShapeConfig"])
+                                  "ShapeConfig", "MeshConfig"])
 def test_config_fields_and_defaults_match_reference(name):
     assert _fields(getattr(tcfg, name)) == _fields(getattr(jcfg, name))
+
+
+def test_mesh_config_counts_devices_as_reference():
+    for kw in ({}, dict(model=4), dict(data=2, model=8, pod=2)):
+        assert tcfg.MeshConfig(**kw).n_devices == \
+            jcfg.MeshConfig(**kw).n_devices
 
 
 def test_shapes_match_reference():

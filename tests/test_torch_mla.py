@@ -225,10 +225,25 @@ def test_mla_latent_and_attention_match_jax(case):
     assert tob.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(tob), np.asarray(job, np.float32),
                                rtol=2e-2, atol=2e-2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlayers.mla_attention(ta, tc, torch.from_numpy(xq), tl,
-                              q_pos=torch.from_numpy(qpos),
-                              k_pos=torch.from_numpy(kpos), mesh=object())
+    # a model axis dividing neither n_heads nor q_lora_rank leaves the
+    # block whole, with no collective (sharded MLA: test_torch_tp_serve)
+    tom = tlayers.mla_attention(ta, tc, torch.from_numpy(xq), tl,
+                                q_pos=torch.from_numpy(qpos),
+                                k_pos=torch.from_numpy(kpos),
+                                mesh=_ModelAxis(3))
+    assert torch.equal(tom, to)
+
+
+class _ModelAxis:
+    """What the port reads of a DeviceMesh to decide whether a block is
+    sharded: its "model" dim and size (no process group)."""
+    mesh_dim_names = ("model",)
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, i):
+        return self.n
 
 
 # ---------------------------------------------------------------------------

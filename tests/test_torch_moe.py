@@ -233,10 +233,20 @@ def test_dispatch_reads_nothing_back_to_the_host():
 
 
 def test_moe_block_refuses_a_mesh():
+    """Over a model axis of two ranks, routing with capacity drops (the
+    all-to-all moe_ffn_ep of training) raises; drop-free serving runs
+    (tests/test_torch_tp_serve.py)."""
     _, tc, jp, tp = _smoke_params()
     _, tm = _layer0_moe(jp, tp)
+
+    class ModelAxis:                  # a DeviceMesh's "model" dim of 2
+        mesh_dim_names = ("model",)
+
+        def size(self, i):
+            return 2
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tmoe.moe_block(tm, tc.moe, torch.zeros((1, 2, 64)), mesh=object())
+        tmoe.moe_block(tm, tc.moe, torch.zeros((1, 8, 64)),
+                       mesh=ModelAxis())
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,315 @@
+"""PyTorch port: the "model" axis's placement tables held against the
+reference's PartitionSpecs, the kv-head rule of the caches, and the
+refusals of what a later slice serves over a mesh (ROADMAP A11).
+
+The reference's param_pspecs / cache_pspecs / paged_cache_pspecs read
+only `mesh.shape` (and `axis_names`), so a stand-in mesh of {"data": 1,
+"model": N} serves them with no devices; shapes come from jax.eval_shape
+on the reference's side and meta tensors on the port's. Multi-rank
+serving is tests/test_torch_tp_serve.py."""
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
+
+import repro.configs as jconfigs
+from repro.models import decode as jdec
+from repro.models.transformer import init_params as jax_init_params
+from repro.sharding import param_pspecs
+from repro_torch import config as tcfg
+from repro_torch import configs as tconfigs
+from repro_torch import sharding as sh
+from repro_torch.models import decode as tdec
+from repro_torch.models import moe as tmoe
+from repro_torch.models.transformer import forward, init_tree
+from repro_torch.serve.engine import Engine
+
+SIZES = (2, 4, 8, 16)
+B, T = 4, 64
+
+
+@dataclasses.dataclass
+class StandIn:
+    """What the reference's spec functions read of a mesh, and what the
+    port's refusals and select_kv read of a DeviceMesh: no devices."""
+    dims: dict
+    rank: int = 0
+    device_type: str = "cpu"
+
+    @property
+    def shape(self):                       # the reference's Mesh.shape
+        return self.dims
+
+    @property
+    def axis_names(self):
+        return tuple(self.dims)
+
+    @property
+    def mesh_dim_names(self):              # DeviceMesh's
+        return tuple(self.dims)
+
+    def size(self, i):
+        return list(self.dims.values())[i]
+
+    def get_local_rank(self, name):
+        return self.rank
+
+
+def _mesh(n, **dims):
+    return StandIn({"data": 1, "model": n, **dims})
+
+
+def _model_dim(spec):
+    """The dim a PartitionSpec shards over "model" (alone or in a tuple of
+    axes), or None."""
+    for i, ax in enumerate(spec):
+        if ax == "model" or (isinstance(ax, tuple) and "model" in ax):
+            return i
+    return None
+
+
+def _jax_leaves(tree):
+    return {tuple(p.key for p in path): leaf for path, leaf in
+            jax.tree_util.tree_leaves_with_path(
+                tree, is_leaf=lambda x: isinstance(x, jax.sharding.
+                                                   PartitionSpec))}
+
+
+@functools.lru_cache(maxsize=None)
+def _cfgs(arch):
+    return (jconfigs.get_config(arch, altup_k=2),
+            tconfigs.get_config(arch, altup_k=2))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(arch):
+    jc, tc = _cfgs(arch)
+    jshapes = jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0),
+                                                     jc))
+    return jshapes, init_tree(tc, None, torch.device("meta"))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_param_placements_equal_reference_pspecs(arch, n):
+    jc, tc = _cfgs(arch)
+    jshapes, tshapes = _param_shapes(arch)
+    want = {path: _model_dim(spec) for path, spec in
+            _jax_leaves(param_pspecs(jshapes, jc, _mesh(n))).items()}
+    got = sh.param_placements(tshapes, tc, n)
+    assert got == want
+    # the table shards something at every size (the vocabulary at least)
+    assert any(d is not None for d in got.values())
+
+
+def _cache_shapes(cfg, paged, module):
+    kw = dict(n_pages=8, page=8) if paged else {}
+    fn = module.init_paged_cache if paged else module.init_cache
+    if module is jdec:
+        return jax.eval_shape(lambda: fn(cfg, B, T, **kw))
+    return fn(cfg, B, T, device="meta", **kw)
+
+
+ATTN_LEAVES = ("k", "v", "k_scale", "v_scale", "latent", "latent_scale")
+
+
+# paged caches serve decoder-only models
+CACHE_CASES = [(arch, paged) for arch in tconfigs.ARCH_IDS
+               for paged in (False, True)
+               if not (paged and tconfigs.get_config(arch).family == "encdec")]
+
+
+@pytest.mark.parametrize("arch,paged", CACHE_CASES)
+def test_cache_placements_differ_from_reference_only_by_kv_head_rule(
+        arch, paged):
+    """Attention and MLA leaves, float and int8, N in SIZES: where the
+    reference shards the kv heads, so does the port; where it shards the
+    sequence axis (kv heads N does not divide, the contiguous latent) or
+    nothing, the port holds the heads its local queries read (N divides
+    n_heads) or everything."""
+    jc, tc = _cfgs(arch)
+    seen = 0
+    for kv in ("auto", "int8"):
+        jcq, tcq = jc.replace(kv_cache_dtype=kv), tc.replace(kv_cache_dtype=kv)
+        jshapes = _cache_shapes(jcq, paged, jdec)
+        tshapes = _cache_shapes(tcq, paged, tdec)
+        for n in SIZES:
+            fn = jdec.paged_cache_pspecs if paged else jdec.cache_pspecs
+            want = _jax_leaves(fn(jcq, jshapes, _mesh(n)))
+            place = (sh.paged_cache_placements if paged
+                     else sh.cache_placements)
+            got = place(tcq, tshapes, StandIn({"model": n}))
+            for path, spec in want.items():
+                name = path[-1]
+                if name not in ATTN_LEAVES:
+                    continue
+                seen += 1
+                ref, port = _model_dim(spec), got[path]
+                ndim = len(spec)
+                head = ndim - (2 if name in ("k", "v") else 1)
+                if name.startswith("latent"):
+                    assert port is None, path
+                elif ref == head:
+                    assert port == head, path
+                else:
+                    # the deviation: only where N does not divide the kv
+                    # heads
+                    assert tc.n_kv_heads % n != 0, path
+                    assert port == (head if tc.n_heads % n == 0 else None)
+    if tc.family not in ("rwkv6",):
+        assert seen > 0
+
+
+@pytest.mark.parametrize("h,hk,n", [(4, 2, 2), (4, 2, 4), (16, 8, 16),
+                                    (8, 4, 8), (12, 3, 4), (12, 3, 2),
+                                    (6, 6, 3), (8, 1, 4), (6, 2, 2),
+                                    (32, 8, 16)])
+def test_kv_head_rule_keeps_the_heads_local_queries_read(h, hk, n):
+    """The deviation by design: each rank's cache holds local_kv_heads kv
+    heads, and its local query head j, reading local kv head j // (its
+    local GQA ratio), reads the global kv head that query head reads in
+    the unsharded model (h_global // (h / hk)), for every rank."""
+    cfg = tcfg.ModelConfig(n_layers=1, d_model=h * 4, n_heads=h,
+                           n_kv_heads=hk, d_ff=8, vocab_size=64)
+    rep = h // hk
+    heads = torch.arange(hk).view(1, 1, hk, 1)       # kv head ids
+    for r in range(n):
+        mesh = StandIn({"model": n}, rank=r)
+        hkl = sh.local_kv_heads(cfg, mesh)
+        if not sh.heads_sharded(cfg, mesh):
+            assert hkl == hk
+            continue
+        hl = h // n
+        kept = (sh.select_kv(heads, cfg, mesh) if hk % n else
+                heads.narrow(2, r * hkl, hkl)).view(-1)
+        assert kept.numel() == hkl and hl % hkl == 0
+        for j in range(hl):
+            assert int(kept[j // (hl // hkl)]) == (r * hl + j) // rep
+        # what is cached is a subset only when N does not divide hk
+        assert (hkl * n == hk) == (hk % n == 0)
+
+
+def _tiny(family="dense", **kw):
+    base = dict(name="t", family=family, n_layers=2, d_model=32, n_heads=4,
+                n_kv_heads=2, d_ff=64, vocab_size=128,
+                altup=tcfg.AltUpConfig(K=2))
+    base.update(kw)
+    return tcfg.ModelConfig(**base)
+
+
+REFUSED = {
+    "rwkv6": _tiny("rwkv6", rwkv=tcfg.RWKVConfig(head_dim=16, decay_lora=8,
+                                                  token_shift_lora=8)),
+    "hybrid": _tiny("hybrid", n_layers=3, ssm=tcfg.SSMConfig(
+        d_state=8, d_conv=4, expand=2, head_dim=16, shared_every=2)),
+    "encdec": tconfigs.get_config("whisper-tiny", smoke=True, altup_k=2),
+}
+
+
+@pytest.mark.parametrize("family", sorted(REFUSED))
+def test_recurrent_and_encdec_plans_over_model_axis_raise_a11(family):
+    cfg = REFUSED[family]
+    mesh = StandIn({"model": 2})
+    params = {"embed": torch.zeros(256, 64)}
+    with pytest.raises(NotImplementedError, match="A11"):
+        Engine(cfg, params, 16, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        tdec.init_cache(cfg, 2, 16, device="meta", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="A11"):
+        forward(params, cfg, torch.zeros(1, 2, dtype=torch.long), mesh=mesh)
+
+
+@pytest.mark.parametrize("dims", [{"data": 2, "model": 2},
+                                  {"pod": 2, "data": 1, "model": 1}])
+def test_data_and_pod_axes_raise_a11(dims):
+    params = {"embed": torch.zeros(256, 64)}
+    with pytest.raises(NotImplementedError, match="A11"):
+        Engine(_tiny(), params, 16, mesh=StandIn(dims), device="cpu")
+
+
+def test_moe_with_capacity_drops_over_mesh_raises_a11():
+    moe = tcfg.MoEConfig(num_experts=4, top_k=2, d_expert=8)
+    p = tmoe.init_moe(16, moe, torch.float32, torch.Generator(), "cpu")
+    x = torch.zeros(2, 3, 16)
+    with pytest.raises(NotImplementedError, match="A11"):
+        tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 2}))
+    with pytest.raises(NotImplementedError, match="A11"):
+        tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 2}), capacity=5)
+    with pytest.raises(NotImplementedError, match="A11"):
+        forward({"embed": torch.zeros(256, 64)}, _tiny(), x[..., 0].long(),
+                mesh=StandIn({"model": 2}), train=True)
+
+
+def test_moe_local_experts_sum_to_the_whole():
+    """moe_ffn_local over a slice of the experts (first=...) gives a
+    partial sum: the slices' outputs add up to the whole layer's, and
+    the router's aux is the same on every slice."""
+    moe = tcfg.MoEConfig(num_experts=8, top_k=2, d_expert=8)
+    g = torch.Generator().manual_seed(0)
+    p = tmoe.init_moe(16, moe, torch.float32, g, "cpu")
+    x = torch.randn(10, 16, generator=g)
+    whole, aux = tmoe.moe_ffn_local(p, moe, x, 10)
+    parts = []
+    for first in range(0, 8, 2):
+        pl = {k: (v[first:first + 2] if k != "router" else v)
+              for k, v in p.items()}
+        y, a = tmoe.moe_ffn_local(pl, moe, x, 10, first)
+        assert torch.equal(a, aux)
+        parts.append(y)
+    np.testing.assert_allclose(sum(parts).numpy(), whole.numpy(), atol=1e-6,
+                               rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def mesh1(tmp_path_factory):
+    """A "model" axis of one rank: a world-1 gloo group in this process,
+    destroyed after the module."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    store = dist.FileStore(str(tmp_path_factory.mktemp("mesh1") / "store"),
+                           1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield make_mesh((1,), ("model",), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_mesh_of_one_rank_is_exactly_unmeshed(arch, mesh1):
+    """Every family, SMOKE + AltUp K=2: a model axis of one rank gives the
+    unmeshed port's forward logits and generate() tokens bit for bit
+    (the collectives of one rank change nothing)."""
+    from repro_torch.models.transformer import init_params
+    cfg = tconfigs.get_config(arch, smoke=True, altup_k=2)
+    params = init_params(cfg, seed=3, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    tok = torch.randint(0, cfg.vocab_size, (2, 5), generator=g)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["encoder_frames"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                           generator=g)
+    shard = sh.shard_params(params, cfg, mesh1)
+    assert torch.equal(forward(shard, cfg, tok, mesh=mesh1, **kw),
+                       forward(params, cfg, tok, **kw))
+    outs = [Engine(cfg, params, 16, n_slots=2, mesh=m, device="cpu")
+            .generate(tok, 4, **kw) for m in (None, mesh1)]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_make_mesh_checks_world_and_device(mesh1):
+    """make_mesh over the world-1 group: names its dims; a shape of more
+    ranks than the world raises with both counts; CUDA without a card
+    raises, never a move to the CPU."""
+    from repro_torch.launch.mesh import make_mesh
+    assert mesh1.mesh_dim_names == ("model",)
+    assert sh.model_size(mesh1) == 1 and sh.model_rank(mesh1) == 0
+    with pytest.raises(RuntimeError, match="needs 2 ranks.*has 1"):
+        make_mesh((1, 2), ("data", "model"), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh((1,), ("model",), device="cuda")
