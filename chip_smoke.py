@@ -196,7 +196,8 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                of pages of 16 rows with prefix reuse: every hit copies
                the prompt's 38 pages and aliases none; the eager twin
                at 6 layers held as j-serve's; j-paged-graph replayed at
-               full depth, and its hits' tokens equal a cold engine's
+               12 layers (cut for the run's time), and its
+               hits' tokens equal a cold engine's
       j-quant  j-paged's traffic from int8 slot caches (the contiguous
                ring copy, j-quant-int8-graph) and from an fp8 pool
                (j-quant-fp8-graph), both replayed only, at 6 layers (5
@@ -420,8 +421,9 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                tokens, one extending the donor's prompt by 32; 32 new)
                through Engine(n_slots=8, max_len=512): an eager twin at
                6 mamba layers against a replayed run at the same depth
-               (contiguous float, paged int8), then replayed at full
-               depth, contiguous and paged, float and int8: median and
+               (contiguous float, paged int8), then replayed, contiguous
+               float at full depth, contiguous int8 and paged float /
+               int8 at 12 mamba layers (cut for the run's time): median and
                p80 step ms, decode tok/s, the recurrent hit (contiguous:
                one, its tokens a cold engine's; paged: none), the step
                graph's device ms against its bytes bound (weights and
@@ -474,6 +476,22 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                why, in place of the gates. Phase c's c-ragged / c-paged
                cases t-* time the decode attention at the ranks' local
                heads
+      t-serve-c  the recurrent and encoder-decoder families and slots
+               over "data". (a) one NCCL rank, replayed: rwkv6-1.6b + K=2
+               at 4 layers and zamba2-1.2b + K=2 at 6 mamba layers
+               (contiguous and paged), full width, through Engine(mesh=)
+               beside the un-meshed Engine on t-serve-b's traffic; gates:
+               tokens, step counts and launches (B1, B2 / B4, B6)
+               identical, graphs captured; both replays' device ms. (b)
+               two gloo ranks sharing the card, eager, f32: RWKV-6,
+               zamba2 and t5-large + K=2 (2 + 2 layers,
+               generate(encoder_frames=)) at model = 2, Qwen3-0.6B + K=2
+               (4 layers) at data = 2 (two slots a rank); gates: tokens
+               and launches equal to
+               a one-rank run's, captures 0, the model-axis logits within
+               T_B_LOGIT_TOL. Phase c's cases tc-* hold the WKV kernel at
+               16 and 8 heads (N = 2, 4) and the decode attention at
+               t5-large's 8 local heads against their plain versions
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -2472,6 +2490,9 @@ J_SYSTEM, J_PAGED_NEW, J_PAGE = 600, 32, 16
 # replayed run held against it (5 ring layers and 1 global: the plan's
 # pattern once); the phase's numbers come from a replayed run at full depth
 J_TWIN_LAYERS = 6
+# j-paged-graph's counted run, cut for the run's time (the plan's
+# pattern twice; j-graph keeps the full 34)
+J_PAGED_LAYERS = 12
 
 
 def gemma_config(**kw):
@@ -5449,6 +5470,8 @@ def mla_phases(torch, ops, workdir):
 Z_PARITY_B, Z_PARITY_S, Z_PARITY_NEW = 2, 24, 8    # z-parity, full depth
 Z_PARITY_T, Z_PARITY_PAGE = 32, 16
 Z_TWIN_LAYERS = 6        # z-serve's eager twins: 6 mamba + the shared block
+Z_CUT_LAYERS = 12        # z-serve's int8 and paged runs, cut for the run's
+                         # time (the contiguous float run keeps 38)
 Z_GRAD_LAYERS = 12       # z-grad, z-train: two runs of 6 mamba layers, so
                          # two shared invocations keep the tie
 Z_GRAD_B, Z_GRAD_S = 2, 64
@@ -5726,9 +5749,11 @@ def hybrid_serve(torch, ops):
     """z-serve: (i)'s traffic on zamba2-1.2b + AltUp K=2 in bf16 through
     Engine(n_slots=8, max_len=512) (chunk-1 prefill; every step replays):
     eager twins at Z_TWIN_LAYERS against replayed runs at the same depth
-    (hold_replay), contiguous float and paged int8; then replayed at full
-    depth, contiguous and paged, float and int8, with serve_recurrent_bf16's
-    gates (44 AltUp and 6 decode-attention launches a step; contiguous:
+    (hold_replay), contiguous float and paged int8; then replayed,
+    contiguous float at full depth and contiguous int8, paged float and
+    paged int8 at Z_CUT_LAYERS, with serve_recurrent_bf16's gates (one
+    AltUp launch a layer and one decode-attention launch a shared
+    invocation a step: 44 and 6 at full depth; contiguous:
     one recurrent hit whose tokens are a cold engine's; paged: none). The
     contiguous float run adds its step graph's device ms against the
     bytes bound (weights, and the f32 ssm state read and written) and the
@@ -5766,16 +5791,18 @@ def hybrid_serve(torch, ops):
                                      "eager_step_kernels", "top_kernels")})
         return r
     full = {}
-    for case, kw in (("contiguous", dict(after=after)),
-                     ("contiguous-int8", dict(kind="int8")),
-                     ("paged", dict(paged=True)),
-                     ("paged-int8", dict(paged=True, kind="int8"))):
+    cut = zamba_config(Z_CUT_LAYERS)
+    for case, c, kw in (("contiguous", cfg, dict(after=after)),
+                        ("contiguous-int8", cut, dict(kind="int8")),
+                        ("paged", cut, dict(paged=True)),
+                        ("paged-int8", cut, dict(paged=True, kind="int8"))):
         t0 = time.perf_counter()
-        res, trace, _ = serve_recurrent_bf16(torch, ops, cfg=cfg,
+        res, trace, _ = serve_recurrent_bf16(torch, ops, cfg=c,
                                              replay=True, **kw)
-        res.update(seconds=time.perf_counter() - t0, tokens=trace["tokens"])
+        res.update(seconds=time.perf_counter() - t0, tokens=trace["tokens"],
+                   reduced=reduced_depth(c, 38))
         full[case] = res
-    for a, b in (("contiguous", "paged"), ("contiguous-int8", "paged-int8")):
+    for a, b in (("contiguous-int8", "paged-int8"),):
         # printed, not gated: the contiguous extender starts from its hit,
         # the paged one prefills, so the steps' batches and kv buckets
         # differ
@@ -6183,14 +6210,8 @@ def tp_rank(rank, world, workdir):
         str(workdir / "store-b"), world), rank=rank, world_size=world)
     try:
         mesh = make_mesh((world,), ("model",), device=DEV)
-        for name, fn in (("all_reduce", sh.model_all_reduce),
-                         ("all_gather", sh.model_all_gather)):
-            try:
-                fn(torch.ones(4, 8, device=DEV, dtype=torch.bfloat16), mesh)
-                torch.cuda.synchronize()
-            except (RuntimeError, ValueError) as e:
-                res.update(collective_failed=name, error=repr(e))
-                return
+        if not probe_collectives(torch, mesh, res):
+            return
         for tag, cfg in (
                 ("qwen3", served_config(n_layers=T_B_LAYERS)),
                 ("qwen2_moe", moe_config(n_layers=T_B_MOE_LAYERS))):
@@ -6221,6 +6242,69 @@ def tp_rank(rank, world, workdir):
         dist.destroy_process_group()
 
 
+def spawn_ranks(target, workdir, tag, timeout_s=T_B_TIMEOUT_S):
+    """T_RANKS spawned processes running target(rank, world, workdir),
+    each writing rank<r>.json under workdir; waits (at most timeout_s),
+    kills any left, and returns their records in rank order."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(target, args=(T_RANKS, workdir),
+                             nprocs=T_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag} ran past {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [json.loads((workdir / f"rank{r}.json").read_text())
+            for r in range(T_RANKS)]
+
+
+def probe_collectives(torch, mesh, res):
+    """Each collective of the mesh's axes on CUDA tensors; on the first
+    that raises, records which and why in res and returns False."""
+    from repro_torch import sharding as sh
+    probes = [("all_reduce", sh.model_all_reduce),
+              ("all_gather", sh.model_all_gather)]
+    if sh.batch_size(mesh) > 1:
+        probes.append(("batch_all_gather", sh.batch_all_gather))
+    for name, fn in probes:
+        try:
+            fn(torch.ones(4, 8, device=DEV, dtype=torch.bfloat16), mesh)
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:
+            res.update(collective_failed=name, error=repr(e))
+            return False
+    return True
+
+
+def hold_ranks(ranks, tag, runs, out):
+    """Gate each run of `runs` ({result key: one-rank key}) of every rank
+    against rank 0's one-rank run: tokens and kernel launches equal, no
+    graph captured (gloo). Records the held runs in out[tag]."""
+    rec = out.setdefault(tag, {})
+    for run, one_key in runs.items():
+        one = ranks[0][tag][one_key]
+        for r in ranks:
+            got = r[tag][run]
+            if got["tokens"] != one["tokens"] or \
+                    got["launches"] != one["launches"]:
+                raise AssertionError(
+                    f"{tag} {run} rank {r['rank']}: tokens "
+                    f"{got['tokens']} launches {got['launches']} != "
+                    f"one rank's {one['tokens']} {one['launches']}")
+            gs = got.get("graph_stats")
+            if gs is not None and gs.get("captures") != 0:
+                raise AssertionError(f"{tag} {run} captured: {gs}")
+        rec[run] = {"tokens_identical": True,
+                    "launches": ranks[0][tag][run]["launches"],
+                    "graph_stats": ranks[0][tag][run].get("graph_stats")}
+    return rec
+
+
 def tp_two_ranks(torch, workdir):
     """t-serve-b: T_RANKS spawned ranks sharing the one card over gloo
     (NCCL refuses two ranks on one device). Gates, unless a collective
@@ -6228,22 +6312,8 @@ def tp_two_ranks(torch, workdir):
     equal and equal to the one-rank run's at the same depth, each rank's
     kernel launches equal to it, no graph captured (captures 0, said
     why), and the logits within T_B_LOGIT_TOL of the un-meshed ones."""
-    import torch.multiprocessing as mp
     t0 = time.perf_counter()
-    ctx = mp.start_processes(tp_rank, args=(T_RANKS, workdir),
-                             nprocs=T_RANKS, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + T_B_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=2):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"t-serve-b ran past {T_B_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
-             for r in range(T_RANKS)]
+    ranks = spawn_ranks(tp_rank, workdir, "t-serve-b")
     out = {"ranks": T_RANKS, "backend": "gloo", "seconds":
            time.perf_counter() - t0}
     failed = [r for r in ranks if "collective_failed" in r]
@@ -6252,32 +6322,16 @@ def tp_two_ranks(torch, workdir):
                    error=failed[0]["error"])
         return out
     for tag in ("qwen3", "qwen2_moe"):
-        rec = {"layers": T_B_LAYERS if tag == "qwen3" else T_B_MOE_LAYERS,
-               "kv_heads_local": ranks[0][tag]["kv_heads_local"],
-               "logits_err": ranks[0][tag]["logits_err"],
-               "logits_max": ranks[0][tag]["logits_max"],
-               "seconds": max(r[tag]["seconds"] for r in ranks)}
-        for run in ("mesh", "mesh_paged"):
-            if run not in ranks[0][tag]:
-                continue
-            one = ranks[0][tag][run.replace("mesh", "one_rank")]
-            for r in ranks:
-                got = r[tag][run]
-                if got["tokens"] != one["tokens"] or \
-                        got["launches"] != one["launches"]:
-                    raise AssertionError(
-                        f"t-serve-b {tag} {run} rank {r['rank']}: tokens "
-                        f"{got['tokens']} launches {got['launches']} != "
-                        f"one rank's {one['tokens']} {one['launches']}")
-                if got["graph_stats"].get("captures") != 0:
-                    raise AssertionError(f"t-serve-b captured: "
-                                         f"{got['graph_stats']}")
-            rec[run] = {"tokens_identical": True,
-                        "launches": ranks[0][tag][run]["launches"],
-                        "graph_stats": ranks[0][tag][run]["graph_stats"]}
+        runs = {k: k.replace("mesh", "one_rank") for k in ranks[0][tag]
+                if k.startswith("mesh")}
+        rec = hold_ranks(ranks, tag, runs, out)
+        rec.update(layers=T_B_LAYERS if tag == "qwen3" else T_B_MOE_LAYERS,
+                   kv_heads_local=ranks[0][tag]["kv_heads_local"],
+                   logits_err=ranks[0][tag]["logits_err"],
+                   logits_max=ranks[0][tag]["logits_max"],
+                   seconds=max(r[tag]["seconds"] for r in ranks))
         if rec["logits_err"] > T_B_LOGIT_TOL * max(1.0, rec["logits_max"]):
             raise AssertionError(f"t-serve-b {tag}: logits {rec}")
-        out[tag] = rec
     return out
 
 
@@ -6300,14 +6354,271 @@ def check_tp_kernels(torch, ops, ref):
     return kern
 
 
+# t-serve-c: the recurrent and encoder-decoder families over "model" and
+# slots over "data". (a) one NCCL rank, replayed, against the un-meshed
+# engine at the same depth; (b) two gloo ranks sharing the card, eager,
+# against one rank. Depths cut for the phase's time
+TC_RWKV_LAYERS = 4          # rwkv6-1.6b's 24
+TC_ZAMBA_LAYERS = 6         # zamba2-1.2b's 38 mamba layers (+ one shared)
+TC_T5_LAYERS = 2            # t5-large's 24 + 24, (b)
+TC_T5_ROWS, TC_T5_ENC, TC_T5_PROMPT, TC_T5_NEW = 4, 128, 8, 8
+TC_QWEN_LAYERS = 4          # Qwen3-0.6B at data = 2, (b), f32
+
+
+def tpc_recurrent(torch, name, n_layers, dtype=None):
+    """(cfg, params) of rwkv6-1.6b or zamba2-1.2b + AltUp K=2 at full
+    width, n_layers deep, seeded and perturbed (RWKV's u / w_b / decay
+    bases, Mamba-2's dt_bias / D / conv_b / norm, AltUp's p / g)."""
+    from repro_torch.models.transformer import init_params
+    if name == "rwkv6":
+        cfg = rwkv_config(n_layers=n_layers)
+    else:
+        cfg = zamba_config(n_layers=n_layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    params = init_params(cfg, seed=1, device=DEV)
+    if name == "rwkv6":
+        perturb_rwkv(torch, params, cfg, seed=11)
+    else:
+        perturb_mamba(torch, params, seed=11)
+    return cfg, params
+
+
+def tpc_one_rank(torch, ops, workdir):
+    """t-serve-c (a): a process group of one NCCL rank and its mesh;
+    rwkv6-1.6b + K=2 (TC_RWKV_LAYERS layers) and zamba2-1.2b + K=2
+    (TC_ZAMBA_LAYERS mamba layers, contiguous and paged) served from
+    replayed graphs through Engine(mesh=) beside the un-meshed Engine, at
+    full width, t-serve-b's short traffic. Gates: tokens, step counts and
+    kernel launches (B1, B2 / B4, B6) identical, graphs captured and
+    replayed as often; prints both replays' device ms."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(workdir / "store-c"), 1), rank=0, world_size=1)
+    out = {"prompt_lens": list(T_B_PROMPTS), "new_tokens": T_B_NEW}
+    try:
+        mesh = make_mesh((1,), ("model",), device=DEV)
+        for name, layers, modes in (("rwkv6", TC_RWKV_LAYERS, (False,)),
+                                    ("zamba2", TC_ZAMBA_LAYERS,
+                                     (False, True))):
+            cfg, params = tpc_recurrent(torch, name, layers)
+            prompts = tp_prompts(torch, cfg.vocab_size, T_B_PROMPTS)
+            for paged in modes:
+                run = functools.partial(tp_serve, torch, ops, cfg, params,
+                                        prompts, T_B_NEW, paged=paged,
+                                        max_len=128)
+                plain, meshed = run(), run(mesh=mesh)
+                tag = name + ("_paged" if paged else "")
+                for key in ("tokens", "stats", "launches"):
+                    if meshed[key] != plain[key]:
+                        raise AssertionError(
+                            f"t-serve-c (a) {tag}: {key} over the mesh "
+                            f"{meshed[key]} != un-meshed {plain[key]}")
+                gm = meshed["graph_stats"]
+                if not gm["captures"] or gm["replays"] != \
+                        plain["graph_stats"]["replays"]:
+                    raise AssertionError(f"t-serve-c (a) {tag}: graphs {gm}")
+                kern = ("rwkv6_wkv" if name == "rwkv6" else
+                        "paged_ragged_decode_attention" if paged
+                        else "ragged_decode_attention")
+                if not meshed["launches"][kern] or \
+                        not meshed["launches"]["altup_predict_correct"]:
+                    raise AssertionError(f"t-serve-c (a) {tag}: launches "
+                                         f"{meshed['launches']}")
+                out[tag] = {
+                    "cfg": cfg_name(cfg), "layers": cfg.n_layers,
+                    "tokens_identical": True, "launches_identical": True,
+                    "launches": meshed["launches"],
+                    "captures": gm["captures"], "replays": gm["replays"],
+                    "replayed_shape": meshed["replayed_shape"],
+                    "replay_ms": plain["replay_ms"],
+                    "replay_ms_mesh": meshed["replay_ms"]}
+            del params
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def tpc_generate(torch, ops, cfg, params, frames, prompts, n_new, mesh=None):
+    """Engine(mesh=).generate(prompts, n_new, encoder_frames=frames),
+    eager (generate captures no graph), after a 2-token warm-up: the
+    tokens and the kernels' launches (counts set to 0 just before the
+    counted call, read just after)."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(cfg, params, max_len=prompts.shape[1] + n_new,
+                 n_slots=prompts.shape[0], mesh=mesh, device=DEV)
+    eng.generate(prompts, 2, encoder_frames=frames)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    toks = eng.generate(prompts, n_new, encoder_frames=frames)
+    torch.cuda.synchronize()
+    return {"launches": ops.launch_counts(), "tokens": toks.tolist(),
+            "graph_stats": eng.graph_stats}
+
+
+def tpc_rank(rank, world, workdir):
+    """One rank of t-serve-c (b) (a spawned process): a gloo process group
+    on the card, a "model" mesh of both ranks and a data x model mesh (2,
+    1), each collective probed on CUDA tensors (a failure is written, with
+    why, and the rank stops). Serves, eager, through Engine(mesh=): RWKV-6
+    (TC_RWKV_LAYERS) and zamba2 (TC_ZAMBA_LAYERS) on t-serve-b's traffic
+    and t5-large + K=2 (TC_T5_LAYERS + TC_T5_LAYERS) through
+    generate(encoder_frames=) at model = 2, Qwen3-0.6B + K=2
+    (TC_QWEN_LAYERS) at data = 2; rank 0 also serves each un-meshed
+    (EagerEngine) and measures the model-axis logits' distance. Every
+    model here is f32: in bf16 the partial sums rounded before their
+    all-reduce flip near-ties of random weights (zamba2 at 6 layers
+    differed from one rank at the 7th of 8 greedy tokens on the card).
+    Writes rank<r>.json under workdir."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import forward, init_params
+    res = {"rank": rank}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(workdir / "store-c-b"), world), rank=rank, world_size=world)
+    try:
+        model = make_mesh((world,), ("model",), device=DEV)
+        data = make_mesh((world, 1), ("data", "model"), device=DEV)
+        if not (probe_collectives(torch, model, res)
+                and probe_collectives(torch, data, res)):
+            return
+        for name, layers in (("rwkv6", TC_RWKV_LAYERS),
+                             ("zamba2", TC_ZAMBA_LAYERS)):
+            t0 = time.perf_counter()
+            cfg, params = tpc_recurrent(torch, name, layers, "float32")
+            prompts = tp_prompts(torch, cfg.vocab_size, T_B_PROMPTS)
+            run = functools.partial(tp_serve, torch, ops, cfg, params,
+                                    prompts, T_B_NEW, max_len=128)
+            r = {"mesh": run(mesh=model)}
+            if rank == 0:
+                r["one_rank"] = run(replay=False)
+            shard = sh.shard_params(params, cfg, model)
+            r["logits_err"], r["logits_max"] = tp_logits_err(
+                torch, cfg, params, shard, model)
+            r["seconds"] = time.perf_counter() - t0
+            res[name] = r
+            del params, shard
+            torch.cuda.empty_cache()
+        # t5-large through generate(encoder_frames=)
+        t0 = time.perf_counter()
+        cfg = t5_config(n_layers=TC_T5_LAYERS, n_encoder_layers=TC_T5_LAYERS)
+        params = init_params(cfg, seed=1, device=DEV)
+        perturb_altup(torch, params, seed=11)
+        frames = encdec_inputs(torch, cfg, TC_T5_ROWS, TC_T5_ENC, seed=3)
+        gen = torch.Generator(device=DEV).manual_seed(4)
+        prompts = torch.randint(0, cfg.vocab_size, (TC_T5_ROWS, TC_T5_PROMPT),
+                                generator=gen, device=DEV)
+        run = functools.partial(tpc_generate, torch, ops, cfg, params,
+                                frames, prompts, TC_T5_NEW)
+        r = {"mesh": run(mesh=model)}
+        if rank == 0:
+            r["one_rank"] = run()
+        shard = sh.shard_params(params, cfg, model)
+        with torch.no_grad():
+            got = forward(shard, cfg, prompts, encoder_frames=frames,
+                          mesh=model)
+            if rank == 0:
+                want = forward(params, cfg, prompts, encoder_frames=frames)
+                r["logits_err"] = max_err(torch, got, want)
+                r["logits_max"] = want.float().abs().max().item()
+        r["seconds"] = time.perf_counter() - t0
+        res["t5_large"] = r
+        del params, shard
+        torch.cuda.empty_cache()
+        # Qwen3-0.6B's slots over data = 2, f32
+        t0 = time.perf_counter()
+        cfg = served_config(n_layers=TC_QWEN_LAYERS, dtype="float32",
+                            param_dtype="float32")
+        params = init_params(cfg, seed=1, device=DEV)
+        perturb_altup(torch, params, seed=11)
+        prompts = tp_prompts(torch, cfg.vocab_size, T_B_PROMPTS)
+        run = functools.partial(tp_serve, torch, ops, cfg, params, prompts,
+                                T_B_NEW, chunk=T_B_CHUNK, max_len=128)
+        r = {"mesh": run(mesh=data)}
+        if rank == 0:
+            r["one_rank"] = run(replay=False)
+        r["slots"] = list(sh.slot_range(len(prompts), data))
+        r["seconds"] = time.perf_counter() - t0
+        res["qwen3_data"] = r
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        (workdir / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def tpc_two_ranks(torch, workdir):
+    """t-serve-c (b): T_RANKS spawned ranks sharing the card over gloo.
+    Gates, unless a collective failed on CUDA tensors (then printed, with
+    why): every rank's tokens and kernel launches equal to the one-rank
+    run's at the same depth, no graph captured, the model-axis logits
+    within T_B_LOGIT_TOL of max(1, |logits|) of one rank's, and the data
+    ranks holding half the slots each."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tpc_rank, workdir, "t-serve-c (b)")
+    out = {"ranks": T_RANKS, "backend": "gloo", "dtype": "float32"}
+    failed = [r for r in ranks if "collective_failed" in r]
+    if failed:
+        out.update(collective_failed=failed[0]["collective_failed"],
+                   error=failed[0]["error"],
+                   seconds=time.perf_counter() - t0)
+        return out
+    for tag in ("rwkv6", "zamba2", "t5_large", "qwen3_data"):
+        rec = hold_ranks(ranks, tag, {"mesh": "one_rank"}, out)
+        rec["seconds"] = max(r[tag]["seconds"] for r in ranks)
+        if tag == "qwen3_data":
+            held = sorted(tuple(r[tag]["slots"]) for r in ranks)
+            if held != [(0, 2), (2, 4)]:
+                raise AssertionError(f"t-serve-c (b) data slots {held}")
+            rec.update(slots=held)
+            continue
+        rec.update(logits_err=ranks[0][tag]["logits_err"],
+                   logits_max=ranks[0][tag]["logits_max"])
+        if rec["logits_err"] > T_B_LOGIT_TOL * max(1.0, rec["logits_max"]):
+            raise AssertionError(f"t-serve-c (b) {tag}: logits {rec}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_tpc_kernels(torch, ops, ref):
+    """Phase c's cases for t-serve-c: the WKV kernel at a rank's local
+    heads of rwkv6-1.6b (8 slots, 16 heads of 64 at N = 2, 8 at N = 4, the
+    state in place) and the decode attention at t5-large's local heads (8
+    of 64 at N = 2, rep 1, f32, halfway through (b)'s generate), each
+    against its plain version, timed. {case: record}."""
+    from repro_torch.serve.engine import kv_bucket
+    kern = {}
+    for H in (16, 8):
+        kern[f"tc-wkv-h{H}"] = check_wkv(torch, ops, ref, torch.bfloat16,
+                                         B=8, H=H, Dh=64, S=1,
+                                         state="random")
+    lens = [TC_T5_PROMPT + TC_T5_NEW // 2] * TC_T5_ROWS
+    kern["tc-t5-ragged"] = check_ragged(
+        torch, ops, ref, torch.float32, lens, Hk=8, rep=1, Dh=64,
+        T=kv_bucket(max(lens), 32, TC_T5_PROMPT + TC_T5_NEW))
+    return kern
+
+
 def tp_phases(torch, ops, workdir):
-    """(t): t-serve-a, then t-serve-b. Returns (b)'s result."""
+    """(t): t-serve-a, t-serve-b, then t-serve-c's (a) and (b). Returns
+    t-serve-b's and t-serve-c (b)'s results."""
     t_t = time.perf_counter()
     line("t-serve-a", **tp_one_rank(torch, ops, workdir))
     res_b = tp_two_ranks(torch, workdir)
     line("t-serve-b", **res_b)
+    t0 = time.perf_counter()
+    res_ca = tpc_one_rank(torch, ops, workdir)
+    line("t-serve-c-a", seconds=time.perf_counter() - t0, **res_ca)
+    res_cb = tpc_two_ranks(torch, workdir)
+    line("t-serve-c-b", **res_cb)
     line("t-phases", seconds=time.perf_counter() - t_t)
-    return res_b
+    return res_b, res_cb
 
 
 def _device_kernels(prof):
@@ -6628,6 +6939,10 @@ def main(argv) -> int:
     for case, r in t_kern.items():
         line("c-paged" if "paged" in case else "c-ragged",
              case=case.removesuffix("-ragged").removesuffix("-paged"), **r)
+    # the WKV kernel and the decode attention at t-serve-c's local heads
+    tc_kern = check_tpc_kernels(torch, ops, ref)
+    for case, r in tc_kern.items():
+        line("c-wkv" if "wkv" in case else "c-ragged", case=case, **r)
 
     # WKV: (i)'s decode step (8 slots, 32 heads of 64, the state in
     # place), (h)'s forward (no state, 512 steps), an odd length with a
@@ -6760,14 +7075,14 @@ def main(argv) -> int:
     # J_TWIN_LAYERS, against a replayed run at the same depth; the
     # phase's numbers, launches and cold check come from a replayed run
     # at full depth
-    def gemma_pair(tag, tag_graph, **kw):
+    def gemma_pair(tag, tag_graph, n_layers=None, **kw):
         res, trace = serve_gemma(torch, ops, n_layers=J_TWIN_LAYERS, **kw)
         line(tag, **res)
         res_t, trace_t = serve_gemma(torch, ops, replay=True,
                                      n_layers=J_TWIN_LAYERS, **kw)
         held = hold_replay({**res, **trace}, {**res_t, **trace_t},
                            res_t["steps"])
-        res_r, _ = serve_gemma(torch, ops, replay=True,
+        res_r, _ = serve_gemma(torch, ops, replay=True, n_layers=n_layers,
                                cold_check=kw.get("paged", False), **kw)
         res_r.update(twin_layers=J_TWIN_LAYERS, twin=held,
                      twin_graph=res_t["graph"])
@@ -6775,7 +7090,7 @@ def main(argv) -> int:
         return res_r
     res_j_r = gemma_pair("j-serve", "j-graph")
     res_jp_r = gemma_pair("j-paged", "j-paged-graph", paged=True,
-                          prefix_cache=True)
+                          prefix_cache=True, n_layers=J_PAGED_LAYERS)
     # the quantized runs at J_TWIN_LAYERS (since PR 28, for the run's
     # time: ~37 s each at full depth)
     res_jq_r = serve_gemma(torch, ops, kind="int8", prefix_cache=True,
@@ -6861,7 +7176,7 @@ def main(argv) -> int:
     # from replayed graphs against the un-meshed engine, two gloo ranks
     # sharing the card, eager, against one rank
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        res_tp = tp_phases(torch, ops, Path(work))
+        res_tp, res_tpc = tp_phases(torch, ops, Path(work))
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
@@ -6985,8 +7300,9 @@ def main(argv) -> int:
          "launches": res_l["launches"]["altup_predict_correct"],
          **{k: l_altup[k] for k in keys}})
     # the kernels at zamba2-1.2b's, llava-next-mistral-7b's and
-    # granite-3-2b's shapes, with z-serve's (full depth, replayed),
-    # v-serve's and granite's launches
+    # granite-3-2b's shapes, with z-serve's (replayed; full depth
+    # contiguous float, Z_CUT_LAYERS the others), v-serve's and granite's
+    # launches
     for name, suffix, res_run, case in (
             ("altup_predict_correct", "zamba2", res_z["contiguous"],
              "z-altup-bf16"),
@@ -7035,6 +7351,22 @@ def main(argv) -> int:
                  else "ragged_decode_attention.py:210"),
              "launches": res_tp[tag][run]["launches"][name],
              **{k: t_kern[case][k] for k in keys}})
+    # the WKV kernel and the decode attention at t-serve-c (b)'s local
+    # heads (RWKV-6's 16 of 32, t5-large's 8 of 16), with its rank 0's
+    # launches
+    for name, src, replaces, tag, case in (
+            ("rwkv6_wkv", "rwkv6_wkv.cu", "rwkv6_scan.py:53", "rwkv6",
+             "tc-wkv-h16"),
+            ("ragged_decode_attention", "ragged_decode_attention.cu",
+             "ragged_decode_attention.py:210", "t5_large", "tc-t5-ragged")):
+        if tag not in res_tpc:
+            continue
+        kernels.append(
+            {"name": f"{name}_tp{T_RANKS}_{tag}", "route": "cuda",
+             "source": "src/repro_torch/csrc/" + src,
+             "replaces": "src/repro/kernels/" + replaces,
+             "launches": res_tpc[tag]["mesh"]["launches"][name],
+             **{k: tc_kern[case][k] for k in keys}})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

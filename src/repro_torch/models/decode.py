@@ -111,10 +111,15 @@ Caches are built from the ACTIVE d-wide sub-block only, so the widened
 (K*d) stream adds zero bytes to the KV cache (paper Sec. 3.2).
 
 Over a mesh's "model" axis (`mesh=`, sharding.py) every function here
-runs on the rank's shard: caches hold the rank's kv heads
-(sharding.local_kv_heads; latents and recurrent state whole), attention
-and FFN run sharded with their all-reduces, the logits come back whole.
-The row helpers below are slot-local and unchanged on each rank.
+runs on the rank's shard, for every family: caches hold the rank's kv
+heads (sharding.local_kv_heads; latents and the token-shift tails
+whole), the rank's heads of the wkv and ssm states and its columns of
+the conv tail (when the blocks run on local heads), the encoder-decoder
+cross caches the rank's kv heads; attention, FFN and the recurrent
+blocks run sharded with their all-reduces, the logits come back whole.
+The row helpers below are slot-local and unchanged on each rank. Slots
+over the batch axes are the engine's: it hands these functions the rows
+its rank holds (sharding.slot_range), and they see a smaller B.
 """
 from __future__ import annotations
 
@@ -181,15 +186,16 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     f32 (n, B, T + 1, Hk) scales, and the rwkv and mamba states are f32
     whatever it is. A shared_attn invocation's k/v are unstacked (B, T +
     1, Hk, Dh). mesh: the "model" axis; k, v and their scales then hold
-    this rank's kv heads (sharding.local_kv_heads), latents whole."""
-    sh.require_model_axis(cfg, mesh)
+    this rank's kv heads (sharding.local_kv_heads), latents whole, and
+    recurrent state the rank's heads (_recurrent_leaves)."""
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, sh.local_kv_heads(cfg, mesh)
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
         if seg.kind in ("rwkv", "mamba"):
-            caches[f"seg{si}"] = _recurrent_leaves(cfg, seg, B, dtype, dev)
+            caches[f"seg{si}"] = _recurrent_leaves(cfg, seg, B, dtype, dev,
+                                                   mesh)
             continue
         if seg.kind == "shared_attn":
             caches[f"seg{si}"] = _attn_leaves(spec, dtype, (B, T + 1, hk),
@@ -213,16 +219,22 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     return caches
 
 
-def _recurrent_leaves(cfg: ModelConfig, seg: Segment, B: int, dtype, dev):
+def _recurrent_leaves(cfg: ModelConfig, seg: Segment, B: int, dtype, dev,
+                      mesh=None):
     """Zero per-slot recurrent state of an rwkv segment (wkv (n, B, H, Dh,
     Dh) f32 and the token-shift tails (n, B, d)) or of a mamba segment
     (ssm (n, B, H, Dh, N) f32 and the conv tail (n, B, Kw - 1, d_in +
-    2N)), the tails in `dtype` (default the activation dtype)."""
+    2N)), the tails in `dtype` (default the activation dtype). mesh: on
+    local heads (sharding.rwkv_sharded / mamba_sharded) H and d_in are
+    the rank's 1/N; the token-shift tails and the conv tail's B and C
+    stay whole."""
     n, d = seg.n, cfg.d_model
     ad = dtype or act_dtype(cfg)
     if seg.kind == "mamba":
         s = cfg.ssm
         d_in = s.expand * d
+        if sh.mamba_sharded(cfg, mesh):
+            d_in //= sh.model_size(mesh)
         return {"ssm": torch.zeros((n, B, d_in // s.head_dim, s.head_dim,
                                     s.d_state), dtype=torch.float32,
                                    device=dev),
@@ -230,7 +242,10 @@ def _recurrent_leaves(cfg: ModelConfig, seg: Segment, B: int, dtype, dev):
                                      d_in + 2 * s.d_state), dtype=ad,
                                     device=dev)}
     rdh = cfg.rwkv.head_dim
-    return {"wkv": torch.zeros((n, B, d // rdh, rdh, rdh),
+    H = d // rdh
+    if sh.rwkv_sharded(cfg, mesh):
+        H //= sh.model_size(mesh)
+    return {"wkv": torch.zeros((n, B, H, rdh, rdh),
                                dtype=torch.float32, device=dev),
             "shift_tm": torch.zeros((n, B, d), dtype=ad, device=dev),
             "shift_cm": torch.zeros((n, B, d), dtype=ad, device=dev)}
@@ -289,7 +304,6 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     if cfg.family == "encdec":
         raise NotImplementedError("paged caches serve decoder-only models; "
                                   "use contiguous caches for encdec")
-    sh.require_model_axis(cfg, mesh)
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, sh.local_kv_heads(cfg, mesh)
@@ -297,7 +311,7 @@ def init_paged_cache(cfg: ModelConfig, B: int, T: int, *, n_pages: int,
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
         if seg.kind in ("rwkv", "mamba"):
-            c = _recurrent_leaves(cfg, seg, B, dtype, dev)
+            c = _recurrent_leaves(cfg, seg, B, dtype, dev, mesh)
         elif seg.kind == "shared_attn":
             c = _attn_leaves(spec, dtype, (rows, hk), dh, dev)
         elif seg.kind == "mla":
@@ -617,7 +631,7 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
         c, _ = L.attention_block(
             cp["cross"], cfg, h, window=0, q_pos=q_pos,
             k_pos=torch.arange(ck.shape[1], device=x.device), kv=(ck, cv),
-            causal=False)
+            causal=False, mesh=mesh)
         x = x + c
     out = {"k": cache_k, "v": cache_v}
     if spec.quantized:
@@ -716,28 +730,30 @@ def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
 
 
 def decode_rwkv(p_l, cfg: ModelConfig, x, cache, i: int,
-                wkv_kernel: Optional[bool] = None):
+                wkv_kernel: Optional[bool] = None, mesh=None):
     """One RWKV-6 decode layer: layer i's recurrent leaves of the segment
     cache are its state, written IN PLACE (the WKV kernel updates the
     "wkv" leaf itself; the dense path's new state is copied in). x:
-    (B, S, d). Returns the layer's output."""
+    (B, S, d). mesh: the "model" axis (the kernel then runs at the
+    rank's H / N heads). Returns the layer's output."""
     state = {name: cache[name][i] for name in ("wkv", "shift_tm",
                                                 "shift_cm")}
-    out, new = rwkv_layer(p_l, cfg, x, state, wkv_kernel=wkv_kernel)
+    out, new = rwkv_layer(p_l, cfg, x, state, wkv_kernel=wkv_kernel,
+                          mesh=mesh)
     for name, leaf in state.items():
         if new[name] is not leaf:
             leaf.copy_(new[name])
     return out
 
 
-def decode_mamba(p_l, cfg: ModelConfig, x, cache, i: int):
+def decode_mamba(p_l, cfg: ModelConfig, x, cache, i: int, mesh=None):
     """One Mamba-2 decode layer: layer i's "ssm" and "conv" leaves of the
     segment cache are its state, the new state copied in IN PLACE (so a
     captured step graph replays the update). x: (B, S, d); an S = 1 step
-    takes the recurrence's closed form (ssm.ssd_step). Returns the
-    layer's output."""
+    takes the recurrence's closed form (ssm.ssd_step). mesh: the "model"
+    axis. Returns the layer's output."""
     state = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-    out, new = mamba_layer(p_l, cfg, x, state)
+    out, new = mamba_layer(p_l, cfg, x, state, mesh=mesh)
     for name, leaf in state.items():
         leaf.copy_(new[name])
     return out
@@ -775,10 +791,10 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
     shared = seg.kind == "shared_attn"
     if seg.kind == "rwkv":
         def run_layer(i, p_l, xa):
-            return decode_rwkv(p_l, cfg, xa, cache, i, wkv_kernel)
+            return decode_rwkv(p_l, cfg, xa, cache, i, wkv_kernel, mesh)
     elif seg.kind == "mamba":
         def run_layer(i, p_l, xa):
-            return decode_mamba(p_l, cfg, xa, cache, i)
+            return decode_mamba(p_l, cfg, xa, cache, i, mesh)
     else:
         mla = seg.kind == "mla"
         rows = cache["latent" if mla else "k"]   # a leaf with the row axis
@@ -982,14 +998,15 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
     autograd, and each decoder layer's cross k/v over its output (RoPE'd
     by encoder position unless use_rel_pos_bias) fill the caches' "cross"
     entry, at the encoder output's length. mesh: the "model" axis
-    (decode_step's); step_fn then runs under it as the caller made it."""
+    (decode_step's; the encoder and the cross caches run on it too);
+    step_fn then runs under it as the caller made it."""
     B, S = tokens.shape
     caches = init_cache(cfg, B, T, device=tokens.device, mesh=mesh)
     if cfg.family == "encdec":
         if encoder_frames is None:
             raise ValueError("an encoder-decoder prefill needs "
                              "encoder_frames")
-        caches["cross"] = cross_caches(params, cfg, encoder_frames)
+        caches["cross"] = cross_caches(params, cfg, encoder_frames, mesh=mesh)
     if step_fn is None:
         def step_fn(p, c, tk, ps):
             return decode_step(p, cfg, c, tk, ps, mesh=mesh)
@@ -1000,12 +1017,15 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
 
 
 @torch.no_grad()
-def cross_caches(params, cfg: ModelConfig, encoder_frames):
+def cross_caches(params, cfg: ModelConfig, encoder_frames, *, mesh=None):
     """{"k", "v"}: (n_layers, B, S_enc', Hk, Dh) cross-attention keys and
     values of every decoder layer over `encode`'s output (S_enc' its
-    length), in the activation dtype."""
+    length), in the activation dtype. mesh: the "model" axis the encoder
+    runs on; the caches hold the rank's kv heads (`cross/wk`, `cross/wv`
+    follow the wk / wv rule, sharding.local_kv_heads)."""
     from repro_torch.models.transformer import encode
-    enc_out = encode(params, cfg, encoder_frames)
+    enc_out = encode(params, cfg, encoder_frames, mesh=mesh)
+    tp = mesh if sh.heads_sharded(cfg, mesh) else None
     pos = torch.arange(enc_out.shape[1], device=enc_out.device)
     cp = params["enc"]["cross"]["cross"]
     ad = enc_out.dtype
@@ -1014,14 +1034,40 @@ def cross_caches(params, cfg: ModelConfig, encoder_frames):
         k = torch.einsum("bsd,dhk->bshk", enc_out, cp["wk"][i].to(ad))
         if not cfg.use_rel_pos_bias:
             k = L.apply_rope(k, pos, cfg.rope_theta)
-        ks.append(k)
-        vs.append(torch.einsum("bsd,dhk->bshk", enc_out, cp["wv"][i].to(ad)))
+        ks.append(sh.select_kv(k, cfg, tp))
+        vs.append(sh.select_kv(torch.einsum("bsd,dhk->bshk", enc_out,
+                                            cp["wv"][i].to(ad)), cfg, tp))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 # --------------------------------------------------------------------------
 # prefix-cache copies: slot to slot (contiguous) and page to page (paged)
 # --------------------------------------------------------------------------
+
+def prefix_views(caches, slot: int, p: int, *, copy_recurrent: bool = False,
+                 shared=frozenset()):
+    """The views copy_prefix copies of slot `slot`, in one fixed order:
+    rows < min(p, Tc) of every attention k/v and MLA latent leaf and its
+    scales (their raw bytes: fp8 codes as uint8), and with
+    copy_recurrent the slot's whole recurrent state. The same list of
+    another slot has the same shapes, so a rank that holds neither slot
+    can size a buffer from any slot's (the engine's prefix copy across
+    data ranks)."""
+    views = []
+    for si, seg in caches.items():
+        for name, leaf in seg.items():
+            if name in ("k", "v") + SCALE_LEAVES + LATENT_LEAVES:
+                # ([n,] B, Tc + 1[, Hk][, Dh | w]), row Tc the sink
+                raw = _raw(leaf)
+                if si in shared:
+                    raw = raw[None]               # one layer: a view
+                n = min(p, raw.shape[2] - 1)
+                if n > 0:
+                    views.append(raw[:, slot, :n])
+            elif name in RECURRENT_LEAVES and copy_recurrent:
+                views.append(leaf[:, slot])
+    return views
+
 
 def copy_prefix(caches, dst: int, src: int, p: int, *,
                 copy_recurrent: bool = False, shared=frozenset()):
@@ -1044,18 +1090,10 @@ def copy_prefix(caches, dst: int, src: int, p: int, *,
     Returns the caches."""
     if dst == src:
         return caches
-    for si, seg in caches.items():
-        for name, leaf in seg.items():
-            if name in ("k", "v") + SCALE_LEAVES + LATENT_LEAVES:
-                # ([n,] B, Tc + 1[, Hk][, Dh | w]), row Tc the sink
-                raw = _raw(leaf)
-                if si in shared:
-                    raw = raw[None]               # one layer: a view
-                n = min(p, raw.shape[2] - 1)
-                if n > 0:
-                    raw[:, dst, :n] = raw[:, src, :n]
-            elif name in RECURRENT_LEAVES and copy_recurrent:
-                leaf[:, dst] = leaf[:, src]
+    kw = dict(copy_recurrent=copy_recurrent, shared=shared)
+    for d, s in zip(prefix_views(caches, dst, p, **kw),
+                    prefix_views(caches, src, p, **kw)):
+        d.copy_(s)
     return caches
 
 

@@ -69,12 +69,17 @@ def embed_init(shape, dtype, generator, device):
 # --------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+             eps: float = 1e-6, mesh=None) -> torch.Tensor:
     """RMS norm in f32 with the (1 + scale) convention; cast back to x's
-    dtype."""
+    dtype. mesh: x's last dim (and `scale`) is the rank's 1/N of the
+    normed width (a norm over sharded heads: RWKV-6's ln_x, Mamba-2's
+    gated norm): the ranks' mean squares are all-reduced and divided by
+    N."""
     dtype = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if mesh is not None:
+        var = sh.model_all_reduce(var, mesh) / sh.model_size(mesh)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.to(torch.float32))).to(dtype)
 

@@ -14,6 +14,17 @@ The kernel path sends both through `ops.rwkv6_wkv` (the hand-written
 CUDA kernel on the card, its plain version on the CPU), which updates a
 given state in place. `resolve_kernel_flag` picks the path from the
 `wkv_kernel` keyword.
+
+Over a mesh's "model" axis (`mesh=`, sharding.py) the time mix runs on
+the rank's heads when the model size divides them (sharding.rwkv_sharded):
+wr / twk / twv / wg give the rank's columns, which are its heads' (the
+columns are ordered h * Dh + j), `u` its heads, the decay LoRA (replicated)
+its columns of w; the WKV runs on those heads (the kernel at H / N), the
+ln_x norm over all of d all-reduces its mean square, and `two` is
+row-parallel with one all-reduce. Otherwise the time mix runs whole on
+every rank, from its sharded weights all-gathered (sharding.full_leaf).
+The channel mix is column- then row-parallel (ck, cv: one all-reduce)
+when the model size divides d_ff; cr and the token shifts are whole.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import resolve_kernel_flag
@@ -145,16 +157,32 @@ def wkv_chunked(r, k, v, w, u, state, chunk: int = 16):
 
 def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   state: Optional[dict] = None, *,
-                  wkv_kernel: Optional[bool] = None):
+                  wkv_kernel: Optional[bool] = None, mesh=None):
     """x: (B, S, d). state (decode): {"shift_tm": (B, d), "wkv":
     (B, H, Dh, Dh) f32}. Returns (out (B, S, d), {"shift_tm", "wkv"}).
 
     wkv_kernel: the recurrence through `ops.rwkv6_wkv` (resolve_kernel_flag:
     None = on CUDA tensors). On that path a given "wkv" state is updated IN
-    PLACE and is the state returned; the dense path returns a new one."""
+    PLACE and is the state returned; the dense path returns a new one.
+    mesh: the "model" axis (the module's docstring); on local heads the
+    "wkv" state is the rank's (B, H / N, Dh, Dh)."""
     B, S, d = x.shape
     dh = cfg.rwkv.head_dim
     H = d // dh
+    tp = mesh if sh.rwkv_sharded(cfg, mesh) else None
+    wr, twk, twv, wg, two, u = (p[n] for n in ("wr", "twk", "twv", "wg",
+                                                 "two", "u"))
+    w_base, w_b, ln_x = p["w_base"], p["w_b"], p["ln_x"]
+    if tp is not None:
+        H = H // sh.model_size(tp)
+        w_base, ln_x = sh.rank_share(w_base, tp), sh.rank_share(ln_x, tp)
+        w_b = sh.rank_share(w_b, tp)
+    elif sh.model_size(mesh) > 1:
+        # heads the model size does not divide: the block runs whole
+        wr, twk, twv, wg = (sh.full_leaf(t, mesh, 1, d)
+                            for t in (wr, twk, twv, wg))
+        two, u = sh.full_leaf(two, mesh, 0, d), sh.full_leaf(u, mesh, 0, H)
+    dl = H * dh                                  # this rank's channels
     prev = None if state is None else state["shift_tm"]
     xs = _token_shift(x, prev)
     # ddlerp: mu + lora(x) per projection
@@ -165,14 +193,13 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     dd = torch.einsum("bsil,ild->bsid", t, p["ts_b"].to(x.dtype))
     mix = p["mu_x"].to(x.dtype)[None, None] + dd            # (B,S,5,d)
     xr, xk, xv, xw, xg = [x + dx * mix[:, :, i] for i in range(5)]
-    r = torch.einsum("bsd,de->bse", xr, p["wr"].to(x.dtype))
-    k = torch.einsum("bsd,de->bse", xk, p["twk"].to(x.dtype))
-    v = torch.einsum("bsd,de->bse", xv, p["twv"].to(x.dtype))
-    g = F.silu(torch.einsum("bsd,de->bse", xg, p["wg"].to(x.dtype)))
+    r = torch.einsum("bsd,de->bse", xr, wr.to(x.dtype))
+    k = torch.einsum("bsd,de->bse", xk, twk.to(x.dtype))
+    v = torch.einsum("bsd,de->bse", xv, twv.to(x.dtype))
+    g = F.silu(torch.einsum("bsd,de->bse", xg, wg.to(x.dtype)))
     # data-dependent decay (Finch)
     f32 = torch.float32
-    w_log = p["w_base"].to(f32) + (xw.to(f32) @ p["w_a"].to(f32)) \
-        @ p["w_b"].to(f32)
+    w_log = w_base.to(f32) + (xw.to(f32) @ p["w_a"].to(f32)) @ w_b.to(f32)
     w = torch.exp(-torch.exp(w_log))                        # in (0, 1)
 
     def hs(z):
@@ -180,24 +207,30 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     # the reference's cast: bf16 rounds decays near 1
     w = w.to(x.dtype)
     if resolve_kernel_flag(wkv_kernel, x.device):
-        out, s_new = kops.rwkv6_wkv(hs(r), hs(k), hs(v), hs(w), p["u"],
+        out, s_new = kops.rwkv6_wkv(hs(r), hs(k), hs(v), hs(w), u,
                                     None if state is None
                                     else state["wkv"])
     else:
         s0 = (torch.zeros((B, H, dh, dh), dtype=f32, device=x.device)
               if state is None else state["wkv"])
         wkv = wkv_scan if S == 1 else wkv_chunked
-        out, s_new = wkv(hs(r), hs(k), hs(v), hs(w), p["u"], s0)
-    out = out.reshape(B, S, d).to(x.dtype)
-    out = rms_norm(out, p["ln_x"]) * g
-    out = torch.einsum("bsd,de->bse", out, p["two"].to(x.dtype))
+        out, s_new = wkv(hs(r), hs(k), hs(v), hs(w), u, s0)
+    out = out.reshape(B, S, dl).to(x.dtype)
+    # ln_x normalizes over all of d, not per head: across ranks on local
+    # heads
+    out = rms_norm(out, ln_x, mesh=tp) * g
+    out = torch.einsum("bsd,de->bse", out, two.to(x.dtype))
+    if tp is not None:
+        sh.model_all_reduce(out, tp)
     return out, {"shift_tm": x[:, -1], "wkv": s_new}
 
 
 def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     state: Optional[dict] = None):
+                     state: Optional[dict] = None, *, mesh=None):
     """x: (B, S, d); state (decode): {"shift_cm": (B, d)}. Returns
-    (out (B, S, d), {"shift_cm"})."""
+    (out (B, S, d), {"shift_cm"}). mesh: the "model" axis; ck / cv are
+    column- / row-parallel where it divides d_ff."""
+    tp = sh.sharded_over(cfg.d_ff, mesh)
     prev = None if state is None else state["shift_cm"]
     xs = _token_shift(x, prev)
     dx = xs - x
@@ -206,6 +239,8 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     kk = torch.square(torch.relu(
         torch.einsum("bsd,df->bsf", xk, p["ck"].to(x.dtype))))
     vv = torch.einsum("bsf,fd->bsd", kk, p["cv"].to(x.dtype))
+    if tp is not None:
+        sh.model_all_reduce(vv, tp)
     rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
                                     p["cr"].to(x.dtype)))
     return rr * vv, {"shift_cm": x[:, -1]}

@@ -14,6 +14,17 @@ closed form (`ssd_step`), the same function as a one-step chunk. The
 `ssm` state is f32 whatever the activations are; the conv tail keeps the
 activation dtype. The reference has no kernel here, and neither has the
 port.
+
+Over a mesh's "model" axis (`mesh=`, sharding.py) a block runs on the
+rank's heads when the model size divides them (sharding.mamba_sharded):
+the rank's columns of the fused w_in and conv_w are its heads' z, x and
+dt beside the whole B and C (sharding.mamba_columns; taken here from a
+leaf the placement rule keeps whole), its entries of A_log, D, dt_bias
+and the norm; the gated norm over d_in all-reduces its mean square, and
+w_out is row-parallel with one all-reduce. The conv tail then holds the
+rank's x columns and the whole B and C, the ssm state its heads.
+Otherwise the block runs whole on every rank, from its sharded weights
+all-gathered (sharding.full_leaf).
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import dense_init, init_rms_norm, rms_norm
 
@@ -156,33 +168,58 @@ def ssd_step(xh, Bm, Cm, dt, A, D, state):
 
 
 def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                 state: Optional[dict] = None):
+                 state: Optional[dict] = None, *, mesh=None):
     """x: (B, S, d). state: {"conv": (B, Kw-1, Cc), "ssm": (B, H, Dh, N)}
     on the decode path, None for a full sequence from a zero state.
     Returns (out (B, S, d), {"conv": the new tail, "ssm": the new f32
-    state}); a one-token step with a state runs ssd_step."""
+    state}); a one-token step with a state runs ssd_step. mesh: the
+    "model" axis (the module's docstring); on local heads H and the x
+    part of Cc are the rank's."""
     B, S, d = x.shape
     s = cfg.ssm
     d_in = s.expand * d
     H = d_in // s.head_dim
     N = s.d_state
-    proj = torch.einsum("bsd,de->bse", x, p["w_in"].to(x.dtype))
+    w_in, conv_w, conv_b, w_out = (p[n] for n in ("w_in", "conv_w",
+                                                  "conv_b", "w_out"))
+    A_log, D, dt_bias, norm = (p[n] for n in ("A_log", "D", "dt_bias",
+                                              "norm"))
+    tp = mesh if sh.mamba_sharded(cfg, mesh) else None
+    if tp is not None:
+        n, r = sh.model_size(tp), sh.model_rank(tp)
+        fused = sh.mamba_columns(cfg, "w_in"), sh.mamba_columns(cfg, "conv")
+        if w_in.shape[-1] == 2 * d_in + 2 * N + H:      # kept whole
+            w_in = sh.local_columns(w_in, fused[0], r, n)
+        if conv_w.shape[-1] == d_in + 2 * N:
+            conv_w = sh.local_columns(conv_w, fused[1], r, n)
+        conv_b = sh.local_columns(conv_b, fused[1], r, n)
+        A_log, D, dt_bias, norm = (sh.rank_share(t, tp, 0)
+                                   for t in (A_log, D, dt_bias, norm))
+        d_in, H = d_in // n, H // n
+    elif sh.model_size(mesh) > 1:
+        # heads the model size does not divide: the block runs whole
+        w_in = sh.full_leaf(w_in, mesh, 1, 2 * d_in + 2 * N + H)
+        conv_w = sh.full_leaf(conv_w, mesh, 1, d_in + 2 * N)
+        w_out = sh.full_leaf(w_out, mesh, 0, d_in)
+    proj = torch.einsum("bsd,de->bse", x, w_in.to(x.dtype))
     z, xbc, dt = torch.split(proj, [d_in, d_in + 2 * N, H], dim=-1)
     conv_tail = None if state is None else state["conv"]
-    xbc, new_tail = _causal_conv(xbc, p["conv_w"].to(x.dtype),
-                                 p["conv_b"].to(x.dtype), conv_tail)
+    xbc, new_tail = _causal_conv(xbc, conv_w.to(x.dtype),
+                                 conv_b.to(x.dtype), conv_tail)
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    A = torch.exp(p["A_log"].to(torch.float32))
+    dt = F.softplus(dt.to(torch.float32) + dt_bias.to(torch.float32))
+    A = torch.exp(A_log.to(torch.float32))
     xh = xs.reshape(B, S, H, s.head_dim)
     if state is not None and S == 1:
-        y, s_new = ssd_step(xh, Bm, Cm, dt, A, p["D"], state["ssm"])
+        y, s_new = ssd_step(xh, Bm, Cm, dt, A, D, state["ssm"])
     else:
         s0 = None if state is None else state["ssm"]
-        y, s_new = ssd_scan(xh, Bm, Cm, dt, A, p["D"], s0)
+        y, s_new = ssd_scan(xh, Bm, Cm, dt, A, D, s0)
     y = y.reshape(B, S, d_in)
-    y = rms_norm(y, p["norm"]) * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(x.dtype))
+    y = rms_norm(y, norm, mesh=tp) * F.silu(z)
+    out = torch.einsum("bse,ed->bsd", y, w_out.to(x.dtype))
+    if tp is not None:
+        sh.model_all_reduce(out, tp)
     if new_tail is None:
         new_tail = x.new_zeros((B, 0, xbc.shape[-1]))
     return out, {"conv": new_tail, "ssm": s_new}

@@ -373,7 +373,8 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
         c, _ = L.attention_block(
             cross_p["cross"], cfg, h, window=0, q_pos=q_pos, x_kv=enc_out,
             causal=False,
-            k_pos=torch.arange(enc_out.shape[1], device=x.device))
+            k_pos=torch.arange(enc_out.shape[1], device=x.device),
+            mesh=mesh)
         x = x + c
     return ffn_half(p, cfg, x, mesh=mesh)
 
@@ -406,26 +407,27 @@ def mla_layer(p, cfg: ModelConfig, x, *, q_pos, k_pos, mesh=None):
     return ffn_half(p, cfg, x, mesh=mesh)
 
 
-def mamba_layer(p, cfg: ModelConfig, x, state=None):
+def mamba_layer(p, cfg: ModelConfig, x, state=None, *, mesh=None):
     """One pre-norm Mamba-2 layer on the ACTIVE d-wide block. state
-    (decode): {"conv", "ssm"}. Returns (x, the new state)."""
+    (decode): {"conv", "ssm"}. mesh: the "model" axis (ssm.mamba2_block).
+    Returns (x, the new state)."""
     h = L.rms_norm(x, p["ln"], cfg.logical_norm_eps)
-    m, new_state = ssm_lib.mamba2_block(p["mamba"], cfg, h, state)
+    m, new_state = ssm_lib.mamba2_block(p["mamba"], cfg, h, state, mesh=mesh)
     return x + m, new_state
 
 
 def rwkv_layer(p, cfg: ModelConfig, x, state=None, *,
-               wkv_kernel: Optional[bool] = None):
+               wkv_kernel: Optional[bool] = None, mesh=None):
     """One pre-norm RWKV-6 layer (time mix, then channel mix) on the ACTIVE
     d-wide block. state (decode): {"wkv", "shift_tm", "shift_cm"}. Returns
     (x, new state); on the kernel path the "wkv" state is updated in place
-    (rwkv.rwkv_time_mix)."""
+    (rwkv.rwkv_time_mix). mesh: the "model" axis (models/rwkv.py)."""
     h = L.rms_norm(x, p["ln_tm"], cfg.logical_norm_eps)
     a, st_tm = rwkv_lib.rwkv_time_mix(p["rwkv"], cfg, h, state,
-                                      wkv_kernel=wkv_kernel)
+                                      wkv_kernel=wkv_kernel, mesh=mesh)
     x = x + a
     h = L.rms_norm(x, p["ln_cm"], cfg.logical_norm_eps)
-    c, st_cm = rwkv_lib.rwkv_channel_mix(p["rwkv"], cfg, h, state)
+    c, st_cm = rwkv_lib.rwkv_channel_mix(p["rwkv"], cfg, h, state, mesh=mesh)
     return x + c, {**st_tm, **st_cm}
 
 
@@ -509,7 +511,7 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
     A mamba segment, like an rwkv one, starts from a zero state. A
     shared_attn segment is one invocation of the hybrid's tied block:
     p_seg is `shared_blk` itself (unstacked). mesh: the "model" axis
-    attention and FFN layers are sharded over. Returns (x, the segment's
+    the layers are sharded over. Returns (x, the segment's
     aux loss summed over its layers; under AltUp a layer's aux is that of
     the one block it computed)."""
     K = cfg.altup.K
@@ -522,9 +524,10 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
         def layer_fn(xa, p_l=p_l, cross_l=cross_l):
             if seg.kind in ("rwkv", "mamba"):
                 if seg.kind == "rwkv":
-                    out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel)[0]
+                    out = rwkv_layer(p_l, cfg, xa, wkv_kernel=wkv_kernel,
+                                     mesh=mesh)[0]
                 else:
-                    out = mamba_layer(p_l, cfg, xa)[0]
+                    out = mamba_layer(p_l, cfg, xa, mesh=mesh)[0]
                 return out, torch.zeros((), dtype=torch.float32,
                                         device=xa.device)
             if seg.kind == "mla":
@@ -588,7 +591,8 @@ def forward(params, cfg: ModelConfig, tokens, *,
     reference's forward does (decode is drop-free).
 
     mesh: the "model" axis `params` are sharded over (sharding.py:
-    shard_params' tree), train=False only. An MoE layer's capacity drops
+    shard_params' tree), train=False only, every family. An MoE layer's
+    capacity drops
     raise over more than one model rank (moe_block): their all-to-all is
     training's (ROADMAP A11)."""
     return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
@@ -603,7 +607,6 @@ def forward_aux(params, cfg: ModelConfig, tokens, *,
     load-balance loss summed over layers, 0 for the other families)."""
     kw = dict(encoder_frames=encoder_frames, extra_embeds=extra_embeds)
     if mesh is not None:
-        sh.require_model_axis(cfg, mesh)
         if train:
             raise NotImplementedError(
                 "forward(train=True) over a mesh: the collectives' "
@@ -631,13 +634,14 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
     q_pos = torch.arange(S, device=x.device)
     rel_bias = enc_out = cross_stack = None
     if cfg.use_rel_pos_bias:
-        rel_bias = L.t5_rel_bias(params["rel_bias_dec"], q_pos, q_pos,
-                                 cfg.rel_pos_buckets, bidirectional=False)
+        rel_bias = L.t5_rel_bias(rel_table(params["rel_bias_dec"], cfg, mesh),
+                                 q_pos, q_pos, cfg.rel_pos_buckets,
+                                 bidirectional=False)
     if cfg.family == "encdec":
         if encoder_frames is None:
             raise ValueError("an encoder-decoder forward needs "
                              "encoder_frames")
-        enc_out = encode(params, cfg, encoder_frames, remat=remat)
+        enc_out = encode(params, cfg, encoder_frames, remat=remat, mesh=mesh)
         cross_stack = params["enc"]["cross"]
     elif encoder_frames is not None:
         raise ValueError(f"encoder_frames given to family {cfg.family!r}")
@@ -652,8 +656,16 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
     return unembed(params, cfg, x, mesh=mesh), aux_total
 
 
+def rel_table(table: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+    """T5's (buckets, H) relative bias table (replicated), or its columns
+    of the rank's heads when the attention runs on local heads: sdpa adds
+    a bias of the heads it computes."""
+    return sh.rank_share(table, mesh, 1) if sh.heads_sharded(cfg, mesh) \
+        else table
+
+
 def encode(params, cfg: ModelConfig, enc_input, *,
-           remat: str = "none") -> torch.Tensor:
+           remat: str = "none", mesh=None) -> torch.Tensor:
     """The encoder over token ids (T5: an integer (B, S) tensor, through
     the shared embedding) or precomputed frame embeddings (whisper's
     stubbed conv frontend: a float (B, S, d) tensor, replicated into the
@@ -663,29 +675,33 @@ def encode(params, cfg: ModelConfig, enc_input, *,
     cross-attention stays d-wide. cfg.seq_altup enabled runs
     encode_seq_reduced instead. Runs with autograd as its caller does
     (prefill calls it under no_grad). Returns (B, S', d), S' = S but
-    under avgpool."""
+    under avgpool. mesh: the "model" axis (sharding.py): T5's ids through
+    the vocab-parallel embedding, the layers' attention and FFN column-
+    then row-parallel, the K-mean and the final norm whole."""
     enc = params["enc"]
     if enc_input.dtype.is_floating_point:
         x = lift_embeds(enc_input.to(act_dtype(cfg)), cfg)
     else:
-        x = embed_tokens(params, cfg, enc_input)
+        x = embed_tokens(params, cfg, enc_input, mesh=mesh)
     if cfg.seq_altup.enabled:
-        x = encode_seq_reduced(params, cfg, x)
+        x = encode_seq_reduced(params, cfg, x, mesh=mesh)
     else:
         pos = torch.arange(x.shape[1], device=x.device)
         bias = None
         if cfg.use_rel_pos_bias:
-            bias = L.t5_rel_bias(enc["rel_bias_enc"], pos, pos,
-                                 cfg.rel_pos_buckets, bidirectional=True)
+            bias = L.t5_rel_bias(rel_table(enc["rel_bias_enc"], cfg, mesh),
+                                 pos, pos, cfg.rel_pos_buckets,
+                                 bidirectional=True)
         x, _ = apply_segment(enc["seg"], encoder_segment(cfg), cfg, x,
                              q_pos=pos, k_pos=pos, remat=remat,
-                             rel_bias=bias, causal=False)
+                             rel_bias=bias, causal=False, mesh=mesh)
     if cfg.altup.enabled:
         x = x.mean(dim=-2)             # collapse the K blocks
     return L.rms_norm(x, enc["final_norm"], cfg.logical_norm_eps)
 
 
-def encode_seq_reduced(params, cfg: ModelConfig, x) -> torch.Tensor:
+def encode_seq_reduced(params, cfg: ModelConfig, x, *,
+                       mesh=None) -> torch.Tensor:
     """Sequence-length-reduced encoder (paper Sec. 4.2 / Table 2).
 
     cfg.seq_altup.mode "altup" (Sequence-AltUp with the per-layer
@@ -694,7 +710,8 @@ def encode_seq_reduced(params, cfg: ModelConfig, x) -> torch.Tensor:
     n_encoder_layers - last_layer_offset) and runs the others in full;
     "avgpool" pools the sequence by the stride first and runs every
     layer on the pooled sequence. x: (B, S, d). Width-AltUp is not
-    combined with it, as in the paper: an AltUp config raises."""
+    combined with it, as in the paper: an AltUp config raises. mesh: as
+    encode's; the Sequence-AltUp scalars are replicated."""
     if cfg.altup.enabled:
         raise ValueError("Sequence-AltUp and width AltUp are not combined "
                          "(cfg.altup.K must be 1 with cfg.seq_altup)")
@@ -709,10 +726,11 @@ def encode_seq_reduced(params, cfg: ModelConfig, x) -> torch.Tensor:
         pos = torch.arange(xx.shape[1], device=xx.device)
         bias = None
         if cfg.use_rel_pos_bias:
-            bias = L.t5_rel_bias(enc["rel_bias_enc"], pos, pos,
-                                 cfg.rel_pos_buckets, bidirectional=True)
+            bias = L.t5_rel_bias(rel_table(enc["rel_bias_enc"], cfg, mesh),
+                                 pos, pos, cfg.rel_pos_buckets,
+                                 bidirectional=True)
         return attn_ffn_layer(p_l, cfg, xx, window=0, q_pos=pos, k_pos=pos,
-                              bias=bias, causal=False)[0]
+                              bias=bias, causal=False, mesh=mesh)[0]
 
     if sa.mode == "avgpool":
         x = seqalt.avgpool_reduce(x, sa.stride)

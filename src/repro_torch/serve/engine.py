@@ -109,16 +109,29 @@ A draft warm-up leaves the rings as it found them (it ends in its own
 restore); a verify warm-up's ring writes are restored before its
 capture.
 
-Tensor parallelism (mesh=, sharding.py): every rank of the mesh's
-"model" axis runs this engine on the same requests in the same order, so
-every rank's scheduler, prefix index and page allocator make the same
-decisions. The engine shards the full parameters it is given, its caches
-hold the rank's kv heads, each step runs the attention and FFN sharded
-with their all-reduces and all-gathers the logits, and every rank samples
-the same ids from them. Over NCCL the collectives are captured in the
-step graphs like any kernel (the warm-up on the side stream runs them
-first); a gloo group's collectives cannot be captured, so on CUDA under
-gloo every step runs eagerly (graph_stats says so, captures 0).
+Tensor parallelism (mesh=, sharding.py): every rank of the mesh runs
+this engine on the same requests in the same order, so every rank's
+scheduler, prefix index and page allocator make the same decisions.
+Over the "model" axis the engine shards the full parameters it is given,
+its caches hold the rank's kv heads (and recurrent heads), each step runs
+the attention, FFN and recurrent blocks sharded with their all-reduces
+and all-gathers the logits, and every rank samples the same ids from
+them. Over the batch axes ("pod", "data"), when their size D divides
+n_slots, a rank holds the caches, seen rows and step rows of its n_slots
+/ D slots (sharding.slot_range), samples its own rows from the
+per-request keys, and the step's ids (and logprobs) are all-gathered over
+the batch group, so every scheduler sees every slot's ids; a speculative
+round all-gathers its committed tokens and counts, so every rank's
+AdaptiveK reads the same accept counts. A prefix hit whose donor slot
+another data rank holds moves the donor's rows to the destination's
+owner by a broadcast within the batch group (never a gather of whole
+caches). generate() splits its rows the same way. Paged caches over a
+batch axis of more than one rank raise (ROADMAP A11: the pool would be
+replicated over "data" and each step's new rows all-gathered). Over NCCL
+the collectives are captured in the step graphs like any kernel (the
+warm-up on the side stream runs them first); a gloo group's collectives
+cannot be captured, so on CUDA under gloo every step runs eagerly
+(graph_stats says so, captures 0).
 """
 from __future__ import annotations
 
@@ -137,7 +150,8 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        decode_sample_step, decode_step,
                                        gather_pages, init_cache,
                                        init_paged_cache, kv_quant_spec,
-                                       prefill, reset_pages, reset_slot,
+                                       prefill, prefix_views, reset_pages,
+                                       reset_slot,
                                        restore_recurrent, restore_rows,
                                        save_recurrent, scatter_pages,
                                        shared_segments, snapshot_rows)
@@ -338,12 +352,13 @@ class RoundBuffers:
     ring snapshot that the draft fills and the post-verify restore reads,
     and, once a sampled round runs at k, the draft distributions q_mat
     (B, k, V) f32 that the draft writes and the verify's rejection rule
-    reads."""
+    reads. Under a batch axis the inputs cover every slot and the rest
+    the rank's `nb` rows."""
 
-    def __init__(self, B: int, V: int, device: torch.device):
+    def __init__(self, B: int, nb: int, V: int, device: torch.device):
         self.inputs = StepInputs(B, 1, device, extra=("caps", "starts"))
-        self.seen_pre = torch.zeros((B, V), dtype=torch.bool, device=device)
-        self.draft_seen = torch.zeros((B, V), dtype=torch.bool,
+        self.seen_pre = torch.zeros((nb, V), dtype=torch.bool, device=device)
+        self.draft_seen = torch.zeros((nb, V), dtype=torch.bool,
                                       device=device)
         self.snaps: Dict[int, Dict[str, Dict[str, torch.Tensor]]] = {}
         self.q_mats: Dict[int, torch.Tensor] = {}
@@ -374,12 +389,12 @@ class Engine:
     speculative decoding refuse it. speculative: True or
     a SpecConfig turns on self-speculative decoding
     (serve/speculative.py); recurrent plans decode normally whatever it
-    says. mesh: a DeviceMesh (launch/mesh.make_mesh) with a "model" dim
-    to serve over, on the engine's device type; `params` are the FULL
-    parameters, which the engine shards (sharding.shard_params). A
-    "data" or "pod" dim of more than one rank, and recurrent, hybrid or
-    encoder-decoder plans over more than one model rank, raise
-    (ROADMAP A11). Steps (graph captures included) and
+    says. mesh: a DeviceMesh (launch/mesh.make_mesh) with a "model" dim,
+    a "data" / "pod" dim or both, on the engine's device type; `params`
+    are the FULL parameters, which the engine shards
+    (sharding.shard_params). Every family serves over it; paged=True
+    with a batch axis of more than one rank raises (ROADMAP A11). Steps
+    (graph captures included) and
     generate() run without autograd, so trainable parameters (a
     Trainer's) serve as they are."""
 
@@ -416,12 +431,16 @@ class Engine:
             raise ValueError(f"parameters lie on {emb.device}, the engine "
                              f"on {self.device}")
         # gloo's collectives cannot be captured in a CUDA graph
-        eager_mesh = self._check_mesh(cfg, mesh)
+        eager_mesh = self._check_mesh(cfg, mesh, paged)
         if mesh is not None:
             params = sh.shard_params(params, cfg, mesh)
         self.cfg, self.params, self.mesh = cfg, params, mesh
         self.max_len = max_len
         self.n_slots = n_slots
+        # the slots this rank holds, [lo, hi), of a batch axis
+        self._lo, self._hi = sh.slot_range(n_slots, mesh)
+        self._rows = slice(self._lo, self._hi)
+        self._split = self._hi - self._lo < n_slots
         self._kv_buckets = kv_buckets
         self._kv_bucket_min = kv_bucket_min
         # recurrent state advances token by token, and a chunk's ring
@@ -444,7 +463,7 @@ class Engine:
         self._bt_stale = True       # admit/retire changed the host table
         # on the card, pure-decode steps replay CUDA graphs
         self._use_graphs = self.device.type == "cuda" and not eager_mesh
-        self._graphs = (StepGraphs(self.device, n_slots)
+        self._graphs = (StepGraphs(self.device, self._hi - self._lo)
                         if self._use_graphs else None)
         self._init_spec(speculative)
         self._events: List[Tuple[int, int]] = []      # last step's deltas
@@ -492,29 +511,33 @@ class Engine:
         self._round: Optional[RoundBuffers] = None
         # the rounds' graphs: (draft, k, kv bucket, sampled), (verify, k,
         # kv bucket, logprobs, sampled), (restore, k)
-        self._spec_graphs = (StepGraphs(self.device, self.n_slots)
+        self._spec_graphs = (StepGraphs(self.device, self._hi - self._lo)
                              if self._use_graphs else None)
 
-    def _check_mesh(self, cfg: ModelConfig, mesh) -> bool:
-        """Refuse the meshes this slice does not serve (ROADMAP A11).
-        Returns whether the mesh's collectives keep the steps eager on the
-        card (a gloo group)."""
+    def _check_mesh(self, cfg: ModelConfig, mesh, paged: bool) -> bool:
+        """Refuse the meshes the engine does not serve: no "model" or batch
+        dim, another device type, or paged caches over a batch axis of
+        more than one rank (ROADMAP A11). Returns whether the mesh's
+        collectives keep the steps eager on the card (a gloo group)."""
         if mesh is None:
             return False
-        if sh.MODEL not in (mesh.mesh_dim_names or ()):
-            raise ValueError(f"the engine's mesh needs a {sh.MODEL!r} dim, "
-                             f"got {mesh.mesh_dim_names}")
+        dims = [n for n in (mesh.mesh_dim_names or ())
+                if n in (sh.MODEL,) + sh.BATCH]
+        if not dims:
+            raise ValueError(f"the engine's mesh needs a {sh.MODEL!r}, "
+                             f"'data' or 'pod' dim, got "
+                             f"{mesh.mesh_dim_names}")
         if mesh.device_type != self.device.type:
             raise ValueError(f"mesh on {mesh.device_type}, the engine on "
                              f"{self.device}")
-        for name in ("data", "pod"):
-            if sh.mesh_dim_size(mesh, name) > 1:
-                raise NotImplementedError(
-                    f"serving over a {name!r} axis of "
-                    f"{sh.mesh_dim_size(mesh, name)} ranks arrives with a "
-                    f"later slice of ROADMAP A11")
-        sh.require_model_axis(cfg, mesh)
-        return dist.get_backend(mesh.get_group(sh.MODEL)) == "gloo"
+        if paged and sh.batch_size(mesh) > 1:
+            raise NotImplementedError(
+                f"paged caches over a batch axis of {sh.batch_size(mesh)} "
+                f"ranks arrive with a later slice of ROADMAP A11 (the row "
+                f"pool would be replicated over 'data' and each step's new "
+                f"rows all-gathered)")
+        return any(dist.get_backend(mesh.get_group(n)) == "gloo"
+                   for n in dims)
 
     def reset_stats(self) -> None:
         for k in self.stats:
@@ -636,10 +659,43 @@ class Engine:
                 self.n_slots, self.max_len,
                 prefix_cache=self._prefix_cache,
                 prefix_usable_len=usable)
-            self._caches = init_cache(self.cfg, self.n_slots, self.max_len,
-                                      device=self.device, mesh=self.mesh)
-        self._seen = torch.zeros((self.n_slots, self.cfg.vocab_size),
+            self._caches = init_cache(self.cfg, self._hi - self._lo,
+                                      self.max_len, device=self.device,
+                                      mesh=self.mesh)
+        self._seen = torch.zeros((self._hi - self._lo, self.cfg.vocab_size),
                                  dtype=torch.bool, device=self.device)
+
+    def _local(self, slot: int) -> Optional[int]:
+        """slot's index in this rank's caches and seen rows, or None when
+        another data rank holds it."""
+        return slot - self._lo if self._lo <= slot < self._hi else None
+
+    def _copy_prefix(self, dst: int, src: int, p: int) -> None:
+        """copy_prefix between global slots. Under a batch axis the two
+        slots' owners may differ: the donor's rows (and, recurrent, its
+        state) then move from its owner to the destination's by one
+        broadcast a leaf within the batch group, which every rank of the
+        group joins; no rank gathers whole caches."""
+        kw = dict(copy_recurrent=self._has_recurrent, shared=self._shared)
+        if not self._split:
+            copy_prefix(self._caches, dst, src, p, **kw)
+            return
+        nb = self._hi - self._lo
+        owner_src, owner_dst = src // nb, dst // nb
+        if owner_src == owner_dst:
+            if self._local(dst) is not None:
+                copy_prefix(self._caches, dst - self._lo, src - self._lo, p,
+                            **kw)
+            return
+        ls, ld = self._local(src), self._local(dst)
+        views = prefix_views(self._caches, 0 if ls is None else ls, p, **kw)
+        dst_views = (prefix_views(self._caches, ld, p, **kw)
+                     if ld is not None else [None] * len(views))
+        for v, dv in zip(views, dst_views):
+            buf = v.clone() if ls is not None else torch.empty_like(v)
+            sh.batch_broadcast(buf, self.mesh, owner_src)
+            if dv is not None:
+                dv.copy_(buf)
 
     def _admit(self) -> None:
         """Admit queued requests and land each one's prefix rows, in
@@ -672,22 +728,23 @@ class Engine:
                 # self-donor hit (src == dst), whose rows and state ARE
                 # the prefix it reuses in place
                 self_donor = hit and st.prefix_src == st.slot
+                local = self._local(st.slot)
                 if (self._has_recurrent or self._quantized) and \
-                        not self_donor:
-                    reset_slot(self._caches, st.slot, shared=self._shared)
+                        not self_donor and local is not None:
+                    reset_slot(self._caches, local, shared=self._shared)
                 if hit:
-                    copy_prefix(self._caches, st.slot, st.prefix_src,
-                                st.prefix_len,
-                                copy_recurrent=self._has_recurrent,
-                                shared=self._shared)
+                    self._copy_prefix(st.slot, st.prefix_src, st.prefix_len)
             # the seen row carries the previous occupant's tokens: clear
             # it (in place); a hit seeds it with the prefix ids, the row
             # cold prefill would have built
-            self._seen[st.slot] = False
+            local = self._local(st.slot)
+            if local is not None:
+                self._seen[local] = False
+                if hit:
+                    ids = self._tensor(np.asarray(
+                        st.request.prompt[:st.prefix_len], np.int64))
+                    self._seen[local, ids] = True
             if hit:
-                ids = self._tensor(np.asarray(
-                    st.request.prompt[:st.prefix_len], np.int64))
-                self._seen[st.slot, ids] = True
                 self.stats["prefix_hits"] += 1
                 self.stats["prefill_tokens_saved"] += st.prefix_len
             self._sched.release_donor(st)
@@ -797,10 +854,11 @@ class Engine:
         inputs.upload("tokens", "pos", "nval", *names)
         # retained recurrent donors keep the state they retired with (a
         # paged retained entry owns pages, not a slot)
-        kept = (self._tensor(np.asarray(sorted(self._sched.retained),
-                                        np.int64))
-                if self._has_recurrent and not self._paged
-                and self._sched.retained else None)
+        kept = None
+        if self._has_recurrent and not self._paged:
+            mine = [s - self._lo for s in sorted(self._sched.retained)
+                    if self._local(s) is not None]
+            kept = self._tensor(np.asarray(mine, np.int64)) if mine else None
         saved = None if kept is None else save_recurrent(self._caches, kept)
         ids, lps = self._run_step(
             (kv_len, want_lp, any_sampled) if C == 1 else None,
@@ -837,16 +895,30 @@ class Engine:
         """The step on the static buffers: decode_sample_step over
         `inputs`, the caches, `seen` and the block table buffer, all
         written in place. Returns (ids, logprobs | None) on the device.
-        This is the function a CUDA graph captures."""
+        This is the function a CUDA graph captures. Under a batch axis it
+        steps this rank's rows and all-gathers their ids (and logprobs)."""
+        r = self._rows
         ids, lps, caches, seen = decode_sample_step(
-            self.params, self._caches, self._seen, inputs.tokens,
-            inputs.pos, inputs.nval, inputs.sparams(any_sampled),
+            self.params, self._caches, self._seen, inputs.tokens[r],
+            inputs.pos[r], inputs.nval[r], self._rows_of(
+                inputs.sparams(any_sampled)),
             cfg=self.cfg, kv_len=kv_len, want_logprobs=want_lp,
             any_sampled=any_sampled, mesh=self.mesh, **self._step_kw())
         if caches is not self._caches or seen is not self._seen:
             raise RuntimeError("the step must write the caches and the seen "
                                "table in place")
-        return ids, lps
+        return self._gather_rows(ids), self._gather_rows(lps)
+
+    def _rows_of(self, tensors: Dict[str, torch.Tensor]):
+        """This rank's rows of per-slot step tensors (views)."""
+        return {name: t[self._rows] for name, t in tensors.items()}
+
+    def _gather_rows(self, t: Optional[torch.Tensor]):
+        """Every slot's rows of a per-slot result, all-gathered over the
+        batch group when the rank holds only its own."""
+        if t is None or not self._split:
+            return t
+        return sh.batch_all_gather(t, self.mesh)
 
     def _run_step(self, key: Optional[tuple], fn):
         """Run one step: on the card, a pure-decode step (key = its static
@@ -885,7 +957,8 @@ class Engine:
             return None
         S = k + 1
         if self._round is None:
-            self._round = RoundBuffers(B, self.cfg.vocab_size, self.device)
+            self._round = RoundBuffers(B, self._hi - self._lo,
+                                       self.cfg.vocab_size, self.device)
         rb = self._round
         h = rb.inputs.host
         for name in ("tokens", "pos", "nval", "caps"):
@@ -913,8 +986,9 @@ class Engine:
         ring = bool(self._ring_caps)
         if ring and k not in rb.snaps:
             # the static snapshot buffers of this k (their values unused)
-            rb.snaps[k] = snapshot_rows(self.cfg, self._caches, rb.inputs.pos,
-                                        S, **self._step_kw())
+            rb.snaps[k] = snapshot_rows(self.cfg, self._caches,
+                                        rb.inputs.pos[self._rows], S,
+                                        **self._step_kw())
         # 1. snapshot, draft k tokens, undo the draft's ring writes (the
         # verify chunk reads the pre-round window)
         tok_mat = self._run_round(
@@ -986,25 +1060,27 @@ class Engine:
         `seen` into seen_pre, draft k tokens (draft_round) on a throwaway
         copy of `seen`, then restore every snapshot row. A sampled round's
         draft also writes its distributions into the q_mat buffer of k.
-        Returns tok_mat (B, k + 1)."""
+        Returns tok_mat (B, k + 1) of the rank's rows (all slots but under
+        a batch axis)."""
         rb = self._round
         inp = rb.inputs
+        r = self._rows
         S = k + 1
         ring = bool(self._ring_caps)
         if ring:
-            snapshot_rows(self.cfg, self._caches, inp.pos, S,
+            snapshot_rows(self.cfg, self._caches, inp.pos[r], S,
                           out=rb.snaps[k], **self._step_kw())
         rb.seen_pre.copy_(self._seen)
         rb.draft_seen.copy_(self._seen)
         tok_mat, _, _, _ = draft_round(
-            self.params, self._caches, rb.draft_seen, inp.tokens, inp.pos,
-            inp.caps, inp.sparams(any_sampled), cfg=self.cfg,
-            draft_layers=self._draft_layers, k=k, kv_len=kv_len,
-            any_sampled=any_sampled, mesh=self.mesh,
+            self.params, self._caches, rb.draft_seen, inp.tokens[r],
+            inp.pos[r], inp.caps[r], self._rows_of(inp.sparams(any_sampled)),
+            cfg=self.cfg, draft_layers=self._draft_layers, k=k,
+            kv_len=kv_len, any_sampled=any_sampled, mesh=self.mesh,
             q_out=rb.q_mat(k) if any_sampled else None, **self._step_kw())
         if ring:
-            restore_rows(self.cfg, self._caches, rb.snaps[k], inp.pos, 0, S,
-                         **self._step_kw())
+            restore_rows(self.cfg, self._caches, rb.snaps[k], inp.pos[r], 0,
+                         S, **self._step_kw())
         return tok_mat
 
     def _static_verify(self, tok_mat: torch.Tensor, kv_len: int,
@@ -1012,26 +1088,30 @@ class Engine:
         """The verify over the draft's tok_mat and, sampled, its q_mat
         (spec_verify_step), `seen` updated in place. Returns ((B, S + 1)
         int32: the committed tokens and, last, the committed count;
-        logprobs (B, S) | None)."""
+        logprobs (B, S) | None), every slot's: under a batch axis the
+        rank's rows all-gathered, so every rank commits the same tokens and
+        its AdaptiveK reads the same accept counts)."""
         rb = self._round
         inp = rb.inputs
+        r = self._rows
         k = tok_mat.shape[1] - 1
         committed, n_comm, lps, _, _ = spec_verify_step(
-            self.params, self._caches, self._seen, tok_mat, inp.pos,
-            inp.nval, inp.sparams(any_sampled),
+            self.params, self._caches, self._seen, tok_mat, inp.pos[r],
+            inp.nval[r], self._rows_of(inp.sparams(any_sampled)),
             rb.q_mat(k) if any_sampled else None, cfg=self.cfg,
             kv_len=kv_len, want_logprobs=want_lp, any_sampled=any_sampled,
             mesh=self.mesh, **self._step_kw())
         out = torch.cat([committed, n_comm[:, None].to(torch.int32)], dim=1)
-        return out, lps
+        return self._gather_rows(out), self._gather_rows(lps)
 
     def _static_restore(self, k: int, from_starts: bool) -> None:
         """Restore the round's ring rows from the snapshot buffers of k:
         each slot's rows from its `starts` entry on (the post-verify
         rollback), or all of them."""
         inp = self._round.inputs
-        restore_rows(self.cfg, self._caches, self._round.snaps[k], inp.pos,
-                     inp.starts if from_starts else 0, k + 1,
+        r = self._rows
+        restore_rows(self.cfg, self._caches, self._round.snaps[k], inp.pos[r],
+                     inp.starts[r] if from_starts else 0, k + 1,
                      **self._step_kw())
 
     def _undo_verify(self, k: int) -> None:
@@ -1127,7 +1207,9 @@ class Engine:
         TypeError. The static batch always emits the full n tokens per
         row; eos/stops are scheduler concerns, so a seeded B=1 call's
         stream is what a continuous request with the same SamplingParams
-        returns a prefix of."""
+        returns a prefix of. Under a batch axis whose size divides B each
+        rank runs its rows (sharding.slot_range) and the tokens (and
+        logprobs) are all-gathered: every rank returns all B rows."""
         cfg = self.cfg
         prompt_tokens = self._tensor(prompt_tokens).to(torch.long)
         B, S = prompt_tokens.shape
@@ -1161,9 +1243,11 @@ class Engine:
         for b in range(B):
             fill_slot_params(sparams, b, sampling, keys[b], 0)
         sparams["key"] = sparams["key"].astype(np.int64)
-        sp_dev = {name: self._tensor(v) for name, v in sparams.items()}
+        lo, hi = sh.slot_range(B, self.mesh)
+        sp_dev = {name: self._tensor(v[lo:hi]) for name, v in sparams.items()}
+        prompt_tokens = prompt_tokens[lo:hi]
         want_lp = sampling.logprobs
-        seen = torch.zeros((B, cfg.vocab_size), dtype=torch.bool,
+        seen = torch.zeros((hi - lo, cfg.vocab_size), dtype=torch.bool,
                            device=self.device)
 
         def step_fn(p, c, tk, t):
@@ -1171,7 +1255,7 @@ class Engine:
                                mesh=self.mesh)
 
         if encoder_frames is not None:
-            encoder_frames = self._tensor(encoder_frames)
+            encoder_frames = self._tensor(encoder_frames)[lo:hi]
         logits, caches = prefill(self.params, cfg, prompt_tokens,
                                  T=self.max_len, step_fn=step_fn,
                                  encoder_frames=encoder_frames,
@@ -1198,6 +1282,8 @@ class Engine:
             tok, lp = sample_at(logits, t)
             outs.append(tok)
             lp_outs.append(lp)
-        self.last_logprobs = (torch.stack(lp_outs, dim=1) if want_lp
+        def whole(t):
+            return t if hi - lo == B else sh.batch_all_gather(t, self.mesh)
+        self.last_logprobs = (whole(torch.stack(lp_outs, dim=1)) if want_lp
                               else None)
-        return torch.stack(outs, dim=1)
+        return whole(torch.stack(outs, dim=1))

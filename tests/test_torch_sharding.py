@@ -1,12 +1,16 @@
 """PyTorch port: the "model" axis's placement tables held against the
-reference's PartitionSpecs, the kv-head rule of the caches, and the
-refusals of what a later slice serves over a mesh (ROADMAP A11).
+reference's PartitionSpecs, the two deviations by design (the kv-head
+rule of the caches, the component-wise Mamba-2 layout of w_in / conv_w /
+conv), the recurrent and encoder-decoder caches on a rank's heads, and
+the one refusal left in serving (paged caches over a batch axis,
+ROADMAP A11).
 
 The reference's param_pspecs / cache_pspecs / paged_cache_pspecs read
 only `mesh.shape` (and `axis_names`), so a stand-in mesh of {"data": 1,
 "model": N} serves them with no devices; shapes come from jax.eval_shape
 on the reference's side and meta tensors on the port's. Multi-rank
-serving is tests/test_torch_tp_serve.py."""
+serving is tests/test_torch_tp_serve.py and
+tests/test_torch_tp_families.py."""
 import dataclasses
 import functools
 
@@ -115,6 +119,7 @@ def _cache_shapes(cfg, paged, module):
 
 
 ATTN_LEAVES = ("k", "v", "k_scale", "v_scale", "latent", "latent_scale")
+RECURRENT_LEAVES = ("wkv", "ssm", "shift_tm", "shift_cm", "conv")
 
 
 # paged caches serve decoder-only models
@@ -130,7 +135,10 @@ def test_cache_placements_differ_from_reference_only_by_kv_head_rule(
     reference shards the kv heads, so does the port; where it shards the
     sequence axis (kv heads N does not divide, the contiguous latent) or
     nothing, the port holds the heads its local queries read (N divides
-    n_heads) or everything."""
+    n_heads) or everything. Recurrent leaves: wkv, ssm and the
+    token-shift tails exactly as the reference's; the conv tail, the
+    other deviation, split (its x columns) exactly when the Mamba-2
+    heads are."""
     jc, tc = _cfgs(arch)
     seen = 0
     for kv in ("auto", "int8"):
@@ -145,10 +153,19 @@ def test_cache_placements_differ_from_reference_only_by_kv_head_rule(
             got = place(tcq, tshapes, StandIn({"model": n}))
             for path, spec in want.items():
                 name = path[-1]
+                ref, port = _model_dim(spec), got[path]
+                if name == "conv":
+                    seen += 1
+                    assert port == (3 if sh.mamba_heads(tc) % n == 0
+                                    else None), path
+                    continue
+                if name in RECURRENT_LEAVES:
+                    seen += 1
+                    assert port == ref, path
+                    continue
                 if name not in ATTN_LEAVES:
                     continue
                 seen += 1
-                ref, port = _model_dim(spec), got[path]
                 ndim = len(spec)
                 head = ndim - (2 if name in ("k", "v") else 1)
                 if name.startswith("latent"):
@@ -160,8 +177,7 @@ def test_cache_placements_differ_from_reference_only_by_kv_head_rule(
                     # heads
                     assert tc.n_kv_heads % n != 0, path
                     assert port == (head if tc.n_heads % n == 0 else None)
-    if tc.family not in ("rwkv6",):
-        assert seen > 0
+    assert seen > 0
 
 
 @pytest.mark.parametrize("h,hk,n", [(4, 2, 2), (4, 2, 4), (16, 8, 16),
@@ -201,7 +217,7 @@ def _tiny(family="dense", **kw):
     return tcfg.ModelConfig(**base)
 
 
-REFUSED = {
+FAMILIES = {
     "rwkv6": _tiny("rwkv6", rwkv=tcfg.RWKVConfig(head_dim=16, decay_lora=8,
                                                   token_shift_lora=8)),
     "hybrid": _tiny("hybrid", n_layers=3, ssm=tcfg.SSMConfig(
@@ -210,25 +226,81 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("family", sorted(REFUSED))
-def test_recurrent_and_encdec_plans_over_model_axis_raise_a11(family):
-    cfg = REFUSED[family]
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_recurrent_and_encdec_caches_over_model_axis_hold_local_heads(
+        family):
+    """A model axis of 2 serves the recurrent, hybrid and encoder-decoder
+    plans: init_cache holds the rank's heads of the wkv / ssm states, its
+    x columns of the conv tail beside the whole B and C, the rank's kv
+    heads of the self and cross caches, and whole token-shift tails;
+    init_paged_cache the same recurrent leaves beside the pools."""
+    cfg = FAMILIES[family]
     mesh = StandIn({"model": 2})
-    params = {"embed": torch.zeros(256, 64)}
-    with pytest.raises(NotImplementedError, match="A11"):
-        Engine(cfg, params, 16, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tdec.init_cache(cfg, 2, 16, device="meta", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A11"):
-        forward(params, cfg, torch.zeros(1, 2, dtype=torch.long), mesh=mesh)
+    local = tdec.init_cache(cfg, 2, 16, device="meta", mesh=mesh)
+    whole = tdec.init_cache(cfg, 2, 16, device="meta")
+    ssm = cfg.ssm
+    for si, seg in whole.items():
+        for name, leaf in seg.items():
+            got, want = tuple(local[si][name].shape), list(leaf.shape)
+            if name in ("wkv", "ssm"):
+                want[2] //= 2
+            elif name == "conv":
+                want[3] = ssm.expand * cfg.d_model // 2 + 2 * ssm.d_state
+            elif name in ("k", "v"):
+                want[-2] //= 2
+            assert got == tuple(want), (si, name)
+    if family != "encdec":
+        paged = tdec.init_paged_cache(cfg, 2, 16, n_pages=4, page=4,
+                                      device="meta", mesh=mesh)
+        for si, seg in paged.items():
+            for name, leaf in seg.items():
+                if name in RECURRENT_LEAVES:
+                    assert leaf.shape == local[si][name].shape
+
+
+def test_mamba_w_in_columns_per_rank_at_full_shape():
+    """The component-wise Mamba-2 layout at zamba2-1.2b's full shape, N =
+    4, on meta tensors: the placement reports dim 1 of w_in and conv_w
+    (as param_pspecs does), but a rank holds 2192 of w_in's 8384 columns,
+    not a contiguous 2096: its 1024 of z and of x, the whole B and C (64
+    each) and its 16 of dt; conv_w's 1024 of x and the whole B and C.
+    Rank r's w_in columns, by index, are exactly those."""
+    cfg = tconfigs.get_config("zamba2-1.2b", altup_k=2)
+    meta = init_tree(cfg, None, torch.device("meta"))
+    place = sh.param_placements(meta, cfg, 4)
+    mamba = [p for p in place if p[-1] in ("w_in", "conv_w")]
+    assert mamba and all(place[p] == 2 for p in mamba)   # stacked: dim 1+1
+    d_in, N, H = 4096, 64, 64
+    W = 2 * d_in + 2 * N + H
+    assert meta["seg0"]["mamba"]["w_in"].shape[-1] == W == 8384
+    cols = torch.arange(W)
+    for r in range(4):
+        shard = sh.shard_params(meta, cfg, StandIn({"model": 4}, rank=r))
+        assert shard["seg0"]["mamba"]["w_in"].shape[-1] == 2192
+        assert shard["seg0"]["mamba"]["conv_w"].shape[-1] == 1024 + 2 * N
+        got = sh.local_columns(cols, sh.mamba_columns(cfg, "w_in"), r, 4)
+        want = torch.cat([
+            torch.arange(r * 1024, (r + 1) * 1024),               # z
+            d_in + torch.arange(r * 1024, (r + 1) * 1024),        # x
+            2 * d_in + torch.arange(2 * N),                       # B, C
+            2 * d_in + 2 * N + torch.arange(r * 16, (r + 1) * 16)])  # dt
+        assert torch.equal(got, want)
+        parts = [sh.local_columns(cols, sh.mamba_columns(cfg, "w_in"), q, 4)
+                 for q in range(4)]
+        assert torch.equal(sh.merge_columns(
+            parts, sh.mamba_columns(cfg, "w_in"), 4), cols)
 
 
 @pytest.mark.parametrize("dims", [{"data": 2, "model": 2},
                                   {"pod": 2, "data": 1, "model": 1}])
 def test_data_and_pod_axes_raise_a11(dims):
+    """Paged caches over a batch axis of more than one rank raise, naming
+    A11: the one refusal left in serving (contiguous slots split over
+    it, tests/test_torch_tp_families.py)."""
     params = {"embed": torch.zeros(256, 64)}
     with pytest.raises(NotImplementedError, match="A11"):
-        Engine(_tiny(), params, 16, mesh=StandIn(dims), device="cpu")
+        Engine(_tiny(), params, 16, mesh=StandIn(dims), paged=True,
+               device="cpu")
 
 
 def test_moe_with_capacity_drops_over_mesh_raises_a11():
