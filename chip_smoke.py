@@ -188,9 +188,9 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                kernel a layer; the eager twin (this line) and a replayed
                run held against it as e-graph at 6 layers (5 on rings,
                1 global; cut so the run fits its time), then j-graph
-               replayed at full depth (34 launches of each a step, 29
-               on rings, 5 global), every step a replay, with the
-               replayed step's device ms
+               replayed at 12 of the 34 layers (12 launches of each a
+               step, 10 on rings, 2 global), every step a replay, with
+               the replayed step's device ms
       j-paged  a 600-token system prompt served first, then 8 requests
                extending it (tails of 32-480 tokens, 32 new) over a pool
                of pages of 16 rows with prefix reuse: every hit copies
@@ -318,9 +318,9 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                512 tokens in 2 microbatches: a falling loss, tokens/s,
                MFU from model_flops_per_token (routed experts at top_k /
                num_experts), peak memory
-      m-serve  (e)'s traffic at full depth, replayed (m-serve-graph): the
-               numbers of (e), 24 AltUp and 24 decode-attention launches
-               a decode step, parameter bytes and the peak memory after
+      m-serve  (e)'s traffic at 12 of the 24 layers, replayed
+               (m-serve-graph): the numbers of (e), 12 AltUp and 12
+               decode-attention launches a decode step, parameter bytes and the peak memory after
                init, the step graph's device ms, the MoE FFN's share of
                a step's kernel time (an eager step under torch.profiler,
                each moe_block in a record_function range), a
@@ -422,8 +422,8 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                through Engine(n_slots=8, max_len=512): an eager twin at
                6 mamba layers against a replayed run at the same depth
                (contiguous float, paged int8), then replayed, contiguous
-               float at full depth, contiguous int8 and paged float /
-               int8 at 12 mamba layers (cut for the run's time): median and
+               float and int8 and paged float / int8 at 12 mamba layers
+               (cut for the run's time): median and
                p80 step ms, decode tok/s, the recurrent hit (contiguous:
                one, its tokens a cold engine's; paged: none), the step
                graph's device ms against its bytes bound (weights and
@@ -472,10 +472,10 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                a rank), full width; gates: every rank's tokens and kernel
                launches equal to a one-rank run's at the same depth,
                captures 0, logits within T_B_LOGIT_TOL of one rank's; a
-               collective that fails on CUDA tensors is printed, with
-               why, in place of the gates. Phase c's c-ragged / c-paged
-               cases t-* time the decode attention at the ranks' local
-               heads
+               collective that fails on CUDA tensors fails the run, its
+               line printed with which and why. Phase c's c-ragged /
+               c-paged cases t-* time the decode attention at the ranks'
+               local heads
       t-serve-c  the recurrent and encoder-decoder families and slots
                over "data". (a) one NCCL rank, replayed: rwkv6-1.6b + K=2
                at 4 layers and zamba2-1.2b + K=2 at 6 mamba layers
@@ -489,9 +489,29 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                (4 layers) at data = 2 (two slots a rank); gates: tokens
                and launches equal to
                a one-rank run's, captures 0, the model-axis logits within
-               T_B_LOGIT_TOL. Phase c's cases tc-* hold the WKV kernel at
-               16 and 8 heads (N = 2, 4) and the decode attention at
-               t5-large's 8 local heads against their plain versions
+               T_B_LOGIT_TOL; then RWKV-6 and zamba2 again in bf16, their
+               logits gated on T_B_LOGIT_TOL, their tokens compared (the
+               one-rank logits' top-2 margin printed where they part).
+               Phase c's cases tc-* hold the WKV kernel at 16 and 8 heads
+               (N = 2, 4) and the decode attention at t5-large's 8 local
+               heads against their plain versions
+      t-serve-d  the rest of A11's serving over data = 2, two gloo ranks
+               sharing the card, eager, Qwen3-0.6B + K=2 at 4 layers,
+               bf16 and int8: (a) paged caches, (g)'s shared system
+               prompt, 6 requests through 4 slots: tokens and launches
+               equal to one rank's, both ranks' pools bitwise equal
+               (each step's written rows all-gathered), pages aliased;
+               (b) the long-context layout, one slot of 8192 rows and a
+               5000-token prompt whose rows both ranks hold: tokens equal
+               to one rank's, the split pass and the merge over gathered
+               spans launched once a layer a decode step (B2 never),
+               each rank's caches half of one rank's, logits within
+               T_B_LOGIT_TOL; the rows and bytes each step gathers.
+               Phase c's c-split-merge cases td-* hold the split pass on
+               each rank's rows + the merge over the gathered spans
+               bitwise against the unsharded B2 call (32768 rows over 2
+               and 4 ranks and an uneven split; bf16, int8, fp8) and
+               time them against it
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -2488,10 +2508,11 @@ J_SLOTS, J_MAX_LEN = 8, 2048
 J_SYSTEM, J_PAGED_NEW, J_PAGE = 600, 32, 16
 # the depth at which j-serve and j-paged run their eager twin and the
 # replayed run held against it (5 ring layers and 1 global: the plan's
-# pattern once); the phase's numbers come from a replayed run at full depth
+# pattern once); the phase's numbers come from a replayed run at
+# J_PAGED_LAYERS
 J_TWIN_LAYERS = 6
-# j-paged-graph's counted run, cut for the run's time (the plan's
-# pattern twice; j-graph keeps the full 34)
+# j-graph's and j-paged-graph's counted runs, cut for the run's time
+# (the plan's pattern twice of gemma3-4b's 34 layers)
 J_PAGED_LAYERS = 12
 
 
@@ -3996,9 +4017,10 @@ def sampling_phases(torch, ops, greedy=None):
 # ---------------------------------------------------------------------------
 
 # m-parity, m-grad and m-train run the full width at 2 layers; m-serve's
-# eager twin and its paged run at M_TWIN_LAYERS; m-serve itself at the
-# full depth of 24
+# eager twin and its paged run at M_TWIN_LAYERS; m-serve itself at
+# M_GRAPH_LAYERS of 24 (for the run's time)
 M_LAYERS, M_TWIN_LAYERS = 2, 4
+M_GRAPH_LAYERS = 12
 M_BLOCK_TOKENS = 128        # m-parity's moe_block, card against CPU
 M_BLOCK_TOL = 1e-5          # of the CPU output's max
 M_AUX_RTOL = 1e-6
@@ -4373,10 +4395,11 @@ def moe_serve(torch, ops):
     new) on qwen2-moe-a2.7b + AltUp K=2 in bf16 through
     Engine(n_slots=8, max_len=2048, prefill_chunk=64,
     prefix_cache=False): the eager twin and a replayed run held against
-    it (hold_replay) at M_TWIN_LAYERS, then the replayed run at full
-    depth with serve_bf16's gates (24 AltUp launches a step, 24 ragged a
-    decode step) and its numbers, the step graph's device ms and the MoE
-    FFN's share of it. Returns (twin line, full-depth line)."""
+    it (hold_replay) at M_TWIN_LAYERS, then the replayed run at
+    M_GRAPH_LAYERS with serve_bf16's gates (one AltUp launch a layer a
+    step, one ragged a layer a decode step) and its numbers, the step
+    graph's device ms and the MoE FFN's share of it. Returns (twin line,
+    counted run's line)."""
     from repro_torch.serve.engine import kv_bucket
     twin_cfg = moe_config(n_layers=M_TWIN_LAYERS)
     res_t, trace_t, _ = serve_bf16(torch, ops, cfg=twin_cfg)
@@ -4384,7 +4407,7 @@ def moe_serve(torch, ops):
     held = hold_replay({**res_t, **trace_t}, {**res_tr, **trace_tr},
                        res_tr["decode_steps"])
     twin = {"eager": res_t, "replayed": res_tr, **held}
-    cfg = moe_config()
+    cfg = moe_config(n_layers=M_GRAPH_LAYERS)
 
     def after(eng, params):
         extra = moe_share(torch, eng)
@@ -4473,7 +4496,7 @@ def check_moe_kernels(torch, ops, ref):
 
 def moe_phases(torch, ops, workdir):
     """The m phases, each line with its seconds; returns m-serve's
-    full-depth result."""
+    counted run's result."""
     t_m = time.perf_counter()
     t0 = time.perf_counter()
     line("m-parity", case="moe_block", **moe_block_parity(torch),
@@ -5470,8 +5493,7 @@ def mla_phases(torch, ops, workdir):
 Z_PARITY_B, Z_PARITY_S, Z_PARITY_NEW = 2, 24, 8    # z-parity, full depth
 Z_PARITY_T, Z_PARITY_PAGE = 32, 16
 Z_TWIN_LAYERS = 6        # z-serve's eager twins: 6 mamba + the shared block
-Z_CUT_LAYERS = 12        # z-serve's int8 and paged runs, cut for the run's
-                         # time (the contiguous float run keeps 38)
+Z_CUT_LAYERS = 12        # z-serve's runs, cut for the run's time (of 38)
 Z_GRAD_LAYERS = 12       # z-grad, z-train: two runs of 6 mamba layers, so
                          # two shared invocations keep the tie
 Z_GRAD_B, Z_GRAD_S = 2, 64
@@ -5750,15 +5772,15 @@ def hybrid_serve(torch, ops):
     Engine(n_slots=8, max_len=512) (chunk-1 prefill; every step replays):
     eager twins at Z_TWIN_LAYERS against replayed runs at the same depth
     (hold_replay), contiguous float and paged int8; then replayed,
-    contiguous float at full depth and contiguous int8, paged float and
-    paged int8 at Z_CUT_LAYERS, with serve_recurrent_bf16's gates (one
+    contiguous float and int8, paged float and paged int8 at
+    Z_CUT_LAYERS, with serve_recurrent_bf16's gates (one
     AltUp launch a layer and one decode-attention launch a shared
     invocation a step: 44 and 6 at full depth; contiguous:
     one recurrent hit whose tokens are a cold engine's; paged: none). The
     contiguous float run adds its step graph's device ms against the
     bytes bound (weights, and the f32 ssm state read and written) and the
     mamba layers' and shared invocations' shares of an eager step's
-    kernel time. Returns (twins, {case: full-depth result})."""
+    kernel time. Returns (twins, {case: counted run's result})."""
     import repro_torch.models.decode as dec_lib
     twins = {}
     for case, kw in (("contiguous", {}),
@@ -5792,7 +5814,7 @@ def hybrid_serve(torch, ops):
         return r
     full = {}
     cut = zamba_config(Z_CUT_LAYERS)
-    for case, c, kw in (("contiguous", cfg, dict(after=after)),
+    for case, c, kw in (("contiguous", cut, dict(after=after)),
                         ("contiguous-int8", cut, dict(kind="int8")),
                         ("paged", cut, dict(paged=True)),
                         ("paged-int8", cut, dict(paged=True, kind="int8"))):
@@ -6281,6 +6303,23 @@ def probe_collectives(torch, mesh, res):
     return True
 
 
+def fail_on_collective(ranks, out, tag, t0=None):
+    """A collective that raised on CUDA tensors in a rank fails the run:
+    the phase's line is printed with which collective and why, then
+    AssertionError is raised with the error."""
+    failed = [r for r in ranks if "collective_failed" in r]
+    if not failed:
+        return
+    out.update(collective_failed=failed[0]["collective_failed"],
+               error=failed[0]["error"])
+    if t0 is not None:
+        out["seconds"] = time.perf_counter() - t0
+    line(tag, **out)
+    raise AssertionError(f"{tag}: the collective "
+                         f"{failed[0]['collective_failed']} failed on CUDA "
+                         f"tensors: {failed[0]['error']}")
+
+
 def hold_ranks(ranks, tag, runs, out):
     """Gate each run of `runs` ({result key: one-rank key}) of every rank
     against rank 0's one-rank run: tokens and kernel launches equal, no
@@ -6307,8 +6346,9 @@ def hold_ranks(ranks, tag, runs, out):
 
 def tp_two_ranks(torch, workdir):
     """t-serve-b: T_RANKS spawned ranks sharing the one card over gloo
-    (NCCL refuses two ranks on one device). Gates, unless a collective
-    failed on CUDA tensors (then printed, with why): every rank's tokens
+    (NCCL refuses two ranks on one device). A collective that failed on
+    CUDA tensors fails the run (fail_on_collective). Gates: every rank's
+    tokens
     equal and equal to the one-rank run's at the same depth, each rank's
     kernel launches equal to it, no graph captured (captures 0, said
     why), and the logits within T_B_LOGIT_TOL of the un-meshed ones."""
@@ -6316,11 +6356,7 @@ def tp_two_ranks(torch, workdir):
     ranks = spawn_ranks(tp_rank, workdir, "t-serve-b")
     out = {"ranks": T_RANKS, "backend": "gloo", "seconds":
            time.perf_counter() - t0}
-    failed = [r for r in ranks if "collective_failed" in r]
-    if failed:
-        out.update(collective_failed=failed[0]["collective_failed"],
-                   error=failed[0]["error"])
-        return out
+    fail_on_collective(ranks, out, "t-serve-b")
     for tag in ("qwen3", "qwen2_moe"):
         runs = {k: k.replace("mesh", "one_rank") for k in ranks[0][tag]
                 if k.startswith("mesh")}
@@ -6505,6 +6541,27 @@ def tpc_rank(rank, world, workdir):
             res[name] = r
             del params, shard
             torch.cuda.empty_cache()
+        # the same two in bf16: logits gated, tokens compared
+        for name, layers in (("rwkv6", TC_RWKV_LAYERS),
+                             ("zamba2", TC_ZAMBA_LAYERS)):
+            t0 = time.perf_counter()
+            cfg, params = tpc_recurrent(torch, name, layers)
+            prompts = tp_prompts(torch, cfg.vocab_size, T_B_PROMPTS)
+            run = functools.partial(tp_serve, torch, ops, cfg, params,
+                                    prompts, T_B_NEW, max_len=128)
+            r = {"mesh": run(mesh=model)}
+            if rank == 0:
+                r["one_rank"] = run(replay=False)
+                r["divergence"] = bf16_divergence(
+                    torch, cfg, params, prompts, r["one_rank"]["tokens"],
+                    r["mesh"]["tokens"])
+            shard = sh.shard_params(params, cfg, model)
+            r["logits_err"], r["logits_max"] = tp_logits_err(
+                torch, cfg, params, shard, model)
+            r["seconds"] = time.perf_counter() - t0
+            res[name + "_bf16"] = r
+            del params, shard
+            torch.cuda.empty_cache()
         # t5-large through generate(encoder_frames=)
         t0 = time.perf_counter()
         cfg = t5_config(n_layers=TC_T5_LAYERS, n_encoder_layers=TC_T5_LAYERS)
@@ -6553,22 +6610,42 @@ def tpc_rank(rank, world, workdir):
         dist.destroy_process_group()
 
 
+def bf16_divergence(torch, cfg, params, prompts, one, mesh):
+    """[request, token index, the one-rank logits' top-2 margin there] at
+    each request's first token where the meshed run left the one-rank
+    run (one, mesh: their tokens): the margin of the un-meshed forward's
+    last logits over the prompt and the one-rank tokens before it. A
+    margin of a few hundredths is a near-tie that the bf16 rounding of
+    the partial sums may flip; a large one would be a fault."""
+    from repro_torch.models.transformer import forward
+    out = []
+    for i, (a, b) in enumerate(zip(one, mesh)):
+        j = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        tok = torch.tensor([prompts[i] + a[:j]], device=DEV)
+        with torch.no_grad():
+            logits = forward(params, cfg, tok)[0, -1, :cfg.vocab_size]
+        top = torch.topk(logits.float(), 2).values
+        out.append([i, j, float(top[0] - top[1])])
+    return out
+
+
 def tpc_two_ranks(torch, workdir):
-    """t-serve-c (b): T_RANKS spawned ranks sharing the card over gloo.
-    Gates, unless a collective failed on CUDA tensors (then printed, with
-    why): every rank's tokens and kernel launches equal to the one-rank
-    run's at the same depth, no graph captured, the model-axis logits
-    within T_B_LOGIT_TOL of max(1, |logits|) of one rank's, and the data
-    ranks holding half the slots each."""
+    """t-serve-c (b): T_RANKS spawned ranks sharing the card over gloo. A
+    collective that failed on CUDA tensors fails the run
+    (fail_on_collective). Gates: every rank's tokens and kernel launches
+    equal to the one-rank run's at the same depth, no graph captured, the
+    model-axis logits within T_B_LOGIT_TOL of max(1, |logits|) of one
+    rank's, and the data ranks holding half the slots each. The bf16 run
+    of RWKV-6 and zamba2 beside the f32 one (tag + "_bf16") is gated on
+    its logits within T_B_LOGIT_TOL only: its tokens may leave one rank's
+    at a near-tie, and at each such token the one-rank logits' top-2
+    margin is printed (bf16_divergence)."""
     t0 = time.perf_counter()
     ranks = spawn_ranks(tpc_rank, workdir, "t-serve-c (b)")
     out = {"ranks": T_RANKS, "backend": "gloo", "dtype": "float32"}
-    failed = [r for r in ranks if "collective_failed" in r]
-    if failed:
-        out.update(collective_failed=failed[0]["collective_failed"],
-                   error=failed[0]["error"],
-                   seconds=time.perf_counter() - t0)
-        return out
+    fail_on_collective(ranks, out, "t-serve-c-b", t0)
     for tag in ("rwkv6", "zamba2", "t5_large", "qwen3_data"):
         rec = hold_ranks(ranks, tag, {"mesh": "one_rank"}, out)
         rec["seconds"] = max(r[tag]["seconds"] for r in ranks)
@@ -6580,6 +6657,21 @@ def tpc_two_ranks(torch, workdir):
             continue
         rec.update(logits_err=ranks[0][tag]["logits_err"],
                    logits_max=ranks[0][tag]["logits_max"])
+        if rec["logits_err"] > T_B_LOGIT_TOL * max(1.0, rec["logits_max"]):
+            raise AssertionError(f"t-serve-c (b) {tag}: logits {rec}")
+    for tag in ("rwkv6_bf16", "zamba2_bf16"):
+        one = ranks[0][tag]["one_rank"]
+        rec = out[tag] = {
+            "dtype": "bfloat16",
+            "tokens_identical": [r[tag]["mesh"]["tokens"] == one["tokens"]
+                                 for r in ranks],
+            "ranks_agree": all(r[tag]["mesh"]["tokens"]
+                               == ranks[0][tag]["mesh"]["tokens"]
+                               for r in ranks),
+            "bf16_divergence": ranks[0][tag]["divergence"],
+            "logits_err": ranks[0][tag]["logits_err"],
+            "logits_max": ranks[0][tag]["logits_max"],
+            "seconds": max(r[tag]["seconds"] for r in ranks)}
         if rec["logits_err"] > T_B_LOGIT_TOL * max(1.0, rec["logits_max"]):
             raise AssertionError(f"t-serve-c (b) {tag}: logits {rec}")
     out["seconds"] = time.perf_counter() - t0
@@ -6605,9 +6697,378 @@ def check_tpc_kernels(torch, ops, ref):
     return kern
 
 
+# t-serve-d: the rest of A11's serving over data = 2, two gloo ranks
+# sharing the card, eager, against one rank. (a) paged caches over
+# "data": (g)'s shared 250-token system prompt, TD_PAGED_REQ requests
+# through TD_PAGED_SLOTS slots (recycled), pages aliased across the ranks;
+# (b) the long-context layout: one slot of TD_LONG_MAX rows, a prompt of
+# TD_LONG_PROMPT tokens whose rows both ranks hold. Qwen3-0.6B + K=2 at
+# full width, TD_LAYERS deep
+TD_LAYERS = 4               # Qwen3-0.6B's 28
+TD_PAGED_SLOTS, TD_PAGED_REQ, TD_PAGED_NEW, TD_PAGED_MAX = 4, 6, 8, 512
+TD_LONG_PROMPT, TD_LONG_NEW, TD_LONG_MAX, TD_LONG_CHUNK = 5000, 32, 8192, 256
+TD_LOGIT_CHUNK = 1024       # the logits check's prefill chunks
+# phase c's case of the split pass and the merge: (e)'s heads, a slot of
+# TD_T rows over 2 and 4 ranks
+TD_T = 32768
+# a span's f32 partial state (unnormalised sums of up to 128 weighted
+# rows, the max and the denominator) against its plain version
+SPLIT_TOL = dict(atol=1e-3, rtol=1e-4)
+
+
+def pool_digest(torch, caches):
+    """sha256 of every row-pooled leaf's bytes, in order."""
+    import hashlib
+    from repro_torch.models.decode import _paged_row_axis
+    h = hashlib.sha256()
+    for seg in caches.values():
+        for name, leaf in seg.items():
+            if _paged_row_axis(name, leaf.ndim) is not None:
+                h.update(leaf.contiguous().reshape(-1).view(torch.uint8)
+                         .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tpd_paged(torch, ops, cfg, params, prompts, mesh=None):
+    """One counted run of `prompts` (greedy, TD_PAGED_NEW tokens each)
+    through a paged EagerEngine over TD_PAGED_SLOTS slots (pages of
+    T_PAGE rows), after a warm-up request outside the count: tokens,
+    launches, paged counters, the pool's digest and, over a batch axis,
+    the last step's pool sync (rows and bytes a rank sent)."""
+    from repro_torch.serve.sampling import SamplingParams
+    eng = engine_class(False)(cfg, params, max_len=TD_PAGED_MAX,
+                              n_slots=TD_PAGED_SLOTS, prefill_chunk=64,
+                              mesh=mesh, paged=True, page_size=T_PAGE,
+                              device=DEV)
+    eng.submit(prompts[0][:8], sampling=SamplingParams(max_new=2))
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rids = [eng.submit(p, sampling=SamplingParams(max_new=TD_PAGED_NEW))
+            for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    res = {"launches": ops.launch_counts(),
+           "tokens": [list(out[r].tokens) for r in rids],
+           "stats": step_stats(eng), "paged_stats": eng.paged_stats,
+           "pool_digest": pool_digest(torch, eng._caches),
+           "slots": [eng._lo, eng._hi]}
+    if mesh is not None:
+        # a decode step's sync: one row a slot of this rank, every layer
+        res["sync_rows_per_step"] = eng._hi - eng._lo
+        res["sync_bytes_last_step"] = eng.last_sync_bytes
+    del eng
+    return res
+
+
+def tpd_long(torch, ops, cfg, params, prompt, mesh=None):
+    """One counted run of the long prompt (greedy, TD_LONG_NEW tokens)
+    through an EagerEngine of one slot of TD_LONG_MAX rows, chunks of
+    TD_LONG_CHUNK, after a warm-up request: tokens, launches, the bytes
+    of the caches the rank holds."""
+    from repro_torch.serve.sampling import SamplingParams
+    eng = engine_class(False)(cfg, params, max_len=TD_LONG_MAX, n_slots=1,
+                              prefill_chunk=TD_LONG_CHUNK, mesh=mesh,
+                              device=DEV)
+    eng.submit(prompt[:8], sampling=SamplingParams(max_new=2))
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rid = eng.submit(prompt, sampling=SamplingParams(max_new=TD_LONG_NEW))
+    out = eng.run()
+    torch.cuda.synchronize()
+    res = {"launches": ops.launch_counts(), "tokens": [list(out[rid].tokens)],
+           "stats": step_stats(eng), "cache_bytes": cache_bytes(eng)}
+    del eng
+    return res
+
+
+def tpd_logits_err(torch, cfg, params, shard, mesh, prompt):
+    """max |logits under the long-context layout - un-meshed| and the
+    un-meshed logits' max |.| over the long prompt in chunks of
+    TD_LOGIT_CHUNK and two S = 1 steps (one slot, TD_LONG_MAX rows); the
+    un-meshed side on rank 0 only."""
+    from repro_torch import sharding as sh
+    from repro_torch.models import decode
+    tok = torch.tensor([prompt], device=DEV)
+    seq = sh.SeqSplit(TD_LONG_MAX)
+    caches = decode.init_cache(cfg, 1, TD_LONG_MAX, device=DEV, mesh=mesh,
+                               seq=seq)
+    plain = (decode.init_cache(cfg, 1, TD_LONG_MAX, device=DEV)
+             if mesh.get_rank() == 0 else None)
+    n = len(prompt) - 2
+    steps = [(p, slice(p, min(p + TD_LOGIT_CHUNK, n)))
+             for p in range(0, n, TD_LOGIT_CHUNK)]
+    steps += [(n + i, slice(n + i, n + i + 1)) for i in range(2)]
+    err = top = 0.0
+    with torch.no_grad():
+        for pos, cols in steps:
+            got, _ = decode.decode_step(shard, cfg, caches, tok[:, cols], pos,
+                                        mesh=mesh, seq=seq)
+            if plain is None:
+                continue
+            want, _ = decode.decode_step(params, cfg, plain, tok[:, cols],
+                                         pos)
+            err = max(err, max_err(torch, got, want))
+            top = max(top, want.float().abs().max().item())
+    return err, top
+
+
+def tpd_rank(rank, world, workdir):
+    """One rank of t-serve-d (a spawned process): a gloo group on the
+    card and a data x model mesh (2, 1), each collective probed on CUDA
+    tensors (a failure is written, with why, and the rank stops). Serves
+    Qwen3-0.6B + K=2 (TD_LAYERS) eager through Engine(mesh=): (a) paged,
+    bf16 and int8, (b) the long-context layout, bf16 and int8, with the
+    logits' distance; rank 0 also serves each un-meshed (EagerEngine).
+    Writes rank<r>.json under workdir."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    res = {"rank": rank}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(workdir / "store-d"), world), rank=rank, world_size=world)
+    try:
+        data = make_mesh((world, 1), ("data", "model"), device=DEV)
+        if not probe_collectives(torch, data, res):
+            return
+        cfg0 = served_config(n_layers=TD_LAYERS)
+        params = init_params(cfg0, seed=1, device=DEV)
+        perturb_altup(torch, params, seed=11)
+        _, _, g_prompts = paged_traffic(torch, cfg0.vocab_size)
+        long_prompt = tp_prompts(torch, cfg0.vocab_size, (TD_LONG_PROMPT,),
+                                 seed=9)[0]
+        for kind in ("bf16", "int8"):
+            cfg = cfg0 if kind == "bf16" else cfg0.replace(
+                kv_cache_dtype="int8")
+            t0 = time.perf_counter()
+            prompts = [p[:G_SYSTEM + 40] for p in g_prompts[:TD_PAGED_REQ]]
+            r = {"mesh": tpd_paged(torch, ops, cfg, params, prompts, data)}
+            if rank == 0:
+                r["one_rank"] = tpd_paged(torch, ops, cfg, params, prompts)
+            r["seconds"] = time.perf_counter() - t0
+            res["paged_" + kind] = r
+            t0 = time.perf_counter()
+            r = {"mesh": tpd_long(torch, ops, cfg, params, long_prompt, data)}
+            if rank == 0:
+                r["one_rank"] = tpd_long(torch, ops, cfg, params, long_prompt)
+            shard = sh.shard_params(params, cfg, data)
+            r["logits_err"], r["logits_max"] = tpd_logits_err(
+                torch, cfg, params, shard, data, long_prompt)
+            # the workspace one S = 1 step gathers, per layer: every rank's
+            # split pass over the spans of its rows at the run's last bucket
+            split = sh.RowShard(cfg, data, TD_LONG_MAX)
+            from repro_torch.serve.engine import kv_bucket
+            tb = kv_bucket(TD_LONG_PROMPT + TD_LONG_NEW, 32, TD_LONG_MAX)
+            spans = split.kernel_read(tb) // 128
+            hk = sh.local_kv_heads(cfg, data)
+            ws = spans * hk * (cfg.n_heads // cfg.n_kv_heads) * (
+                cfg.resolved_head_dim + 2) * 4
+            r.update(rows_per_rank=split.Tr, ranks=split.R,
+                     workspace_bytes_per_layer=split.R * ws,
+                     workspace_bytes_per_step=split.R * ws * cfg.n_layers,
+                     seconds=time.perf_counter() - t0)
+            res["long_" + kind] = r
+            del shard
+            torch.cuda.empty_cache()
+    finally:
+        (workdir / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def tpd_two_ranks(torch, workdir):
+    """t-serve-d: T_RANKS spawned ranks sharing the card over gloo (a
+    collective that fails on CUDA tensors fails the run). Gates: (a)
+    every rank's tokens and launches equal the one-rank run's, its B4
+    launched, both ranks' pools bitwise equal and their page counters
+    equal, the slots split [0, 2) / [2, 4), pages aliased; (b) every
+    rank's tokens equal the one-rank run's, the split pass and the merge
+    launched as often as the one-rank run's B2 (once a layer a decode
+    step) and B2 itself never, each rank's caches about half of one
+    rank's, the logits within T_B_LOGIT_TOL of max(1, |logits|)."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tpd_rank, workdir, "t-serve-d")
+    out = {"ranks": T_RANKS, "backend": "gloo", "layers": TD_LAYERS}
+    fail_on_collective(ranks, out, "t-serve-d", t0)
+    for kind in ("bf16", "int8"):
+        tag = "paged_" + kind
+        rec = hold_ranks(ranks, tag, {"mesh": "one_rank"}, out)
+        meshed = [r[tag]["mesh"] for r in ranks]
+        if len({m["pool_digest"] for m in meshed}) != 1 or any(
+                m["paged_stats"] != meshed[0]["paged_stats"]
+                for m in meshed):
+            raise AssertionError(f"t-serve-d (a) {kind}: pools differ "
+                                 f"{[m['pool_digest'] for m in meshed]}")
+        held = sorted(tuple(m["slots"]) for m in meshed)
+        ps = meshed[0]["paged_stats"]
+        if held != [(0, 2), (2, 4)] or not ps["alias_acquisitions"] or \
+                not meshed[0]["launches"]["paged_ragged_decode_attention"]:
+            raise AssertionError(f"t-serve-d (a) {kind}: {held} {ps} "
+                                 f"{meshed[0]['launches']}")
+        rec.update(pools_identical=True, slots=held, paged_stats=ps,
+                   sync_rows_per_step=meshed[0]["sync_rows_per_step"],
+                   sync_bytes_last_step=[m["sync_bytes_last_step"]
+                                         for m in meshed],
+                   seconds=max(r[tag]["seconds"] for r in ranks))
+        tag = "long_" + kind
+        one = ranks[0][tag]["one_rank"]
+        r0 = ranks[0][tag]
+        for r in ranks:
+            m = r[tag]["mesh"]
+            lc = m["launches"]
+            if m["tokens"] != one["tokens"] or lc["ragged_decode_attention"] \
+                    or not lc["ragged_decode_split"] or \
+                    lc["ragged_decode_split"] != lc["ragged_decode_merge"] \
+                    or lc["ragged_decode_split"] != \
+                    one["launches"]["ragged_decode_attention"] or \
+                    m["cache_bytes"] > 0.6 * one["cache_bytes"]:
+                raise AssertionError(f"t-serve-d (b) {kind} rank "
+                                     f"{r['rank']}: {m} != one rank's {one}")
+        rec = out[tag] = {
+            "tokens_identical": True, "launches": r0["mesh"]["launches"],
+            "one_rank_launches": one["launches"],
+            "cache_bytes_per_rank": [r[tag]["mesh"]["cache_bytes"]
+                                     for r in ranks],
+            "cache_bytes_one_rank": one["cache_bytes"],
+            "rows_per_rank": r0["rows_per_rank"], "rank_count": r0["ranks"],
+            "workspace_bytes_per_layer": r0["workspace_bytes_per_layer"],
+            "workspace_bytes_per_step": r0["workspace_bytes_per_step"],
+            "logits_err": r0["logits_err"], "logits_max": r0["logits_max"],
+            "seconds": max(r[tag]["seconds"] for r in ranks)}
+        if rec["logits_err"] > T_B_LOGIT_TOL * max(1.0, rec["logits_max"]):
+            raise AssertionError(f"t-serve-d (b) {kind}: logits {rec}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_split_merge(torch, ops, ref, store, cuts, timed=False, Hk=8,
+                      rep=2, Dh=128, T=TD_T, seed=7):
+    """Phase c's case for the long-context layout's S = 1 path at (e)'s
+    heads (bf16 q): the split pass over each shard [cuts[i], cuts[i+1])
+    (ops.ragged_decode_split, the rank's own lengths) and the merge over
+    the workspaces concatenated in shard order (ops.ragged_decode_merge)
+    bitwise equal to ops.ragged_decode_attn over the whole rows; each
+    shard's workspace against the plain states (on its written spans),
+    the merge against the plain merge of the same gathered workspace,
+    and the whole against the plain attention, within B2's tolerances.
+    Timed: device ms of the first shard's split, of the merge and of the
+    unsharded call (torch.profiler, 50 calls), with their bounds."""
+    from repro_torch.kernels.ragged_decode_attention import SPAN
+    dtype = torch.bfloat16
+    bounds = [0] + list(cuts) + [T]
+    lens_host = sorted({0, 1, SPAN - 1, SPAN + 1, T} | {
+        c + d for c in cuts for d in (-1, 1)})
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    B, H = len(lens_host), Hk * rep
+    q = torch.randn(B, 1, H, Dh, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(B, T, Hk, Dh, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(B, T, Hk, Dh, generator=gen, device=DEV).to(dtype)
+    k, v, ks, vs = stored_kv(torch, k, v, None if store == "bf16" else store,
+                             dtype)
+    lens = torch.tensor(lens_host, dtype=torch.int32, device=DEV)
+    qg = q[:, 0].reshape(B, Hk, rep, Dh)
+
+    def shard(i):
+        lo, hi = bounds[i], bounds[i + 1]
+        sl = (slice(None), slice(lo, hi))
+        return (k[sl], v[sl], None if ks is None else ks[sl],
+                None if vs is None else vs[sl],
+                torch.clamp(lens - lo, 0, hi - lo))
+
+    def split(i):
+        kk, vv, kks, vvs, own = shard(i)
+        return ops.ragged_decode_split(q, kk, vv, own, kks, vvs)
+    parts = [split(i) for i in range(len(bounds) - 1)]
+    ws = torch.cat(parts, dim=2)
+    got = ops.ragged_decode_merge(ws, lens, dtype)
+    whole = ops.ragged_decode_attn(q, k, v, lens, ks, vs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, whole):
+        raise AssertionError(f"split + merge over {cuts} ({store}) is not "
+                             f"the whole call bit for bit: "
+                             f"{max_err(torch, got, whole)}")
+    errs = []
+    for i, part in enumerate(parts if timed else ()):  # written spans only
+        kk, vv, kks, vvs, own = shard(i)
+        want = ref.ragged_decode_states_ref(qg, kk, vv, own, kks, vvs,
+                                            span=SPAN)
+        n = torch.div(own + SPAN - 1, SPAN, rounding_mode="floor")
+        live = (torch.arange(part.shape[2], device=DEV)[None]
+                < n[:, None])[:, None, :, None, None]
+        part = torch.where(live, part, 0)
+        torch.testing.assert_close(part, want, **SPLIT_TOL)
+        errs.append(max_err(torch, part, want))
+    plain_merge = ref.ragged_decode_merge_ref(ws, lens, dtype, span=SPAN)
+    torch.testing.assert_close(got.reshape(plain_merge.shape), plain_merge,
+                               **BF16_TOL)
+    dense = (ref.ragged_decode_ref(qg, k, v, lens) if ks is None
+             else ref.ragged_decode_quant_ref(qg, k, v, ks, vs, lens))
+    torch.testing.assert_close(got.reshape(dense.shape), dense, **BF16_TOL)
+    res = {"store": store, "cuts": list(cuts), "B": B, "Hk": Hk, "rep": rep,
+           "Dh": Dh, "T": T, "lengths": lens_host, "bitwise_whole": True,
+           "split_max_abs_err": max(errs) if errs else None,
+           "merge_max_abs_err": max_err(torch, got.reshape(
+               plain_merge.shape), plain_merge),
+           "max_abs_err": max_err(torch, got.reshape(dense.shape), dense)}
+    if not timed:
+        return res
+    # the first shard's split (a rank's), the merge, the unsharded call
+    kk, vv, kks, vvs, own = shard(0)
+    rows = int(own.sum())
+    spans0 = int(torch.div(own + SPAN - 1, SPAN, rounding_mode="floor").sum())
+    spans = int(torch.div(lens + SPAN - 1, SPAN, rounding_mode="floor").sum())
+    state = rep * (Dh + 2) * 4 * Hk
+    s_bytes = rows * Hk * kv_row_bytes(k, ks, Dh) + B * H * Dh * 2 + \
+        spans0 * state + 4 * B
+    s_bound = bound_ms(s_bytes, rows * Hk * rep * Dh * 4, "float32")
+    m_bytes = spans * state + B * H * Dh * 2 + 4 * B
+    m_bound = bound_ms(m_bytes, spans * Hk * rep * (Dh + 2) * 3, "float32")
+    res.update({
+        "split_ms": device_ms(torch, lambda: split(0),
+                              "ragged_decode_split_kernel", per_call=1),
+        "split_plain_ms": device_ms(torch, lambda: ref.ragged_decode_states_ref(
+            qg, kk, vv, own, kks, vvs, span=SPAN), iters=1),
+        "split_bound_ms": s_bound[0], "split_bound_by": s_bound[1],
+        "split_bytes": s_bytes, "split_rows": rows,
+        "merge_ms": device_ms(torch, lambda: ops.ragged_decode_merge(
+            ws, lens, dtype), "ragged_decode_merge_kernel", per_call=1),
+        "merge_plain_ms": device_ms(torch, lambda: ref.ragged_decode_merge_ref(
+            ws, lens, dtype, span=SPAN), iters=1),
+        "merge_bound_ms": m_bound[0], "merge_bound_by": m_bound[1],
+        "merge_bytes": m_bytes, "spans": spans,
+        "unsharded_ms": device_ms(torch, lambda: ops.ragged_decode_attn(
+            q, k, v, lens, ks, vs), RAGGED_KERNELS, per_call=2)})
+    return res
+
+
+def check_tpd_kernels(torch, ops, ref):
+    """Phase c's cases for t-serve-d: check_split_merge at D = 2 and 4
+    (sharding.shard_rows' even splits of TD_T rows) and one uneven split,
+    bf16, int8 and fp8 codes; timed at D = 2 (bf16 and int8). {case:
+    record}."""
+    from repro_torch import sharding as sh
+    even = {D: [i * sh.shard_rows(TD_T, D) for i in range(1, D)]
+            for D in (2, 4)}
+    cases = {"d2": even[2], "d4": even[4], "uneven": [3 * 4096]}
+    kern = {}
+    for store in ("bf16", "int8", "fp8"):
+        for name, cuts in cases.items():
+            kern[f"td-{name}-{store}"] = check_split_merge(
+                torch, ops, ref, store, cuts,
+                timed=name == "d2" and store != "fp8")
+    return kern
+
+
 def tp_phases(torch, ops, workdir):
-    """(t): t-serve-a, t-serve-b, then t-serve-c's (a) and (b). Returns
-    t-serve-b's and t-serve-c (b)'s results."""
+    """(t): t-serve-a, t-serve-b, t-serve-c's (a) and (b), then
+    t-serve-d. Returns t-serve-b's, t-serve-c (b)'s and t-serve-d's
+    results."""
     t_t = time.perf_counter()
     line("t-serve-a", **tp_one_rank(torch, ops, workdir))
     res_b = tp_two_ranks(torch, workdir)
@@ -6617,8 +7078,10 @@ def tp_phases(torch, ops, workdir):
     line("t-serve-c-a", seconds=time.perf_counter() - t0, **res_ca)
     res_cb = tpc_two_ranks(torch, workdir)
     line("t-serve-c-b", **res_cb)
+    res_d = tpd_two_ranks(torch, workdir)
+    line("t-serve-d", **res_d)
     line("t-phases", seconds=time.perf_counter() - t_t)
-    return res_b, res_cb
+    return res_b, res_cb, res_d
 
 
 def _device_kernels(prof):
@@ -7003,6 +7466,13 @@ def main(argv) -> int:
     main_flash = flash[("bfloat16", "prefill")]
     main_flash_paged = flash_paged[("bfloat16", "causal")]
     torch.cuda.empty_cache()
+    # the split pass and the merge over gathered spans (t-serve-d's
+    # long-context layout) against the unsharded call
+    t0 = time.perf_counter()
+    td_kern = check_tpd_kernels(torch, ops, ref)
+    for case, r in td_kern.items():
+        line("c-split-merge", case=case, **r)
+    line("c-split-merge-seconds", seconds=time.perf_counter() - t0)
 
     # (d) full-width f32 parity of the two paths, then of the fused
     # dequant against the dense dequant path, int8 and fp8
@@ -7088,7 +7558,7 @@ def main(argv) -> int:
                      twin_graph=res_t["graph"])
         line(tag_graph, **res_r)
         return res_r
-    res_j_r = gemma_pair("j-serve", "j-graph")
+    res_j_r = gemma_pair("j-serve", "j-graph", n_layers=J_PAGED_LAYERS)
     res_jp_r = gemma_pair("j-paged", "j-paged-graph", paged=True,
                           prefix_cache=True, n_layers=J_PAGED_LAYERS)
     # the quantized runs at J_TWIN_LAYERS (since PR 28, for the run's
@@ -7176,7 +7646,7 @@ def main(argv) -> int:
     # from replayed graphs against the un-meshed engine, two gloo ranks
     # sharing the card, eager, against one rank
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        res_tp, res_tpc = tp_phases(torch, ops, Path(work))
+        res_tp, res_tpc, res_tpd = tp_phases(torch, ops, Path(work))
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
@@ -7237,7 +7707,7 @@ def main(argv) -> int:
     ]
     # the same kernels at gemma3-4b's shapes, each with the launches of the
     # (j) run that serves them (the decode attention at a ring layer's
-    # shape: 29 of the 34 launches a step)
+    # shape: 10 of the 12 launches a step)
     for name, src, replaces, res_run, case in (
             ("altup_predict_correct", "altup_fused.cu",
              "altup_fused.py:39", res_j_r, ("bfloat16", "altup")),
@@ -7300,9 +7770,8 @@ def main(argv) -> int:
          "launches": res_l["launches"]["altup_predict_correct"],
          **{k: l_altup[k] for k in keys}})
     # the kernels at zamba2-1.2b's, llava-next-mistral-7b's and
-    # granite-3-2b's shapes, with z-serve's (replayed; full depth
-    # contiguous float, Z_CUT_LAYERS the others), v-serve's and granite's
-    # launches
+    # granite-3-2b's shapes, with z-serve's (replayed, Z_CUT_LAYERS),
+    # v-serve's and granite's launches
     for name, suffix, res_run, case in (
             ("altup_predict_correct", "zamba2", res_z["contiguous"],
              "z-altup-bf16"),
@@ -7367,6 +7836,22 @@ def main(argv) -> int:
              "replaces": "src/repro/kernels/" + replaces,
              "launches": res_tpc[tag]["mesh"]["launches"][name],
              **{k: tc_kern[case][k] for k in keys}})
+    # the decode attention's split pass and its merge over gathered spans
+    # at phase c's D = 2 case ((e)'s heads, a slot of TD_T rows over two
+    # ranks; the split's numbers are the first rank's shard), with the
+    # launches of t-serve-d (b)'s rank 0 (bf16)
+    td = td_kern["td-d2-bf16"]
+    for name, pre in (("ragged_decode_split", "split"),
+                      ("ragged_decode_merge", "merge")):
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/ragged_decode_attention.cu",
+             "replaces": "src/repro/kernels/ragged_decode_attention.py:210",
+             "launches": res_tpd["long_bf16"]["launches"][name],
+             "max_abs_err": td[f"{pre}_max_abs_err"], "ms": td[f"{pre}_ms"],
+             "plain_ms": td[f"{pre}_plain_ms"],
+             "bound_ms": td[f"{pre}_bound_ms"],
+             "bound_by": td[f"{pre}_bound_by"], "library_ms": None})
     line("z-total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

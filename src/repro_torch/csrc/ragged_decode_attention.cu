@@ -71,6 +71,14 @@
 //   fixed, so results are deterministic run to run. (A one-launch variant,
 //   in which the last block of (b, h) to finish merges through an atomic
 //   counter, measured slower on the H100 and is not kept.)
+//   Over ranks. ragged_decode_split_launch runs the split pass alone over
+//   one rank's rows of slots whose rows a group of ranks holds (each
+//   rank a whole number of spans, its own lengths), into a workspace the
+//   caller keeps; ragged_decode_merge_launch runs the merge alone over
+//   the ranks' workspaces concatenated along the span axis, with the
+//   whole lengths. A span's state depends on its rows alone, so the
+//   concatenated spans are the unsharded call's and the merge gives its
+//   output bit for bit.
 // Bitwise rule: both entry points run the same body through a row-address
 // policy (SlotRows reads the cache and its scales in place through their
 // batch and row strides; PagedRows reads the physical row of each of the
@@ -773,9 +781,10 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int& allowed) {
   return e;
 }
 
-// The split pass (skipped when no row can be read) and the merge.
+// The split pass (skipped when no row can be read) and, with `merge`, the
+// merge.
 template <typename T, typename KV, bool kPaged>
-int run(const Params& p, int B, cudaStream_t s) {
+int run(const Params& p, int B, cudaStream_t s, bool merge) {
   static int allowed = 48 * 1024;
   if (p.n_split > 0) {
     const dim3 grid(B, p.Hk, p.n_split);
@@ -793,12 +802,14 @@ int run(const Params& p, int B, cudaStream_t s) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
+  if (!merge) return 0;
   ragged_decode_merge_kernel<T><<<dim3(B, p.Hk), kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <bool kPaged>
-int dispatch(Params& p, int B, int dtype, int kv_dtype, void* stream) {
+int dispatch(Params& p, int B, int dtype, int kv_dtype, void* stream,
+             bool merge = true) {
   if (!prepare(p, B, kv_dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -806,9 +817,28 @@ int dispatch(Params& p, int B, int dtype, int kv_dtype, void* stream) {
   const bool ok = with_types(dtype, kv_dtype, [&](auto qt, auto kvt) {
     using T = typename decltype(qt)::type;
     using KV = typename decltype(kvt)::type;
-    err = run<T, KV, kPaged>(p, B, s);
+    err = run<T, KV, kPaged>(p, B, s, merge);
   });
   return ok ? err : (int)cudaErrorInvalidValue;
+}
+
+// The merge alone, over a workspace of p.n_split spans a slot whose
+// states another pass wrote: rows = n_split * kSpan bounds the lengths.
+int merge_only(Params& p, int B, int dtype, void* stream) {
+  if (B < 0 || p.Hk < 1 || p.Hk > 65535 || p.rep < 1 || p.rep > kMaxRep ||
+      p.Dh < 1 || p.Dh > kMaxDh || p.n_split < 0 || p.n_split > (1 << 22))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  p.rows = p.n_split * kSpan;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B, p.Hk);
+  if (dtype == kFloat32)
+    ragged_decode_merge_kernel<float><<<grid, kThreads, 0, s>>>(p);
+  else if (dtype == kBFloat16)
+    ragged_decode_merge_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -895,4 +925,66 @@ extern "C" int paged_ragged_decode_attention_launch(
   p.s_st = s_st;
   p.scale = scale;
   return dispatch<true>(p, B, dtype, kv_dtype, stream);
+}
+
+// The split pass of ragged_decode_attention_launch alone, over a rank's
+// own rows of a slot whose rows several ranks hold (the long-context
+// cache layout): same arguments but `out`, lengths the rank's own
+// (clamp(len - first row, 0, T_rows)), and ws (B, Hk, n_split, rep,
+// Dh + 2) float32 the caller keeps. Span s of this call is span
+// first_row / kSpan + s of the whole slot when first_row is a multiple of
+// kSpan, so the ranks' workspaces concatenated along the span axis in
+// rank order are the workspace of one call over the whole rows, bit for
+// bit. Returns the CUDA error code of the launch (0 = success).
+extern "C" int ragged_decode_split_launch(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* lengths, void* ws, int B, int Hk,
+    int rep, int Dh, int T_rows, int n_split, long long k_sb, long long k_st,
+    long long v_sb, long long v_st, long long s_sb, long long s_st,
+    float scale, int dtype, int kv_dtype, void* stream) {
+  using namespace repro_torch;
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.lengths = static_cast<const int*>(lengths);
+  p.ws = static_cast<float*>(ws);
+  p.Hk = Hk;
+  p.rep = rep;
+  p.Dh = Dh;
+  p.rows = T_rows;
+  p.n_split = n_split;
+  p.page = 1;
+  p.k_sb = k_sb;
+  p.k_st = k_st;
+  p.v_sb = v_sb;
+  p.v_st = v_st;
+  p.s_sb = s_sb;
+  p.s_st = s_st;
+  p.scale = scale;
+  return dispatch<false>(p, B, dtype, kv_dtype, stream, false);
+}
+
+// The merge kernel of ragged_decode_attention_launch alone, over a
+// workspace ws (B, Hk, n_split, rep, Dh + 2) float32 of gathered spans
+// (ragged_decode_split_launch's of every rank, in rank order) with the
+// slots' whole lengths (B,) int32; out (B, Hk, rep, Dh) contiguous in
+// `dtype` (float32 or bfloat16). Returns the CUDA error code of the launch
+// (0 = success).
+extern "C" int ragged_decode_merge_launch(const void* lengths, void* ws,
+                                          void* out, int B, int Hk, int rep,
+                                          int Dh, int n_split, int dtype,
+                                          void* stream) {
+  using namespace repro_torch;
+  Params p{};
+  p.lengths = static_cast<const int*>(lengths);
+  p.ws = static_cast<float*>(ws);
+  p.out = out;
+  p.Hk = Hk;
+  p.rep = rep;
+  p.Dh = Dh;
+  p.n_split = n_split;
+  return merge_only(p, B, dtype, stream);
 }

@@ -97,6 +97,58 @@ def ragged_decode_attn(q, k, v, lengths, k_scale=None, v_scale=None):
 ragged_decode_attn.launches = 0
 
 
+def ragged_decode_split(q, k, v, lengths, k_scale=None, v_scale=None):
+    """The split pass of `ragged_decode_attn` alone, over a rank's own rows
+    of slots whose rows a group of ranks holds (the long-context cache
+    layout, sharding.RowShard).
+
+    q: (B, 1, H, dh); k, v: (B, T, Hk, dh) the rank's rows, T a multiple
+    of the kernel's span; lengths: (B,) the rank's own valid rows;
+    k_scale, v_scale under `ragged_decode_attn`'s rules. On CUDA tensors
+    it launches the split kernel and counts one launch; on the CPU it runs
+    `ref.ragged_decode_states_ref`. Returns the f32 workspace (B, Hk,
+    T / span, rep, dh + 2) of per-span partial states, which the group
+    concatenates along dim 2 in rank order for `ragged_decode_merge`."""
+    _refuse_grad("ragged_decode_split", q, k, v, k_scale, v_scale)
+    B, S, H, dh = q.shape
+    if S != 1:
+        raise ValueError("ragged decode split is single-token (S=1) only, "
+                         f"got S={S}")
+    ragged_mod.check_scales(k, v, k_scale, v_scale)
+    Hk = k.shape[2]
+    qg = q[:, 0].reshape(B, Hk, H // Hk, dh)
+    if q.device.type == "cpu":
+        return ref.ragged_decode_states_ref(qg, k, v, lengths, k_scale,
+                                            v_scale, span=ragged_mod.SPAN)
+    ws = ragged_mod.ragged_decode_split(qg.contiguous(), k, v, lengths,
+                                        k_scale=k_scale, v_scale=v_scale)
+    ragged_decode_split.launches += 1
+    return ws
+
+
+ragged_decode_split.launches = 0
+
+
+def ragged_decode_merge(ws, lengths, dtype):
+    """The merge of `ragged_decode_attn` alone, over a workspace of
+    gathered spans (B, Hk, n_split, rep, dh + 2) f32 with the slots'
+    whole lengths (B,). On CUDA tensors it launches the merge kernel and
+    counts one launch; on the CPU it runs `ref.ragged_decode_merge_ref`.
+    Returns (B, 1, H, dh) in `dtype`."""
+    _refuse_grad("ragged_decode_merge", ws)
+    B, Hk, _, rep, dh2 = ws.shape
+    if ws.device.type == "cpu":
+        o = ref.ragged_decode_merge_ref(ws, lengths, dtype,
+                                        span=ragged_mod.SPAN)
+    else:
+        o = ragged_mod.ragged_decode_merge(ws.contiguous(), lengths, dtype)
+        ragged_decode_merge.launches += 1
+    return o.reshape(B, 1, Hk * rep, dh2 - 2)
+
+
+ragged_decode_merge.launches = 0
+
+
 def paged_ragged_decode_attn(q, k_pool, v_pool, lengths, block_table,
                              k_scale=None, v_scale=None, *, page, t_max):
     """Paged-pool variant of `ragged_decode_attn`.
@@ -242,6 +294,8 @@ mha_flash_paged.launches = 0
 _COUNTED = {"altup_predict_correct": altup_predict_correct,
             "ragged_decode_attention": ragged_decode_attn,
             "paged_ragged_decode_attention": paged_ragged_decode_attn,
+            "ragged_decode_split": ragged_decode_split,
+            "ragged_decode_merge": ragged_decode_merge,
             "rwkv6_wkv": rwkv6_wkv,
             "flash_attention": mha_flash,
             "flash_attention_paged": mha_flash_paged}

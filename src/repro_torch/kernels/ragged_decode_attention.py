@@ -30,6 +30,17 @@ the read bound, so the paged result is bitwise equal to the contiguous
 one on the same rows; the launchers size the grid and the workspace with
 `split_count`. `ref.ragged_decode_split_ref` models the split arithmetic
 in Python for the CPU tests.
+
+Two more entry points run the contiguous call's halves alone, for the
+long-context cache layout (sharding.RowShard), where a slot's rows are
+split over a group of ranks, each a whole number of spans:
+`ragged_decode_split` runs the split kernel over a rank's own rows into
+a workspace it returns; the group all-gathers the workspaces along the
+span axis in rank order, and `ragged_decode_merge` runs the merge kernel
+over them with the slots' whole lengths. The spans are then the
+unsharded call's, so the result is its own bit for bit. Their plain
+versions are `ref.ragged_decode_states_ref` and
+`ref.ragged_decode_merge_ref`.
 """
 from __future__ import annotations
 
@@ -69,6 +80,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                        i, ll, ll, ll, ll, f, i, i, vp]
+        fn.restype = i
+    fn = lib.ragged_decode_split_launch
+    if fn.argtypes is None:
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                       ll, ll, ll, ll, ll, ll, f, i, i, vp]
+        fn.restype = i
+    fn = lib.ragged_decode_merge_launch
+    if fn.argtypes is None:
+        fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
         fn.restype = i
     return lib
 
@@ -170,6 +190,16 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _check_slots(q, k, v):
+    B, Hk, rep, dh = q.shape
+    if k.dim() != 4 or v.dim() != 4:
+        raise ValueError("want k, v (B, T, Hk, Dh)")
+    if k.shape != (B, k.shape[1], Hk, dh) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    return k.shape[1]
+
+
 def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths: torch.Tensor, *,
                             k_scale: Optional[torch.Tensor] = None,
@@ -188,12 +218,7 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
     raises on anything else. Raises RuntimeError if a launch fails."""
     B, Hk, rep, dh, quantized = _check(q, k, v, lengths, k_scale, v_scale,
                                        "cache")
-    if k.dim() != 4 or v.dim() != 4:
-        raise ValueError("want k, v (B, T, Hk, Dh)")
-    T = k.shape[1]
-    if k.shape != (B, T, Hk, dh) or v.shape != k.shape:
-        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+    T = _check_slots(q, k, v)
     s_sb, s_st = (k_scale.stride(0), k_scale.stride(1)) if quantized \
         else (0, 0)
     lengths = lengths.to(torch.int32).contiguous()
@@ -275,4 +300,74 @@ def paged_ragged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                  _DTYPE_CODES[q.dtype], _kv_code(k_pool),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_ragged_decode_attention")
+    return out
+
+
+def ragged_decode_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, *,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the contiguous split kernel alone, over a rank's own rows of
+    slots whose rows a group of ranks holds (the long-context cache
+    layout, models/decode.py). q, k, v, the scales as
+    `ragged_decode_attention`'s, k and v the rank's T rows (a multiple of
+    SPAN: its spans are then whole spans of the slot); lengths: (B,) the
+    rank's own valid rows. Returns the f32 workspace (B, Hk,
+    ceil(T / SPAN), rep, Dh + 2) of partial states: per span the
+    unnormalised accumulator, its max m and denominator l; a span at or
+    past a slot's length is left unwritten. Concatenated along dim 2 with
+    the other ranks' in rank order, it is the workspace one call over the
+    whole rows writes, bit for bit (`ragged_decode_merge`)."""
+    B, Hk, rep, dh, quantized = _check(q, k, v, lengths, k_scale, v_scale,
+                                       "cache")
+    T = _check_slots(q, k, v)
+    s_sb, s_st = (k_scale.stride(0), k_scale.stride(1)) if quantized \
+        else (0, 0)
+    lengths = lengths.to(torch.int32).contiguous()
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    ws = _workspace(q, T)
+    fn = _library().ragged_decode_split_launch
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+                 _ptr(v_scale), lengths.data_ptr(), ws.data_ptr(), B, Hk,
+                 rep, dh, T, ws.shape[2], k.stride(0), k.stride(1),
+                 v.stride(0), v.stride(1), s_sb, s_st, float(scale),
+                 _DTYPE_CODES[q.dtype], _kv_code(k),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "ragged_decode_split")
+    return ws
+
+
+def ragged_decode_merge(ws: torch.Tensor, lengths: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Launch the merge kernel alone over a workspace of gathered spans
+    ((B, Hk, n_split, rep, Dh + 2) f32, contiguous: every rank's
+    `ragged_decode_split` workspace, concatenated along dim 2 in rank
+    order) with the slots' whole lengths (B,): span s of slot b is read
+    when s·SPAN < len_b. Returns (B, Hk, rep, Dh) in `dtype` (float32 or
+    bfloat16); a slot of length 0 gives exact zeros. Raises on other
+    shapes or devices, and RuntimeError if the launch fails."""
+    if ws.device.type != "cuda" or ws.dtype != torch.float32 or \
+            ws.dim() != 5 or not ws.is_contiguous():
+        raise ValueError(f"want a contiguous f32 CUDA workspace (B, Hk, "
+                         f"n_split, rep, Dh + 2), got {ws.dtype} "
+                         f"{tuple(ws.shape)} on {ws.device}")
+    B, Hk, n_split, rep, dh2 = ws.shape
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"the merge writes float32 or bfloat16, not {dtype}")
+    if lengths.shape != (B,) or lengths.device != ws.device:
+        raise ValueError(f"lengths {tuple(lengths.shape)} on "
+                         f"{lengths.device} != ({B},) on {ws.device}")
+    if not 1 <= rep <= MAX_REP or not 1 <= dh2 - 2 <= MAX_DH:
+        raise ValueError(f"ragged decode merge takes rep <= {MAX_REP} and "
+                         f"Dh <= {MAX_DH}, got rep={rep}, Dh={dh2 - 2}")
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, Hk, rep, dh2 - 2), dtype=dtype, device=ws.device)
+    fn = _library().ragged_decode_merge_launch
+    with torch.cuda.device(ws.device):
+        err = fn(lengths.data_ptr(), ws.data_ptr(), out.data_ptr(), B, Hk,
+                 rep, dh2 - 2, n_split, _DTYPE_CODES[dtype],
+                 torch.cuda.current_stream(ws.device).cuda_stream)
+    _raise_on(err, "ragged_decode_merge")
     return out

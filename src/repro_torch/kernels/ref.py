@@ -67,10 +67,11 @@ def split_spans(length: int, rows: int, span: int) -> list:
     return [(t, min(t + span, n)) for t in range(0, n, span)]
 
 
-def ragged_decode_split_ref(q, k, v, lengths, k_scale=None, v_scale=None,
-                            *, span, scale=None):
-    """A Python model of the ragged decode kernels' split-K arithmetic,
-    for the tests.
+def ragged_decode_states_ref(q, k, v, lengths, k_scale=None, v_scale=None,
+                             *, span, scale=None):
+    """A Python model of the ragged decode split kernel alone: the f32
+    partial states of the spans of rows 0..T-1 of each slot, as the
+    split kernel writes them to its workspace.
 
     q: (B, Hk, rep, Dh); k, v: (B, T, Hk, Dh) slot caches, float or int8 /
     float8_e4m3fn codes with (B, T, Hk) f32 scales; lengths: (B,). The
@@ -78,17 +79,19 @@ def ragged_decode_split_ref(q, k, v, lengths, k_scale=None, v_scale=None,
     partial state is computed in f32, as the split kernel computes it:
     m = max of its scores (q·k, times the k scale for codes, times
     `scale`), weights p = exp(score − m), l = Σ p, acc = Σ p·v (the weight
-    times the v scale, for codes). The states are then merged in span
-    order: M = max m_s, w_s = exp(m_s − M), out = Σ w_s·acc_s /
-    max(Σ w_s·l_s, 1e-30); an empty slot gives exact zeros. Returns
-    (B, Hk, rep, Dh) in q's dtype."""
+    times the v scale, for codes). Returns the workspace (B, Hk,
+    ceil(T / span), rep, Dh + 2): per span acc, then m and l; spans at or
+    past a slot's length are zeros (the kernel leaves them unwritten, and
+    no merge reads them). Over a rank's own rows (T a multiple of span,
+    the rank's lengths), concatenated along dim 2 with the other ranks'
+    in order, it equals the whole rows' workspace bit for bit."""
     B, Hk, rep, dh = q.shape
     T = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     f32 = torch.float32
-    out = torch.zeros((B, Hk, rep, dh), dtype=f32, device=q.device)
+    ws = torch.zeros((B, Hk, -(-T // span), rep, dh + 2), dtype=f32,
+                     device=q.device)
     for b in range(B):
-        states = []
         for t0, t1 in split_spans(int(lengths[b]), T, span):
             s = torch.einsum("hrd,thd->hrt", q[b].to(f32),
                              k[b, t0:t1].to(f32))
@@ -100,18 +103,46 @@ def ragged_decode_split_ref(q, k, v, lengths, k_scale=None, v_scale=None,
             m = s.amax(-1)                                  # (Hk, rep)
             p = torch.exp(s - m[..., None])
             acc = torch.einsum("hrt,thd->hrd", p * pv, v[b, t0:t1].to(f32))
-            states.append((m, p.sum(-1), acc))
-        if not states:
+            st = ws[b, :, t0 // span]
+            st[..., :dh] = acc
+            st[..., dh] = m
+            st[..., dh + 1] = p.sum(-1)
+    return ws
+
+
+def ragged_decode_merge_ref(ws, lengths, dtype, *, span):
+    """A Python model of the ragged decode merge kernel: the workspace
+    (B, Hk, n_split, rep, Dh + 2) of partial states (one split pass's, or
+    every rank's concatenated along dim 2 in rank order) merged in span
+    order over the ceil(len_b / span) spans of slot b, len_b clamped to
+    [0, n_split·span] (sharding.merge_partials' arithmetic); an empty
+    slot gives exact zeros. Returns (B, Hk, rep, Dh) in `dtype`."""
+    from repro_torch.sharding import merge_partials
+    B, Hk, n_split, rep, dh2 = ws.shape
+    out = torch.zeros((B, Hk, rep, dh2 - 2), dtype=torch.float32,
+                      device=ws.device)
+    for b in range(B):
+        ns = -(-max(0, min(int(lengths[b]), n_split * span)) // span)
+        if ns == 0:
             continue                                        # exact zeros
-        M = torch.stack([m for m, _, _ in states]).amax(0)
-        num = torch.zeros((Hk, rep, dh), dtype=f32, device=q.device)
-        den = torch.zeros((Hk, rep), dtype=f32, device=q.device)
-        for m, l, acc in states:                            # span order
-            w = torch.exp(m - M)
-            den = den + w * l
-            num = num + w[..., None] * acc
-        out[b] = num / den.clamp_min(1e-30)[..., None]
-    return out.to(q.dtype)
+        st = ws[b, :, :ns].transpose(0, 1)                  # (ns, Hk, ...)
+        out[b] = merge_partials(st[..., :dh2 - 2], st[..., dh2 - 2],
+                                st[..., dh2 - 1])
+    return out.to(dtype)
+
+
+def ragged_decode_split_ref(q, k, v, lengths, k_scale=None, v_scale=None,
+                            *, span, scale=None):
+    """A Python model of the ragged decode kernels' split-K arithmetic,
+    for the tests: `ragged_decode_states_ref`'s per-span states of the
+    whole rows, merged in span order by `ragged_decode_merge_ref` (M =
+    max m_s, w_s = exp(m_s − M), out = Σ w_s·acc_s / max(Σ w_s·l_s,
+    1e-30); an empty slot gives exact zeros). q: (B, Hk, rep, Dh); k, v:
+    (B, T, Hk, Dh), float or codes with (B, T, Hk) f32 scales; lengths:
+    (B,). Returns (B, Hk, rep, Dh) in q's dtype."""
+    ws = ragged_decode_states_ref(q, k, v, lengths, k_scale, v_scale,
+                                  span=span, scale=scale)
+    return ragged_decode_merge_ref(ws, lengths, q.dtype, span=span)
 
 
 def paged_ragged_decode_split_ref(q, k_pool, v_pool, lengths, block_table,

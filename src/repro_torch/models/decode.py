@@ -119,7 +119,16 @@ cross caches the rank's kv heads; attention, FFN and the recurrent
 blocks run sharded with their all-reduces, the logits come back whole.
 The row helpers below are slot-local and unchanged on each rank. Slots
 over the batch axes are the engine's: it hands these functions the rows
-its rank holds (sharding.slot_range), and they see a smaller B.
+its rank holds (sharding.slot_range), and they see a smaller B; paged,
+every batch rank holds the whole pool and `sync_pool` sends each step's
+written rows to the others. Under the long-context layout (`seq=`, a
+sharding.SeqSplit: slots the batch axes do not divide) every rank steps
+every slot but holds only its rows of each slot's attention caches
+(init_cache(seq=)): a write lands on the rank that owns its row (the
+others aim it at their sink), and the attention over a rank's rows is
+merged over the row group (the S = 1 kernel path through the decode
+kernel's split pass and merge, every other path's partial softmax in
+plain torch); the cross caches' encoder rows split the same way.
 """
 from __future__ import annotations
 
@@ -176,8 +185,9 @@ def _raw(t: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
-               device="cuda", *,
-               mesh=None) -> Dict[str, Dict[str, torch.Tensor]]:
+               device="cuda", *, mesh=None,
+               seq: Optional[sh.SeqSplit] = None
+               ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Zero caches for a max sequence length T on `device`: T + 1 rows per
     slot, the last one the sink of dropped writes; a sliding-window
     segment's ring holds min(T, window) + 1. dtype: the float k/v
@@ -187,10 +197,19 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
     whatever it is. A shared_attn invocation's k/v are unstacked (B, T +
     1, Hk, Dh). mesh: the "model" axis; k, v and their scales then hold
     this rank's kv heads (sharding.local_kv_heads), latents whole, and
-    recurrent state the rank's heads (_recurrent_leaves)."""
+    recurrent state the rank's heads (_recurrent_leaves). seq: the
+    long-context layout (sharding.SeqSplit, T == seq.T): an attention
+    leaf of Tc rows (T, or a ring's min(T, W)) then holds this rank's
+    sharding.shard_rows(Tc, R) of them and its own sink, R the ranks of
+    its row group (an MLA latent's: the batch axes)."""
     dev = resolve_device(device)
     spec = kv_quant_spec(cfg)
     dh, hk = cfg.resolved_head_dim, sh.local_kv_heads(cfg, mesh)
+
+    def cap(Tc, latent=False):
+        if seq is None:
+            return Tc
+        return sh.shard_rows(Tc, sh.row_ranks(cfg, mesh, latent))
     caches = {}
     for si, seg in enumerate(layer_plan(cfg)):
         if seg.kind in ("rwkv", "mamba"):
@@ -198,14 +217,15 @@ def init_cache(cfg: ModelConfig, B: int, T: int, dtype=None,
                                                    mesh)
             continue
         if seg.kind == "shared_attn":
-            caches[f"seg{si}"] = _attn_leaves(spec, dtype, (B, T + 1, hk),
-                                              dh, dev)
+            caches[f"seg{si}"] = _attn_leaves(spec, dtype,
+                                              (B, cap(T) + 1, hk), dh, dev)
             continue
         if seg.kind == "mla":
             caches[f"seg{si}"] = _mla_leaves(cfg, spec, dtype,
-                                             (seg.n, B, T + 1), dev)
+                                             (seg.n, B, cap(T, True) + 1),
+                                             dev)
             continue
-        Tc = min(T, seg.window) if seg.window > 0 else T
+        Tc = cap(min(T, seg.window) if seg.window > 0 else T)
         caches[f"seg{si}"] = _attn_leaves(spec, dtype, (seg.n, B, Tc + 1, hk),
                                           dh, dev)
     if cfg.family == "encdec":
@@ -379,6 +399,38 @@ def _paged_positions(pinfo, block_table, page: int, Tc: int,
     return pinfo
 
 
+def _split_positions(pinfo, shard, B: int, kernel_read: bool):
+    """Make a decode_positions dict (built at the global capacity
+    shard.Tc) this rank's under the long-context layout (RowShard
+    `shard`): `wrows` the (slot, local row) pairs of the writes, a row
+    another rank owns (or a dropped one) aimed at the rank's sink;
+    `Tb_read` the local rows of the read slice (kernel_read: the split
+    kernel's, equal on every rank of the group) and `k_pos` their global
+    positions; `shard` itself. `lengths` stay the slots' whole ones."""
+    widx = pinfo["widx"]
+    rows = pinfo["q_pos"] if isinstance(widx, int) else widx  # (B|1, S)
+    local = shard.local_rows(rows)
+    pinfo["wrows"] = (torch.arange(B, device=local.device)[:, None], local)
+    n = (shard.kernel_read(pinfo["Tb"]) if kernel_read
+         else shard.read_len(pinfo["Tb"]))
+    pinfo["Tb_read"] = n
+    pinfo["k_pos"] = pinfo["k_pos"][..., shard.lo:shard.lo + n]
+    pinfo["shard"] = shard
+    return pinfo
+
+
+def _local_rows_of(t: torch.Tensor, shard, dim: int) -> torch.Tensor:
+    """This rank's shard.Tr rows of a whole tensor `t` (shard.Tc long
+    along `dim`): rows [lo, lo + Tr), zeros past Tc."""
+    shape = list(t.shape)
+    shape[dim] = shard.Tr
+    out = t.new_zeros(shape)
+    n = max(0, min(shard.Tr, shard.Tc - shard.lo))
+    if n:
+        out.narrow(dim, 0, n).copy_(t.narrow(dim, shard.lo, n))
+    return out
+
+
 def _update_at(cache: torch.Tensor, new: torch.Tensor, idx) -> torch.Tensor:
     """Write new (B, S, ...) into cache (B, T + 1, ...) IN PLACE at rows
     idx, with one index_put_.
@@ -525,6 +577,10 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     paged: optional (block_table, page, Tc) — the caches are then this
     layer's (R + page, Hk, Dh) row pools (scales (R + page, Hk)), and
     pinfo (with the segment's _paged_positions translation) is required.
+    A pinfo with a RowShard (`_split_positions`, the long-context layout)
+    makes the caches this rank's rows of each slot: a row lands only on
+    the rank that owns it, and the attention over them is merged over
+    the row group (layers.attention_block's rows=).
     Writes land at the translated physical rows (dropped ones in the sink
     page); an S=1 step with use_ragged reads through the paged kernel,
     which follows the block table itself; any other step gathers logical
@@ -538,10 +594,12 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     dense path; quantized fresh keys take the quantize -> dequantize
     round trip every later read sees.
 
-    cross: (cross_p, k, v) of an encoder-decoder layer — its ln_cross +
-    cross block and its (B, S_enc, Hk, Dh) cross cache: after the
-    self-attention, a dense unmasked attention over the encoder's keys
-    at positions 0..S_enc-1, as the reference computes it. mesh: the
+    cross: (cross_p, k, v, shard) of an encoder-decoder layer — its
+    ln_cross + cross block, its (B, S_enc, Hk, Dh) cross cache and,
+    under the long-context layout, the cache rows' RowShard (else None):
+    after the self-attention, a dense unmasked attention over the
+    encoder's keys at positions 0..S_enc-1, as the reference computes
+    it. mesh: the
     "model" axis (sharding.py): the caches hold the rank's kv heads, and
     the attention and FFN run sharded. Returns (x, cache dict of the
     layer's leaves)."""
@@ -555,6 +613,8 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
             raise ValueError("a paged decode_attn needs the segment's "
                              "pinfo (decode_segment builds it)")
         block_table, page, Tc = paged
+    elif pinfo is not None and "shard" in pinfo:
+        Tc = pinfo["shard"].Tc                    # the global capacity
     else:
         Tc = cache_k.shape[1] - 1                 # row Tc is the sink
         if pinfo is None:
@@ -563,6 +623,7 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
                                      device=x.device)
     kernel_read = paged is not None and pinfo["kernel_read"]
     q_pos, k_pos, Tb = pinfo["q_pos"], pinfo["k_pos"], pinfo["Tb"]
+    shard, Tb_read = pinfo.get("shard"), pinfo.get("Tb_read", Tb)
     S = x.shape[1]
     if paged is not None:
         # logical rows 0..Tb-1 in order: the contiguous read slice (a copy)
@@ -573,7 +634,7 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
     else:
         # read slice: O(bucket) rows, not O(T); a view, never a copy
         def read(leaf):
-            return leaf[:, :Tb]
+            return leaf[:, :Tb_read]
     chunk_ring = ring and S > 1
     if chunk_ring:
         # the window before this chunk's writes overwrite any of it
@@ -623,15 +684,20 @@ def decode_attn(p_l, cfg: ModelConfig, x, cache_k, cache_v, pos, window,
         a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
                                  q_pos=q_pos, k_pos=k_pos, kv=kv,
                                  ragged_lengths=lengths, kv_scales=scales,
-                                 paged_kv=paged_kv, mesh=mesh)
+                                 paged_kv=paged_kv, mesh=mesh, rows=shard)
     x = x + a
     if cross is not None:
-        cp, ck, cv = cross
+        cp, ck, cv, cshard = cross
         h = L.rms_norm(x, cp["ln_cross"], cfg.logical_norm_eps)
+        ck_pos = torch.arange(ck.shape[1], device=x.device)
+        valid = None
+        if cshard is not None:
+            ck_pos = ck_pos + cshard.lo
+            valid = (ck_pos < cshard.Tc)[None]
         c, _ = L.attention_block(
-            cp["cross"], cfg, h, window=0, q_pos=q_pos,
-            k_pos=torch.arange(ck.shape[1], device=x.device), kv=(ck, cv),
-            causal=False, mesh=mesh)
+            cp["cross"], cfg, h, window=0, q_pos=q_pos, k_pos=ck_pos,
+            kv=(ck, cv), causal=False, mesh=mesh, rows=cshard,
+            k_valid=valid)
         x = x + c
     out = {"k": cache_k, "v": cache_v}
     if spec.quantized:
@@ -645,8 +711,13 @@ def _chunk_ring_attn(p_l, cfg: ModelConfig, h, pre, k_new, v_new, ks_new,
     `pre` ([k, v] or, quantized, [k, v, k_scale, v_scale] codes, read
     before the chunk's writes) at their positions at depth pos - 1, then
     the chunk's fresh keys at their own positions. Rows never written and
-    padded chunk tokens (widx == Tc) sit past every query."""
+    padded chunk tokens (widx == Tc) sit past every query. Under the
+    long-context layout (pinfo's `shard`) `pre` is this rank's rows, the
+    fresh keys are attended on the group's first rank only, and the
+    attention is merged over the group."""
     q_pos, widx, Tb = pinfo["q_pos"], pinfo["widx"], pinfo["Tb"]
+    shard = pinfo.get("shard")
+    lo, n = (0, Tb) if shard is None else (shard.lo, pinfo["Tb_read"])
     S = h.shape[1]
     pre_k, pre_v = pre[0], pre[1]
     fresh_k, fresh_v = k_new, v_new
@@ -655,15 +726,19 @@ def _chunk_ring_attn(p_l, cfg: ModelConfig, h, pre, k_new, v_new, ks_new,
         pre_v = quant.dequantize(pre_v, pre[3], h.dtype)
         fresh_k = quant.dequantize(k_new, ks_new, h.dtype)
         fresh_v = quant.dequantize(v_new, vs_new, h.dtype)
-    pre_pos = _ring_k_pos(q_pos[:, 0] - 1, Tc, far_offset=S + 1)[:, :Tb]
+    pre_pos = _ring_k_pos(q_pos[:, 0] - 1, Tc,
+                          far_offset=S + 1)[:, lo:lo + n]
     chunk_pos = torch.where(widx < Tc, q_pos, q_pos[:, -1:] + 1)
-    kp = torch.cat([pre_pos.expand(chunk_pos.shape[0], Tb), chunk_pos],
-                   dim=1)
-    kcat = torch.cat([pre_k, fresh_k.to(pre_k.dtype)], dim=1)
-    vcat = torch.cat([pre_v, fresh_v.to(pre_v.dtype)], dim=1)
+    pre_pos = pre_pos.expand(chunk_pos.shape[0], n)
+    if shard is not None and shard.g > 0:
+        kp, kcat, vcat = pre_pos, pre_k, pre_v
+    else:
+        kp = torch.cat([pre_pos, chunk_pos], dim=1)
+        kcat = torch.cat([pre_k, fresh_k.to(pre_k.dtype)], dim=1)
+        vcat = torch.cat([pre_v, fresh_v.to(pre_v.dtype)], dim=1)
     a, _ = L.attention_block(p_l["attn"], cfg, h, window=window,
                              q_pos=q_pos, k_pos=kp, kv=(kcat, vcat),
-                             mesh=mesh)
+                             mesh=mesh, rows=shard)
     return a
 
 
@@ -684,7 +759,9 @@ def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
     dequantizes them densely and runs layers.mla_attention: the
     reference has no MLA kernel, and neither has the port. MLA caches are
     never rings. mesh: the "model" axis the attention's heads and the FFN
-    are sharded over; the latent cache is whole on every rank. Returns
+    are sharded over; the latent cache is whole on every rank, but under
+    the long-context layout (pinfo's RowShard), where it holds this
+    rank's rows of each slot, split over the batch axes only. Returns
     (x, cache dict of the layer's leaves)."""
     spec = kv_quant_spec(cfg)
     if spec.quantized and cache_lat_s is None:
@@ -698,7 +775,7 @@ def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
         pinfo = decode_positions(pos, x.shape[1], cache_lat.shape[1] - 1,
                                  False, n_valid=n_valid, kv_len=kv_len,
                                  device=x.device)
-    q_pos, Tb = pinfo["q_pos"], pinfo["Tb"]
+    q_pos, Tb = pinfo["q_pos"], pinfo.get("Tb_read", pinfo["Tb"])
     h = L.rms_norm(x, p_l["ln_attn"], cfg.logical_norm_eps)
     lat_new, ls_new = quant.quantize(
         L.mla_latent(p_l["attn"], cfg, h, k_pos=q_pos), spec)  # (B,S,w)
@@ -722,7 +799,8 @@ def decode_mla(p_l, cfg: ModelConfig, x, cache_lat, pos, pinfo=None,
     if spec.quantized:
         latr = quant.dequantize(latr, read(cache_lat_s), x.dtype)
     x = x + L.mla_attention(p_l["attn"], cfg, h, latr, q_pos=q_pos,
-                            k_pos=pinfo["k_pos"], mesh=mesh)
+                            k_pos=pinfo["k_pos"], mesh=mesh,
+                            rows=pinfo.get("shard"))
     out = {"latent": cache_lat}
     if spec.quantized:
         out["latent_scale"] = cache_lat_s
@@ -776,7 +854,7 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                    n_valid=None, kv_len=None, use_ragged=False,
                    use_fused=False, paged=None,
                    wkv_kernel: Optional[bool] = None, cross_stack=None,
-                   mesh=None):
+                   mesh=None, seq: Optional[sh.SeqSplit] = None):
     """x: (B, S, [K,] d); returns (x, cache) with the cache written in
     place. paged: optional (block_table, page) — the segment's caches are
     row pools and the logical capacity Tc is the table's row span, capped
@@ -784,8 +862,12 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
     writes only its recurrent state leaves. A shared_attn segment is one
     invocation of the hybrid's tied block: p_seg is `shared_blk` and its
     cache leaves are unstacked. cross_stack: an encoder-decoder
-    decoder's (stacked enc/cross blocks, the caches' "cross" entry),
-    indexed by global layer. mesh: the "model" axis (sharding.py)."""
+    decoder's (stacked enc/cross blocks, the caches' "cross" entry, the
+    cross rows' RowShard or None), indexed by global layer. mesh: the
+    "model" axis (sharding.py). seq: the long-context layout
+    (sharding.SeqSplit): the contiguous caches hold this rank's rows of
+    each slot (init_cache(seq=)), the segment's capacity is seq.T (a
+    ring's min(seq.T, W)) and its RowShard goes to the layers."""
     K = cfg.altup.K
     S = x.shape[1]
     shared = seg.kind == "shared_attn"
@@ -809,6 +891,8 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
             if ring:
                 Tc = min(Tc, int(seg.window))
             pg_seg = (bt, pg, Tc)
+        elif seq is not None:
+            Tc = min(seq.T, int(seg.window)) if ring else seq.T
         else:
             Tc = rows.shape[ax + 1] - 1           # row Tc is the sink
         # the position/index machinery is the same for every layer of the
@@ -819,6 +903,10 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
             # MLA reads its rows densely, gathered through the table
             _paged_positions(pinfo, bt, pg, Tc, rows.shape[ax],
                              kernel_read=use_ragged and S == 1 and not mla)
+        elif seq is not None:
+            _split_positions(pinfo, sh.RowShard(cfg, mesh, Tc, latent=mla),
+                             x.shape[0], kernel_read=use_ragged and S == 1
+                             and not mla and cfg.causal)
 
         def leaf(name, i):
             if name not in cache:
@@ -833,9 +921,9 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
                     paged=pg_seg, mesh=mesh)[0]
             cross = None
             if cross_stack is not None:
-                cp, cc = cross_stack
+                cp, cc, cshard = cross_stack
                 j = seg.layer_offset + i
-                cross = (layer_slice(cp, j), cc["k"][j], cc["v"][j])
+                cross = (layer_slice(cp, j), cc["k"][j], cc["v"][j], cshard)
             out, _ = decode_attn(
                 p_l, cfg, xa, leaf("k", i), leaf("v", i), pos, seg.window,
                 pinfo=pinfo, use_ragged=use_ragged,
@@ -862,7 +950,8 @@ def decode_segment(p_seg, cache, seg: Segment, cfg: ModelConfig, x, pos, *,
 
 def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
                 n_valid=None, kv_len=None, block_table=None, page_size=0,
-                wkv_kernel: Optional[bool] = None, mesh=None):
+                wkv_kernel: Optional[bool] = None, mesh=None,
+                seq: Optional[sh.SeqSplit] = None):
     """Advance every sequence by its next token(s).
 
     tokens: (B, S) int — S is 1 for decode ticks; chunked prefill feeds
@@ -879,19 +968,24 @@ def decode_step(params, cfg: ModelConfig, caches, tokens, pos, *,
     model reads its caches' "cross" entry, which prefill filled. mesh:
     the "model" axis `params` (shard_params') and `caches` (init_cache's
     or init_paged_cache's with the same mesh) are sharded over; the
-    logits are whole on every rank. Returns (logits (B, S, V_pad),
-    caches), the caches written in place.
+    logits are whole on every rank. seq: the long-context layout of
+    contiguous caches made by init_cache(seq=) (and prefill's cross
+    caches). Returns (logits (B, S, V_pad), caches), the caches written
+    in place.
     """
     kw = _step_kwargs(cfg, tokens, pos, block_table, page_size)
-    cross_stack = ((params["enc"]["cross"], caches["cross"])
-                   if cfg.family == "encdec" else None)
+    cross_stack = None
+    if cfg.family == "encdec":
+        cshard = (sh.RowShard(cfg, mesh, seq.enc) if seq is not None
+                  else None)
+        cross_stack = (params["enc"]["cross"], caches["cross"], cshard)
     x = embed_tokens(params, cfg, tokens, mesh=mesh)
     for si, seg in enumerate(layer_plan(cfg)):
         x, _ = decode_segment(segment_params(params, seg, si),
                               caches[f"seg{si}"], seg, cfg, x, pos,
                               n_valid=n_valid, kv_len=kv_len,
                               wkv_kernel=wkv_kernel, cross_stack=cross_stack,
-                              mesh=mesh, **kw)
+                              mesh=mesh, seq=seq, **kw)
     return unembed(params, cfg, x, mesh=mesh), caches
 
 
@@ -918,7 +1012,8 @@ def _step_kwargs(cfg: ModelConfig, tokens, pos, block_table, page_size):
 
 def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
                draft_layers: int, n_valid=None, kv_len=None,
-               block_table=None, page_size=0, mesh=None):
+               block_table=None, page_size=0, mesh=None,
+               seq: Optional[sh.SeqSplit] = None):
     """Predict-only DRAFT forward for self-speculative decoding
     (serve/speculative.py).
 
@@ -952,7 +1047,7 @@ def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
             head = seg if m == seg.n else dataclasses.replace(seg, n=m)
             x, _ = decode_segment(p_seg, caches[f"seg{si}"], head, cfg, x,
                                   pos, n_valid=n_valid, kv_len=kv_len,
-                                  mesh=mesh, **kw)
+                                  mesh=mesh, seq=seq, **kw)
         if m < seg.n and cfg.altup.enabled:
             comp = (p_seg["altup_p"] if seg.kind == "shared_attn" else
                     alt.compose_predictors(p_seg["altup_p"], start=m))
@@ -963,20 +1058,20 @@ def draft_step(params, cfg: ModelConfig, caches, tokens, pos, *,
 def decode_sample_step(params, caches, seen, tokens, pos, n_valid, sparams,
                        *, cfg: ModelConfig, kv_len=None, want_logprobs=False,
                        any_sampled=False, block_table=None, page_size=0,
-                       mesh=None):
+                       mesh=None, seq: Optional[sh.SeqSplit] = None):
     """Decode + on-device sampling — the serving hot path's step.
 
     Runs decode_step, gathers each slot's sampled logits row (row
     n_valid-1, vocab-truncated) on the device, folds this step's fed
     tokens into the repetition-penalty `seen` table (in place), and
     samples per slot (serve/sampling.sample_rows). block_table/page_size:
-    paged mode, and mesh, as decode_step: every rank samples the same ids
-    from the same whole logits. Returns (ids, logprobs|None, caches,
+    paged mode, mesh and seq, as decode_step: every rank samples the same
+    ids from the same whole logits. Returns (ids, logprobs|None, caches,
     seen)."""
     logits, caches = decode_step(params, cfg, caches, tokens, pos,
                                  n_valid=n_valid, kv_len=kv_len,
                                  block_table=block_table,
-                                 page_size=page_size, mesh=mesh)
+                                 page_size=page_size, mesh=mesh, seq=seq)
     B = tokens.shape[0]
     rows = logits[torch.arange(B, device=logits.device),
                   torch.clamp(n_valid.to(torch.long) - 1, min=0),
@@ -988,7 +1083,8 @@ def decode_sample_step(params, caches, seen, tokens, pos, n_valid, sparams,
 
 
 def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
-            encoder_frames=None, mesh=None):
+            encoder_frames=None, mesh=None,
+            seq: Optional[sh.SeqSplit] = None):
     """Run the full prompt one token at a time and build caches of
     capacity T (for the static generate() path and tests — decode_step
     consumes the result). step_fn: optional (params, caches, tokens, pos)
@@ -999,17 +1095,25 @@ def prefill(params, cfg: ModelConfig, tokens, T: int, *, step_fn=None,
     by encoder position unless use_rel_pos_bias) fill the caches' "cross"
     entry, at the encoder output's length. mesh: the "model" axis
     (decode_step's; the encoder and the cross caches run on it too);
-    step_fn then runs under it as the caller made it."""
+    step_fn then runs under it as the caller made it. seq: the
+    long-context layout (sharding.SeqSplit, seq.T == T): the caches hold
+    this rank's rows of each slot, the cross caches this rank's rows of
+    the encoder output, whose length prefill writes into seq.enc."""
     B, S = tokens.shape
-    caches = init_cache(cfg, B, T, device=tokens.device, mesh=mesh)
+    caches = init_cache(cfg, B, T, device=tokens.device, mesh=mesh, seq=seq)
     if cfg.family == "encdec":
         if encoder_frames is None:
             raise ValueError("an encoder-decoder prefill needs "
                              "encoder_frames")
-        caches["cross"] = cross_caches(params, cfg, encoder_frames, mesh=mesh)
+        cross = cross_caches(params, cfg, encoder_frames, mesh=mesh)
+        if seq is not None:
+            seq.enc = cross["k"].shape[2]
+            shard = sh.RowShard(cfg, mesh, seq.enc)
+            cross = {n: _local_rows_of(t, shard, 2) for n, t in cross.items()}
+        caches["cross"] = cross
     if step_fn is None:
         def step_fn(p, c, tk, ps):
-            return decode_step(p, cfg, c, tk, ps, mesh=mesh)
+            return decode_step(p, cfg, c, tk, ps, mesh=mesh, seq=seq)
     logits = None
     for t in range(S):
         logits, caches = step_fn(params, caches, tokens[:, t:t + 1], t)
@@ -1044,15 +1148,33 @@ def cross_caches(params, cfg: ModelConfig, encoder_frames, *, mesh=None):
 # prefix-cache copies: slot to slot (contiguous) and page to page (paged)
 # --------------------------------------------------------------------------
 
+def split_row_offsets(cfg: ModelConfig, mesh,
+                      seq: sh.SeqSplit) -> Dict[str, tuple]:
+    """{segment: (the first global row this rank holds, the segment's
+    global capacity Tc)} of every attention and MLA segment under the
+    long-context layout (seq): prefix_views' `split`."""
+    out = {}
+    for si, seg in enumerate(layer_plan(cfg)):
+        if seg.kind in ("rwkv", "mamba"):
+            continue
+        Tc = min(seq.T, int(seg.window)) if seg.window > 0 else seq.T
+        out[f"seg{si}"] = (sh.RowShard(cfg, mesh, Tc,
+                                       latent=seg.kind == "mla").lo, Tc)
+    return out
+
+
 def prefix_views(caches, slot: int, p: int, *, copy_recurrent: bool = False,
-                 shared=frozenset()):
+                 shared=frozenset(), split=None):
     """The views copy_prefix copies of slot `slot`, in one fixed order:
     rows < min(p, Tc) of every attention k/v and MLA latent leaf and its
     scales (their raw bytes: fp8 codes as uint8), and with
     copy_recurrent the slot's whole recurrent state. The same list of
     another slot has the same shapes, so a rank that holds neither slot
     can size a buffer from any slot's (the engine's prefix copy across
-    data ranks)."""
+    data ranks). split: the long-context layout's split_row_offsets; a
+    leaf then holds global rows [lo, lo + its rows), and its views are
+    the ones of those below min(p, Tc): a slot's row lives on the same
+    rank for every slot, so each rank copies within its own rows."""
     views = []
     for si, seg in caches.items():
         for name, leaf in seg.items():
@@ -1062,6 +1184,9 @@ def prefix_views(caches, slot: int, p: int, *, copy_recurrent: bool = False,
                 if si in shared:
                     raw = raw[None]               # one layer: a view
                 n = min(p, raw.shape[2] - 1)
+                if split is not None and si in split:
+                    lo, Tc = split[si]
+                    n = max(0, min(min(p, Tc) - lo, raw.shape[2] - 1))
                 if n > 0:
                     views.append(raw[:, slot, :n])
             elif name in RECURRENT_LEAVES and copy_recurrent:
@@ -1070,7 +1195,8 @@ def prefix_views(caches, slot: int, p: int, *, copy_recurrent: bool = False,
 
 
 def copy_prefix(caches, dst: int, src: int, p: int, *,
-                copy_recurrent: bool = False, shared=frozenset()):
+                copy_recurrent: bool = False, shared=frozenset(),
+                split=None):
     """Clone the first `p` cache rows of slot `src` into slot `dst`, IN
     PLACE, across every attention k/v and MLA latent leaf and its scales
     (codes and
@@ -1086,11 +1212,11 @@ def copy_prefix(caches, dst: int, src: int, p: int, *,
     (depth == p, the engine's recurrent validity rule). shared: the names
     of the segments whose leaves are unstacked (B, T + 1, ...)
     (shared_segments(cfg): the hybrid's shared_attn invocations). src ==
-    dst is a no-op (the self-donor path reuses the rows in place).
-    Returns the caches."""
+    dst is a no-op (the self-donor path reuses the rows in place). split:
+    prefix_views'. Returns the caches."""
     if dst == src:
         return caches
-    kw = dict(copy_recurrent=copy_recurrent, shared=shared)
+    kw = dict(copy_recurrent=copy_recurrent, shared=shared, split=split)
     for d, s in zip(prefix_views(caches, dst, p, **kw),
                     prefix_views(caches, src, p, **kw)):
         d.copy_(s)
@@ -1141,15 +1267,19 @@ def _per_slot(v, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(v), dtype=torch.long, device=device)
 
 
-def _round_rows(leaf, pos, S: int, window: int, block_table, page: int):
+def _round_rows(leaf, pos, S: int, window: int, block_table, page: int,
+                shard=None):
     """The (B, S) rows of `leaf`'s row axis that ring positions
     pos..pos+S-1 occupy, and the leaf's sink row. Contiguous: rows of
-    each slot's ring of Tc rows (row Tc its sink). Paged: physical pool
-    rows through the block table, the ring's logical capacity
-    min(table span, window) as in decode_segment, the sink page's first
-    row the sink."""
+    each slot's ring of Tc rows (row Tc its sink); under the long-context
+    layout (`shard`, its Tc the global ring) this rank's local rows, the
+    others' aimed at its sink. Paged: physical pool rows through the
+    block table, the ring's logical capacity min(table span, window) as
+    in decode_segment, the sink page's first row the sink."""
     if block_table is None:
         Tc, B, sink = leaf.shape[2] - 1, leaf.shape[1], leaf.shape[2] - 1
+        if shard is not None:
+            Tc = shard.Tc
     else:
         Tc = min(block_table.shape[1] * page, window)
         B, sink = block_table.shape[0], leaf.shape[1] - page
@@ -1159,7 +1289,17 @@ def _round_rows(leaf, pos, S: int, window: int, block_table, page: int):
     if block_table is not None:
         rows = (torch.gather(block_table.to(torch.long), 1, rows // page)
                 * page + rows % page)
+    elif shard is not None:
+        rows = shard.local_rows(rows)
     return rows, sink
+
+
+def _ring_shard(cfg: ModelConfig, mesh, seq, window: int):
+    """The RowShard of a ring of `window` under the long-context layout
+    (seq), else None."""
+    if seq is None:
+        return None
+    return sh.RowShard(cfg, mesh, min(seq.T, window))
 
 
 def _ring_index(leaf, rows, paged: bool):
@@ -1172,7 +1312,8 @@ def _ring_index(leaf, rows, paged: bool):
 
 
 def snapshot_rows(cfg: ModelConfig, caches, pos, S: int, *,
-                  block_table=None, page_size: int = 0, out=None):
+                  block_table=None, page_size: int = 0, out=None,
+                  mesh=None, seq: Optional[sh.SeqSplit] = None):
     """Copies of the ring rows (codes AND quantized scales, in lockstep)
     that positions pos..pos+S-1 will overwrite: {segment: {leaf: (n, B,
     S, ...)}}, empty for a plan without rings. pos: an int or a per-slot
@@ -1181,17 +1322,19 @@ def snapshot_rows(cfg: ModelConfig, caches, pos, S: int, *,
     block_table/page_size: a paged pool, rows through the table; the copies
     have the contiguous shapes. out: an earlier snapshot of the same
     shapes to copy the rows into (the engine's static buffers), returned
-    instead of new tensors."""
+    instead of new tensors. mesh, seq: the long-context layout's
+    (decode_step's): each rank snapshots the rows it holds."""
     paged = block_table is not None
     snap = {}
     for name, window in _ring_segs(cfg):
         entry = {}
+        shard = _ring_shard(cfg, mesh, seq, window)
         for leaf_name in ("k", "v") + SCALE_LEAVES:
             leaf = caches[name].get(leaf_name)
             if leaf is None:
                 continue
             rows, _ = _round_rows(leaf, pos, S, window, block_table,
-                                   page_size)
+                                   page_size, shard)
             vals = _raw(leaf)[_ring_index(leaf, rows, paged)]
             if out is not None:
                 _raw(out[name][leaf_name]).copy_(vals)
@@ -1202,7 +1345,8 @@ def snapshot_rows(cfg: ModelConfig, caches, pos, S: int, *,
 
 
 def restore_rows(cfg: ModelConfig, caches, snap, pos, start, S: int, *,
-                 block_table=None, page_size: int = 0):
+                 block_table=None, page_size: int = 0, mesh=None,
+                 seq: Optional[sh.SeqSplit] = None):
     """Write snapshot rows back, IN PLACE: slot b restores rows
     start_b..S-1 (start an int or a (B,) tensor). start=0 undoes a whole
     round's ring writes (before the verify: the draft's writes must not
@@ -1210,13 +1354,15 @@ def restore_rows(cfg: ModelConfig, caches, snap, pos, start, S: int, *,
     count rewinds exactly the rejected suffix. Rows before a slot's
     start land in the sink (contiguous: the slot's sink row; paged: the
     sink page) where the reference drops them, so start >= S restores
-    nothing for that slot. Returns the caches."""
+    nothing for that slot. mesh, seq: as snapshot_rows'. Returns the
+    caches."""
     paged = block_table is not None
     for name, window in _ring_segs(cfg):
+        shard = _ring_shard(cfg, mesh, seq, window)
         for leaf_name, vals in snap[name].items():
             leaf = caches[name][leaf_name]
             rows, sink = _round_rows(leaf, pos, S, window, block_table,
-                                     page_size)
+                                     page_size, shard)
             st = _per_slot(start, rows.shape[0], leaf.device)
             offs = torch.arange(S, device=leaf.device)
             rows = torch.where(offs[None] >= st[:, None], rows, sink)
@@ -1328,3 +1474,73 @@ def reset_pages(caches, pages: Sequence[int], *, page: int):
         if name in SCALE_LEAVES or name == "latent_scale":
             leaf.index_fill_(ax, _page_rows(pages, page, leaf.device), 0.0)
     return caches
+
+
+# --------------------------------------------------------------------------
+# paged pools over the batch axes: every rank's pool kept equal
+# --------------------------------------------------------------------------
+
+def written_pool_rows(cfg: ModelConfig, caches, block_table, page: int, pos,
+                      n_valid, S: int) -> Dict[str, torch.Tensor]:
+    """{segment: (B, S) physical pool rows} a step (or a speculative
+    round) of width S wrote for each paged attention or MLA segment: the
+    rows of positions pos..pos+n_valid-1 through the block table (a ring
+    segment's q % Tc first), a dropped write's the sink page's first row,
+    exactly as decode_segment translates its writes. block_table, pos,
+    n_valid: the step's (B, ...) rows."""
+    out = {}
+    for si, seg in enumerate(layer_plan(cfg)):
+        if seg.kind in ("rwkv", "mamba"):
+            continue
+        name = f"seg{si}"
+        leaf = caches[name]["latent" if seg.kind == "mla" else "k"]
+        ax = 0 if seg.kind == "shared_attn" else 1
+        ring = int(seg.window) > 0
+        Tc = block_table.shape[1] * page
+        if ring:
+            Tc = min(Tc, int(seg.window))
+        widx = decode_positions(pos, S, Tc, ring, n_valid=n_valid,
+                                device=leaf.device)["widx"]
+        out[name] = _paged_rows(block_table, widx, page, Tc,
+                                leaf.shape[ax] - page)
+    return out
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """t's bytes, flat, padded to a multiple of 8 (so that every piece of
+    a packed buffer starts 8-byte aligned)."""
+    b = t.contiguous().reshape(-1).view(torch.uint8)
+    pad = -b.numel() % 8
+    return torch.cat([b, b.new_zeros(pad)]) if pad else b
+
+
+def sync_pool(caches, rows: Dict[str, torch.Tensor], mesh,
+              page: int) -> int:
+    """Give every rank of the batch group the rows the others wrote: one
+    all-gather of a packed buffer (this rank's written physical rows,
+    `rows` of written_pool_rows, then the values of every row-pooled
+    leaf at them: codes and scales, raw bytes), then each rank's rows
+    scattered into this rank's pool, IN PLACE. Kept writes of two slots
+    never share a row, so a row's value is the one its writer wrote; the
+    sink page's first row, where every rank drops its padded writes, is
+    zeroed after, so the pools stay bitwise equal. Returns the bytes this
+    rank sent."""
+    leaves = list(_row_leaves(caches))
+    idx = {si: r.reshape(-1).to(torch.long) for si, r in rows.items()}
+    pieces = [idx[si] for si in sorted(idx)]
+    pieces += [_raw(leaf).index_select(ax, idx[si])
+               for si, _, leaf, ax in leaves]
+    packed = torch.cat([_as_bytes(t) for t in pieces])
+    parts = sh.batch_all_gather(packed, mesh).view(sh.batch_size(mesh), -1)
+    gathered, off = [], 0
+    for t in pieces:
+        n = t.numel() * t.element_size()
+        gathered.append([p[off:off + n].view(t.dtype).view(t.shape)
+                         for p in parts])
+        off += n + (-n % 8)
+    whole = dict(zip(sorted(idx), (torch.cat(g) for g in gathered)))
+    for (si, _, leaf, ax), g in zip(leaves, gathered[len(idx):]):
+        raw = _raw(leaf)
+        raw.index_copy_(ax, whole[si], torch.cat(g, dim=ax))
+        raw.narrow(ax, leaf.shape[ax] - page, 1).zero_()
+    return packed.numel()

@@ -175,15 +175,35 @@ def init_attention(cfg: ModelConfig, dtype, generator, device) -> dict:
     return p
 
 
+def softmax_partial(scores, mask, v, spec: str, rows):
+    """The attention over a rank's own rows of a slot whose rows a group
+    of ranks holds (the long-context cache layout, sharding.RowShard):
+    the f32 partial softmax state of the masked `scores` (..., T) over
+    those rows (m its max, weights p = exp(score - m) where `mask`, else
+    0, l = sum p, acc = einsum(spec, p, v)), merged over the group
+    (rows.merge). A query none of whose keys a rank holds adds nothing
+    there (so does a rank that holds none of the rows read). Returns
+    acc's layout, (..., D) f32."""
+    m = (scores.amax(-1) if scores.shape[-1]
+         else scores.new_full(scores.shape[:-1], NEG_INF))
+    p = torch.where(mask, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    return rows.merge(torch.einsum(spec, p, v), m, p.sum(-1))
+
+
 def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos, bias=None,
-         scale: Optional[float] = None):
+         scale: Optional[float] = None, rows=None, k_valid=None):
     """Scaled dot-product attention with GQA + sliding-window masking.
 
     q: (B, S, H, Dh); k, v: (B, T, Hk, Dh); window: 0/None = full, else
     only attend to keys with q_pos - k_pos < window. q_pos: (S,) or (B, S);
     k_pos: (T,) or (B, T). Query head h reads kv head h // rep. bias:
     (1|B, H, S, T), added to the scores after the mask, as the reference
-    adds it.
+    adds it. rows: a sharding.RowShard when k, v are this rank's rows of a
+    long-context layout (k_pos their global positions): the softmax is
+    then softmax_partial's, merged over the group. k_valid: optional
+    (1|B, T) bool, the keys that exist (a rank's rows past the capacity do
+    not).
     """
     B, S, H, Dh = q.shape
     T, Hk = k.shape[1], k.shape[2]
@@ -203,11 +223,18 @@ def sdpa(q, k, v, *, causal: bool, window, q_pos, k_pos, bias=None,
         m = m & (rel >= 0)
     if window is not None and int(window) > 0:
         m = m & (rel < int(window))
+    if k_valid is not None:
+        m = m & k_valid[:, None, :]
     scores = torch.where(m[:, None, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
     if bias is not None:
         bias = bias.reshape(bias.shape[0], Hk, rep, S, T)
         scores = scores + bias.to(scores.dtype)
+    if rows is not None:
+        out = softmax_partial(scores, m[:, None, None], v.to(f32),
+                              "bhrst,bthd->bhrsd", rows)
+        out = out.permute(0, 3, 1, 2, 4)                  # (B,S,Hk,rep,Dh)
+        return out.reshape(B, S, H, Dh).to(q.dtype)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(f32))
     return out.reshape(B, S, H, Dh).to(q.dtype)
@@ -219,7 +246,8 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
                     causal: Optional[bool] = None,
                     ragged_lengths: Optional[torch.Tensor] = None,
                     kv_scales: Optional[tuple] = None,
-                    paged_kv: Optional[tuple] = None, mesh=None):
+                    paged_kv: Optional[tuple] = None, mesh=None, rows=None,
+                    k_valid=None):
     """Full attention sub-block (no residual, no pre-norm — caller owns
     those).
 
@@ -248,6 +276,13 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     sharding.local_kv_heads says: k and v, computed here or given, are
     the rank's) and all-reduces its output after wo; otherwise it runs
     whole, with no collective.
+    rows: a sharding.RowShard when `kv` is this rank's rows of a
+    long-context cache layout (k_pos their global positions,
+    ragged_lengths the slots' whole lengths): S=1 kernel attention runs
+    the kernel's split pass on the rank's rows (ops.ragged_decode_split,
+    at the rank's own lengths), all-gathers the workspaces over the
+    group and merges them (ops.ragged_decode_merge); the dense path
+    merges its partial softmax over the group (sdpa). k_valid: sdpa's.
     """
     tp = mesh if sh.heads_sharded(cfg, mesh) else None
     causal = cfg.causal if causal is None else causal
@@ -275,6 +310,12 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
         bt, page, t_max = paged_kv
         out = kops.paged_ragged_decode_attn(q, k, v, ragged_lengths, bt,
                                             ks, vs, page=page, t_max=t_max)
+    elif use_ragged and rows is not None:
+        ws = kops.ragged_decode_split(q, k, v,
+                                      rows.local_lengths(ragged_lengths),
+                                      ks, vs)
+        out = kops.ragged_decode_merge(rows.gather(ws, 2), ragged_lengths,
+                                       q.dtype)
     elif use_ragged:
         out = kops.ragged_decode_attn(q, k, v, ragged_lengths, ks, vs)
     elif paged_kv is not None:
@@ -287,10 +328,10 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
             k = quant.dequantize(k, ks, x.dtype)
             v = quant.dequantize(v, vs, x.dtype)
         out = sdpa(q, k, v, causal=causal, window=window, q_pos=q_pos,
-                   k_pos=k_pos, bias=bias)
+                   k_pos=k_pos, bias=bias, rows=rows, k_valid=k_valid)
+    if tp is not None and sh.model_size(tp) > 1:
+        return sh.row_parallel(out, p["wo"], 2, tp), (k, v)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
-    if tp is not None:
-        sh.model_all_reduce(out, tp)
     return out, (k, v)
 
 
@@ -332,7 +373,7 @@ def mla_latent(p, cfg: ModelConfig, x: torch.Tensor,
 
 def mla_attention(p, cfg: ModelConfig, x: torch.Tensor,
                   latent: torch.Tensor, *, q_pos, k_pos,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, rows=None) -> torch.Tensor:
     """Absorbed-matrix MLA: attention runs in the compressed latent space.
 
     latent: (B, T, r + qr) keys (mla_latent's rows, dequantized when the
@@ -345,7 +386,10 @@ def mla_attention(p, cfg: ModelConfig, x: torch.Tensor,
     "model" axis (sharding.py). Where it divides n_heads, wq_b, wk_b, wv_b
     and wo hold the rank's heads and the output is all-reduced after wo;
     where it divides q_lora_rank, wq_a holds the rank's columns and q_a
-    is all-gathered before its norm. The latent is whole on every rank."""
+    is all-gathered before its norm. The latent is whole on every rank
+    but under the long-context layout, where it is this rank's rows
+    (k_pos their global positions) and `rows` their sharding.RowShard:
+    the softmax then merges over the group (softmax_partial)."""
     tp = mesh if sh.heads_sharded(cfg, mesh) else None
     m = cfg.mla
     r, qk = m.kv_lora_rank, m.qk_nope_head_dim
@@ -369,16 +413,19 @@ def mla_attention(p, cfg: ModelConfig, x: torch.Tensor,
     if k_pos.dim() == 1:
         k_pos = k_pos[None]
     rel = q_pos[:, :, None] - k_pos[:, None, :]            # (B|1, S, T)
-    scores = torch.where((rel >= 0)[:, None], scores,
-                         torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    out_c = torch.einsum("bhst,btr->bshr", probs, c.to(f32))
+    mask = (rel >= 0)[:, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    if rows is not None:
+        out_c = softmax_partial(scores, mask, c.to(f32), "bhst,btr->bhsr",
+                                rows).transpose(1, 2)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+        out_c = torch.einsum("bhst,btr->bshr", probs, c.to(f32))
     out = torch.einsum("bshr,rhv->bshv", out_c.to(x.dtype),
                        p["wv_b"].to(x.dtype))              # absorb W_uv
-    out = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
-    if tp is not None:
-        sh.model_all_reduce(out, tp)
-    return out
+    if tp is not None and sh.model_size(tp) > 1:
+        return sh.row_parallel(out, p["wo"], 2, tp)
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(x.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -403,5 +450,6 @@ def ffn_block(p, x: torch.Tensor, activation: str = "silu",
         (lambda t: F.gelu(t, approximate="tanh"))
     h = act(torch.einsum("...d,df->...f", x, p["w1"].to(x.dtype)))
     h = h * torch.einsum("...d,df->...f", x, p["w3"].to(x.dtype))
-    out = torch.einsum("...f,fd->...d", h, p["w2"].to(x.dtype))
-    return out if mesh is None else sh.model_all_reduce(out, mesh)
+    if mesh is not None and sh.model_size(mesh) > 1:
+        return sh.row_parallel(h, p["w2"], 1, mesh)
+    return torch.einsum("...f,fd->...d", h, p["w2"].to(x.dtype))

@@ -219,9 +219,10 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     # ln_x normalizes over all of d, not per head: across ranks on local
     # heads
     out = rms_norm(out, ln_x, mesh=tp) * g
-    out = torch.einsum("bsd,de->bse", out, two.to(x.dtype))
-    if tp is not None:
-        sh.model_all_reduce(out, tp)
+    if tp is not None and sh.model_size(tp) > 1:
+        out = sh.row_parallel(out, two, 1, tp)
+    else:
+        out = torch.einsum("bsd,de->bse", out, two.to(x.dtype))
     return out, {"shift_tm": x[:, -1], "wkv": s_new}
 
 
@@ -238,9 +239,10 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     xr = x + dx * p["mu_cr"].to(x.dtype)
     kk = torch.square(torch.relu(
         torch.einsum("bsd,df->bsf", xk, p["ck"].to(x.dtype))))
-    vv = torch.einsum("bsf,fd->bsd", kk, p["cv"].to(x.dtype))
-    if tp is not None:
-        sh.model_all_reduce(vv, tp)
+    if tp is not None and sh.model_size(tp) > 1:
+        vv = sh.row_parallel(kk, p["cv"], 1, tp)
+    else:
+        vv = torch.einsum("bsf,fd->bsd", kk, p["cv"].to(x.dtype))
     rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
                                     p["cr"].to(x.dtype)))
     return rr * vv, {"shift_cm": x[:, -1]}

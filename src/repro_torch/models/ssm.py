@@ -217,9 +217,10 @@ def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         y, s_new = ssd_scan(xh, Bm, Cm, dt, A, D, s0)
     y = y.reshape(B, S, d_in)
     y = rms_norm(y, norm, mesh=tp) * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, w_out.to(x.dtype))
-    if tp is not None:
-        sh.model_all_reduce(out, tp)
+    if tp is not None and sh.model_size(tp) > 1:
+        out = sh.row_parallel(y, w_out, 1, tp)
+    else:
+        out = torch.einsum("bse,ed->bsd", y, w_out.to(x.dtype))
     if new_tail is None:
         new_tail = x.new_zeros((B, 0, xbc.shape[-1]))
     return out, {"conv": new_tail, "ssm": s_new}

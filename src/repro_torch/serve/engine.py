@@ -125,13 +125,27 @@ round all-gathers its committed tokens and counts, so every rank's
 AdaptiveK reads the same accept counts. A prefix hit whose donor slot
 another data rank holds moves the donor's rows to the destination's
 owner by a broadcast within the batch group (never a gather of whole
-caches). generate() splits its rows the same way. Paged caches over a
-batch axis of more than one rank raise (ROADMAP A11: the pool would be
-replicated over "data" and each step's new rows all-gathered). Over NCCL
-the collectives are captured in the step graphs like any kernel (the
-warm-up on the side stream runs them first); a gloo group's collectives
-cannot be captured, so on CUDA under gloo every step runs eagerly
-(graph_stats says so, captures 0).
+caches). generate() splits its rows the same way. Paged, every batch
+rank holds the whole row pool (the reference's paged_cache_pspecs: pool
+rows whole, kv heads over "model") and its slots' recurrent state; each
+scheduler allocates every slot's pages, a rank steps only its slots
+through their block-table rows, and at the end of each step (and of
+each speculative round, after its ring rollback) one all-gather over
+the batch group carries the physical rows the rank wrote and their
+values of every layer (codes and scales) to the others, which scatter
+them into their pools (decode.sync_pool): every rank's pool stays
+bitwise equal, so aliased prefix pages, page copies and the spill tier
+read the same rows everywhere. When D does not divide n_slots (one or a
+few long-context slots), every rank steps every slot and, contiguous, a
+slot's attention rows are split over the ranks that compute the same
+heads (sharding.SeqSplit / RowShard, the reference's tiny-batch
+cache_pspecs): each rank writes the rows it owns and the attention
+merges the ranks' partial softmax states over the group (the decode
+kernel's split pass on the rank's rows, the workspaces all-gathered and
+merged by its merge kernel). Over NCCL the collectives are captured in
+the step graphs like any kernel (the warm-up on the side stream runs
+them first); a gloo group's collectives cannot be captured, so on CUDA
+under gloo every step runs eagerly (graph_stats says so, captures 0).
 """
 from __future__ import annotations
 
@@ -154,7 +168,9 @@ from repro_torch.models.decode import (copy_pages, copy_prefix,
                                        reset_slot,
                                        restore_recurrent, restore_rows,
                                        save_recurrent, scatter_pages,
-                                       shared_segments, snapshot_rows)
+                                       shared_segments, snapshot_rows,
+                                       split_row_offsets, sync_pool,
+                                       written_pool_rows)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import layer_plan
 from repro_torch.serve.sampling import (Completion, SamplingParams,
@@ -392,9 +408,8 @@ class Engine:
     says. mesh: a DeviceMesh (launch/mesh.make_mesh) with a "model" dim,
     a "data" / "pod" dim or both, on the engine's device type; `params`
     are the FULL parameters, which the engine shards
-    (sharding.shard_params). Every family serves over it; paged=True
-    with a batch axis of more than one rank raises (ROADMAP A11). Steps
-    (graph captures included) and
+    (sharding.shard_params). Every family serves over it, contiguous or
+    paged. Steps (graph captures included) and
     generate() run without autograd, so trainable parameters (a
     Trainer's) serve as they are."""
 
@@ -431,7 +446,7 @@ class Engine:
             raise ValueError(f"parameters lie on {emb.device}, the engine "
                              f"on {self.device}")
         # gloo's collectives cannot be captured in a CUDA graph
-        eager_mesh = self._check_mesh(cfg, mesh, paged)
+        eager_mesh = self._check_mesh(cfg, mesh)
         if mesh is not None:
             params = sh.shard_params(params, cfg, mesh)
         self.cfg, self.params, self.mesh = cfg, params, mesh
@@ -441,6 +456,15 @@ class Engine:
         self._lo, self._hi = sh.slot_range(n_slots, mesh)
         self._rows = slice(self._lo, self._hi)
         self._split = self._hi - self._lo < n_slots
+        # the long-context layout: slots the batch axes do not divide,
+        # contiguous caches split by rows (split_row_offsets makes the row
+        # groups here, on every rank in the same order)
+        self._seq = self._row_split = None
+        if not paged and sh.rows_split(n_slots, mesh):
+            self._seq = sh.SeqSplit(max_len)
+            self._row_split = split_row_offsets(cfg, mesh, self._seq)
+        # bytes a rank's pool sync sent in the last step (paged, split)
+        self.last_sync_bytes = 0
         self._kv_buckets = kv_buckets
         self._kv_bucket_min = kv_bucket_min
         # recurrent state advances token by token, and a chunk's ring
@@ -514,10 +538,9 @@ class Engine:
         self._spec_graphs = (StepGraphs(self.device, self._hi - self._lo)
                              if self._use_graphs else None)
 
-    def _check_mesh(self, cfg: ModelConfig, mesh, paged: bool) -> bool:
+    def _check_mesh(self, cfg: ModelConfig, mesh) -> bool:
         """Refuse the meshes the engine does not serve: no "model" or batch
-        dim, another device type, or paged caches over a batch axis of
-        more than one rank (ROADMAP A11). Returns whether the mesh's
+        dim, or another device type. Returns whether the mesh's
         collectives keep the steps eager on the card (a gloo group)."""
         if mesh is None:
             return False
@@ -530,12 +553,6 @@ class Engine:
         if mesh.device_type != self.device.type:
             raise ValueError(f"mesh on {mesh.device_type}, the engine on "
                              f"{self.device}")
-        if paged and sh.batch_size(mesh) > 1:
-            raise NotImplementedError(
-                f"paged caches over a batch axis of {sh.batch_size(mesh)} "
-                f"ranks arrive with a later slice of ROADMAP A11 (the row "
-                f"pool would be replicated over 'data' and each step's new "
-                f"rows all-gathered)")
         return any(dist.get_backend(mesh.get_group(n)) == "gloo"
                    for n in dims)
 
@@ -639,10 +656,11 @@ class Engine:
             npages_max = -(-self.max_len // P)
             n_pages = (self._n_pages if self._n_pages is not None
                        else self.n_slots * npages_max)
-            # the step writes this dict in place and never replaces it
+            # the step writes this dict in place and never replaces it;
+            # every batch rank holds the whole pool and its slots' state
             self._caches = init_paged_cache(
-                self.cfg, self.n_slots, self.max_len, n_pages=n_pages,
-                page=P, device=self.device, mesh=self.mesh)
+                self.cfg, self._hi - self._lo, self.max_len,
+                n_pages=n_pages, page=P, device=self.device, mesh=self.mesh)
             self._pool = PagePool(n_pages, P, self.n_slots, self.max_len)
             self._sched = PagedScheduler(
                 self.n_slots, self.max_len, pool=self._pool,
@@ -661,7 +679,7 @@ class Engine:
                 prefix_usable_len=usable)
             self._caches = init_cache(self.cfg, self._hi - self._lo,
                                       self.max_len, device=self.device,
-                                      mesh=self.mesh)
+                                      mesh=self.mesh, seq=self._seq)
         self._seen = torch.zeros((self._hi - self._lo, self.cfg.vocab_size),
                                  dtype=torch.bool, device=self.device)
 
@@ -676,7 +694,8 @@ class Engine:
         state) then move from its owner to the destination's by one
         broadcast a leaf within the batch group, which every rank of the
         group joins; no rank gathers whole caches."""
-        kw = dict(copy_recurrent=self._has_recurrent, shared=self._shared)
+        kw = dict(copy_recurrent=self._has_recurrent, shared=self._shared,
+                  split=self._row_split)
         if not self._split:
             copy_prefix(self._caches, dst, src, p, **kw)
             return
@@ -710,9 +729,11 @@ class Engine:
                 # restore lands in them
                 acts = st.paged or {}
                 # the slot's recurrent state carries the previous request
-                # (recurrent plans get no paged prefix hit)
-                if self._has_recurrent:
-                    reset_slot(self._caches, st.slot, shared=self._shared)
+                # (recurrent plans get no paged prefix hit); pool pages are
+                # every rank's, and every rank changes them alike
+                local = self._local(st.slot)
+                if self._has_recurrent and local is not None:
+                    reset_slot(self._caches, local, shared=self._shared)
                 if self._quantized and acts.get("fresh"):
                     reset_pages(self._caches, acts["fresh"],
                                 page=self._page_size)
@@ -907,7 +928,20 @@ class Engine:
         if caches is not self._caches or seen is not self._seen:
             raise RuntimeError("the step must write the caches and the seen "
                                "table in place")
+        self._sync_pool(inputs.pos[r], inputs.nval[r], inputs.tokens.shape[1])
         return self._gather_rows(ids), self._gather_rows(lps)
+
+    def _sync_pool(self, pos, nval, S: int) -> None:
+        """Paged over a batch axis: send the rows this rank's slots wrote in
+        a step of width S (pos, nval: its rows) to the other ranks and
+        take theirs (decode.sync_pool), so every pool stays equal."""
+        if not (self._paged and self._split):
+            return
+        kw = self._step_kw()
+        rows = written_pool_rows(self.cfg, self._caches, kw["block_table"],
+                                 self._page_size, pos, nval, S)
+        self.last_sync_bytes = sync_pool(self._caches, rows, self.mesh,
+                                         self._page_size)
 
     def _rows_of(self, tensors: Dict[str, torch.Tensor]):
         """This rank's rows of per-slot step tensors (views)."""
@@ -988,7 +1022,7 @@ class Engine:
             # the static snapshot buffers of this k (their values unused)
             rb.snaps[k] = snapshot_rows(self.cfg, self._caches,
                                         rb.inputs.pos[self._rows], S,
-                                        **self._step_kw())
+                                        mesh=self.mesh, **self._step_kw())
         # 1. snapshot, draft k tokens, undo the draft's ring writes (the
         # verify chunk reads the pre-round window)
         tok_mat = self._run_round(
@@ -1051,8 +1085,12 @@ class Engine:
         return len(active)
 
     def _step_kw(self) -> Dict[str, object]:
-        return ({"block_table": self._bt, "page_size": self._page_size}
-                if self._paged else {})
+        """The step functions' layout arguments: this rank's rows of the
+        block table, paged; the long-context layout, when it applies."""
+        if self._paged:
+            return {"block_table": self._bt[self._rows],
+                    "page_size": self._page_size}
+        return {} if self._seq is None else {"seq": self._seq}
 
     def _static_draft(self, k: int, kv_len: int,
                       any_sampled: bool) -> torch.Tensor:
@@ -1069,7 +1107,7 @@ class Engine:
         ring = bool(self._ring_caps)
         if ring:
             snapshot_rows(self.cfg, self._caches, inp.pos[r], S,
-                          out=rb.snaps[k], **self._step_kw())
+                          out=rb.snaps[k], mesh=self.mesh, **self._step_kw())
         rb.seen_pre.copy_(self._seen)
         rb.draft_seen.copy_(self._seen)
         tok_mat, _, _, _ = draft_round(
@@ -1080,7 +1118,7 @@ class Engine:
             q_out=rb.q_mat(k) if any_sampled else None, **self._step_kw())
         if ring:
             restore_rows(self.cfg, self._caches, rb.snaps[k], inp.pos[r], 0,
-                         S, **self._step_kw())
+                         S, mesh=self.mesh, **self._step_kw())
         return tok_mat
 
     def _static_verify(self, tok_mat: torch.Tensor, kv_len: int,
@@ -1102,17 +1140,23 @@ class Engine:
             kv_len=kv_len, want_logprobs=want_lp, any_sampled=any_sampled,
             mesh=self.mesh, **self._step_kw())
         out = torch.cat([committed, n_comm[:, None].to(torch.int32)], dim=1)
+        if not self._ring_caps:
+            self._sync_pool(inp.pos[r], inp.nval[r], k + 1)
         return self._gather_rows(out), self._gather_rows(lps)
 
     def _static_restore(self, k: int, from_starts: bool) -> None:
         """Restore the round's ring rows from the snapshot buffers of k:
         each slot's rows from its `starts` entry on (the post-verify
-        rollback), or all of them."""
+        rollback, which ends a ring plan's round: paged over a batch axis,
+        the round's rows are then sent to the other ranks), or all of
+        them."""
         inp = self._round.inputs
         r = self._rows
         restore_rows(self.cfg, self._caches, self._round.snaps[k], inp.pos[r],
                      inp.starts[r] if from_starts else 0, k + 1,
-                     **self._step_kw())
+                     mesh=self.mesh, **self._step_kw())
+        if from_starts:
+            self._sync_pool(inp.pos[r], inp.nval[r], k + 1)
 
     def _undo_verify(self, k: int) -> None:
         """Put back what a verify capture's warm-up wrote that its replay
@@ -1209,7 +1253,9 @@ class Engine:
         stream is what a continuous request with the same SamplingParams
         returns a prefix of. Under a batch axis whose size divides B each
         rank runs its rows (sharding.slot_range) and the tokens (and
-        logprobs) are all-gathered: every rank returns all B rows."""
+        logprobs) are all-gathered: every rank returns all B rows; one
+        that does not divide B runs every row on every rank with the
+        caches in the long-context layout (sharding.SeqSplit)."""
         cfg = self.cfg
         prompt_tokens = self._tensor(prompt_tokens).to(torch.long)
         B, S = prompt_tokens.shape
@@ -1244,6 +1290,9 @@ class Engine:
             fill_slot_params(sparams, b, sampling, keys[b], 0)
         sparams["key"] = sparams["key"].astype(np.int64)
         lo, hi = sh.slot_range(B, self.mesh)
+        # rows the batch axes do not divide: the long-context layout
+        seq = (sh.SeqSplit(self.max_len) if sh.rows_split(B, self.mesh)
+               else None)
         sp_dev = {name: self._tensor(v[lo:hi]) for name, v in sparams.items()}
         prompt_tokens = prompt_tokens[lo:hi]
         want_lp = sampling.logprobs
@@ -1252,14 +1301,14 @@ class Engine:
 
         def step_fn(p, c, tk, t):
             return decode_step(p, cfg, c, tk, t, kv_len=self._bucket(t + 1),
-                               mesh=self.mesh)
+                               mesh=self.mesh, seq=seq)
 
         if encoder_frames is not None:
             encoder_frames = self._tensor(encoder_frames)[lo:hi]
         logits, caches = prefill(self.params, cfg, prompt_tokens,
                                  T=self.max_len, step_fn=step_fn,
                                  encoder_frames=encoder_frames,
-                                 mesh=self.mesh)
+                                 mesh=self.mesh, seq=seq)
         update_seen(seen, prompt_tokens)
         outs, lp_outs = [], []
 
@@ -1277,7 +1326,7 @@ class Engine:
             logits, caches = decode_step(self.params, cfg, caches, tk,
                                          S + t - 1,
                                          kv_len=self._bucket(S + t),
-                                         mesh=self.mesh)
+                                         mesh=self.mesh, seq=seq)
             update_seen(seen, tk)
             tok, lp = sample_at(logits, t)
             outs.append(tok)

@@ -160,7 +160,8 @@ def draft_sample_step(params, caches, draft_seen, tokens, pos, n_valid,
                       sparams: Dict[str, torch.Tensor], draft_idx: int = 0,
                       *, cfg: ModelConfig, draft_layers: int, kv_len=None,
                       any_sampled=False, block_table=None, page_size=0,
-                      q_out: Optional[torch.Tensor] = None, mesh=None):
+                      q_out: Optional[torch.Tensor] = None, mesh=None,
+                      seq=None):
     """One draft step: draft_step + the draft's choice on the device.
 
     Folds the fed tokens into `draft_seen` IN PLACE (the caller's
@@ -170,12 +171,12 @@ def draft_sample_step(params, caches, draft_seen, tokens, pos, n_valid,
     processed draft distribution q (B, V) is built for every slot and
     sampled slots draw categorical(log q) under
     _round_keys(_DRAFT_TAG, draft_idx). q is written into q_out when given.
-    mesh: the "model" axis, as decode_step's. Returns (ids (B,) int32, q
-    (B, V) | None, caches, draft_seen)."""
+    mesh and seq: as decode_step's. Returns (ids (B,) int32, q (B, V) |
+    None, caches, draft_seen)."""
     logits, caches = draft_step(params, cfg, caches, tokens, pos,
                                 draft_layers=draft_layers, n_valid=n_valid,
                                 kv_len=kv_len, block_table=block_table,
-                                page_size=page_size, mesh=mesh)
+                                page_size=page_size, mesh=mesh, seq=seq)
     B = tokens.shape[0]
     rows = logits[torch.arange(B, device=logits.device),
                   torch.clamp(n_valid.to(torch.long) - 1, min=0),
@@ -199,7 +200,7 @@ def draft_round(params, caches, draft_seen, t0, pos, caps,
                 sparams: Dict[str, torch.Tensor], *, cfg: ModelConfig,
                 draft_layers: int, k: int, kv_len=None, any_sampled=False,
                 block_table=None, page_size=0,
-                q_out: Optional[torch.Tensor] = None, mesh=None):
+                q_out: Optional[torch.Tensor] = None, mesh=None, seq=None):
     """The k-step draft phase, unrolled (k is static: the engine captures
     one graph per k). t0: (B, 1) each slot's last committed token; caps:
     (B,) per-slot draft budgets (draft i is real for slots with caps > i;
@@ -217,7 +218,8 @@ def draft_round(params, caches, draft_seen, t0, pos, caps,
             cfg=cfg, draft_layers=draft_layers, kv_len=kv_len,
             any_sampled=any_sampled, block_table=block_table,
             page_size=page_size,
-            q_out=None if q_out is None else q_out[:, i], mesh=mesh)
+            q_out=None if q_out is None else q_out[:, i], mesh=mesh,
+            seq=seq)
         cur = ids[:, None].to(torch.long)
         cols.append(cur)
         qs.append(q)
@@ -269,7 +271,7 @@ def spec_verify_step(params, caches, seen, tokens, pos, n_valid,
                      q_probs: Optional[torch.Tensor] = None, *,
                      cfg: ModelConfig, kv_len=None, want_logprobs=False,
                      any_sampled=False, block_table=None, page_size=0,
-                     mesh=None):
+                     mesh=None, seq=None):
     """Multi-token verify: ONE chunked decode_step over [t_0, t_1..t_k]
     scores every draft, then the accepted count and the correction / bonus
     token are computed on the device.
@@ -288,11 +290,11 @@ def spec_verify_step(params, caches, seen, tokens, pos, n_valid,
     correction], zero-padded; n_committed (B,) = a + 1; lps (B, S) f32
     chosen-token logprobs under the penalty-adjusted distribution, or
     None; caches; seen). `seen` gains the fed and committed prefix
-    t_0..t_a, IN PLACE. mesh: the "model" axis, as decode_step's."""
+    t_0..t_a, IN PLACE. mesh, seq: as decode_step's."""
     logits, caches = decode_step(params, cfg, caches, tokens, pos,
                                  n_valid=n_valid, kv_len=kv_len,
                                  block_table=block_table,
-                                 page_size=page_size, mesh=mesh)
+                                 page_size=page_size, mesh=mesh, seq=seq)
     B, S = tokens.shape
     V = cfg.vocab_size
     dev = logits.device

@@ -1,6 +1,7 @@
-"""Tensor parallelism over the mesh's "model" axis and slots over its
-batch axes ("pod", "data"): which dim of each parameter and cache leaf
-is sharded, the shards themselves, and the collectives serving needs.
+"""Tensor parallelism over the mesh's "model" axis and slots (or a slot's
+rows) over its batch axes ("pod", "data"): which dims of each parameter
+and cache leaf are sharded, the shards themselves, and the collectives
+serving needs.
 Counterpart of `repro/sharding.py` (and of `decode.cache_pspecs` /
 `paged_cache_pspecs`).
 
@@ -28,7 +29,7 @@ replicated; a stacked leaf's lead (layer) axis never is. 1-D leaves
 replicated, and a rank reads its own entries of them.
 
 Deviations by design, each guarded by a test in
-tests/test_torch_sharding.py:
+tests/test_torch_sharding.py (the long-context layout's two below):
 
 * the kv-head rule, in the caches: where the reference shards a cache's
   sequence axis over "model" (kv heads that N does not divide, and the
@@ -51,9 +52,32 @@ tests/test_torch_sharding.py:
 Slots over the batch axes: when their size D divides the engine's slot
 count B, the rank at batch coordinate i holds the caches of slots
 [i B / D, (i + 1) B / D) and steps only those rows (`slot_range`); else
-every rank holds every slot, the reference's `batch_specs` rule. The
-step's sampled ids are all-gathered over the batch group
+every rank holds and steps every slot, the reference's `batch_specs`
+rule. The step's sampled ids are all-gathered over the batch group
 (`batch_all_gather`), so every rank's scheduler sees every slot's ids.
+Paged, every batch rank holds the whole row pool (the reference's
+paged_cache_pspecs: pool rows whole); the engine all-gathers each
+step's written rows so the pools stay equal (models/decode.sync_pool).
+
+The long-context layout (`rows_split`: D > 1 does not divide B, the
+reference's tiny-batch branch of cache_pspecs): a slot's attention rows
+(k, v and their scales, the MLA latent, the encoder-decoder cross
+caches) are split over the ranks that compute the same heads for the
+same slots (`row_group`), rank g of R holding rows [g T_r, (g + 1) T_r),
+T_r = ceil(T / (R SPAN)) SPAN (`shard_rows`, whole spans of the decode
+kernel), the rows past T on the last rank never written. A row is
+written only by its owner; attention merges the ranks' partial softmax
+states over the group (`RowShard.merge`, `merge_partials`; at S = 1 on
+the card the kernel's split pass and merge over the gathered spans).
+Recurrent state stays whole per slot. Two more deviations from the
+reference, which splits these rows over ("data", "model"):
+
+* with the attention on local heads (heads_sharded), the rows split
+  over the batch dims only (the group of ranks holding the same heads),
+  not over "model" too; when it runs whole, over the batch dims and
+  "model", the reference's layout exactly;
+* the MLA latent, whole over "model" (every head reads it), splits
+  over the batch dims only.
 
 A `mesh` below is a `torch.distributed.device_mesh.DeviceMesh` with a
 "model" dim, a batch dim or both; the placement functions also take the
@@ -62,6 +86,8 @@ of training waits for a later slice (ROADMAP A11).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -159,6 +185,31 @@ def _gather_parts(x: torch.Tensor, group, n: int):
     return parts
 
 
+def row_parallel(a: torch.Tensor, w: torch.Tensor, k: int,
+                 mesh) -> torch.Tensor:
+    """A row-parallel projection summed over the model group: `a`'s last k
+    dims contracted with `w`'s first k (the rows of w this rank holds),
+    all-reduced. The rank's partial product is kept in f32 (bf16 inputs
+    accumulate in f32 and are not rounded: torch.mm's out_dtype on the
+    card), all-reduced in f32 and rounded to a's dtype once, as the
+    unsharded product rounds its one f32 accumulation: partial products
+    rounded to bf16 before the all-reduce would add a rounding the
+    unsharded model never makes. For a model dim of more than one rank;
+    over one rank the callers keep the unmeshed einsum, bit for bit."""
+    lead = a.shape[:a.dim() - k]
+    K = math.prod(a.shape[a.dim() - k:])
+    a2 = a.reshape(-1, K)
+    w2 = w.reshape(K, -1).to(a.dtype)
+    if a.dtype == torch.float32:
+        out = a2 @ w2
+    elif a.is_cuda:
+        out = torch.mm(a2, w2, out_dtype=torch.float32)
+    else:
+        out = a2.float() @ w2.float()
+    model_all_reduce(out, mesh)
+    return out.to(a.dtype).reshape(*lead, *w.shape[k:])
+
+
 def model_all_gather(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
     """The model group's x, concatenated along `dim` in rank order."""
     if not _has_model_dim(mesh):
@@ -252,6 +303,152 @@ def batch_broadcast(x: torch.Tensor, mesh, src: int) -> torch.Tensor:
     group = batch_group(mesh)
     dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
+
+
+def merge_partials(acc: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """Merge partial softmax states in order along dim 0: acc (P, ...,
+    D) unnormalised accumulators, m (P, ...) their maxima and l (P, ...)
+    their denominators, f32. M = max m_p, w_p = exp(m_p - M), out =
+    sum_p w_p acc_p / max(sum_p w_p l_p, 1e-30), summed in order; a
+    state of no rows (l = 0, acc = 0) adds nothing, and with none at all
+    the output is exact zeros. The arithmetic of the decode kernel's
+    merge (csrc/ragged_decode_attention.cu), which the plain path shares
+    (kernels/ref.ragged_decode_merge_ref). Returns (..., D) f32."""
+    M = m.amax(0)
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for i in range(acc.shape[0]):
+        w = torch.exp(m[i] - M)
+        den = den + w * l[i]
+        num = num + w[..., None] * acc[i]
+    return num / den.clamp_min(1e-30)[..., None]
+
+
+# --------------------------------------------------------------------------
+# the long-context layout: a slot's rows split over a group of ranks
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SeqSplit:
+    """The long-context cache layout of an engine or a generate() call:
+    the batch axes' D > 1 ranks do not divide the slots (rows_split), so
+    every rank holds every slot and a slot's attention rows are split
+    over a group of ranks (RowShard). T: a slot's rows (max_len); enc: an
+    encoder-decoder model's cross-cache rows, the encoder output's
+    length, set by models/decode.prefill."""
+    T: int
+    enc: int = 0
+
+
+def rows_split(n_slots: int, mesh) -> bool:
+    """The long-context layout applies: batch axes of D > 1 ranks that do
+    not divide n_slots (the reference's tiny-batch branch of
+    cache_pspecs: b_ok false)."""
+    D = batch_size(mesh)
+    return D > 1 and n_slots % D != 0
+
+
+def _row_dims(cfg: ModelConfig, mesh, latent: bool):
+    """The mesh dims a slot's rows split over: the batch dims, and
+    "model" too when the attention block runs whole (heads_sharded
+    false) on more than one model rank; an MLA latent, whole over
+    "model", over the batch dims only."""
+    names = mesh.mesh_dim_names or ()
+    keep = set(BATCH)
+    if not latent and not heads_sharded(cfg, mesh):
+        keep.add(MODEL)
+    return tuple(n for n in names if n in keep and mesh_dim_size(mesh, n) > 1)
+
+
+def row_ranks(cfg: ModelConfig, mesh, latent: bool = False) -> int:
+    """R, the ranks a slot's rows split over (_row_dims)."""
+    R = 1
+    for name in _row_dims(cfg, mesh, latent):
+        R *= mesh_dim_size(mesh, name)
+    return R
+
+
+def row_group(cfg: ModelConfig, mesh, latent: bool = False):
+    """(process group, size R, this rank's index g) of the ranks a slot's
+    rows split over (_row_dims), g row-major over the dims in the mesh's
+    order ("model" innermost). The group is made once per mesh and dims:
+    every rank must first ask in the same order (the engine asks at
+    construction)."""
+    dims = _row_dims(cfg, mesh, latent)
+    if len(dims) == 1:
+        group = mesh.get_group(dims[0])
+    else:
+        cache = mesh.__dict__.setdefault("_repro_row_groups", {})
+        if dims not in cache:
+            cache[dims] = mesh[dims]._flatten().get_group()
+        group = cache[dims]
+    g, R = 0, 1
+    for name in dims:
+        size = mesh_dim_size(mesh, name)
+        g, R = g * size + mesh.get_local_rank(name), R * size
+    return group, R, g
+
+
+def shard_rows(rows: int, R: int) -> int:
+    """T_r, the rows each of R ranks holds of `rows`: ceil(rows / (R
+    SPAN)) SPAN, a whole number of the decode kernel's spans, so the
+    ranks' split passes together are the whole rows' (kernels/
+    ragged_decode_attention.SPAN). The last rank's rows past `rows` are
+    never written."""
+    from repro_torch.kernels.ragged_decode_attention import SPAN
+    return -(-rows // (R * SPAN)) * SPAN
+
+
+class RowShard:
+    """One cache's rows under the long-context layout: a capacity of Tc
+    global rows (a segment's T or ring, the cross caches' encoder
+    length) over the R ranks of row_group, rank g holding rows [lo, lo +
+    Tr), lo = g Tr, Tr = shard_rows(Tc, R), its local row Tr the sink."""
+
+    def __init__(self, cfg: ModelConfig, mesh, Tc: int,
+                 latent: bool = False):
+        self.group, self.R, self.g = row_group(cfg, mesh, latent)
+        self.Tc = Tc
+        self.Tr = shard_rows(Tc, self.R)
+        self.lo = self.g * self.Tr
+
+    def local_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Global write rows (rows >= Tc dropped) -> this rank's local
+        rows: the rows it owns, every other one its sink Tr."""
+        r = rows - self.lo
+        return torch.where((rows < self.Tc) & (r >= 0) & (r < self.Tr), r,
+                           torch.full_like(r, self.Tr))
+
+    def read_len(self, Tb: int) -> int:
+        """Local rows of the global read slice [0, Tb)."""
+        return max(0, min(Tb - self.lo, self.Tr))
+
+    def kernel_read(self, Tb: int) -> int:
+        """Local rows the split kernel reads for a global bound Tb: Tb's
+        spans, at most Tr, equal on every rank (the gathered workspaces'
+        span axes line up)."""
+        from repro_torch.kernels.ragged_decode_attention import SPAN
+        return min(self.Tr, -(-Tb // SPAN) * SPAN)
+
+    def local_lengths(self, lengths: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(lengths - self.lo, 0, self.Tr)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's x, concatenated along `dim` in group order."""
+        return torch.cat(_gather_parts(x, self.group, self.R), dim=dim)
+
+    def merge(self, acc: torch.Tensor, m: torch.Tensor,
+              l: torch.Tensor) -> torch.Tensor:
+        """The group's partial states over their own rows ((..., D), (...),
+        (...) f32 each), all-gathered in one collective and merged in group
+        order (merge_partials): the attention output over the whole rows
+        (..., D) f32."""
+        packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+        parts = torch.stack(_gather_parts(packed, self.group, self.R))
+        D = acc.shape[-1]
+        return merge_partials(parts[..., :D], parts[..., D],
+                              parts[..., D + 1])
 
 
 # --------------------------------------------------------------------------
@@ -440,39 +637,110 @@ def select_kv(t: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
     return t.index_select(2, idx)
 
 
-def cache_placements(cfg: ModelConfig, caches, mesh) -> Dict:
-    """{leaf path tuple: the dim of each cache leaf a rank holds part of
-    over "model", or None}, for full-shape contiguous caches
-    (init_cache): the kv-head dim of k, v and their scales when the
-    attention runs on local heads (heads_sharded); the head dim of the
-    wkv and ssm states and the channel dim of the conv tail when RWKV-6 /
-    Mamba-2 run on local heads; else None. Latents and the token-shift
-    tails are whole. Differs from the reference's cache_pspecs only by
-    the module's two deviations: where that shards the sequence axis,
-    the head dim (a subset of the kv heads, local_kv_heads) or None; and
-    the conv tail's columns (mamba_columns), split when the heads are."""
-    sharded = heads_sharded(cfg, mesh)
+def _batch_axes(mesh) -> Optional[Tuple[str, ...]]:
+    """The batch dims of more than one rank, as a spec entry (None when
+    there are none)."""
+    dims = tuple(n for n in BATCH if mesh_dim_size(mesh, n) > 1) \
+        if mesh is not None and not isinstance(mesh, int) else ()
+    return dims or None
 
-    def dim(path, leaf):
-        name = path[-1]
+
+def _spec(ndim: int, entries: Dict[int, object]) -> Tuple:
+    return tuple(entries.get(i) for i in range(ndim))
+
+
+def _recurrent_spec(cfg: ModelConfig, mesh, name: str, leaf, bax):
+    """wkv / ssm (n, B, H, ., .), the token-shift tails (n, B, d) and the
+    conv tail (n, B, Kw - 1, C): the slot axis over the batch dims when
+    they divide it, the heads (wkv, ssm) or the conv tail's columns over
+    "model" when the block runs on local heads."""
+    e = {1: bax} if bax is not None and leaf.shape[1] % batch_size(
+        mesh) == 0 else {}
+    if (name == "wkv" and rwkv_sharded(cfg, mesh)) or \
+            (name == "ssm" and mamba_sharded(cfg, mesh)):
+        e[2] = MODEL
+    if name == "conv" and mamba_sharded(cfg, mesh):
+        e[3] = MODEL
+    return _spec(leaf.dim(), e)
+
+
+def cache_placements(cfg: ModelConfig, caches, mesh) -> Dict:
+    """{leaf path tuple: spec} of full-shape contiguous caches
+    (init_cache, no seq): a spec holds, for each dim of the leaf, the
+    mesh dims a rank holds part of it over (a name, or a tuple of names
+    split row-major) or None, as the reference's PartitionSpecs do. A
+    leaf whose slot count B the batch dims (of D ranks) divide keeps the
+    reference's slot axis over them; k, v and their scales, also the
+    cross caches, keep their kv-head dim over "model" when the attention
+    runs on local heads (heads_sharded); the wkv and ssm heads and the
+    conv tail's columns over "model" when RWKV-6 / Mamba-2 run on local
+    heads. When D > 1 does not divide B (the long-context layout,
+    SeqSplit), the attention leaves' sequence dim is split instead, over
+    the ranks that compute the same heads (_row_dims): the batch dims
+    with heads on local heads, the batch dims and "model" when the
+    attention runs whole; an MLA latent (and its scale) over the batch
+    dims only. Recurrent leaves then stay whole per slot (the
+    reference's b_ok false).
+
+    Differs from the reference's cache_pspecs only by the module's
+    deviations: where that shards a cache's sequence axis over "model"
+    (kv heads N does not divide, the latent), the head dim (a subset of
+    the kv heads, local_kv_heads) or nothing; under the long-context
+    layout, with heads on local heads, the rows over the batch dims where
+    the reference splits them over ("data", "model"), and the latent's
+    rows over the batch dims only; and the conv tail's columns
+    (mamba_columns), split when the heads are."""
+    sharded = heads_sharded(cfg, mesh) and model_size(mesh) > 1
+    bax = _batch_axes(mesh)
+    D = batch_size(mesh)
+
+    def rows(latent):
+        dims = _row_dims(cfg, mesh, latent)
+        return dims or None
+
+    def spec(path, leaf):
+        name, nd = path[-1], leaf.dim()
         if name in ("k", "v", "k_scale", "v_scale"):
-            if not sharded:
-                return None
-            return leaf.dim() - (2 if name in ("k", "v") else 1)
-        if name == "wkv":
-            return 2 if rwkv_sharded(cfg, mesh) else None
-        if name in ("ssm", "conv"):
-            return ((2 if name == "ssm" else 3) if mamba_sharded(cfg, mesh)
-                    else None)
-        return None
-    return {path: dim(path, leaf) for path, leaf in tree_lib.leaves(caches)}
+            kv = name in ("k", "v")
+            bdim = 1 if nd == (5 if kv else 4) else 0
+            e = {nd - (2 if kv else 1): MODEL} if sharded else {}
+            if leaf.shape[bdim] % D == 0:
+                if bax is not None:
+                    e[bdim] = bax
+            else:
+                e[bdim + 1] = rows(False)
+            return _spec(nd, e)
+        if name in ("latent", "latent_scale"):
+            if leaf.shape[1] % D == 0:
+                return _spec(nd, {1: bax})
+            return _spec(nd, {2: rows(True)})
+        if name in ("wkv", "ssm", "conv", "shift_tm", "shift_cm"):
+            return _recurrent_spec(cfg, mesh, name, leaf, bax)
+        return _spec(nd, {})
+    return {path: spec(path, leaf) for path, leaf in tree_lib.leaves(caches)}
 
 
 def paged_cache_placements(cfg: ModelConfig, caches, mesh) -> Dict:
-    """cache_placements for paged caches (init_paged_cache): a pool's k, v
-    and scales keep their kv-head dim last but one (last), and the
-    recurrent leaves their per-slot layout, so the rule is the same; the
-    reference's paged_cache_pspecs differ only where N divides n_heads
-    and not n_kv_heads (it replicates, the port keeps the subset) and on
-    the conv tail's columns."""
-    return cache_placements(cfg, caches, mesh)
+    """cache_placements for paged caches (init_paged_cache): a pool's
+    rows are whole on every rank, batch dims included (each batch rank
+    holds the whole pool and steps its own slots' rows through the block
+    table), and its k, v and scales keep their kv-head dim (last but one,
+    last) over "model" under the kv-head rule; latents are whole; the
+    recurrent leaves keep their per-slot rules, the slot axis over the
+    batch dims when they divide it. The reference's paged_cache_pspecs
+    differ only where N divides n_heads and not n_kv_heads (it
+    replicates, the port keeps the subset) and on the conv tail's
+    columns."""
+    sharded = heads_sharded(cfg, mesh) and model_size(mesh) > 1
+    bax = _batch_axes(mesh)
+
+    def spec(path, leaf):
+        name, nd = path[-1], leaf.dim()
+        if name in ("k", "v", "k_scale", "v_scale"):
+            kv = name in ("k", "v")
+            return _spec(nd, {nd - (2 if kv else 1): MODEL} if sharded
+                         else {})
+        if name in ("wkv", "ssm", "conv", "shift_tm", "shift_cm"):
+            return _recurrent_spec(cfg, mesh, name, leaf, bax)
+        return _spec(nd, {})
+    return {path: spec(path, leaf) for path, leaf in tree_lib.leaves(caches)}

@@ -46,6 +46,8 @@ def _counts_stay_zero():
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
                                    "paged_ragged_decode_attention": 0,
+                                   "ragged_decode_split": 0,
+                                   "ragged_decode_merge": 0,
                                    "rwkv6_wkv": 0,
                                    "flash_attention": 0,
                                    "flash_attention_paged": 0}

@@ -9,9 +9,12 @@ runs the kernels. What is held here is the arithmetic in Python:
 `ref.ragged_decode_split_ref` against the reference's Pallas kernels in
 interpret mode, over float, int8 and fp8 storage, both entry points,
 lengths at the span edges and the head widths the split kernels were
-widened for (Dh 320, 240, 85; rep 8); and the partition `ref.split_spans`,
+widened for (Dh 320, 240, 85; rep 8); the partition `ref.split_spans`,
 which must not depend on the read bound, the rule that keeps the paged
-kernel bitwise equal to the contiguous one."""
+kernel bitwise equal to the contiguous one; and the long-context
+layout's split pass over each rank's rows merged over the gathered spans
+(`ops.ragged_decode_split` / `ops.ragged_decode_merge` on the CPU),
+bitwise equal to the whole rows' split arithmetic."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from repro.kernels.ragged_decode_attention import (
     paged_ragged_decode_attention as jpaged_raw)
 from repro.kernels.ragged_decode_attention import (
     ragged_decode_attention as jragged_raw)
+from repro_torch import sharding as sh
 from repro_torch.kernels import ops, quant, ref
 from repro_torch.kernels import ragged_decode_attention as ragged_mod
 
@@ -97,6 +101,64 @@ def test_split_ref_matches_pallas(store, dh, Hk, rep):
              ref.ragged_decode_quant_ref(torch.from_numpy(q), kt, vt, kst,
                                          vst, lens))
     np.testing.assert_allclose(_np(got), _np(dense), **F32_TOL)
+
+
+LENS_SHARD = np.asarray([0, 1, SPAN - 1, SPAN, SPAN + 1, 2 * SPAN - 1,
+                         2 * SPAN, 2 * SPAN + 1, T], np.int32)
+# a slot's rows over R ranks (the long-context cache layout): the first
+# row of each rank after the first, multiples of SPAN; sharding.shard_rows'
+# even splits over 1-4 ranks, then uneven ones (a rank of one span beside
+# one of the rest, an empty first rank)
+SHARD_CUTS = {f"even{R}": [R_ * sh.shard_rows(T, R) for R_ in range(1, R)]
+              for R in (1, 2, 3, 4)}
+SHARD_CUTS.update({"uneven-1+rest": [SPAN], "uneven-empty-first": [0, SPAN],
+                   "uneven-3": [2 * SPAN, 2 * SPAN + SPAN]})
+
+
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("cuts", sorted(SHARD_CUTS))
+def test_split_over_shards_merges_to_the_whole(store, cuts):
+    """The long-context layout's S = 1 path on the CPU: each rank's split
+    pass over its own rows (ops.ragged_decode_split, the plain states,
+    at its own lengths clamp(len - first row, 0, rows)), the workspaces
+    concatenated along the span axis in rank order, merged with the whole
+    lengths (ops.ragged_decode_merge): bitwise equal to
+    ref.ragged_decode_split_ref over the whole rows, and to the
+    reference's Pallas kernel in interpret mode within F32_TOL; lengths
+    at 0, 1, the span and shard boundaries +- 1 and T."""
+    dh, Hk, rep = 128, 2, 2
+    rng = np.random.default_rng(31)
+    B = len(LENS_SHARD)
+    q = rng.standard_normal((B, Hk, rep, dh)).astype(np.float32)
+    (kj, ksj), (kt, kst) = _stored(
+        rng.standard_normal((B, T, Hk, dh)).astype(np.float32), store)
+    (vj, vsj), (vt, vst) = _stored(
+        rng.standard_normal((B, T, Hk, dh)).astype(np.float32), store)
+    lens = torch.from_numpy(LENS_SHARD)
+    qt = torch.from_numpy(q)[:, None].reshape(B, 1, Hk * rep, dh)
+    bounds = [0] + SHARD_CUTS[cuts] + [T]
+    parts = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        hi = min(hi, T)
+        if lo >= T:
+            continue
+        own = torch.clamp(lens - lo, 0, hi - lo)
+        parts.append(ops.ragged_decode_split(
+            qt, _take(kt, (slice(None), slice(lo, hi))),
+            _take(vt, (slice(None), slice(lo, hi))), own,
+            None if kst is None else kst[:, lo:hi],
+            None if vst is None else vst[:, lo:hi]))
+    got = ops.ragged_decode_merge(torch.cat(parts, dim=2), lens,
+                                  torch.float32)
+    whole = ref.ragged_decode_split_ref(torch.from_numpy(q), kt, vt, lens,
+                                        kst, vst, span=SPAN)
+    assert torch.equal(got.reshape(whole.shape), whole)
+    assert torch.all(got[0] == 0)             # empty slot: exact zeros
+    want = jragged_raw(jnp.asarray(q), kj, vj, jnp.asarray(LENS_SHARD),
+                       k_scale=ksj, v_scale=vsj, block_k=128,
+                       interpret=True)
+    np.testing.assert_allclose(_np(got.reshape(whole.shape)), _np(want),
+                               **F32_TOL)
 
 
 def _paged(x, page, bt, n_rows):

@@ -117,6 +117,8 @@ def test_continuous_matches_jax_engine(flags):
     assert ops.launch_counts() == {"altup_predict_correct": 0,
                                    "ragged_decode_attention": 0,
                                    "paged_ragged_decode_attention": 0,
+                                   "ragged_decode_split": 0,
+                                   "ragged_decode_merge": 0,
                                    "rwkv6_wkv": 0,
                                    "flash_attention": 0,
                                    "flash_attention_paged": 0}

@@ -1,9 +1,9 @@
 """PyTorch port: the "model" axis's placement tables held against the
 reference's PartitionSpecs, the two deviations by design (the kv-head
 rule of the caches, the component-wise Mamba-2 layout of w_in / conv_w /
-conv), the recurrent and encoder-decoder caches on a rank's heads, and
-the one refusal left in serving (paged caches over a batch axis,
-ROADMAP A11).
+conv), the recurrent and encoder-decoder caches on a rank's heads, paged
+caches over the batch axes (their pool rows whole on every rank) and
+the long-context layout's row split.
 
 The reference's param_pspecs / cache_pspecs / paged_cache_pspecs read
 only `mesh.shape` (and `axis_names`), so a stand-in mesh of {"data": 1,
@@ -153,7 +153,7 @@ def test_cache_placements_differ_from_reference_only_by_kv_head_rule(
             got = place(tcq, tshapes, StandIn({"model": n}))
             for path, spec in want.items():
                 name = path[-1]
-                ref, port = _model_dim(spec), got[path]
+                ref, port = _model_dim(spec), _model_dim(got[path])
                 if name == "conv":
                     seen += 1
                     assert port == (3 if sh.mamba_heads(tc) % n == 0
@@ -293,14 +293,93 @@ def test_mamba_w_in_columns_per_rank_at_full_shape():
 
 @pytest.mark.parametrize("dims", [{"data": 2, "model": 2},
                                   {"pod": 2, "data": 1, "model": 1}])
-def test_data_and_pod_axes_raise_a11(dims):
-    """Paged caches over a batch axis of more than one rank raise, naming
-    A11: the one refusal left in serving (contiguous slots split over
-    it, tests/test_torch_tp_families.py)."""
-    params = {"embed": torch.zeros(256, 64)}
-    with pytest.raises(NotImplementedError, match="A11"):
-        Engine(_tiny(), params, 16, mesh=StandIn(dims), paged=True,
-               device="cpu")
+def test_data_and_pod_axes_raise_a11(dims, mesh1):
+    """Paged caches over a batch axis of more than one rank build (the
+    refusal that stood here until the rest of A11 is gone): the engine
+    holds the slots of its batch coordinate, its pool holds every row
+    (n_pages + the sink page) on every rank, and the placements keep the
+    pool rows whole, with the kv heads under the kv-head rule (over
+    "model" where its size divides n_heads) and no dim over the batch
+    dims. Served over 2 and 4 ranks: tests/test_torch_tp_families.py."""
+    from repro_torch.models.transformer import init_params
+    import torch.distributed as dist
+
+    class Grouped(StandIn):
+        def get_group(self, name):        # the world-1 group, for its backend
+            return dist.group.WORLD
+    cfg = _tiny()
+    mesh = Grouped(dims)
+    eng = Engine(cfg, init_params(cfg, seed=0, device="cpu"), 16,
+                 n_slots=4, mesh=mesh, paged=True, page_size=4, device="cpu")
+    eng._ensure_slots()
+    D = sh.batch_size(mesh)
+    assert (eng._lo, eng._hi) == (0, 4 // D)
+    n = dims["model"]
+    for path, spec in sh.paged_cache_placements(cfg, eng._caches,
+                                                mesh).items():
+        leaf = eng._caches[path[0]][path[1]]
+        assert leaf.shape[1] == (4 * 4 + 1) * 4, path   # every pool row
+        assert spec[1] is None and sh.BATCH[0] not in spec and \
+            ("data",) not in spec, (path, spec)
+        head = leaf.dim() - (2 if path[-1] in ("k", "v") else 1)
+        assert spec[head] == ("model" if n > 1 else None), (path, spec)
+        assert leaf.shape[head] == sh.local_kv_heads(cfg, mesh)
+
+
+LONG_CASES = {
+    # name: (config, mesh dims, the rows' mesh dims of k / v, of a latent)
+    "dense-data2": (_tiny(), {"data": 2, "model": 1}, ("data",), None),
+    "dense-data2-model2": (_tiny(), {"data": 2, "model": 2}, ("data",),
+                           None),
+    "h3-data2-model2": (_tiny(d_model=48, n_heads=3, n_kv_heads=1),
+                        {"data": 2, "model": 2}, ("data", "model"), None),
+    "pod2-data2": (_tiny(), {"pod": 2, "data": 2, "model": 1},
+                   ("pod", "data"), None),
+    "mla-data2-model2": (tconfigs.get_config("deepseek-v3-671b", smoke=True,
+                                             altup_k=2),
+                         {"data": 2, "model": 2}, None, ("data",)),
+    "hybrid-data2": (FAMILIES["hybrid"], {"data": 2, "model": 1}, ("data",),
+                     None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_long_context_layout_splits_rows_over_the_head_group(case):
+    """Slots the batch dims do not divide (one slot of 1000 rows over D =
+    2 or 4): cache_placements puts each attention leaf's sequence dim
+    over the ranks that compute the same heads (the batch dims with heads
+    on local heads; the batch dims and "model" when the attention runs
+    whole; an MLA latent over the batch dims only) and nothing on the
+    slot axis; recurrent leaves stay whole per slot. init_cache(seq=)
+    gives every rank shard_rows(T, R) rows (whole spans, about T / R)
+    and its sink, and the ranks' row ranges tile [0, T)."""
+    cfg, dims, kv_rows, lat_rows = LONG_CASES[case]
+    T = 1000
+    mesh = StandIn(dims)
+    whole = tdec.init_cache(cfg, 1, T, device="meta")
+    place = sh.cache_placements(cfg, whole, mesh)
+    local = tdec.init_cache(cfg, 1, T, device="meta", mesh=mesh,
+                            seq=sh.SeqSplit(T))
+    seen = 0
+    for (si, name), spec in place.items():
+        leaf = local[si][name]
+        if name in RECURRENT_LEAVES:
+            assert spec[1] is None and leaf.shape[1] == 1, (si, name)
+            continue
+        latent = name.startswith("latent")
+        want = lat_rows if latent else kv_rows
+        row = 1 if leaf.dim() == whole[si][name].dim() and (
+            latent or leaf.dim() == (5 if name in ("k", "v") else 4)) else 0
+        row += 1
+        assert spec[row] == want and spec[row - 1] is None, (si, name, spec)
+        R = sh.row_ranks(cfg, mesh, latent)
+        Tc = whole[si][name].shape[row] - 1
+        Tr = sh.shard_rows(Tc, R)
+        assert leaf.shape[row] == Tr + 1 and Tr % 128 == 0
+        assert (R - 1) * Tr < Tc <= R * Tr          # every rank holds rows
+        assert Tr < Tc
+        seen += 1
+    assert seen > 0
 
 
 def test_moe_with_capacity_drops_over_mesh_raises_a11():

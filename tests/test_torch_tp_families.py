@@ -15,8 +15,14 @@ axis of 2 (data x model = 2 x 1 at 2 ranks, 2 x 2 at 4): a tiny dense +
 K=2 model, greedy and seeded sampled with a prefix hit whose donor
 another data rank holds, a speculative run, RWKV-6, and T5's generate
 split by rows; the dense model also over pod x data (2 x 2 at 4 ranks,
-one slot each). RWKV's u / w_b / ln_x and Mamba-2's A_log /
-dt_bias are perturbed so that no head is trivial.
+one slot each). Paged over "data": the dense model greedy, sampled with
+a prefix hit whose pages the other data rank wrote, speculative and
+int8, and zamba2 (its Mamba-2 state per slot beside the pool), every
+rank's pool bitwise equal to the other data rank's. The long-context
+layout over data x model (2, N / 2): zamba2 served from one slot and
+T5_TINY's generate over three rows, with rows past one span a rank.
+RWKV's u / w_b / ln_x and Mamba-2's A_log / dt_bias are perturbed so
+that no head is trivial.
 
 Gates: tokens identical to the JAX Engine's on every rank (greedy slots
 of the speculative run); f32 logits of the model-axis configs within
@@ -37,7 +43,7 @@ import torch.multiprocessing as mp
 import _torch_threads  # noqa: F401  (torch threads: a share of the cores)
 import _torch_tp_worker
 from _torch_train_util import numpy_params
-from test_torch_tp_serve import _model
+from test_torch_tp_serve import LONG, _long_phases, _model, check_long_caches
 
 import repro.config as jcfg
 import repro.configs as jconfigs
@@ -52,6 +58,9 @@ LOGIT_TOL = 1e-4           # f32 logits, partial sums in another order
 WORLDS = (2, 4)
 SPAWN_TIMEOUT_S = 400
 ENC_SEQ = 32               # T5_TINY's encoder length here (96 upstream)
+# the long-context layout's T5: an encoder output past one span (128) a
+# rank, three rows (which the data axis of 2 does not divide)
+LONG_ENC, LONG_ROWS, LONG_PROMPT = 160, 3, 140
 GEN_ROWS, GEN_PROMPT, GEN_NEW = 2, 4, 6
 
 
@@ -78,6 +87,8 @@ def _config(m, name):
         return c
     if name == "t5":
         return t5.altup(t5.T5_TINY.replace(encoder_seq=ENC_SEQ), 2)
+    if name == "t5long":
+        return t5.altup(t5.T5_TINY.replace(encoder_seq=LONG_ENC), 2)
     if name == "t5seq":
         return t5.seq_altup(t5.T5_TINY.replace(encoder_seq=ENC_SEQ), 4,
                             "altup")
@@ -87,7 +98,7 @@ def _config(m, name):
 JAX, PORT = (jcfg, jconfigs, jt5), (tcfg, tconfigs, tt5)
 MODEL_CONFIGS = ("rwkv", "zamba", "t5", "t5seq", "whisper", "whisper6",
                  "rwkv3h", "zamba6h")
-ENCDEC = ("t5", "t5seq", "whisper", "whisper6")
+ENCDEC = ("t5", "t5seq", "whisper", "whisper6", "t5long")
 MODEL_ENGINE = dict(max_len=32, n_slots=2, prefill_chunk=4)
 DATA_ENGINE = dict(max_len=32, n_slots=4, prefill_chunk=4)
 PAGED = dict(paged=True, page_size=4)
@@ -119,9 +130,24 @@ CASES = {
     # pod x data x model = (N / 2, 2, 1): one slot a rank at N = 4
     "dense-pod-data": ("dense", "pod-data", DATA_ENGINE, {}),
     "t5-data-sampled": ("t5", "data", MODEL_ENGINE, {}, SAMPLED),
+    # paged caches over "data": the whole pool on every rank
+    "dense-data-paged": ("dense", "data", dict(DATA_ENGINE, **PAGED), {}),
+    "dense-data-paged-speculative": (
+        "dense", "data", dict(DATA_ENGINE, speculative=True, **PAGED), {}),
+    "dense-data-paged-int8": ("dense", "data", dict(DATA_ENGINE, **PAGED),
+                              dict(kv_cache_dtype="int8")),
+    "zamba-data-paged": ("zamba", "data", dict(DATA_ENGINE, **PAGED), {}),
 }
 DATA_SERVED = ("dense-data", "dense-data-speculative", "rwkv-data",
                "dense-pod-data")
+DATA_PAGED = ("dense-data-paged", "dense-data-paged-speculative",
+              "dense-data-paged-int8", "zamba-data-paged")
+# the long-context layout over data x model (2, N / 2): name -> (config,
+# engine kwargs, generate's sampling: absent for a served case)
+LONG_CASES = {
+    "zamba-long": ("zamba", dict(LONG, n_slots=1)),
+    "t5long-greedy": ("t5long", dict(LONG, n_slots=LONG_ROWS), GREEDY),
+}
 
 
 def _is_generate(case):
@@ -246,6 +272,33 @@ def _jax_generated(name, sampled):
     return np.asarray(eng.generate(prompts, GEN_NEW, **kw)).tolist()
 
 
+def _long_prompts(name):
+    return np.random.default_rng(13).integers(
+        0, _config(PORT, name).vocab_size, (LONG_ROWS, LONG_PROMPT))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_long(case):
+    """The JAX Engine's tokens of a long-context case: _long_phases served
+    (one slot), or generate(encoder_frames=) over LONG_ROWS rows of
+    LONG_PROMPT tokens, un-meshed."""
+    name = LONG_CASES[case][0]
+    eng = JEngine(_config(JAX, name),
+                  jax.tree_util.tree_map(jnp.asarray, _tree(name)),
+                  LONG["max_len"], n_slots=1,
+                  prefill_chunk=LONG["prefill_chunk"], kv_buckets=False)
+    if len(LONG_CASES[case]) == 3:
+        return np.asarray(eng.generate(
+            jnp.asarray(_long_prompts(name)), GEN_NEW,
+            encoder_frames=jnp.asarray(_frames(name, LONG_ROWS)))).tolist()
+    out = []
+    for phase in _long_phases(_config(JAX, name).vocab_size):
+        rids = [eng.submit(p, sampling=JSP(**sp)) for p, sp in phase]
+        res = eng.run()
+        out += [list(res[r].tokens) for r in rids]
+    return out
+
+
 def _want(case):
     name, _, engine, fields = CASES[case][:4]
     if _is_generate(case):
@@ -264,6 +317,9 @@ def ranks(request, tmp_path_factory):
                       "check": name in MODEL_CONFIGS,
                       "frames": _frames(name) if name in ENCDEC else None}
                for name in MODEL_CONFIGS + ("dense",)}
+    configs["t5long"] = {"cfg": _config(PORT, "t5long"),
+                         "tree": _tree("t5long"), "check": False,
+                         "frames": _frames("t5long", LONG_ROWS)}
     cases = {}
     for case, spec in CASES.items():
         name, mesh, engine, fields = spec[:4]
@@ -273,6 +329,18 @@ def ranks(request, tmp_path_factory):
             cases[case]["generate"] = _generate_job(name, spec[4])
         else:
             cases[case]["phases"] = _phases(name)
+    for case, spec in LONG_CASES.items():
+        name, engine = spec[:2]
+        cases[case] = {"config": name, "mesh": "data", "engine": engine,
+                       "cfg": {}, "long": (engine["n_slots"],
+                                           engine["max_len"])}
+        if len(spec) == 3:
+            cases[case]["generate"] = {
+                "prompts": _long_prompts(name), "n": GEN_NEW,
+                "frames": _frames(name, LONG_ROWS), "sampling": spec[2]}
+        else:
+            cases[case]["phases"] = _long_phases(
+                _config(PORT, name).vocab_size)
     job = {"meshes": {"model": ((world,), ("model",)),
                       "data": ((2, world // 2), ("data", "model")),
                       "pod-data": ((world // 2, 2, 1),
@@ -365,3 +433,44 @@ def test_data_axis_prefix_hit_crosses_ranks(ranks, case):
         got = _ok(res["cases"][case])
         nb = got["slots"][1] - got["slots"][0]
         assert any(dst // nb != src // nb for dst, src in got["copies"])
+
+
+@pytest.mark.parametrize("case", DATA_PAGED)
+def test_paged_over_data_pools_stay_equal(ranks, case):
+    """Paged caches over "data" (2 x 1 at 2 ranks, 2 x 2 at 4): after
+    greedy, sampled, prefix-aliased (a hit whose pages the other data
+    rank's slot wrote), speculative, int8 and recurrent runs, every
+    rank's pool is bitwise equal to the other data rank's at the same
+    "model" coordinate (the kv heads it holds), and every rank's
+    scheduler ends with the same stats and page counters."""
+    runs = [_ok(res["cases"][case]) for res in ranks]
+    n_model = len(ranks) // 2
+    for i, r in enumerate(runs):
+        assert r["pool_digest"] == runs[i % n_model]["pool_digest"], i
+        assert r["stats"] == runs[0]["stats"]
+        assert r["paged_stats"] == runs[0]["paged_stats"]
+    assert sorted({tuple(r["slots"]) for r in runs}) == [(0, 2), (2, 4)]
+    if not _recurrent(CASES[case][0]):
+        assert runs[0]["paged_stats"]["alias_acquisitions"] > 0
+    if CASES[case][2].get("speculative"):
+        assert runs[0]["stats"]["spec_rounds"] > 0
+
+
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+def test_long_context_families_match_jax_engine(ranks, case):
+    """The long-context layout over data x model (2, N / 2): zamba2 SMOKE
+    (its shared attention block's rows split, the Mamba-2 state whole per
+    slot) served, and T5_TINY (encoder output of LONG_ENC rows, its cross
+    caches split the same way) through generate over LONG_ROWS rows: the
+    JAX Engine's tokens on every rank, f32 logits within LOGIT_TOL of the
+    unmeshed port's, T5's cross caches all-gathered bitwise equal to the
+    whole ones, zamba2's caches as test_torch_tp_serve's long cases."""
+    want = _jax_long(case)
+    for res in ranks:
+        got = _ok(res["cases"][case])
+        assert got["tokens"] == want
+        assert got["logits_err"] <= LOGIT_TOL
+        if len(LONG_CASES[case]) == 3:
+            assert got["cross_bitwise"] is True
+        else:
+            check_long_caches(got["caches"], LONG["max_len"])
