@@ -188,15 +188,16 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                kernel a layer; the eager twin (this line) and a replayed
                run held against it as e-graph at 6 layers (5 on rings,
                1 global; cut so the run fits its time), then j-graph
-               replayed at 12 of the 34 layers (12 launches of each a
-               step, 10 on rings, 2 global), every step a replay, with
+               replayed at 6 of the 34 layers (6 launches of each a
+               step, 5 on rings, 1 global; cut for the run's time),
+               every step a replay, with
                the replayed step's device ms
       j-paged  a 600-token system prompt served first, then 8 requests
                extending it (tails of 32-480 tokens, 32 new) over a pool
                of pages of 16 rows with prefix reuse: every hit copies
                the prompt's 38 pages and aliases none; the eager twin
                at 6 layers held as j-serve's; j-paged-graph replayed at
-               12 layers (cut for the run's time), and its
+               6 layers (cut for the run's time), and its
                hits' tokens equal a cold engine's
       j-quant  j-paged's traffic from int8 slot caches (the contiguous
                ring copy, j-quant-int8-graph) and from an fp8 pool
@@ -278,10 +279,10 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                launch counts unchanged across the differentiated steps
       k-train  Trainer(device="cuda") on the registry's full qwen3-0.6b
                + AltUp K=2 (28 layers, bf16): the launcher's TrainConfig
-               at 20 steps (30 before PR 28) of 8 x 512 tokens in 2
+               at 12 steps (cut for the run's time) of 8 x 512 tokens in 2
                microbatches (Adafactor, lr 0.3, warmup 10); gates: finite
                losses, the last 5 averaging at least 1 nat below the
-               first; median step ms (steps 3-20), tokens/s, MFU over the bf16 dense
+               first; median step ms (steps 3-12), tokens/s, MFU over the bf16 dense
                peak, peak memory; one more step under torch.profiler
                (device ms against the median: the busy share; the top
                kernels); the plain attention's and the cross entropy's
@@ -2512,8 +2513,8 @@ J_SYSTEM, J_PAGED_NEW, J_PAGE = 600, 32, 16
 # J_PAGED_LAYERS
 J_TWIN_LAYERS = 6
 # j-graph's and j-paged-graph's counted runs, cut for the run's time
-# (the plan's pattern twice of gemma3-4b's 34 layers)
-J_PAGED_LAYERS = 12
+# (the plan's pattern once of gemma3-4b's 34 layers)
+J_PAGED_LAYERS = 6
 
 
 def gemma_config(**kw):
@@ -3010,8 +3011,8 @@ def train_grad_f32(torch, ops):
     return res
 
 
-# 20 steps since PR 28 (30 before), for the run's time
-K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 20, 8, 512, 2, 0.3
+# cut for the run's time
+K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 12, 8, 512, 2, 0.3
 
 
 def train_full(torch, ops, workdir):
@@ -7065,6 +7066,367 @@ def check_tpd_kernels(torch, ops, ref):
     return kern
 
 
+# t-train: A11's training over "model" (Trainer(mesh=), loss_fn(mesh=),
+# the collectives' autograd Functions). (a) one NCCL rank: k-train's model
+# at full width and depth beside the un-meshed Trainer, bitwise; (b) two
+# gloo ranks sharing the card, f32, against one rank's un-meshed run
+TT_STEPS = 3
+TT_LR = 0.01                # constant: a step moves a leaf by 1% of its RMS
+TT_QWEN_LAYERS = 4          # Qwen3-0.6B's 28, (b)
+TT_RWKV_LAYERS = 2          # rwkv6-1.6b's 24, (b)
+TT_ZAMBA_LAYERS = 6         # zamba2-1.2b's 38 mamba layers, (b)
+TT_T5_LAYERS = 2            # t5-large's 24 + 24, (b)
+TT_B_BATCH, TT_B_SEQ, TT_B_ENC = 2, 128, 128
+# (b)'s gates in f32: the gathered gradients (of each leaf's largest
+# entry, at least 1e-6 of the largest gradient), the losses of TT_STEPS
+# Adafactor steps and the next step's after a restore (relative), the
+# gathered parameters after the steps (of each leaf's largest entry)
+TT_GRAD_TOL = 1e-4
+TT_LOSS_RTOL = 1e-4
+TT_PARAM_TOL = 1e-3
+# bf16 distances are held to the f32 run's, at least f32's unit
+# roundoff 2^-24, times the ratio of the two formats' unit roundoffs
+# (2^-8 / 2^-24)
+TT_BF16_SCALE = 2.0 ** 16
+TT_F32_ROUNDOFF = 2.0 ** -24
+
+
+def ttrain_tcfg(torch, steps, batch, seq, mb, ckpt, task="causal_lm"):
+    """The launcher's TrainConfig (Adafactor at TT_LR, clipping at 1.0)
+    with a constant schedule from step 0: TT_STEPS steps move the
+    parameters, and no checkpoint but the ones asked for."""
+    import dataclasses
+    from repro_torch.launch.train import train_config
+    tc = train_config(steps, batch, seq, mb, TT_LR, ckpt)
+    return dataclasses.replace(
+        tc, checkpoint_every=0, task=task,
+        optimizer=dataclasses.replace(tc.optimizer, schedule="constant",
+                                      warmup_steps=0))
+
+
+def ttrain_one_rank(torch, workdir):
+    """t-train (a): a world-1 NCCL group and its "model" mesh; k-train's
+    config (Qwen3-0.6B + AltUp K=2, full width and depth, bf16) trained
+    TT_STEPS Adafactor steps of K_BATCH x K_SEQ in K_MB microbatches with
+    clipping by Trainer(mesh=) and by the un-meshed Trainer, same seed
+    and batches, deterministic algorithms on. Gates: losses and every
+    parameter bitwise equal, no collective issued (a group of one).
+    Prints the median ms of a step of each."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import Trainer
+    cfg = served_config()
+    tcfg = ttrain_tcfg(torch, TT_STEPS, K_BATCH, K_SEQ, K_MB, "")
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            store=dist.FileStore(str(workdir / "store-tt-a"),
+                                                 1), rank=0, world_size=1)
+    out = {"cfg": cfg_name(cfg), "steps": TT_STEPS,
+           "tokens_per_step": K_BATCH * K_SEQ, "microbatches": K_MB}
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = make_mesh((1,), ("model",), device=DEV)
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            sh.reset_collective_counts()
+            tr = Trainer(cfg, tcfg, m, device=DEV)
+            res = tr.run(log=lambda s: None)
+            torch.cuda.synchronize()
+            runs[tag] = {"losses": [h["loss"] for h in res["history"]],
+                         "grad_norms": [h["grad_norm"]
+                                        for h in res["history"]],
+                         "step_ms": [1e3 * s for s in tr.step_times],
+                         "collectives": sh.collective_counts(),
+                         "params": dict(tree_lib.leaves(tr.params))}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    plain, meshed = runs["plain"], runs["mesh"]
+    differ = [".".join(p) for p, t in plain["params"].items()
+              if not torch.equal(t, meshed["params"][p])]
+    out.update(losses=plain["losses"], grad_norms=plain["grad_norms"],
+               losses_bitwise=plain["losses"] == meshed["losses"],
+               params_bitwise=not differ, params_differ=differ[:4],
+               collectives=meshed["collectives"],
+               step_ms=plain["step_ms"], step_ms_mesh=meshed["step_ms"],
+               median_step_ms=float(np.median(plain["step_ms"])),
+               median_step_ms_mesh=float(np.median(meshed["step_ms"])))
+    if not out["losses_bitwise"] or differ or meshed["collectives"]:
+        line("t-train-a", **out)
+        raise AssertionError(
+            f"t-train (a): over a mesh of one rank losses "
+            f"{meshed['losses']} vs {plain['losses']}, parameters "
+            f"differing {differ[:4]}, collectives {meshed['collectives']}")
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def ttrain_model(torch, name, dtype="float32"):
+    """(cfg, whole params on the card, the trainer's task) of (b)'s model
+    `name`, seeded and perturbed as t-serve-c's."""
+    from repro_torch.models.transformer import init_params
+    if name in ("rwkv6", "zamba2"):
+        layers = TT_RWKV_LAYERS if name == "rwkv6" else TT_ZAMBA_LAYERS
+        cfg, params = tpc_recurrent(torch, name, layers, dtype)
+        return cfg, params, "causal_lm"
+    if name == "t5":
+        cfg = t5_config(n_layers=TT_T5_LAYERS, n_encoder_layers=TT_T5_LAYERS,
+                        encoder_seq=TT_B_ENC)
+        task = "span_corruption"
+    else:
+        cfg = served_config(n_layers=TT_QWEN_LAYERS,
+                            context_parallel_attn=name == "qwen3_cp")
+        task = "causal_lm"
+    cfg = cfg.replace(dtype=dtype, param_dtype=dtype)
+    params = init_params(cfg, seed=1, device=DEV)
+    perturb_altup(torch, params, seed=11)
+    return cfg, params, task
+
+
+def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
+                checkpoint=True):
+    """One model of t-train (b) on this rank. Every rank also runs the
+    un-meshed path (on the same card) and holds its own shard against
+    the matching part of it (sharding.shard_leaf), so nothing is
+    gathered to compare: the first batch's gradients over the mesh
+    (the digests of the replicated ones kept), TT_STEPS Adafactor steps
+    of Trainer(mesh=) against the un-meshed Trainer (losses, the
+    parameters after them), the collectives of one gradient and of the
+    steps; then a checkpoint at model = 2 (gathered, rank 0 writes), one
+    more meshed step, and rank 0 restores the checkpoint into its
+    un-meshed Trainer and takes that step too (checkpoint=False: not
+    this part; the context-parallel run, whose checkpoint is the flag-off
+    run's). Returns the distances
+    (gradients and parameters as shares of each leaf's largest entry,
+    gradients at least 1e-6 of the largest gradient; losses relative),
+    the counts and the seconds of each part."""
+    import dataclasses
+    import hashlib
+    from repro_torch import sharding as sh
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.transformer import ParamTree
+    from repro_torch.train.trainer import Trainer
+    t0 = time.perf_counter()
+    cfg, whole, task = ttrain_model(torch, name, dtype)
+    ckpt = str(workdir / f"tt-{name}-{dtype}")
+    tcfg = ttrain_tcfg(torch, TT_STEPS, TT_B_BATCH, TT_B_SEQ, 1, ckpt, task)
+    shards = sh.leaf_shards(cfg, mesh)
+    res = {"layers": cfg.n_layers, "dtype": dtype, "seconds_parts": {}}
+
+    def part(tag, t):
+        torch.cuda.synchronize()
+        res["seconds_parts"][tag] = time.perf_counter() - t
+
+    def grads(params, m):
+        params.requires_grad_(True)
+        paths, leaves = zip(*tree_lib.leaves(params))
+        total, metrics = loss_fn(params, cfg, batch, mesh=m)
+        return float(metrics["loss"].detach()), dict(zip(
+            paths, torch.autograd.grad(total, leaves)))
+
+    def clone(tree):
+        return ParamTree(tree_lib.tree_map(torch.clone, tree))
+
+    def dist_to(local, want, floor=0.0):
+        """max over leaves of |local - the rank's part of want| over
+        max(|want leaf|, floor)."""
+        return max(
+            (t.float() - sh.shard_leaf(want[p], shards[p], mesh).float())
+            .abs().max().item() / max(want[p].abs().max().item(), floor,
+                                      1e-30)
+            for p, t in local.items())
+
+    tr = Trainer(cfg, tcfg, mesh, device=DEV, params=clone(whole))
+    batch = tr._batch(0)
+    t1 = time.perf_counter()
+    sh.reset_collective_counts()
+    loss, g = grads(sh.shard_params(clone(whole), cfg, mesh), mesh)
+    torch.cuda.synchronize()
+    res["collectives_grad"] = sh.collective_counts()
+    res["replicated"] = {
+        "/".join(p): hashlib.sha256(t.detach().float().cpu().numpy()
+                                    .tobytes()).hexdigest()
+        for p, t in g.items() if shards[p] is None}
+    want_loss, want = grads(clone(whole), None)
+    top = max(w.abs().max().item() for w in want.values())
+    res["grad_err"] = dist_to(g, want, 1e-6 * top)
+    res["loss_err"] = abs(loss - want_loss) / max(abs(want_loss), 1e-6)
+    del g, want
+    part("gradients", t1)
+    t1 = time.perf_counter()
+    sh.reset_collective_counts()
+    hist = tr.run(log=lambda s: None)["history"]
+    torch.cuda.synchronize()
+    res["collectives_steps"] = sh.collective_counts()
+    res["losses"] = [h["loss"] for h in hist]
+    plain = Trainer(cfg, dataclasses.replace(tcfg, checkpoint_dir=""),
+                    device=DEV, params=clone(whole))
+    want = [h["loss"] for h in plain.run(log=lambda s: None)["history"]]
+    res["want_losses"] = want
+    res["losses_err"] = max(abs(a - b) / max(abs(b), 1e-6)
+                            for a, b in zip(res["losses"], want))
+    res["param_err"] = dist_to(dict(tree_lib.leaves(tr.params)),
+                               dict(tree_lib.leaves(plain.params)))
+    part("steps", t1)
+    if not checkpoint:
+        del tr, plain, whole
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        return res
+    t1 = time.perf_counter()
+    tr.checkpoint()
+    part("checkpoint", t1)
+    tr.tcfg = dataclasses.replace(tcfg, steps=TT_STEPS + 1)
+    res["next_loss"] = tr.run(log=lambda s: None)["history"][-1]["loss"]
+    if rank == 0:
+        t1 = time.perf_counter()
+        plain.tcfg = dataclasses.replace(tcfg, steps=TT_STEPS + 1)
+        plain.maybe_resume()
+        res["restored_step"] = plain.step
+        res["restored_next_loss"] = plain.run(
+            log=lambda s: None)["history"][-1]["loss"]
+        res["next_loss_err"] = (
+            abs(res["restored_next_loss"] - res["next_loss"])
+            / max(abs(res["restored_next_loss"]), 1e-6))
+        part("restore", t1)
+    del tr, plain, whole
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+TT_MODELS = ("qwen3", "qwen3_cp", "rwkv6", "zamba2", "t5")
+
+
+def ttrain_rank(rank, world, workdir):
+    """One rank of t-train (b) (a spawned process): a gloo group on the
+    card, the "model" mesh of both ranks, the collectives probed on CUDA
+    tensors (the three forward ones and, under autograd, the backward
+    all-reduce and reduce-scatter; a failure is written, with why, and the
+    rank stops), then ttrain_case for each of TT_MODELS in f32 and Qwen3
+    in bf16. Writes rank<r>.json under workdir."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    res = {"rank": rank}
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(workdir / "store-tt-b"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((world,), ("model",), device=DEV)
+        if not (probe_collectives(torch, mesh, res)
+                and probe_train_collectives(torch, mesh, res)):
+            return
+        for name in TT_MODELS:
+            res[name] = ttrain_case(torch, name, mesh, rank, workdir,
+                                    checkpoint=name != "qwen3_cp")
+        res["qwen3_bf16"] = ttrain_case(torch, "qwen3", mesh, rank, workdir,
+                                        "bfloat16")
+    finally:
+        (workdir / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def probe_train_collectives(torch, mesh, res):
+    """The backward collectives of training on CUDA tensors: an f's
+    all-reduce and the reduce-scatter of gather_whole; on the first that
+    raises, records which and why in res and returns False."""
+    from repro_torch import sharding as sh
+    for name, fn in (("copy_to_model backward all_reduce",
+                      lambda x: sh.copy_to_model(x, mesh)),
+                     ("gather_whole backward reduce_scatter",
+                      lambda x: sh.gather_whole(x, mesh, 0))):
+        try:
+            x = torch.ones(4, 8, device=DEV, requires_grad=True)
+            with torch.enable_grad():
+                fn(x).sum().backward()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:
+            res.update(collective_failed=name, error=repr(e))
+            return False
+    return True
+
+
+def ttrain_two_ranks(torch, workdir):
+    """t-train (b): T_RANKS spawned ranks sharing the card over gloo
+    (fail_on_collective). Gates for each model, f32: the gathered
+    gradients within TT_GRAD_TOL of one rank's un-meshed gradients (of
+    each leaf's max), the loss of the first batch and the TT_STEPS
+    Adafactor steps' losses within TT_LOSS_RTOL, the gathered parameters
+    after them within TT_PARAM_TOL of each leaf's max, every replicated
+    leaf's
+    gradient bitwise equal on both ranks, the checkpoint written at model
+    = 2 restored into the un-meshed Trainer at TT_STEPS, whose next
+    step's loss is the meshed trainer's within TT_LOSS_RTOL (all but the
+    context-parallel run: the same model, the flag off's checkpoint).
+    Qwen3 in
+    bf16: the same distances within TT_BF16_SCALE times the f32 run's
+    (at least TT_F32_ROUNDOFF). A parameter whose gradient is within
+    rounding of zero takes an Adafactor step of either sign, so the
+    parameters' distance is the loosest of these.
+    Prints the collectives of one gradient and of the steps, calls and
+    bytes."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ttrain_rank, workdir, "t-train (b)")
+    out = {"ranks": T_RANKS, "backend": "gloo", "steps": TT_STEPS,
+           "batch": [TT_B_BATCH, TT_B_SEQ]}
+    fail_on_collective(ranks, out, "t-train-b", t0)
+    r0 = ranks[0]
+    for tag in TT_MODELS + ("qwen3_bf16",):
+        rec = out[tag] = {k: r0[tag][k] for k in (
+            "layers", "dtype", "losses", "want_losses", "restored_step",
+            "next_loss", "restored_next_loss", "next_loss_err",
+            "collectives_grad", "collectives_steps", "seconds_parts")
+            if k in r0[tag]}
+        # each rank held its own shard: the worst rank's distance
+        for k in ("grad_err", "loss_err", "losses_err", "param_err"):
+            rec[k] = max(r[tag][k] for r in ranks)
+        rec["seconds"] = max(r[tag]["seconds"] for r in ranks)
+        rec["replicated_leaves"] = len(r0[tag]["replicated"])
+        rec["replicated_bitwise"] = all(
+            r[tag]["replicated"] == r0[tag]["replicated"] for r in ranks)
+    for tag in TT_MODELS:
+        rec = out[tag]
+        ckpt = tag != "qwen3_cp"
+        bad = [k for k, tol in (("grad_err", TT_GRAD_TOL),
+                                ("loss_err", TT_LOSS_RTOL),
+                                ("losses_err", TT_LOSS_RTOL),
+                                ("param_err", TT_PARAM_TOL),
+                                ("next_loss_err", TT_LOSS_RTOL))
+               if (ckpt or k != "next_loss_err") and not rec[k] <= tol]
+        if bad or not rec["replicated_bitwise"] or \
+                (ckpt and rec["restored_step"] != TT_STEPS):
+            line("t-train-b", **out)
+            raise AssertionError(f"t-train (b) {tag}: {bad} {rec}")
+    rec, f32 = out["qwen3_bf16"], out["qwen3"]
+    rec["tolerances"] = {k: TT_BF16_SCALE * max(f32[k], TT_F32_ROUNDOFF)
+                         for k in ("grad_err", "losses_err", "param_err",
+                                   "next_loss_err")}
+    bad = [k for k, tol in rec["tolerances"].items() if not rec[k] <= tol]
+    if bad or not rec["replicated_bitwise"]:
+        line("t-train-b", **out)
+        raise AssertionError(f"t-train (b) qwen3 bf16: {bad} {rec}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def train_tp_phases(torch, workdir):
+    """(t-train): (a) then (b)."""
+    t0 = time.perf_counter()
+    res_a = ttrain_one_rank(torch, workdir)
+    line("t-train-a", seconds=time.perf_counter() - t0, **res_a)
+    line("t-train-b", **ttrain_two_ranks(torch, workdir))
+    line("t-train", seconds=time.perf_counter() - t0)
+
+
 def tp_phases(torch, ops, workdir):
     """(t): t-serve-a, t-serve-b, t-serve-c's (a) and (b), then
     t-serve-d. Returns t-serve-b's, t-serve-c (b)'s and t-serve-d's
@@ -7648,6 +8010,13 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         res_tp, res_tpc, res_tpd = tp_phases(torch, ops, Path(work))
 
+    # (t-train) training over "model": Trainer(mesh=) over one NCCL rank
+    # at full width and depth against the un-meshed Trainer, bitwise; two
+    # gloo ranks sharing the card against one rank's gradients, steps and
+    # a checkpoint restored into the un-meshed Trainer
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        train_tp_phases(torch, Path(work))
+
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)
     counts, counts_eq = res_r["launches"], res_eq_r["launches"]
@@ -7707,7 +8076,7 @@ def main(argv) -> int:
     ]
     # the same kernels at gemma3-4b's shapes, each with the launches of the
     # (j) run that serves them (the decode attention at a ring layer's
-    # shape: 10 of the 12 launches a step)
+    # shape: 5 of the 6 launches a step)
     for name, src, replaces, res_run, case in (
             ("altup_predict_correct", "altup_fused.cu",
              "altup_fused.py:39", res_j_r, ("bfloat16", "altup")),

@@ -3,16 +3,22 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       [--smoke] [--altup 2] [--steps 100] [--batch 8] [--seq 64] \
       [--microbatches 1] [--lr 0.3] [--ckpt DIR] [--resume] \
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--mesh 1xM]
 
 Adafactor with the rsqrt schedule, warmup max(steps // 5, 10), a
 checkpoint every 50 steps and on SIGTERM. --device defaults to cuda and
-fails without a card. --mesh (sharded training) arrives with ROADMAP
-A11 and raises.
+fails without a card. --mesh 1xM trains over a "model" axis of M ranks,
+one process each, under
+  torchrun --nproc-per-node M -m repro_torch.launch.train ... --mesh 1xM
+(launch/mesh.make_mesh; a process group already initialized is used as
+it is); only rank 0 prints. DxM with D > 1, "pod" and "multipod" (data
+parallelism) are ROADMAP A11 item 4 and raise.
 """
 import argparse
 import os
 import tempfile
+
+import torch.distributed as dist
 
 from repro_torch.config import OptimizerConfig, TrainConfig
 from repro_torch.configs import ARCH_IDS, get_config
@@ -39,7 +45,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--mesh", default=None,
-                    help="sharded training: not ported yet (ROADMAP A11)")
+                    help="1xM: a 'model' axis of M ranks (under torchrun)")
     ap.add_argument("--lr", type=float, default=0.3)
     ap.add_argument("--ckpt", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
@@ -47,19 +53,31 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded training is not ported yet (ROADMAP A11)")
+    mesh = make_train_mesh(args.mesh, args.device) if args.mesh else None
+    say = print if mesh is None or dist.get_rank() == 0 else (
+        lambda *a, **k: None)
 
     cfg = get_config(args.arch, smoke=args.smoke, altup_k=args.altup)
     tcfg = train_config(args.steps, args.batch, args.seq, args.microbatches,
                         args.lr, args.ckpt)
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, mesh, device=args.device)
     trainer.install_preemption_handler()
     if args.resume and trainer.maybe_resume():
-        print(f"resumed at step {trainer.step}")
-    res = trainer.run()
-    print(f"final: step={res['step']} loss={res['final_loss']}")
+        say(f"resumed at step {trainer.step}")
+    res = trainer.run(log=say)
+    say(f"final: step={res['step']} loss={res['final_loss']}")
+
+
+def make_train_mesh(spec: str, device):
+    """--mesh's DeviceMesh: "1xM" -> ("data", "model") of (1, M). A data
+    axis of more than one rank, "pod" and "multipod" raise."""
+    from repro_torch.launch.mesh import make_mesh
+    d, m = (int(x) for x in spec.split("x")) if "x" in spec else (0, 0)
+    if d != 1 or m < 1:
+        raise NotImplementedError(
+            f"--mesh {spec}: only 1xM (a 'model' axis) trains; a data "
+            f"axis, 'pod' and 'multipod' are ROADMAP A11 item 4")
+    return make_mesh((1, m), ("data", "model"), device=device)
 
 
 if __name__ == "__main__":

@@ -74,12 +74,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     dtype. mesh: x's last dim (and `scale`) is the rank's 1/N of the
     normed width (a norm over sharded heads: RWKV-6's ln_x, Mamba-2's
     gated norm): the ranks' mean squares are all-reduced and divided by
-    N."""
+    N (in training the backward all-reduces too: each rank's part of
+    the mean square feeds its own entries only)."""
     dtype = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     if mesh is not None:
-        var = sh.model_all_reduce(var, mesh) / sh.model_size(mesh)
+        var = sh.model_all_reduce_local(var, mesh) / sh.model_size(mesh)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.to(torch.float32))).to(dtype)
 
@@ -275,7 +276,11 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     block runs on the rank's heads (the local wq / wo, and kv heads as
     sharding.local_kv_heads says: k and v, computed here or given, are
     the rank's) and all-reduces its output after wo; otherwise it runs
-    whole, with no collective.
+    whole, with no collective. In training the inputs of the column-
+    parallel projections pass an f (sharding.copy_to_model): x before
+    wq, and before wk / wv when those are sharded (else the full k / v
+    before select_kv), and the replicated q_norm / k_norm, which the
+    rank's heads read.
     rows: a sharding.RowShard when `kv` is this rank's rows of a
     long-context cache layout (k_pos their global positions,
     ragged_lengths the slots' whole lengths): S=1 kernel attention runs
@@ -287,18 +292,21 @@ def attention_block(p, cfg: ModelConfig, x: torch.Tensor, *, window, q_pos,
     tp = mesh if sh.heads_sharded(cfg, mesh) else None
     causal = cfg.causal if causal is None else causal
     use_rope = not cfg.use_rel_pos_bias
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    xq = sh.copy_to_model(x, tp)
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(x.dtype))
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
+        q = rms_norm(q, sh.copy_to_model(p["q_norm"], tp))
     if use_rope:
         q = apply_rope(q, q_pos, cfg.rope_theta)
     if kv is None:
         src = x if x_kv is None else x_kv
+        if tp is not None and sh.divides(cfg.n_kv_heads, tp):
+            src = xq if x_kv is None else sh.copy_to_model(x_kv, tp)
         k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
         v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
         k, v = sh.select_kv(k, cfg, tp), sh.select_kv(v, cfg, tp)
         if cfg.qk_norm:
-            k = rms_norm(k, p["k_norm"])
+            k = rms_norm(k, sh.copy_to_model(p["k_norm"], tp))
         if use_rope:
             k = apply_rope(k, k_pos, cfg.rope_theta)
     else:
@@ -443,11 +451,13 @@ def init_ffn(d: int, f: int, dtype, generator, device) -> dict:
 def ffn_block(p, x: torch.Tensor, activation: str = "silu",
               mesh=None) -> torch.Tensor:
     """mesh: the "model" axis w1 / w3 (columns) and w2 (rows) are sharded
-    over (sharding.sharded_over), the partial sums all-reduced after w2;
-    None when the weights are whole."""
+    over (sharding.sharded_over), the partial sums all-reduced after w2
+    (x passes an f first in training); None when the weights are
+    whole."""
     # the reference's jax.nn.gelu defaults to the tanh approximation
     act = F.silu if activation == "silu" else \
         (lambda t: F.gelu(t, approximate="tanh"))
+    x = sh.copy_to_model(x, mesh)
     h = act(torch.einsum("...d,df->...f", x, p["w1"].to(x.dtype)))
     h = h * torch.einsum("...d,df->...f", x, p["w3"].to(x.dtype))
     if mesh is not None and sh.model_size(mesh) > 1:

@@ -77,8 +77,8 @@ def _cross_entropy_ref(logits, labels, mask=None, z_loss: float = 1e-4):
     return _masked_means(nll, correct, mask)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {"tokens", "labels", optional "mask", "encoder_frames",
     "extra_embeds"} on the params' device; labels are next-token targets
     aligned with tokens; encoder_frames is the encoder-decoder family's
@@ -87,10 +87,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
     forward, whose positions carry no label (their logits are dropped).
     Returns (total, {"loss", "aux_loss", "accuracy"}), 0-d f32 tensors:
     total = loss + moe.aux_loss_weight · aux_loss, the MoE load-balance
-    loss summed over layers (0 for the families without experts)."""
+    loss summed over layers (0 for the families without experts).
+    mesh: the "model" axis `params` are sharded over (shard_params'
+    tree): every rank computes the loss from the whole logits, which the
+    forward all-gathers, and the gradients are its part of the unsharded
+    ones."""
     logits, aux = forward_aux(params, cfg, batch["tokens"], train=True,
                               encoder_frames=batch.get("encoder_frames"),
-                              extra_embeds=batch.get("extra_embeds"))
+                              extra_embeds=batch.get("extra_embeds"),
+                              mesh=mesh)
     n_extra = logits.shape[1] - batch["labels"].shape[1]
     if n_extra:
         logits = logits[:, n_extra:]        # the image positions

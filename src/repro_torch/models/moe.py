@@ -182,14 +182,14 @@ def moe_block(p, moe: MoEConfig, x: torch.Tensor, *, mesh=None,
     if sh.model_size(mesh) > 1 and cap < B * S:
         raise NotImplementedError(
             "expert parallelism with capacity drops over a mesh "
-            "(moe_ffn_ep) arrives with a later slice of ROADMAP A11; "
-            "serving routes drop-free (capacity = B * S)")
+            "(moe_ffn_ep) is ROADMAP A11 item 4; serving routes drop-free "
+            "(capacity = B * S)")
     ep = sh.sharded_over(moe.padded_experts, mesh)
     first = sh.model_rank(ep) * p["w1"].shape[0]
     y_flat, aux = moe_ffn_local(p, moe, x.reshape(B * S, d), cap, first)
     out = y_flat.reshape(B, S, d)
     if ep is not None:
-        sh.model_all_reduce(out, ep)
+        out = sh.model_all_reduce(out, ep)
     if moe.num_shared > 0:
         out = ffn_block(p["shared"], x, activation, mesh=sh.sharded_over(
             moe.num_shared * moe.d_shared, mesh)) + out

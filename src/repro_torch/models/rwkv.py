@@ -25,6 +25,10 @@ row-parallel with one all-reduce. Otherwise the time mix runs whole on
 every rank, from its sharded weights all-gathered (sharding.full_leaf).
 The channel mix is column- then row-parallel (ck, cv: one all-reduce)
 when the model size divides d_ff; cr and the token shifts are whole.
+In training, an f (sharding.copy_to_model) sits on each input of the
+column-parallel projections (xr, xk, xv, xg; the channel mix's xk) and on
+the decay LoRA's replicated inner product before its rank's columns of
+w_b; w_base, w_b and ln_x pass one inside rank_share.
 """
 from __future__ import annotations
 
@@ -193,13 +197,15 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     dd = torch.einsum("bsil,ild->bsid", t, p["ts_b"].to(x.dtype))
     mix = p["mu_x"].to(x.dtype)[None, None] + dd            # (B,S,5,d)
     xr, xk, xv, xw, xg = [x + dx * mix[:, :, i] for i in range(5)]
+    xr, xk, xv, xg = (sh.copy_to_model(t, tp) for t in (xr, xk, xv, xg))
     r = torch.einsum("bsd,de->bse", xr, wr.to(x.dtype))
     k = torch.einsum("bsd,de->bse", xk, twk.to(x.dtype))
     v = torch.einsum("bsd,de->bse", xv, twv.to(x.dtype))
     g = F.silu(torch.einsum("bsd,de->bse", xg, wg.to(x.dtype)))
     # data-dependent decay (Finch)
     f32 = torch.float32
-    w_log = w_base.to(f32) + (xw.to(f32) @ p["w_a"].to(f32)) @ w_b.to(f32)
+    lora = sh.copy_to_model(xw.to(f32) @ p["w_a"].to(f32), tp)
+    w_log = w_base.to(f32) + lora @ w_b.to(f32)
     w = torch.exp(-torch.exp(w_log))                        # in (0, 1)
 
     def hs(z):
@@ -235,7 +241,7 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     prev = None if state is None else state["shift_cm"]
     xs = _token_shift(x, prev)
     dx = xs - x
-    xk = x + dx * p["mu_ck"].to(x.dtype)
+    xk = sh.copy_to_model(x + dx * p["mu_ck"].to(x.dtype), tp)
     xr = x + dx * p["mu_cr"].to(x.dtype)
     kk = torch.square(torch.relu(
         torch.einsum("bsd,df->bsf", xk, p["ck"].to(x.dtype))))

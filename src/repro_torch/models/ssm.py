@@ -25,6 +25,13 @@ w_out is row-parallel with one all-reduce. The conv tail then holds the
 rank's x columns and the whole B and C, the ssm state its heads.
 Otherwise the block runs whole on every rank, from its sharded weights
 all-gathered (sharding.full_leaf).
+In training every rank reads B and C whole: they pass an f
+(sharding.copy_to_model) after the conv, where the rank's heads read
+them, so their columns' gradients are summed over the group and equal
+on every rank; the projection of x onto the heads' columns (z, x, dt)
+then runs apart from the one onto B and C, with an f on its input
+only. A_log, D, dt_bias and the norm pass one inside rank_share, conv_b's
+x columns one of their own (sharding.local_columns_f).
 """
 from __future__ import annotations
 
@@ -186,13 +193,13 @@ def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                               "norm"))
     tp = mesh if sh.mamba_sharded(cfg, mesh) else None
     if tp is not None:
-        n, r = sh.model_size(tp), sh.model_rank(tp)
+        n = sh.model_size(tp)
         fused = sh.mamba_columns(cfg, "w_in"), sh.mamba_columns(cfg, "conv")
         if w_in.shape[-1] == 2 * d_in + 2 * N + H:      # kept whole
-            w_in = sh.local_columns(w_in, fused[0], r, n)
+            w_in = sh.local_columns_f(w_in, fused[0], tp)
         if conv_w.shape[-1] == d_in + 2 * N:
-            conv_w = sh.local_columns(conv_w, fused[1], r, n)
-        conv_b = sh.local_columns(conv_b, fused[1], r, n)
+            conv_w = sh.local_columns_f(conv_w, fused[1], tp)
+        conv_b = sh.local_columns_f(conv_b, fused[1], tp)
         A_log, D, dt_bias, norm = (sh.rank_share(t, tp, 0)
                                    for t in (A_log, D, dt_bias, norm))
         d_in, H = d_in // n, H // n
@@ -201,12 +208,24 @@ def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         w_in = sh.full_leaf(w_in, mesh, 1, 2 * d_in + 2 * N + H)
         conv_w = sh.full_leaf(conv_w, mesh, 1, d_in + 2 * N)
         w_out = sh.full_leaf(w_out, mesh, 0, d_in)
-    proj = torch.einsum("bsd,de->bse", x, w_in.to(x.dtype))
-    z, xbc, dt = torch.split(proj, [d_in, d_in + 2 * N, H], dim=-1)
+    w_in = w_in.to(x.dtype)
+    if tp is not None and sh.model_size(tp) > 1 and sh._tracks(x):
+        # the heads' columns from x through an f, B and C without one
+        # (theirs sits after the conv)
+        xf = sh.copy_to_model(x, tp)
+        z, xh_, bc, dt = torch.split(w_in, [d_in, d_in, 2 * N, H], dim=-1)
+        zx = torch.einsum("bsd,de->bse", xf, torch.cat([z, xh_], -1))
+        bc = torch.einsum("bsd,de->bse", x, bc)
+        dt = torch.einsum("bsd,de->bse", xf, dt)
+        z, xbc = zx[..., :d_in], torch.cat([zx[..., d_in:], bc], -1)
+    else:
+        proj = torch.einsum("bsd,de->bse", x, w_in)
+        z, xbc, dt = torch.split(proj, [d_in, d_in + 2 * N, H], dim=-1)
     conv_tail = None if state is None else state["conv"]
     xbc, new_tail = _causal_conv(xbc, conv_w.to(x.dtype),
                                  conv_b.to(x.dtype), conv_tail)
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
+    Bm, Cm = sh.copy_to_model(Bm, tp), sh.copy_to_model(Cm, tp)
     dt = F.softplus(dt.to(torch.float32) + dt_bias.to(torch.float32))
     A = torch.exp(A_log.to(torch.float32))
     xh = xs.reshape(B, S, H, s.head_dim)

@@ -361,12 +361,19 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
     encoder-decoder decoder layer's cross-attention block (ln_cross +
     cross) and the encoder's output (B, S_enc, d) it attends over, keys
     at positions 0..S_enc-1, unmasked. mesh: the "model" axis the
-    layer's weights are sharded over (sharding.py). Returns (x, the
-    layer's aux loss: 0-d f32, zero for a dense FFN)."""
+    layer's weights are sharded over (sharding.py); with
+    cfg.context_parallel_attn the self-attention runs context-parallel
+    where context_parallel says. Returns (x, the layer's aux loss: 0-d
+    f32, zero for a dense FFN)."""
     h = L.rms_norm(x, p["ln_attn"], cfg.logical_norm_eps)
-    a, _ = L.attention_block(p["attn"], cfg, h, window=window, q_pos=q_pos,
-                             k_pos=k_pos, bias=bias, causal=causal,
-                             mesh=mesh)
+    if context_parallel(cfg, mesh, h.shape[1]):
+        a = context_parallel_attention(p["attn"], cfg, h, mesh,
+                                       window=window, q_pos=q_pos,
+                                       k_pos=k_pos, bias=bias, causal=causal)
+    else:
+        a, _ = L.attention_block(p["attn"], cfg, h, window=window,
+                                 q_pos=q_pos, k_pos=k_pos, bias=bias,
+                                 causal=causal, mesh=mesh)
     x = x + a
     if cross_p is not None:
         h = L.rms_norm(x, cross_p["ln_cross"], cfg.logical_norm_eps)
@@ -377,6 +384,49 @@ def attn_ffn_layer(p, cfg: ModelConfig, x, *, window, q_pos, k_pos,
             mesh=mesh)
         x = x + c
     return ffn_half(p, cfg, x, mesh=mesh)
+
+
+def context_parallel(cfg: ModelConfig, mesh, S: int) -> bool:
+    """The self-attention of a sequence of S positions runs context-
+    parallel (the reference's attn_ffn_layer): cfg.context_parallel_attn
+    on a "model" axis of N > 1 ranks, S > 1 and N dividing S."""
+    n = sh.model_size(mesh)
+    return (cfg.context_parallel_attn and n > 1 and S > 1 and S % n == 0)
+
+
+_ATTN_HEAD_DIMS = {"wq": (1, "n_heads"), "wk": (1, "n_kv_heads"),
+                   "wv": (1, "n_kv_heads"), "wo": (0, "n_heads")}
+
+
+def context_parallel_attention(p, cfg: ModelConfig, h, mesh, *, window,
+                               q_pos, k_pos, bias=None, causal=None):
+    """Self-attention with the queries split over the model group along
+    the sequence (the reference's context parallelism): rank r computes
+    positions [r S / N, (r + 1) S / N) over every head, with keys and
+    values from all S positions masked by global position (causal, the
+    window, T5's bias rows), and the chunks are all-gathered along the
+    sequence (backward: the rank's slice). The layer's attention weights
+    are used whole: a leaf the rule shards by heads is all-gathered
+    (backward: reduce-scatter), a replicated one passes an f, as h does
+    before it splits into the queries' chunk and the keys' whole.
+    Numbers equal the tensor-parallel path's up to summation order.
+    h (B, S, d), q_pos / k_pos (S,), bias (1, H, S, S) of every head."""
+    n, r = sh.model_size(mesh), sh.model_rank(mesh)
+    c = h.shape[1] // n
+    whole = {}
+    for name, w in p.items():
+        dim, heads = _ATTN_HEAD_DIMS.get(name, (None, None))
+        if dim is not None and w.shape[dim] < getattr(cfg, heads):
+            whole[name] = sh.gather_whole(w, mesh, dim)
+        else:
+            whole[name] = sh.copy_to_model(w, mesh)
+    h = sh.copy_to_model(h, mesh)
+    rows = slice(r * c, (r + 1) * c)
+    a, _ = L.attention_block(
+        whole, cfg, h[:, rows], window=window, q_pos=q_pos[rows],
+        k_pos=k_pos, x_kv=h, causal=causal,
+        bias=None if bias is None else bias[:, :, rows])
+    return sh.model_all_gather(a, mesh, 1)
 
 
 def ffn_half(p, cfg: ModelConfig, x, *, capacity=None, mesh=None):
@@ -591,10 +641,12 @@ def forward(params, cfg: ModelConfig, tokens, *,
     reference's forward does (decode is drop-free).
 
     mesh: the "model" axis `params` are sharded over (sharding.py:
-    shard_params' tree), train=False only, every family. An MoE layer's
-    capacity drops
-    raise over more than one model rank (moe_block): their all-to-all is
-    training's (ROADMAP A11)."""
+    shard_params' tree), every family; with train=True the collectives
+    are autograd Functions (sharding.py's table) and the gradients are
+    each rank's part of the unsharded ones. An MoE layer's capacity
+    drops raise over more than one model rank (moe_block), and so does
+    training an MoE plan there: the reference's expert-parallel
+    all-to-all is ROADMAP A11 item 4."""
     return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
                        train=train, encoder_frames=encoder_frames,
                        extra_embeds=extra_embeds, mesh=mesh)[0]
@@ -606,11 +658,15 @@ def forward_aux(params, cfg: ModelConfig, tokens, *,
     """forward's (logits (B, S, V_pad), aux loss 0-d f32: the MoE
     load-balance loss summed over layers, 0 for the other families)."""
     kw = dict(encoder_frames=encoder_frames, extra_embeds=extra_embeds)
-    if mesh is not None:
-        if train:
-            raise NotImplementedError(
-                "forward(train=True) over a mesh: the collectives' "
-                "autograd pair arrives with a later slice of ROADMAP A11")
+    if train and cfg.moe is not None and sh.model_size(mesh) > 1:
+        raise NotImplementedError(
+            "training an MoE plan over more than one model rank: the "
+            "expert-parallel all-to-all with capacity drops (moe_ffn_ep) "
+            "is ROADMAP A11 item 4")
+    if train and sh.batch_size(mesh) > 1:
+        raise NotImplementedError(
+            "training over a batch axis of more than one rank: data "
+            "parallelism is ROADMAP A11 item 4")
     if not train:
         with torch.no_grad():
             return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,
@@ -619,7 +675,7 @@ def forward_aux(params, cfg: ModelConfig, tokens, *,
         raise ValueError("train=True runs no kernel: the WKV kernel has no "
                          "backward pass")
     return _forward(params, cfg, tokens, wkv_kernel=False, remat=cfg.remat,
-                    **kw)
+                    mesh=mesh, **kw)
 
 
 def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
@@ -634,9 +690,9 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
     q_pos = torch.arange(S, device=x.device)
     rel_bias = enc_out = cross_stack = None
     if cfg.use_rel_pos_bias:
-        rel_bias = L.t5_rel_bias(rel_table(params["rel_bias_dec"], cfg, mesh),
-                                 q_pos, q_pos, cfg.rel_pos_buckets,
-                                 bidirectional=False)
+        rel_bias = L.t5_rel_bias(rel_table(params["rel_bias_dec"], cfg, mesh,
+                                           S), q_pos, q_pos,
+                                 cfg.rel_pos_buckets, bidirectional=False)
     if cfg.family == "encdec":
         if encoder_frames is None:
             raise ValueError("an encoder-decoder forward needs "
@@ -656,10 +712,15 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
     return unembed(params, cfg, x, mesh=mesh), aux_total
 
 
-def rel_table(table: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
+def rel_table(table: torch.Tensor, cfg: ModelConfig, mesh,
+              S: int = 0) -> torch.Tensor:
     """T5's (buckets, H) relative bias table (replicated), or its columns
     of the rank's heads when the attention runs on local heads: sdpa adds
-    a bias of the heads it computes."""
+    a bias of the heads it computes. A self-attention over S positions
+    that runs context-parallel reads every head's column (through an
+    f)."""
+    if context_parallel(cfg, mesh, S):
+        return sh.copy_to_model(table, mesh)
     return sh.rank_share(table, mesh, 1) if sh.heads_sharded(cfg, mesh) \
         else table
 
@@ -689,7 +750,8 @@ def encode(params, cfg: ModelConfig, enc_input, *,
         pos = torch.arange(x.shape[1], device=x.device)
         bias = None
         if cfg.use_rel_pos_bias:
-            bias = L.t5_rel_bias(rel_table(enc["rel_bias_enc"], cfg, mesh),
+            bias = L.t5_rel_bias(rel_table(enc["rel_bias_enc"], cfg, mesh,
+                                           x.shape[1]),
                                  pos, pos, cfg.rel_pos_buckets,
                                  bidirectional=True)
         x, _ = apply_segment(enc["seg"], encoder_segment(cfg), cfg, x,
@@ -726,7 +788,8 @@ def encode_seq_reduced(params, cfg: ModelConfig, x, *,
         pos = torch.arange(xx.shape[1], device=xx.device)
         bias = None
         if cfg.use_rel_pos_bias:
-            bias = L.t5_rel_bias(rel_table(enc["rel_bias_enc"], cfg, mesh),
+            bias = L.t5_rel_bias(rel_table(enc["rel_bias_enc"], cfg, mesh,
+                                           xx.shape[1]),
                                  pos, pos, cfg.rel_pos_buckets,
                                  bidirectional=True)
         return attn_ffn_layer(p_l, cfg, xx, window=0, q_pos=pos, k_pos=pos,
@@ -754,14 +817,15 @@ def unembed(params, cfg: ModelConfig, x, *, mesh=None) -> torch.Tensor:
     """The final norm and the logits (B, S, V_pad). mesh: where the model
     axis divides the padded vocabulary, the rank computes its columns and
     the logits are all-gathered, whole rows on every rank (the sampler
-    reads whole rows)."""
+    and the loss read whole rows); in training x passes an f first."""
     ad = act_dtype(cfg)
+    tp = sh.sharded_over(padded_vocab(cfg), mesh)
     x = alt.narrow_output(x, cfg.altup)                   # (B,S,d or Kd)
-    x = L.rms_norm(x, params["final_norm"], cfg.logical_norm_eps)
+    x = sh.copy_to_model(L.rms_norm(x, params["final_norm"],
+                                    cfg.logical_norm_eps), tp)
     if cfg.tie_embeddings:
         w = params["embed"].to(ad)                        # (V, width)
         logits = torch.einsum("bsd,vd->bsv", x, w)
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(ad))
-    tp = sh.sharded_over(padded_vocab(cfg), mesh)
     return logits if tp is None else sh.model_all_gather(logits, tp)

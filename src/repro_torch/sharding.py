@@ -1,7 +1,7 @@
 """Tensor parallelism over the mesh's "model" axis and slots (or a slot's
 rows) over its batch axes ("pod", "data"): which dims of each parameter
 and cache leaf are sharded, the shards themselves, and the collectives
-serving needs.
+serving and training need.
 Counterpart of `repro/sharding.py` (and of `decode.cache_pspecs` /
 `paged_cache_pspecs`).
 
@@ -79,10 +79,38 @@ reference, which splits these rows over ("data", "model"):
 * the MLA latent, whole over "model" (every head reads it), splits
   over the batch dims only.
 
+Training over "model" (forward(train=True, mesh=), Trainer(mesh=)): every
+collective on the differentiable path is an autograd Function whose
+backward is chosen by what consumes its output, replicated over the model
+group or split over it:
+
+  forward                 consumer     backward
+  identity (f)            rank-local   all-reduce     copy_to_model
+  all-reduce (g)          replicated   identity       model_all_reduce
+  all-reduce              rank-local   all-reduce     model_all_reduce_local
+  all-gather              replicated   rank's slice   model_all_gather
+  all-gather              rank-local   reduce-scatter gather_whole
+
+An f sits where a replicated tensor enters rank-local compute: the input
+of a column-parallel projection, the full k / v before select_kv (the
+kv-head rule), a replicated leaf before rank_share (and the split
+components of one read through local_columns_f), Mamba-2's B and C where
+the rank's heads read them. Then every replicated leaf's gradient, and
+every replicated column of a sharded leaf, is the same on every rank, bit
+for bit, and the gathered gradients are the unsharded ones. A backward
+all-reduce of bf16 gradients sums in f32 and rounds once. Without
+autograd (serving, or a tensor that needs no gradient) the forward
+collectives run in place, as before; over one model rank none runs.
+Every collective issued is counted by kind, direction and bytes
+(collective_counts).
+
+The optimizer and clipping read each leaf's LeafShard (leaf_shards):
+reductions over a sharded dim are all-reduced over the group, Mamba-2's
+replicated B / C columns counted once (shard_sum).
+
 A `mesh` below is a `torch.distributed.device_mesh.DeviceMesh` with a
 "model" dim, a batch dim or both; the placement functions also take the
-model size as an int. Serving needs no autograd: the f/g autograd pair
-of training waits for a later slice (ROADMAP A11).
+model size as an int.
 """
 from __future__ import annotations
 
@@ -170,19 +198,155 @@ def _has_model_dim(mesh) -> bool:
     return mesh is not None and MODEL in (mesh.mesh_dim_names or ())
 
 
-def model_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum x over the model group, in place; returns x (as it is when the
-    mesh has no "model" dim)."""
-    if _has_model_dim(mesh):
-        dist.all_reduce(x, group=mesh.get_group(MODEL))
+# --------------------------------------------------------------------------
+# collectives, counted; the autograd pairs of training
+# --------------------------------------------------------------------------
+
+_COUNTS: Dict[str, list] = {}
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    c = _COUNTS.setdefault(kind, [0, 0])
+    c[0] += 1
+    c[1] += t.numel() * t.element_size()
+
+
+def collective_counts() -> Dict[str, Tuple[int, int]]:
+    """{"<collective>/<fwd|bwd|opt|whole>": (calls, bytes a rank sent
+    in)} since the last reset_collective_counts: fwd the forward
+    collectives (run again when a remat policy recomputes a layer), bwd
+    those of the autograd Functions' backward, opt the optimizer's and
+    clipping's, whole the gathers of whole trees (gather_leaf:
+    checkpoints, gather_params)."""
+    return {k: (v[0], v[1]) for k, v in sorted(_COUNTS.items())}
+
+
+def reset_collective_counts() -> None:
+    _COUNTS.clear()
+
+
+def _all_reduce_(x: torch.Tensor, group, tag: str = "fwd") -> torch.Tensor:
+    _count(f"all_reduce/{tag}", x)
+    dist.all_reduce(x, group=group)
     return x
 
 
-def _gather_parts(x: torch.Tensor, group, n: int):
+def _gather_parts(x: torch.Tensor, group, n: int, tag: str = "fwd"):
     x = x.contiguous()
+    _count(f"all_gather/{tag}", x)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return parts
+
+
+def _tp(mesh) -> bool:
+    """The mesh has a "model" dim of more than one rank."""
+    return _has_model_dim(mesh) and model_size(mesh) > 1
+
+
+def _tracks(x: torch.Tensor) -> bool:
+    """x is on a differentiable path (autograd records its ops)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _sum_f32(g: torch.Tensor, group) -> torch.Tensor:
+    """A backward all-reduce: the sum of g over the group, in f32 for a
+    narrower dtype and rounded once."""
+    wide = torch.float32 if g.dtype in (torch.bfloat16,
+                                        torch.float16) else g.dtype
+    t = g.to(wide, copy=True, memory_format=torch.contiguous_format)
+    _all_reduce_(t, group, "bwd")
+    return t.to(g.dtype)
+
+
+# reduce_scatter_single where this torch has it (reduce_scatter_tensor,
+# its older name, warns there)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+class _Copy(torch.autograd.Function):
+    """f: identity forward, all-reduce backward (a replicated tensor read
+    by rank-local compute)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward; backward the identity (g: a replicated
+    consumer) or an all-reduce (`local`: a rank-local consumer)."""
+
+    @staticmethod
+    def forward(ctx, x, group, local):
+        # out of place: x may be a matmul output that remat="dots" keeps
+        ctx.group, ctx.local = group, local
+        return _all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                            group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_sum_f32(g, ctx.group) if ctx.local else g), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along `dim` forward; backward the rank's slice (a
+    replicated consumer) or, `whole`, the reduce-scatter of the gradient
+    (a rank-local consumer of the whole tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, rank, dim, whole):
+        ctx.group, ctx.n, ctx.rank, ctx.whole = group, n, rank, whole
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        return torch.cat(_gather_parts(x, group, n), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.whole:
+            return (g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size),
+                    None, None, None, None, None)
+        dt = g.dtype
+        t = g.movedim(ctx.dim, 0).to(torch.float32).contiguous()
+        out = t.new_empty((ctx.size,) + tuple(t.shape[1:]))
+        _count("reduce_scatter/bwd", t)
+        _reduce_scatter(out, t, group=ctx.group)
+        return (out.to(dt).movedim(0, ctx.dim), None, None, None, None, None)
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """f: x itself, whose gradient is all-reduced over the model group (a
+    replicated tensor entering rank-local compute). x as it is without
+    autograd or over one model rank."""
+    if not _tp(mesh) or not _tracks(x):
+        return x
+    return _Copy.apply(x, mesh.get_group(MODEL))
+
+
+def model_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum x over the model group for a replicated consumer (g): in place
+    without autograd, else a Function whose backward is the identity.
+    Returns x as it is over one model rank (or none)."""
+    if not _tp(mesh):
+        return x
+    if _tracks(x):
+        return _Reduce.apply(x, mesh.get_group(MODEL), False)
+    return _all_reduce_(x, mesh.get_group(MODEL))
+
+
+def model_all_reduce_local(x: torch.Tensor, mesh) -> torch.Tensor:
+    """model_all_reduce for a rank-local consumer (a norm's mean square
+    over a split width): the backward all-reduces too."""
+    if not _tp(mesh):
+        return x
+    if _tracks(x):
+        return _Reduce.apply(x, mesh.get_group(MODEL), True)
+    return _all_reduce_(x, mesh.get_group(MODEL))
 
 
 def row_parallel(a: torch.Tensor, w: torch.Tensor, k: int,
@@ -202,20 +366,35 @@ def row_parallel(a: torch.Tensor, w: torch.Tensor, k: int,
     w2 = w.reshape(K, -1).to(a.dtype)
     if a.dtype == torch.float32:
         out = a2 @ w2
-    elif a.is_cuda:
+    elif a.is_cuda and not (_tracks(a2) or _tracks(w2)):
         out = torch.mm(a2, w2, out_dtype=torch.float32)
     else:
         out = a2.float() @ w2.float()
-    model_all_reduce(out, mesh)
+    out = model_all_reduce(out, mesh)
     return out.to(a.dtype).reshape(*lead, *w.shape[k:])
 
 
 def model_all_gather(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
-    """The model group's x, concatenated along `dim` in rank order."""
-    if not _has_model_dim(mesh):
+    """The model group's x, concatenated along `dim` in rank order, for a
+    replicated consumer (backward: the rank's slice)."""
+    return _all_gather(x, mesh, dim, False)
+
+
+def gather_whole(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """model_all_gather for a rank-local consumer of the whole tensor
+    (context-parallel attention's weights): the backward reduce-scatters
+    the ranks' gradients, summed in f32."""
+    return _all_gather(x, mesh, dim, True)
+
+
+def _all_gather(x, mesh, dim, whole):
+    if not _tp(mesh):
         return x
-    return torch.cat(_gather_parts(x, mesh.get_group(MODEL),
-                                   model_size(mesh)), dim=dim)
+    group, n = mesh.get_group(MODEL), model_size(mesh)
+    if _tracks(x):
+        return _Gather.apply(x, group, n, model_rank(mesh), dim % x.dim(),
+                             whole)
+    return torch.cat(_gather_parts(x, group, n), dim=dim)
 
 
 def full_leaf(t: torch.Tensor, mesh, dim: int, full: int) -> torch.Tensor:
@@ -231,9 +410,11 @@ def full_leaf(t: torch.Tensor, mesh, dim: int, full: int) -> torch.Tensor:
 def rank_share(t: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
     """The rank's contiguous 1/N of t along `dim` (a view): what a block on
     local heads reads of a replicated leaf (RWKV's w_base and ln_x, T5's
-    relative bias columns, Mamba-2's A_log / D / dt_bias / norm)."""
+    relative bias columns, Mamba-2's A_log / D / dt_bias / norm). Under
+    autograd t passes an f first: the ranks' gradients, each nonzero on
+    its share only, are summed."""
     size = t.shape[dim] // model_size(mesh)
-    return t.narrow(dim, model_rank(mesh) * size, size)
+    return copy_to_model(t, mesh).narrow(dim, model_rank(mesh) * size, size)
 
 
 # --------------------------------------------------------------------------
@@ -481,32 +662,16 @@ def param_placements(params, cfg: ModelConfig, mesh) -> Dict:
             for path, leaf in tree_lib.leaves(params)}
 
 
-def _full_placements(cfg: ModelConfig, mesh) -> Dict:
-    from repro_torch.models.transformer import init_tree
-    return param_placements(init_tree(cfg, None, torch.device("meta")), cfg,
-                            mesh)
-
-
 def shard_params(params, cfg: ModelConfig, mesh):
     """This rank's shard of a full ParamTree: each sharded leaf's slice
     (contiguous, but for Mamba-2's fused w_in / conv_w on local heads:
     mamba_columns), each replicated leaf as it is (shared, not
     copied)."""
     from repro_torch.models.transformer import ParamTree
-    n, r = model_size(mesh), model_rank(mesh)
-    place = param_placements(params, cfg, mesh)
-
-    def shard(path, leaf):
-        dim = place[path]
-        if dim is None or n == 1:
-            return leaf.detach()
-        if _mamba_fused(path) and mamba_sharded(cfg, mesh):
-            return local_columns(leaf.detach(), mamba_columns(cfg, path[-1]),
-                                 r, n, dim).contiguous()
-        size = leaf.shape[dim] // n
-        return leaf.detach().narrow(dim, r * size, size).contiguous()
+    shards = leaf_shards(cfg, mesh)
     return ParamTree(tree_lib.from_paths(
-        (path, shard(path, leaf)) for path, leaf in tree_lib.leaves(params)))
+        (path, shard_leaf(leaf.detach(), shards[path], mesh).contiguous())
+        for path, leaf in tree_lib.leaves(params)))
 
 
 def gather_params(params, cfg: ModelConfig, mesh):
@@ -514,19 +679,10 @@ def gather_params(params, cfg: ModelConfig, mesh):
     each sharded leaf over the model group; Mamba-2's fused leaves put
     back component by component)."""
     from repro_torch.models.transformer import ParamTree
-    place = _full_placements(cfg, mesh)
-    n = model_size(mesh)
-
-    def gather(path, leaf):
-        dim = place[path]
-        if dim is None or n == 1:
-            return leaf.detach()
-        if _mamba_fused(path) and mamba_sharded(cfg, mesh):
-            parts = _gather_parts(leaf.detach(), mesh.get_group(MODEL), n)
-            return merge_columns(parts, mamba_columns(cfg, path[-1]), n, dim)
-        return model_all_gather(leaf.detach(), mesh, dim)
+    shards = leaf_shards(cfg, mesh)
     return ParamTree(tree_lib.from_paths(
-        (path, gather(path, leaf)) for path, leaf in tree_lib.leaves(params)))
+        (path, gather_leaf(leaf, shards[path], mesh))
+        for path, leaf in tree_lib.leaves(params)))
 
 
 # --------------------------------------------------------------------------
@@ -585,6 +741,25 @@ def local_columns(t: torch.Tensor, comps, rank: int, n: int,
     return torch.cat(pieces, dim)
 
 
+def local_columns_f(t: torch.Tensor, comps, mesh,
+                    dim: int = -1) -> torch.Tensor:
+    """local_columns of a replicated fused leaf read by the rank's heads
+    (Mamba-2's conv_b; w_in or conv_w kept whole): each component split
+    by heads passes an f first, so its gradient is summed over the group;
+    B and C, whose gradient every rank already holds whole (their f sits
+    where the heads read them), pass as they are."""
+    n, r = model_size(mesh), model_rank(mesh)
+    pieces, off = [], 0
+    for width, split in comps:
+        piece = t.narrow(dim, off, width)
+        if split:
+            piece = copy_to_model(piece, mesh).narrow(dim, r * (width // n),
+                                                      width // n)
+        pieces.append(piece)
+        off += width
+    return torch.cat(pieces, dim)
+
+
 def merge_columns(parts, comps, n: int, dim: int = -1) -> torch.Tensor:
     """local_columns' inverse: the whole leaf from every rank's columns
     (`parts`, in rank order), bit for bit."""
@@ -630,6 +805,7 @@ def select_kv(t: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
         return t
     rep, hl = cfg.n_heads // hk, cfg.n_heads // model_size(mesh)
     first = model_rank(mesh) * hl
+    t = copy_to_model(t, mesh)       # every kv head computed, some read
     if rep % hl == 0:
         return t.narrow(2, first // rep, 1)
     idx = torch.div(torch.arange(first, first + hl, device=t.device), rep,
@@ -744,3 +920,93 @@ def paged_cache_placements(cfg: ModelConfig, caches, mesh) -> Dict:
             return _recurrent_spec(cfg, mesh, name, leaf, bax)
         return _spec(nd, {})
     return {path: spec(path, leaf) for path, leaf in tree_lib.leaves(caches)}
+
+
+# --------------------------------------------------------------------------
+# training: each leaf's shard, reductions over it, whole trees
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """How a rank holds a leaf (a parameter, its gradient or optimizer
+    state) over a model group of more than one rank: the local dim `dim`
+    holds 1/N of the `full` entries of the whole leaf, contiguous, or,
+    with `comps` (a Mamba-2 fused leaf on local heads, mamba_columns),
+    the rank's columns of each split component beside the whole B and C,
+    replicated. A replicated leaf has no LeafShard (None)."""
+    dim: int
+    full: int
+    comps: Optional[Tuple[Tuple[int, bool], ...]] = None
+
+    def split_index(self, n: int, device) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """(local indices along dim of the split columns, of the
+        replicated ones)."""
+        split, rep, off = [], [], 0
+        for width, is_split in self.comps:
+            w = width // n if is_split else width
+            (split if is_split else rep).extend(range(off, off + w))
+            off += w
+        return (torch.tensor(split, dtype=torch.long, device=device),
+                torch.tensor(rep, dtype=torch.long, device=device))
+
+
+def leaf_shards(cfg: ModelConfig, mesh) -> Dict:
+    """{parameter path: LeafShard or None} of shard_params' tree; all None
+    over one model rank (nothing is sharded)."""
+    from repro_torch.models.transformer import init_tree
+    n = model_size(mesh)
+    out = {}
+    for path, leaf in tree_lib.leaves(init_tree(cfg, None,
+                                                torch.device("meta"))):
+        dim = _leaf_dim(path, tuple(leaf.shape), n)
+        if dim is None or n == 1:
+            out[path] = None
+            continue
+        comps = (mamba_columns(cfg, path[-1])
+                 if _mamba_fused(path) and mamba_sharded(cfg, mesh) else None)
+        out[path] = LeafShard(dim, leaf.shape[dim], comps)
+    return out
+
+
+def shard_sum(t: torch.Tensor, shard: Optional[LeafShard], dims, mesh,
+              keepdim: bool = False) -> torch.Tensor:
+    """The sum of the whole tensor over `dims`, from the rank's part `t`
+    held as `shard` says: where dims include the sharded dim, the ranks'
+    partial sums are all-reduced (a fused leaf's replicated columns
+    counted once); the result is replicated, else the rank's part of it.
+    The plain t.sum(dims) for a replicated leaf."""
+    dims = tuple(d % t.dim() for d in dims)
+    if shard is None or shard.dim not in dims:
+        return t.sum(dims, keepdim=keepdim)
+    group = mesh.get_group(MODEL)
+    if shard.comps is None:
+        return _all_reduce_(t.sum(dims, keepdim=keepdim), group, "opt")
+    split, rep = shard.split_index(model_size(mesh), t.device)
+    part = _all_reduce_(t.index_select(shard.dim, split).sum(
+        dims, keepdim=keepdim), group, "opt")
+    return part + t.index_select(shard.dim, rep).sum(dims, keepdim=keepdim)
+
+
+def gather_leaf(t: torch.Tensor, shard: Optional[LeafShard],
+                mesh) -> torch.Tensor:
+    """The whole leaf from every rank's part (no autograd)."""
+    if shard is None:
+        return t.detach()
+    n = model_size(mesh)
+    parts = _gather_parts(t.detach(), mesh.get_group(MODEL), n, "whole")
+    if shard.comps is not None:
+        return merge_columns(parts, shard.comps, n, shard.dim)
+    return torch.cat(parts, dim=shard.dim)
+
+
+def shard_leaf(t: torch.Tensor, shard: Optional[LeafShard],
+               mesh) -> torch.Tensor:
+    """The rank's part of a whole leaf (gather_leaf's inverse)."""
+    if shard is None:
+        return t
+    n, r = model_size(mesh), model_rank(mesh)
+    if shard.comps is not None:
+        return local_columns(t, shard.comps, r, n, shard.dim)
+    size = shard.full // n
+    return t.narrow(shard.dim, r * size, size)

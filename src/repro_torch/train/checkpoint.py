@@ -9,6 +9,11 @@ the reference stores them: 2-byte void records holding the bits.
 
 Atomicity: write to <dir>/tmp-<step>, fsync, rename to <dir>/step-<step>.
 A crash mid-write never corrupts the latest checkpoint.
+
+A checkpoint always holds whole arrays: a trainer over a "model" axis
+gathers its shards before `save` (rank 0 writes), and `restore(
+shardings=)` cuts each whole array to the rank's part, whatever model
+size wrote it (the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -39,16 +44,20 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def _fill(template, flat: Dict[str, np.ndarray]):
-    """Copy the arrays of `flat` into the template's leaves, in place."""
+def _fill(template, flat: Dict[str, np.ndarray], part=None):
+    """Copy the arrays of `flat` into the template's leaves, in place;
+    part(path, whole tensor) -> the leaf's part of it, when given."""
     for path, leaf in tree_lib.leaves(template):
         key = SEP.join(path)
         if key not in flat:
             raise KeyError(f"checkpoint has no leaf {key!r}")
-        arr = flat[key]
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{key}: {arr.shape} vs {tuple(leaf.shape)}")
-        leaf.copy_(tensor_from_numpy(arr, leaf.device, leaf.dtype))
+        t = tensor_from_numpy(flat[key], leaf.device, leaf.dtype)
+        if part is not None:
+            t = part(path, t)
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: {tuple(t.shape)} vs "
+                             f"{tuple(leaf.shape)}")
+        leaf.copy_(t)
     return template
 
 
@@ -84,10 +93,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, params_template, opt_template, *,
-            step: Optional[int] = None):
+            step: Optional[int] = None, shardings=None):
     """Returns (params, opt_state, step): the checkpoint's arrays copied
     into the templates' own tensors (shapes must match; each leaf keeps
-    its device and dtype). step None reads the latest."""
+    its device and dtype). step None reads the latest. shardings:
+    (params part, optimizer-state part), each a function (path, whole
+    tensor) -> this rank's part of it, for templates that hold a rank's
+    shards."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -98,8 +110,9 @@ def restore(ckpt_dir: str, params_template, opt_template, *,
               if k.startswith(f"p{SEP}")}
     o_flat = {k[len(f"o{SEP}"):]: v for k, v in flat.items()
               if k.startswith(f"o{SEP}")}
-    params = _fill(params_template, p_flat)
-    opt = _fill(opt_template, o_flat)
+    p_part, o_part = shardings if shardings is not None else (None, None)
+    params = _fill(params_template, p_flat, p_part)
+    opt = _fill(opt_template, o_flat, o_part)
     return params, opt, int(flat["__step__"])
 
 

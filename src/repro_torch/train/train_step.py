@@ -6,6 +6,13 @@ Gradients come from `torch.autograd.grad` on the leaves of a trainable
 into f32 buffers, as the reference's `lax.scan` adds them (`.backward()`
 would accumulate into `.grad` in the parameters' dtype, bf16 for the
 served configs). The optimizer writes the new parameters in place.
+
+Over a "model" axis (make_train_step(mesh=)), params are a rank's shard
+(sharding.shard_params) and so are the gradients and the optimizer
+state (sharding.leaf_shards, state_shards): the global norm sums each
+sharded leaf's squares over the group (one all-reduce), a replicated
+leaf and Mamba-2's replicated columns once; Adafactor all-reduces its
+means over sharded dims; AdamW is elementwise.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch import tree as tree_lib
 from repro_torch.config import ModelConfig, OptimizerConfig, TrainConfig
 from repro_torch.models.decode import decode_step
@@ -23,21 +31,69 @@ from repro_torch.optim.schedules import learning_rate
 METRICS = ("loss", "aux_loss", "accuracy")
 
 
-def init_opt_state(params, ocfg: OptimizerConfig):
+def init_opt_state(params, ocfg: OptimizerConfig, shards=None):
+    """shards: a rank's LeafShards (sharding.leaf_shards), which
+    Adafactor's factoring reads."""
     if ocfg.name == "adafactor":
-        return adafactor.init_state(params)
+        return adafactor.init_state(params, shards)
     return adamw.init_state(params)
 
 
-def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for _, x in tree_lib.leaves(tree)))
+def state_shards(opt_state, params, shards) -> Dict:
+    """{optimizer-state path: LeafShard or None} from the parameters'
+    (`shards`): AdamW's m / v as their leaf; Adafactor's unfactored v as
+    its leaf, vr (the leaf less its last dim) sharded where the leaf is
+    but on that dim, vc (less the last but one) where the leaf is but on
+    that one (a fused Mamba-2 leaf's columns shift to vc's last dim); the
+    step whole."""
+    out = {}
+    for path, _ in tree_lib.leaves(opt_state):
+        if path[0] in ("m", "v"):
+            out[path] = shards[path[1:]]
+            continue
+        if path[0] != "mu":
+            out[path] = None
+            continue
+        shd = shards[path[1:-1]]
+        nd = tree_lib.at(params, path[1:-1]).dim()
+        if shd is None or path[-1] == "v":
+            out[path] = shd
+        elif path[-1] == "vr":
+            out[path] = shd if shd.dim < nd - 1 else None
+        elif shd.dim == nd - 2:
+            out[path] = None
+        else:
+            out[path] = sh.LeafShard(min(shd.dim, nd - 2), shd.full,
+                                     shd.comps)
+    return out
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _global_norm(tree, shards=None, mesh=None) -> torch.Tensor:
+    if not shards or all(v is None for v in shards.values()):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for _, x in tree_lib.leaves(tree)))
+    whole, split = 0.0, []
+    for path, x in tree_lib.leaves(tree):
+        sq = torch.square(x.to(torch.float32))
+        shd = shards[path]
+        if shd is None:
+            whole = whole + sq.sum()
+        elif shd.comps is None:
+            split.append(sq.sum())
+        else:
+            s_idx, r_idx = shd.split_index(sh.model_size(mesh), x.device)
+            split.append(sq.index_select(shd.dim, s_idx).sum())
+            whole = whole + sq.index_select(shd.dim, r_idx).sum()
+    part = sh.shard_sum(torch.stack(split), sh.LeafShard(0, 0), (0,), mesh)
+    return torch.sqrt(whole + part)
+
+
+def clip_by_global_norm(grads, max_norm: float, shards=None, mesh=None):
     """(grads scaled to a global norm of at most max_norm, in f32 and cast
-    back to each gradient's dtype; the global norm before clipping)."""
-    gn = _global_norm(grads)
+    back to each gradient's dtype; the global norm before clipping).
+    shards / mesh: a rank's part of the gradients (the module's
+    docstring)."""
+    gn = _global_norm(grads, shards, mesh)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_lib.tree_map(
         lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn
@@ -49,18 +105,21 @@ def _microbatch(batch: Dict[str, torch.Tensor], n: int):
             for k, x in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """train_step(params, opt_state, batch, step) -> (params, opt_state,
     metrics). params: a ParamTree whose leaves require grad, updated in
     place; batch: {"tokens", "labels", "mask"} tensors on its device;
     metrics: 0-d f32 tensors ("loss", "aux_loss", "accuracy" averaged
-    over microbatches, "grad_norm" when clipping, "lr")."""
+    over microbatches, "grad_norm" when clipping, "lr"). mesh: a "model"
+    axis params are this rank's shard over (the module's docstring);
+    every rank gets the same batch and the same metrics."""
     ocfg = tcfg.optimizer
     n_mb = tcfg.microbatches
+    shards = sh.leaf_shards(cfg, mesh) if sh.model_size(mesh) > 1 else None
 
     def grads_of(params, batch, leaves):
         with torch.enable_grad():
-            total, metrics = loss_fn(params, cfg, batch)
+            total, metrics = loss_fn(params, cfg, batch, mesh=mesh)
             grads = torch.autograd.grad(total, leaves)
         return grads, {k: metrics[k].detach() for k in METRICS}
 
@@ -96,13 +155,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     def train_step(params, opt_state, batch, step):
         grads, metrics = grads_and_metrics(params, batch)
         if ocfg.clip_by_global_norm > 0:
-            grads, gn = clip_by_global_norm(grads, ocfg.clip_by_global_norm)
+            grads, gn = clip_by_global_norm(grads, ocfg.clip_by_global_norm,
+                                            shards, mesh)
             metrics["grad_norm"] = gn
         lr = learning_rate(ocfg, step)
         metrics["lr"] = lr
         if ocfg.name == "adafactor":
             params, opt_state = adafactor.update(grads, opt_state, params,
-                                                 float(lr))
+                                                 float(lr), shards=shards,
+                                                 mesh=mesh)
         else:
             params, opt_state = adamw.update(
                 grads, opt_state, params, float(lr), b1=ocfg.beta1,

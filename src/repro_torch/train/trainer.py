@@ -1,5 +1,6 @@
 """The training loop: checkpoint/restart, preemption handling, straggler
-watchdog, metrics log. Port of `repro/train/trainer.py`, on one device.
+watchdog, metrics log. Port of `repro/train/trainer.py`, on one device or
+over a "model" axis of N ranks (`Trainer(mesh=)`).
 
 Fault-tolerance model, as in the reference:
   * checkpoint every N steps (atomic, keep-K) and on SIGTERM
@@ -9,8 +10,13 @@ Fault-tolerance model, as in the reference:
   * straggler watchdog: each step's wall time is held against the median
     of the last 50; a step slower than `straggler_factor` x that median
     is logged with its index and kept in `stragglers`.
-The reference's meshes (elastic re-sharding at restore) arrive with
-ROADMAP A11.
+Over a mesh (the reference's param_pspecs placement, applied to the
+optimizer state too) every rank holds its shard of the parameters
+(sharding.shard_params of the whole ones) and of the optimizer state and
+steps on the same batch; a checkpoint gathers both whole and rank 0
+writes it, and a restore cuts the whole arrays to the current model
+size, whatever size wrote them. A batch axis of more than one rank
+(data parallelism) is ROADMAP A11 item 4 and raises.
 """
 from __future__ import annotations
 
@@ -20,13 +26,17 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch import sharding as sh
+from repro_torch import tree as tree_lib
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.data.pipeline import make_batch
 from repro_torch.models.transformer import ParamTree, init_params
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.train.train_step import init_opt_state, make_train_step
+from repro_torch.train.train_step import (init_opt_state, make_train_step,
+                                          state_shards)
 
 
 class Trainer:
@@ -34,17 +44,25 @@ class Trainer:
     without a card). params: a ParamTree on that device to start from
     (e.g. `bridge.params_from_numpy` of the reference's), which the
     trainer makes trainable and updates in place; None draws
-    `init_params(cfg, seed=tcfg.seed)`."""
+    `init_params(cfg, seed=tcfg.seed)`. mesh: a DeviceMesh whose only
+    dim of more than one rank is "model" (launch/mesh.make_mesh); params
+    (or the seeded draw) are then the WHOLE parameters, which every rank
+    holds the same and shards; `params` is the rank's shard."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                  device="cuda", params: Optional[ParamTree] = None,
                  straggler_factor: float = 3.0):
-        if mesh is not None:
+        if sh.batch_size(mesh) > 1:
             raise NotImplementedError(
-                "sharded training over a mesh is not ported yet: it arrives "
-                "with ROADMAP A11")
+                "Trainer over a batch axis of more than one rank: data "
+                "parallelism is ROADMAP A11 item 4")
+        if cfg.moe is not None and sh.model_size(mesh) > 1:
+            raise NotImplementedError(
+                "training an MoE plan over more than one model rank: the "
+                "expert-parallel all-to-all (moe_ffn_ep) is ROADMAP A11 "
+                "item 4")
         self.device = resolve_device(device)
-        self.cfg, self.tcfg = cfg, tcfg
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.straggler_factor = straggler_factor
         self._preempted = False
         self.step_times: list = []
@@ -56,10 +74,18 @@ class Trainer:
         elif params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters lie on {params['embed'].device}, "
                              f"the trainer on {self.device}")
+        self.shards = None
+        if mesh is not None:
+            self.shards = sh.leaf_shards(cfg, mesh)
+            params = ParamTree(tree_lib.tree_map(
+                torch.clone, sh.shard_params(params, cfg, mesh)))
         self.params = params.requires_grad_(True)
-        self.opt_state = init_opt_state(self.params, tcfg.optimizer)
+        self.opt_state = init_opt_state(self.params, tcfg.optimizer,
+                                        self.shards)
+        self._state_shards = (None if mesh is None else state_shards(
+            self.opt_state, self.params, self.shards))
         self.step = 0
-        self._step_fn = make_train_step(cfg, tcfg)
+        self._step_fn = make_train_step(cfg, tcfg, mesh)
 
     # -- fault tolerance ---------------------------------------------------
     def install_preemption_handler(self):
@@ -71,13 +97,41 @@ class Trainer:
         last = ckpt_lib.latest_step(self.tcfg.checkpoint_dir)
         if last is None:
             return False
+        parts = None
+        if self.mesh is not None:
+            def part(shards):
+                return lambda path, t: sh.shard_leaf(t, shards[path],
+                                                     self.mesh)
+            parts = (part(self.shards), part(self._state_shards))
         self.params, self.opt_state, self.step = ckpt_lib.restore(
-            self.tcfg.checkpoint_dir, self.params, self.opt_state)
+            self.tcfg.checkpoint_dir, self.params, self.opt_state,
+            step=last, shardings=parts)
         return True
 
+    def whole(self):
+        """(parameters, optimizer state) whole: the trees themselves
+        without a mesh, else every rank's shards gathered (a collective:
+        every rank calls it)."""
+        if self.mesh is None:
+            return self.params, self.opt_state
+
+        def gather(tree, shards):
+            return tree_lib.from_paths(
+                (path, sh.gather_leaf(t, shards[path], self.mesh))
+                for path, t in tree_lib.leaves(tree))
+        return (gather(self.params, self.shards),
+                gather(self.opt_state, self._state_shards))
+
     def checkpoint(self):
-        ckpt_lib.save(self.tcfg.checkpoint_dir, self.step, self.params,
-                      self.opt_state, keep=self.tcfg.keep_checkpoints)
+        """Saves the whole parameters and optimizer state; over a mesh
+        every rank gathers them, rank 0 writes, and the ranks meet at a
+        barrier after."""
+        params, opt_state = self.whole()
+        if self.mesh is None or dist.get_rank() == 0:
+            ckpt_lib.save(self.tcfg.checkpoint_dir, self.step, params,
+                          opt_state, keep=self.tcfg.keep_checkpoints)
+        if sh.model_size(self.mesh) > 1:
+            dist.barrier(group=self.mesh.get_group(sh.MODEL))
 
     # -- the loop ----------------------------------------------------------
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,216 @@
+"""The ranks of tests/test_torch_tp_train.py and test_torch_tp_train4.py:
+one process per rank of a gloo "model" mesh on the CPU, started by
+torch.multiprocessing.spawn. Imports no JAX: the parent hands each rank
+the port's configs, the reference's parameters (numpy) and the batches in
+a pickle; each rank writes its results to its own pickle.
+
+Cases ("kind"):
+  grads   loss_fn(mesh=) over shard_params of the whole parameters: the
+          gradients gathered whole (rank 0's) beside the un-meshed port's
+          (rank 0 computes them), each rank's sha256 of every replicated
+          leaf's gradient and of the replicated B / C columns of Mamba-2's
+          fused leaves, the loss, the collectives one step issued. With
+          "cp": the same with cfg.context_parallel_attn set, and the
+          logits' distance from the flag off.
+  train   Trainer(mesh=) from the whole parameters beside the un-meshed
+          Trainer (rank 0) on the same TrainConfig: histories, gathered
+          parameters and optimizer state; "ckpt": a directory the meshed
+          trainer checkpoints into at its end.
+  restore Trainer(mesh=).maybe_resume() of a checkpoint: the step, the
+          state gathered whole and one more step's loss.
+  launch  launch/train.main with --mesh 1xN over each argv of "runs" in
+          turn (a run, then one with --resume): what each printed.
+"""
+import contextlib
+import copy
+import dataclasses
+import hashlib
+import io
+import pickle
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import bridge
+from repro_torch import sharding as sh
+from repro_torch import tree as tree_lib
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import loss_fn
+from repro_torch.models.transformer import forward
+from repro_torch.train.trainer import Trainer
+
+
+def _params(tree):
+    """A ParamTree on the CPU of a copy of the numpy tree: the port's
+    optimizers update in place, and from_numpy shares memory."""
+    return bridge.params_from_numpy(copy.deepcopy(tree), device="cpu")
+
+
+def _numpy(tree):
+    return {"/".join(path): leaf.detach().float().numpy().copy()
+            for path, leaf in tree_lib.leaves(tree)}
+
+
+def _digest(t):
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def _grads(params, cfg, batch, mesh):
+    """(loss, {path: grad}) of loss_fn over `params` (made trainable)."""
+    params.requires_grad_(True)
+    paths, leaves = zip(*tree_lib.leaves(params))
+    total, m = loss_fn(params, cfg, batch, mesh=mesh)
+    grads = torch.autograd.grad(total, leaves)
+    return float(m["loss"].detach()), dict(zip(paths, grads))
+
+
+def replicated_digests(grads, shards, mesh):
+    """{path: sha256} of each replicated leaf's gradient, and of the
+    replicated columns of each fused leaf (path + ("replicated",))."""
+    out = {}
+    for path, g in grads.items():
+        shd = shards[path]
+        if shd is None:
+            out["/".join(path)] = _digest(g)
+        elif shd.comps is not None:
+            _, rep = shd.split_index(sh.model_size(mesh), g.device)
+            out["/".join(path) + "/replicated"] = _digest(
+                g.index_select(shd.dim, rep))
+    return out
+
+
+def grads_case(cfg, tree, batch, mesh, rank):
+    whole = _params(tree)
+    shards = sh.leaf_shards(cfg, mesh)
+    sh.reset_collective_counts()
+    loss, grads = _grads(sh.shard_params(whole, cfg, mesh).requires_grad_(
+        True), cfg, batch, mesh)
+    counts = sh.collective_counts()
+    gathered = {path: sh.gather_leaf(g, shards[path], mesh)
+                for path, g in grads.items()}
+    out = {"loss": loss, "rep": replicated_digests(grads, shards, mesh),
+           "collectives": counts}
+    if rank == 0:
+        out["grads"] = _numpy(tree_lib.from_paths(gathered.items()))
+        want_loss, want = _grads(whole, cfg, batch, None)
+        out.update(want=_numpy(tree_lib.from_paths(want.items())),
+                   want_loss=want_loss)
+    return out
+
+
+def cp_case(cfg, tree, batch, mesh, rank):
+    """Context-parallel attention against the flag off, both over the
+    mesh: the logits' max distance and both gathered gradients."""
+    out = {}
+    shards = sh.leaf_shards(cfg, mesh)
+    kw = {k: batch[k] for k in ("encoder_frames", "extra_embeds")
+          if k in batch}
+    logits = {}
+    for flag in (False, True):
+        c = cfg.replace(context_parallel_attn=flag)
+        shard = sh.shard_params(_params(tree),
+                                c, mesh)
+        logits[flag] = forward(shard, c, batch["tokens"], mesh=mesh, **kw)
+        sh.reset_collective_counts()
+        loss, grads = _grads(shard, c, batch, mesh)
+        out[f"collectives_{flag}"] = sh.collective_counts()
+        out[f"rep_{flag}"] = replicated_digests(grads, shards, mesh)
+        gathered = {p: sh.gather_leaf(g, shards[p], mesh)
+                    for p, g in grads.items()}
+        if rank == 0:
+            out[f"grads_{flag}"] = _numpy(tree_lib.from_paths(
+                gathered.items()))
+            out[f"loss_{flag}"] = loss
+    out["logits_err"] = (logits[True] - logits[False]).abs().max().item()
+    out["logits_max"] = logits[False].abs().max().item()
+    return out
+
+
+def train_case(cfg, tree, tcfg, mesh, rank):
+    tr = Trainer(cfg, tcfg, mesh, device="cpu",
+                 params=_params(tree))
+    sh.reset_collective_counts()
+    res = tr.run(log=lambda s: None)
+    counts = sh.collective_counts()
+    params, state = tr.whole()
+    out = {"history": res["history"], "step": res["step"],
+           "collectives": counts,
+           "rep": {"/".join(p): _digest(t) for p, t in tree_lib.leaves(
+               tr.params) if tr.shards[p] is None}}
+    if tcfg.checkpoint_dir:
+        tr.checkpoint()
+    if rank == 0:
+        out.update(params=_numpy(params), state=_numpy(state))
+        plain = Trainer(cfg, dataclasses.replace(tcfg, checkpoint_dir=""),
+                        device="cpu",
+                        params=_params(tree))
+        want = plain.run(log=lambda s: None)
+        out.update(want_history=want["history"],
+                   want_params=_numpy(plain.params),
+                   want_state=_numpy(plain.opt_state))
+    return out
+
+
+def restore_case(cfg, tree, tcfg, mesh, rank):
+    tr = Trainer(cfg, tcfg, mesh, device="cpu",
+                 params=_params(tree))
+    resumed = tr.maybe_resume()
+    params, state = tr.whole()
+    out = {"resumed": resumed, "step": tr.step}
+    if rank == 0:
+        out.update(params=_numpy(params), state=_numpy(state))
+    res = tr.run(log=lambda s: None)
+    out["history"] = res["history"]
+    return out
+
+
+def launch_case(runs, world):
+    """launch/train.main over each argv of `runs` in turn, with --mesh
+    1x<world> --device cpu: what each printed."""
+    from repro_torch.launch import train as launcher
+    lines = []
+    for argv in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launcher.main(argv + ["--mesh", f"1x{world}", "--device", "cpu"])
+        lines.append(buf.getvalue())
+    return {"out": lines}
+
+
+def run(rank, world, store_path, job_path, out_dir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        with open(job_path, "rb") as f:
+            job = pickle.load(f)
+        mesh = make_mesh((world,), ("model",), device="cpu")
+        res = {"rank": dist.get_rank(), "cases": {}}
+        for name, case in job["cases"].items():
+            try:
+                kind = case["kind"]
+                if kind == "launch":
+                    res["cases"][name] = launch_case(case["runs"], world)
+                    continue
+                cfg, tree = case["cfg"], case["tree"]
+                if kind in ("grads", "cp"):
+                    batch = {k: torch.from_numpy(np.asarray(v))
+                             for k, v in case["batch"].items()}
+                    fn = grads_case if kind == "grads" else cp_case
+                    res["cases"][name] = fn(cfg, tree, batch, mesh, rank)
+                elif kind == "train":
+                    res["cases"][name] = train_case(cfg, tree, case["tcfg"],
+                                                    mesh, rank)
+                else:
+                    res["cases"][name] = restore_case(cfg, tree,
+                                                      case["tcfg"], mesh,
+                                                      rank)
+            except Exception:      # reported per case by the parent
+                res["cases"][name] = {"error": traceback.format_exc()}
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()

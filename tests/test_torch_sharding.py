@@ -390,9 +390,9 @@ def test_moe_with_capacity_drops_over_mesh_raises_a11():
         tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 2}))
     with pytest.raises(NotImplementedError, match="A11"):
         tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 2}), capacity=5)
-    with pytest.raises(NotImplementedError, match="A11"):
-        forward({"embed": torch.zeros(256, 64)}, _tiny(), x[..., 0].long(),
-                mesh=StandIn({"model": 2}), train=True)
+    with pytest.raises(NotImplementedError, match="A11 item 4"):
+        forward({"embed": torch.zeros(256, 64)}, _tiny("moe", moe=moe),
+                x[..., 0].long(), mesh=StandIn({"model": 2}), train=True)
 
 
 def test_moe_local_experts_sum_to_the_whole():

@@ -318,11 +318,28 @@ def test_straggler_watchdog_flags_a_slow_step(tmp_path):
     assert any(ln.startswith("[straggler] step 8:") for ln in lines)
 
 
+class _Mesh:
+    """What the Trainer's refusals read of a DeviceMesh: its dims."""
+
+    def __init__(self, **dims):
+        self.mesh_dim_names = tuple(dims)
+        self._sizes = tuple(dims.values())
+
+    def size(self, i):
+        return self._sizes[i]
+
+
 def test_trainer_refuses_a_mesh_and_a_missing_card():
+    """What a mesh still cannot train (ROADMAP A11 item 4): a batch axis
+    of more than one rank, an MoE plan over more than one model rank;
+    and no card without device="cpu"."""
     _, tt = _tcfgs()
     _, tc = cfg_pair("qwen3-0.6b", 2, True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(tc, tt, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A11 item 4"):
+        Trainer(tc, tt, mesh=_Mesh(data=2, model=1), device="cpu")
+    _, mc = cfg_pair("qwen2-moe-a2.7b", 2)
+    with pytest.raises(NotImplementedError, match="A11 item 4"):
+        Trainer(mc, tt, mesh=_Mesh(model=2), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(tc, tt)
@@ -341,8 +358,10 @@ def test_launcher_trains_resumes_and_refuses_a_mesh(tmp_path):
     res = _launch(tmp_path, "--steps", "2", "--seq", "16", "--batch", "4")
     assert res.returncode == 0, res.stderr
     assert "final: step=2 loss=" in res.stdout
+    # a data axis (2x2) is ROADMAP A11 item 4; 1xM trains over "model"
+    # (tests/test_torch_tp_train.py)
     res = _launch(tmp_path, "--mesh", "2x2")
-    assert res.returncode != 0 and "A11" in res.stderr
+    assert res.returncode != 0 and "A11 item 4" in res.stderr
 
 
 def test_moe_trainer_matches_jax_and_checkpoints_round_trip(tmp_path):
