@@ -513,6 +513,19 @@ NCCL rank, and two gloo ranks sharing the card. Phases:
                bitwise against the unsharded B2 call (32768 rows over 2
                and 4 ranks and an uneven split; bf16, int8, fp8) and
                time them against it
+  t-train      training over a mesh (Trainer(mesh=), loss_fn(mesh=)): (a)
+               one NCCL rank, k-train's model, bitwise the un-meshed
+               Trainer; (b) two gloo ranks sharing the card over "model",
+               f32 and bf16, against one rank's gradients, steps and a
+               restored checkpoint; (c) Qwen3 at 4 layers over data 2 x
+               model 1 (b's ranks) and data 2 x model 2 (four ranks):
+               gradients summed over the data ranks and losses against
+               the whole batch's, replicated leaves' digests equal on
+               every rank; (d) qwen2-moe at published widths and 2
+               layers over data 2 x model 2 with its capacity drops:
+               the expert-parallel block and a Trainer step against the
+               routing emulated on one rank, the dropped assignments,
+               the all-to-alls' calls and bytes
   (f) profile  (--profile only) device busy share of pure decode steps,
                of the (e) engine, (f-profile-quant) of the e-quant
                engine, (f-profile-paged) of the (g) engine,
@@ -3012,7 +3025,7 @@ def train_grad_f32(torch, ops):
 
 
 # cut for the run's time
-K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 12, 8, 512, 2, 0.3
+K_STEPS, K_BATCH, K_SEQ, K_MB, K_LR = 10, 8, 512, 2, 0.3
 
 
 def train_full(torch, ops, workdir):
@@ -5491,7 +5504,7 @@ def mla_phases(torch, ops, workdir):
 # ---------------------------------------------------------------------------
 
 # depth cuts; every width is the published one
-Z_PARITY_B, Z_PARITY_S, Z_PARITY_NEW = 2, 24, 8    # z-parity, full depth
+Z_PARITY_B, Z_PARITY_S, Z_PARITY_NEW = 2, 12, 8    # z-parity, full depth
 Z_PARITY_T, Z_PARITY_PAGE = 32, 16
 Z_TWIN_LAYERS = 6        # z-serve's eager twins: 6 mamba + the shared block
 Z_CUT_LAYERS = 12        # z-serve's runs, cut for the run's time (of 38)
@@ -5504,7 +5517,7 @@ Z_GRAD_B, Z_GRAD_S = 2, 64
 # the CPU's float64 gradients, printed beside
 Z_GRAD_TOL = 3e-4
 V_TRAIN_LAYERS = 4       # v-train: ~1.15 B parameters, AdamW moments f32
-TRAIN_STEPS, TRAIN_MB = 10, 2
+TRAIN_STEPS, TRAIN_MB = 6, 2
 Z_TRAIN_BATCH, Z_TRAIN_SEQ = 8, 512
 V_TRAIN_BATCH, V_TRAIN_SEQ = 4, 512      # text tokens, after 576 images
 ADAMW_LR = 1e-3          # z-train, v-train: AdamW, constant
@@ -6265,13 +6278,15 @@ def tp_rank(rank, world, workdir):
         dist.destroy_process_group()
 
 
-def spawn_ranks(target, workdir, tag, timeout_s=T_B_TIMEOUT_S):
-    """T_RANKS spawned processes running target(rank, world, workdir),
-    each writing rank<r>.json under workdir; waits (at most timeout_s),
-    kills any left, and returns their records in rank order."""
+def spawn_ranks(target, workdir, tag, timeout_s=T_B_TIMEOUT_S,
+                world=T_RANKS):
+    """`world` (T_RANKS) spawned processes running target(rank, world,
+    workdir), each writing rank<r>.json under workdir; waits (at most
+    timeout_s), kills any left, and returns their records in rank
+    order."""
     import torch.multiprocessing as mp
-    ctx = mp.start_processes(target, args=(T_RANKS, workdir),
-                             nprocs=T_RANKS, join=False,
+    ctx = mp.start_processes(target, args=(world, workdir),
+                             nprocs=world, join=False,
                              start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:
@@ -6283,7 +6298,7 @@ def spawn_ranks(target, workdir, tag, timeout_s=T_B_TIMEOUT_S):
             if p.is_alive():
                 p.kill()
     return [json.loads((workdir / f"rank{r}.json").read_text())
-            for r in range(T_RANKS)]
+            for r in range(world)]
 
 
 def probe_collectives(torch, mesh, res):
@@ -7189,12 +7204,16 @@ def ttrain_model(torch, name, dtype="float32"):
 
 
 def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
-                checkpoint=True):
-    """One model of t-train (b) on this rank. Every rank also runs the
+                checkpoint=True, batch_rows=TT_B_BATCH):
+    """One model of t-train (b) (and (c): a mesh with a data axis, the
+    batch of batch_rows split over its ranks) on this rank. Every rank
+    also runs the
     un-meshed path (on the same card) and holds its own shard against
     the matching part of it (sharding.shard_leaf), so nothing is
     gathered to compare: the first batch's gradients over the mesh
-    (the digests of the replicated ones kept), TT_STEPS Adafactor steps
+    (on the rank's rows, summed over the data ranks; the digests of the
+    replicated ones kept) against the whole batch's, TT_STEPS Adafactor
+    steps
     of Trainer(mesh=) against the un-meshed Trainer (losses, the
     parameters after them), the collectives of one gradient and of the
     steps; then a checkpoint at model = 2 (gathered, rank 0 writes), one
@@ -7204,18 +7223,20 @@ def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
     run's). Returns the distances
     (gradients and parameters as shares of each leaf's largest entry,
     gradients at least 1e-6 of the largest gradient; losses relative),
-    the counts and the seconds of each part."""
+    the counts, the digests of the replicated parameters after the steps
+    and the seconds of each part."""
     import dataclasses
     import hashlib
     from repro_torch import sharding as sh
     from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import make_batch
     from repro_torch.models.model import loss_fn
     from repro_torch.models.transformer import ParamTree
     from repro_torch.train.trainer import Trainer
     t0 = time.perf_counter()
     cfg, whole, task = ttrain_model(torch, name, dtype)
     ckpt = str(workdir / f"tt-{name}-{dtype}")
-    tcfg = ttrain_tcfg(torch, TT_STEPS, TT_B_BATCH, TT_B_SEQ, 1, ckpt, task)
+    tcfg = ttrain_tcfg(torch, TT_STEPS, batch_rows, TT_B_SEQ, 1, ckpt, task)
     shards = sh.leaf_shards(cfg, mesh)
     res = {"layers": cfg.n_layers, "dtype": dtype, "seconds_parts": {}}
 
@@ -7223,12 +7244,19 @@ def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
         torch.cuda.synchronize()
         res["seconds_parts"][tag] = time.perf_counter() - t
 
-    def grads(params, m):
+    def grads(params, m, b):
         params.requires_grad_(True)
         paths, leaves = zip(*tree_lib.leaves(params))
-        total, metrics = loss_fn(params, cfg, batch, mesh=m)
-        return float(metrics["loss"].detach()), dict(zip(
-            paths, torch.autograd.grad(total, leaves)))
+        total, metrics = loss_fn(params, cfg, b, mesh=m)
+        g = torch.autograd.grad(total, leaves)
+        if sh.batch_size(m) > 1:
+            g = sh.batch_grad_sum(list(g), m)
+        return float(metrics["loss"].detach()), dict(zip(paths, g))
+
+    def digests(tree):
+        return {"/".join(p): hashlib.sha256(t.detach().float().cpu()
+                                            .numpy().tobytes()).hexdigest()
+                for p, t in tree.items() if shards[p] is None}
 
     def clone(tree):
         return ParamTree(tree_lib.tree_map(torch.clone, tree))
@@ -7243,17 +7271,16 @@ def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
             for p, t in local.items())
 
     tr = Trainer(cfg, tcfg, mesh, device=DEV, params=clone(whole))
-    batch = tr._batch(0)
+    batch = tr._batch(0)                   # the rank's rows
+    glob = {k: torch.from_numpy(v).to(DEV)
+            for k, v in make_batch(cfg, tcfg, 0).items()}
     t1 = time.perf_counter()
     sh.reset_collective_counts()
-    loss, g = grads(sh.shard_params(clone(whole), cfg, mesh), mesh)
+    loss, g = grads(sh.shard_params(clone(whole), cfg, mesh), mesh, batch)
     torch.cuda.synchronize()
     res["collectives_grad"] = sh.collective_counts()
-    res["replicated"] = {
-        "/".join(p): hashlib.sha256(t.detach().float().cpu().numpy()
-                                    .tobytes()).hexdigest()
-        for p, t in g.items() if shards[p] is None}
-    want_loss, want = grads(clone(whole), None)
+    res["replicated"] = digests(g)
+    want_loss, want = grads(clone(whole), None, glob)
     top = max(w.abs().max().item() for w in want.values())
     res["grad_err"] = dist_to(g, want, 1e-6 * top)
     res["loss_err"] = abs(loss - want_loss) / max(abs(want_loss), 1e-6)
@@ -7273,6 +7300,7 @@ def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
                             for a, b in zip(res["losses"], want))
     res["param_err"] = dist_to(dict(tree_lib.leaves(tr.params)),
                                dict(tree_lib.leaves(plain.params)))
+    res["replicated_params"] = digests(dict(tree_lib.leaves(tr.params)))
     part("steps", t1)
     if not checkpoint:
         del tr, plain, whole
@@ -7302,6 +7330,10 @@ def ttrain_case(torch, name, mesh, rank, workdir, dtype="float32",
 
 
 TT_MODELS = ("qwen3", "qwen3_cp", "rwkv6", "zamba2", "t5")
+# the models whose checkpoint (b) writes and restores: not the
+# context-parallel run (the flag off's model and checkpoint), nor RWKV-6
+# since PR 33 (its 2 GB of f32 embed and lm_head took 13 s to write)
+TT_CHECKPOINTED = ("qwen3", "zamba2", "t5")
 
 
 def ttrain_rank(rank, world, workdir):
@@ -7310,7 +7342,9 @@ def ttrain_rank(rank, world, workdir):
     tensors (the three forward ones and, under autograd, the backward
     all-reduce and reduce-scatter; a failure is written, with why, and the
     rank stops), then ttrain_case for each of TT_MODELS in f32 and Qwen3
-    in bf16. Writes rank<r>.json under workdir."""
+    in bf16; then (c)'s data 2 x model 1 mesh of the same ranks, its
+    collectives probed, and Qwen3 over it. Writes rank<r>.json under
+    workdir."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
@@ -7327,9 +7361,18 @@ def ttrain_rank(rank, world, workdir):
             return
         for name in TT_MODELS:
             res[name] = ttrain_case(torch, name, mesh, rank, workdir,
-                                    checkpoint=name != "qwen3_cp")
+                                    checkpoint=name in TT_CHECKPOINTED)
         res["qwen3_bf16"] = ttrain_case(torch, "qwen3", mesh, rank, workdir,
                                         "bfloat16")
+        # (c) over data 2 x model 1, the same two ranks
+        t0 = time.perf_counter()
+        data = make_mesh((world, 1), ("data", "model"), device=DEV)
+        if not probe_data_collectives(torch, data, res):
+            return
+        res["qwen3_data2"] = ttrain_case(torch, "qwen3", data, rank, workdir,
+                                         checkpoint=False,
+                                         batch_rows=TT_C_BATCH)
+        res["qwen3_data2"]["seconds"] = time.perf_counter() - t0
     finally:
         (workdir / f"rank{rank}.json").write_text(json.dumps(res))
         dist.destroy_process_group()
@@ -7353,6 +7396,326 @@ def probe_train_collectives(torch, mesh, res):
             res.update(collective_failed=name, error=repr(e))
             return False
     return True
+
+
+# t-train (c) and (d): A11's training over "data" and expert parallelism,
+# gloo ranks sharing the card, f32. (c) Qwen3 at TT_QWEN_LAYERS over data
+# 2 x model 1 ((b)'s two ranks) and data 2 x model 2 (four ranks) against
+# the un-meshed path on the whole batch; (d) qwen2-moe at published widths
+# and TT_D_LAYERS over data 2 x model 2 at its own capacity factor (drops)
+# against the expert-parallel routing emulated on one rank (moe_ffn_local
+# on each source shard's tokens at that shard's capacity)
+TT_C_BATCH = 4              # (c)'s global batch of TT_B_SEQ
+TT_C_RANKS = 4
+TT_D_LAYERS = 2             # qwen2-moe's 24, (d)
+TT_D_BATCH, TT_D_SEQ = 4, 128
+# (c): the gathered gradients (of each leaf's largest entry) and the
+# losses of TT_STEPS steps (relative); (d): the EP block's output and
+# gradients (of each leaf's largest entry) and the aux loss and a
+# Trainer step's loss (relative) against the emulation
+TT_C_GRAD_TOL, TT_C_LOSS_RTOL = 1e-4, 1e-6
+TT_D_TOL, TT_D_LOSS_RTOL = 1e-4, 1e-5
+TT_D_AUX_W = 0.7
+
+
+def probe_data_collectives(torch, mesh, res):
+    """The collectives of training over a batch axis on CUDA tensors: the
+    loss's batch sum under autograd, the gradients' all-reduce and the
+    counts' all-gather; over a model axis of more than one rank also the
+    experts' all-to-all forward and backward. On the first that raises,
+    records which and why in res and returns False."""
+    from repro_torch import sharding as sh
+    probes = [("batch_sum", lambda x: sh.batch_sum(x, mesh).sum()),
+              ("batch_grad_sum", lambda x: sh.batch_grad_sum(
+                  [x.detach()], mesh)[0].sum()),
+              ("batch_all_gather", lambda x: sh.batch_all_gather(
+                  x.detach(), mesh).sum())]
+    if sh.model_size(mesh) > 1:
+        probes.append(("all_to_all", lambda x: sh.model_all_to_all(
+            x.reshape(sh.model_size(mesh), -1), mesh).sum()))
+    for name, fn in probes:
+        try:
+            x = torch.ones(4, 8, device=DEV, requires_grad=True)
+            with torch.enable_grad():
+                y = fn(x)
+                if y.requires_grad:
+                    y.backward()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:
+            res.update(collective_failed=name, error=repr(e))
+            return False
+    return True
+
+
+def ep_emulation(torch, p, moe, x, shards, activation="silu"):
+    """moe_block's expert-parallel result computed on one rank: the flat
+    tokens of x (B, S, d) split in order into `shards` source shards, each
+    routed by moe_ffn_local at capacity_for(its tokens), the aux loss of
+    f_e and P_e averaged over the shards, the shared experts as moe_block
+    runs them. Returns (out, aux, dropped assignments a shard)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import ffn_block
+    B, S, d = x.shape
+    flat = x.reshape(B * S, d)
+    n = B * S // shards
+    cap = moe_lib.capacity_for(n, moe)
+    ys, fs, Ps, drops = [], [], [], []
+    for i in range(shards):
+        xs = flat[i * n:(i + 1) * n]
+        _, top_i, (f_e, P_e) = moe_lib.router_probs(p, moe, xs)
+        slot = moe_lib._dispatch_indices(top_i, moe.padded_experts)[1]
+        drops.append(int((slot >= cap).sum()))
+        ys.append(moe_lib.moe_ffn_local(p, moe, xs, cap)[0])
+        fs.append(f_e)
+        Ps.append(P_e)
+    aux = moe_lib.aux_loss(moe, sum(fs) / shards, sum(Ps) / shards)
+    out = torch.cat(ys).reshape(B, S, d)
+    if moe.num_shared > 0:
+        out = ffn_block(p["shared"], x, activation) + out
+    return out, aux, drops
+
+
+def ttrain_moe_block(torch, cfg, mesh, rank):
+    """(d)'s block check on this rank: layer 0's routed experts at
+    published width (seeded on the card) over the mesh, expert-parallel,
+    on the rank's rows of a seeded (TT_D_BATCH, TT_D_SEQ, d) input, and
+    the gradients of sum(y * cot) + TT_D_AUX_W aux (the data ranks' parts
+    summed); rank 0 gathers them and holds them against ep_emulation.
+    Every rank counts its shard's dropped assignments."""
+    import dataclasses
+    from repro_torch import sharding as sh
+    from repro_torch.models import moe as moe_lib
+    moe = dataclasses.replace(cfg.moe, num_shared=0)
+    whole = moe_layer0(torch, cfg.replace(moe=moe), seed=71)
+    gen = torch.Generator(device=DEV).manual_seed(72)
+    x = torch.randn(TT_D_BATCH, TT_D_SEQ, cfg.d_model, generator=gen,
+                    device=DEV)
+    cot = torch.randn(x.shape, generator=gen, device=DEV)
+    D, M = sh.batch_size(mesh), sh.model_size(mesh)
+    E = moe.padded_experts
+    El, m, b = E // M, sh.model_rank(mesh), sh.batch_rank(mesh)
+    rows = slice(b * TT_D_BATCH // D, (b + 1) * TT_D_BATCH // D)
+    names = ("router", "w1", "w3", "w2")
+    p = {k: (whole[k] if k == "router" else whole[k][m * El:(m + 1) * El])
+         .clone().requires_grad_(True) for k in names}
+    xr = x[rows].clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    sh.reset_collective_counts()
+    with torch.enable_grad():
+        y, aux = moe_lib.moe_block(p, moe, xr, mesh=mesh)
+        total = sh.batch_sum((y * cot[rows]).sum(), mesh) + \
+            TT_D_AUX_W * aux
+        g = torch.autograd.grad(total, [xr] + [p[k] for k in names])
+    gp = sh.batch_grad_sum(list(g[1:]), mesh)
+    torch.cuda.synchronize()
+    res = {"collectives": sh.collective_counts(),
+           "ep_ms": 1e3 * (time.perf_counter() - t0)}
+    n = TT_D_BATCH * TT_D_SEQ // (D * M)
+    cap = moe_lib.capacity_for(n, moe)
+    mine = xr.detach().reshape(-1, cfg.d_model)[m * n:(m + 1) * n]
+    top_i = moe_lib.router_probs(p, moe, mine)[1]
+    slot = moe_lib._dispatch_indices(top_i, E)[1]
+    res.update(capacity=cap, dropped=int((slot >= cap).sum()),
+               tokens_a_shard=n, experts=E, d=cfg.d_model)
+    y_all = sh.batch_all_gather(y.detach().contiguous(), mesh)
+    gx_all = sh.batch_all_gather(g[0].contiguous(), mesh)
+    got = {"router": gp[0]}
+    for k, t in zip(names[1:], gp[1:]):
+        got[k] = sh.gather_leaf(t, sh.LeafShard(0, E), mesh)
+    if rank == 0:
+        pw = {k: whole[k].clone().requires_grad_(True) for k in names}
+        xw = x.clone().requires_grad_(True)
+        with torch.enable_grad():
+            ye, auxe, drops = ep_emulation(torch, pw, moe, xw, D * M)
+            te = (ye * cot).sum() + TT_D_AUX_W * auxe
+            ge = torch.autograd.grad(te, [xw] + [pw[k] for k in names])
+        want = dict(zip(names, ge[1:]))
+
+        def err(a, w):
+            return ((a.float() - w.float()).abs().max().item()
+                    / max(w.abs().max().item(), 1e-30))
+        res.update(
+            y_err=err(y_all, ye.detach()), grad_x_err=err(gx_all, ge[0]),
+            grad_errs={k: err(got[k], want[k]) for k in names},
+            aux=float(aux.detach()), aux_want=float(auxe.detach()),
+            aux_err=abs(float(aux.detach()) - float(auxe.detach()))
+            / abs(float(auxe.detach())),
+            dropped_want=drops)
+        del pw, xw, ye, ge, want
+    del whole, p, got, g, gp
+    torch.cuda.empty_cache()
+    return res
+
+
+def ttrain_moe_step(torch, cfg, mesh, rank):
+    """(d)'s Trainer step on this rank: the 2-layer model (seeded,
+    perturbed, f32, remat "none") through Trainer(mesh=) one Adafactor
+    step of (TT_D_BATCH, TT_D_SEQ); rank 0 computes loss_fn on the whole
+    batch at the same parameters with every MoE layer routed by
+    ep_emulation (no mesh), and the step's loss and aux loss are held
+    against it. Returns the collectives of the step, calls and bytes."""
+    from repro_torch import sharding as sh
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.trainer import Trainer
+    whole = init_params(cfg, seed=73, device=DEV)
+    perturb_altup(torch, whole, seed=74)
+    tcfg = ttrain_tcfg(torch, 1, TT_D_BATCH, TT_D_SEQ, 1, "")
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, mesh, device=DEV, params=whole)
+    if rank != 0:                  # only rank 0 emulates
+        del whole
+        torch.cuda.empty_cache()
+    sh.reset_collective_counts()
+    hist = tr.run(log=lambda s: None)["history"]
+    torch.cuda.synchronize()
+    res = {"collectives": sh.collective_counts(),
+           "step_s": time.perf_counter() - t0,
+           "loss": hist[0]["loss"], "aux_loss": hist[0]["aux_loss"]}
+    del tr
+    torch.cuda.empty_cache()
+    if rank == 0:
+        shards = sh.batch_size(mesh) * sh.model_size(mesh)
+        real = moe_lib.moe_block
+
+        def emulated(p, moe, x, mesh=None, activation="silu",
+                     capacity=None):
+            return ep_emulation(torch, p, moe, x, shards, activation)[:2]
+        glob = {k: torch.from_numpy(v).to(DEV)
+                for k, v in make_batch(cfg, tcfg, 0).items()}
+        moe_lib.moe_block = emulated
+        try:
+            with torch.no_grad():
+                _, m = M.loss_fn(whole, cfg, glob)
+        finally:
+            moe_lib.moe_block = real
+        res.update(loss_want=float(m["loss"]), aux_want=float(m["aux_loss"]))
+        res["loss_err"] = abs(res["loss"] - res["loss_want"]) / \
+            abs(res["loss_want"])
+        res["aux_err"] = abs(res["aux_loss"] - res["aux_want"]) / \
+            abs(res["aux_want"])
+        del whole, glob
+        torch.cuda.empty_cache()
+    return res
+
+
+def ttrain_rank4(rank, world, workdir):
+    """One rank of t-train (c) at data 2 x model 2 and (d) (a spawned
+    process): a gloo group on the card, the ("data", "model") mesh of
+    (2, world / 2), every collective of the path probed on CUDA tensors
+    (a failure is written, with why, and the rank stops), then Qwen3
+    (ttrain_case), (d)'s block check and its Trainer step. Writes
+    rank<r>.json under workdir."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    res = {"rank": rank}
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(workdir / "store-tt-c"), world), rank=rank, world_size=world)
+    try:
+        mesh = make_mesh((2, world // 2), ("data", "model"), device=DEV)
+        if not (probe_collectives(torch, mesh, res)
+                and probe_train_collectives(torch, mesh, res)
+                and probe_data_collectives(torch, mesh, res)):
+            return
+        t0 = time.perf_counter()
+        res["qwen3_data2_model2"] = ttrain_case(
+            torch, "qwen3", mesh, rank, workdir, checkpoint=False,
+            batch_rows=TT_C_BATCH)
+        res["qwen3_data2_model2"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg = moe_config(n_layers=TT_D_LAYERS, dtype="float32",
+                         param_dtype="float32", remat="none")
+        res["moe_block"] = ttrain_moe_block(torch, cfg, mesh, rank)
+        res["moe_step"] = ttrain_moe_step(torch, cfg, mesh, rank)
+        res["moe_seconds"] = time.perf_counter() - t0
+    finally:
+        (workdir / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def ttrain_data_gates(ranks, tag):
+    """(c)'s record of `tag` over `ranks` (each held its own shard: the
+    worst rank's distance) and the gates that failed: gradients within
+    TT_C_GRAD_TOL, the first loss and the steps' losses within
+    TT_C_LOSS_RTOL, the replicated gradients' and parameters' digests
+    equal on every rank."""
+    r0 = ranks[0][tag]
+    rec = {k: r0[k] for k in ("layers", "losses", "want_losses",
+                              "collectives_grad", "collectives_steps",
+                              "seconds_parts")}
+    for k in ("grad_err", "loss_err", "losses_err", "param_err"):
+        rec[k] = max(r[tag][k] for r in ranks)
+    rec["seconds"] = max(r[tag]["seconds"] for r in ranks)
+    rec["replicated_leaves"] = len(r0["replicated"])
+    rec["replicated_bitwise"] = all(
+        r[tag]["replicated"] == r0["replicated"]
+        and r[tag]["replicated_params"] == r0["replicated_params"]
+        for r in ranks)
+    bad = [k for k, tol in (("grad_err", TT_C_GRAD_TOL),
+                            ("loss_err", TT_C_LOSS_RTOL),
+                            ("losses_err", TT_C_LOSS_RTOL))
+           if not rec[k] <= tol]
+    if not rec["replicated_bitwise"] or not rec["replicated_leaves"]:
+        bad.append("replicated_bitwise")
+    return rec, bad
+
+
+def ttrain_four_ranks(torch, workdir):
+    """t-train (c) at data 2 x model 2 and (d): TT_C_RANKS spawned ranks
+    sharing the card over gloo (fail_on_collective). (c)'s gates as
+    ttrain_data_gates. (d): the EP block's output and every gradient
+    (x, router, w1, w3, w2) within TT_D_TOL of each leaf's max of the
+    emulation's, its aux loss within TT_D_LOSS_RTOL, each shard's dropped
+    assignments counted as the emulation counts them (and some dropped);
+    a Trainer step's loss and aux loss within TT_D_LOSS_RTOL of the
+    emulated model's; 2 all-to-alls forward and 2 backward a MoE layer,
+    each of M (E / M) C d f32 bytes. Prints the collectives of each."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ttrain_rank4, workdir, "t-train (c, d)",
+                        world=TT_C_RANKS)
+    out = {"ranks": TT_C_RANKS, "backend": "gloo",
+           "mesh": {"data": 2, "model": TT_C_RANKS // 2}}
+    fail_on_collective(ranks, out, "t-train-c-d", t0)
+    rec, bad = ttrain_data_gates(ranks, "qwen3_data2_model2")
+    out["c_qwen3_data2_model2"] = rec
+    blk = ranks[0]["moe_block"]
+    M = TT_C_RANKS // 2
+    a2a_bytes = M * (blk["experts"] // M) * blk["capacity"] * blk["d"] * 4
+    out["d_block"] = dict(blk, dropped=[r["moe_block"]["dropped"]
+                                        for r in ranks],
+                          all_to_all_bytes_a_call=a2a_bytes)
+    step = ranks[0]["moe_step"]
+    out["d_step"] = step
+    out["d_seconds"] = max(r["moe_seconds"] for r in ranks)
+    blk = out["d_block"]
+    if max([blk["y_err"], blk["grad_x_err"]]
+           + list(blk["grad_errs"].values())) > TT_D_TOL:
+        bad.append("d_block_errs")
+    if blk["aux_err"] > TT_D_LOSS_RTOL:
+        bad.append("d_block_aux")
+    if blk["dropped"] != blk["dropped_want"] or not sum(blk["dropped"]):
+        bad.append("d_dropped")
+    if any(list(blk["collectives"].get(f"all_to_all/{tag}", ()))
+           != [2, 2 * a2a_bytes] for tag in ("fwd", "bwd")):
+        bad.append("d_block_all_to_all")
+    if not (step["loss_err"] <= TT_D_LOSS_RTOL
+            and step["aux_err"] <= TT_D_LOSS_RTOL):
+        bad.append("d_step_loss")
+    a2a = step["collectives"]
+    if a2a.get("all_to_all/fwd", (0,))[0] != 2 * TT_D_LAYERS or \
+            a2a.get("all_to_all/bwd", (0,))[0] != 2 * TT_D_LAYERS:
+        bad.append("d_step_all_to_all")
+    out["seconds"] = time.perf_counter() - t0
+    if bad:
+        line("t-train-c-d", **out)
+        raise AssertionError(f"t-train (c, d): {bad}")
+    return out
 
 
 def ttrain_two_ranks(torch, workdir):
@@ -7395,7 +7758,7 @@ def ttrain_two_ranks(torch, workdir):
             r[tag]["replicated"] == r0[tag]["replicated"] for r in ranks)
     for tag in TT_MODELS:
         rec = out[tag]
-        ckpt = tag != "qwen3_cp"
+        ckpt = tag in TT_CHECKPOINTED
         bad = [k for k, tol in (("grad_err", TT_GRAD_TOL),
                                 ("loss_err", TT_LOSS_RTOL),
                                 ("losses_err", TT_LOSS_RTOL),
@@ -7414,16 +7777,23 @@ def ttrain_two_ranks(torch, workdir):
     if bad or not rec["replicated_bitwise"]:
         line("t-train-b", **out)
         raise AssertionError(f"t-train (b) qwen3 bf16: {bad} {rec}")
+    rec, bad = ttrain_data_gates(ranks, "qwen3_data2")
+    out["c_qwen3_data2_model1"] = rec
+    if bad:
+        line("t-train-b", **out)
+        raise AssertionError(f"t-train (c) data 2 x model 1: {bad} {rec}")
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
 def train_tp_phases(torch, workdir):
-    """(t-train): (a) then (b)."""
+    """(t-train): (a), (b) with (c) over data 2 x model 1 in its ranks,
+    then (c) over data 2 x model 2 and (d) in four ranks."""
     t0 = time.perf_counter()
     res_a = ttrain_one_rank(torch, workdir)
     line("t-train-a", seconds=time.perf_counter() - t0, **res_a)
     line("t-train-b", **ttrain_two_ranks(torch, workdir))
+    line("t-train-c-d", **ttrain_four_ranks(torch, workdir))
     line("t-train", seconds=time.perf_counter() - t0)
 
 

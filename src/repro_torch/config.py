@@ -184,8 +184,9 @@ class OptimizerConfig:
     beta1: float = 0.9
     beta2: float = 0.999
     clip_by_global_norm: float = 1.0
-    # gradient compression of a data-parallel sync (beyond-paper); the
-    # train step does not read it, in the reference as here (A11)
+    # gradient compression of a data-parallel sync (beyond-paper,
+    # optim/compression.py); the train step does not read it, in the
+    # reference as here
     grad_compression: str = "none"  # none | topk | int8
     topk_fraction: float = 0.05
 
@@ -246,7 +247,8 @@ class HardwareConfig:
     peak_flops: float = 989e12      # bf16 FLOP/s, dense tensor cores
     hbm_bw: float = 3.35e12         # B/s, HBM3
     # NVLink 4 per card and direction (900 GB/s both ways); no one-card
-    # path reads it: the collective term waits for distribution (A11)
+    # path reads it: the collective term waits for the dry run (ROADMAP
+    # A item 5)
     ici_bw: float = 450e9
     hbm_bytes: float = 80e9
 

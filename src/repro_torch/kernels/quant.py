@@ -17,8 +17,9 @@ codes and scales and fuses `code * scale` into its kv-tile load, as the
 decode kernels do over the quantized caches of models/decode.py.
 
 The stochastic rounding of the reference (`key=`, the gradient
-compression path) raises NotImplementedError: a JAX PRNG key has no
-counterpart in the port yet (ROADMAP A11).
+compression path of optim/compression.py) draws its uniforms through
+`prng.uniform`, JAX's threefry bits: the same key gives the reference's
+codes, bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch import prng
 
 INT8_QMAX = 127.0
 FP8_QMAX = 448.0          # float8_e4m3fn max normal
@@ -77,18 +80,20 @@ def _expand(scale, axis):
     return scale if axis is None else scale.unsqueeze(axis)
 
 
-def _no_stochastic(key) -> None:
-    if key is not None:
-        raise NotImplementedError(
-            "stochastic rounding (key=) belongs to gradient compression, "
-            "which is not ported yet (ROADMAP A11)")
-
-
 def int8_round(y: torch.Tensor, *, key=None) -> torch.Tensor:
-    """Pre-scaled y in [-127, 127] -> int8 codes, round to nearest even.
-    key= (stochastic rounding) raises NotImplementedError."""
-    _no_stochastic(key)
-    return torch.round(y).clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+    """Pre-scaled y in [-127, 127] -> int8 codes. key=None: round to
+    nearest even (the cache path). key (a JAX key's data,
+    prng.as_key_data): stochastic rounding, floor(y) + (u < y - floor(y))
+    with u the draws of jax.random.uniform(key, y.shape) (the gradient
+    path, unbiased in expectation)."""
+    if key is None:
+        q = torch.round(y)
+    else:
+        k = prng.as_key_data(key).to(y.device)
+        u = prng.uniform(k[None], y.numel())[0].view(y.shape)
+        lo = torch.floor(y)
+        q = lo + (u < (y - lo)).to(y.dtype)
+    return q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
 
 
 def round_e4m3(y: torch.Tensor) -> torch.Tensor:
@@ -111,12 +116,11 @@ def quantize(x: torch.Tensor, spec: KVQuantSpec, *, axis=-1,
     position and head)."""
     if not spec.quantized:
         return x.to(spec.store_dtype), None
-    _no_stochastic(key)
     xf = x.to(torch.float32)
     scale = amax_scale(xf, spec.qmax, axis=axis)
     y = xf / _expand(scale, axis)
     if spec.kind == "int8":
-        return int8_round(y), scale
+        return int8_round(y, key=key), scale
     return y.to(torch.float8_e4m3fn), scale
 
 

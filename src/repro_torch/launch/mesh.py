@@ -35,7 +35,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     over CUDA tensors, say) is used as it is. On CUDA each rank takes the
     card of its LOCAL_RANK (without one, its rank modulo the cards).
     Raises when the world size is not the product of `shape`, with both
-    counts."""
+    counts (a process alone, with neither a group nor torchrun's
+    environment, counts 1)."""
     dev = resolve_device(device)
     if dev.type == "meta":
         raise ValueError("a mesh runs on 'cuda' or 'cpu', not 'meta'")
@@ -45,6 +46,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
                          f"length")
     n = math.prod(shape)
     if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                f"mesh {dict(zip(axes, shape))} needs {n} ranks, this "
+                f"process runs alone (1): no process group and no torchrun "
+                f"environment (torchrun --nproc-per-node {n})")
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get(

@@ -3,16 +3,18 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       [--smoke] [--altup 2] [--steps 100] [--batch 8] [--seq 64] \
       [--microbatches 1] [--lr 0.3] [--ckpt DIR] [--resume] \
-      [--device cuda|cpu] [--mesh 1xM]
+      [--device cuda|cpu] [--mesh DxM|pod|multipod]
 
 Adafactor with the rsqrt schedule, warmup max(steps // 5, 10), a
 checkpoint every 50 steps and on SIGTERM. --device defaults to cuda and
-fails without a card. --mesh 1xM trains over a "model" axis of M ranks,
-one process each, under
-  torchrun --nproc-per-node M -m repro_torch.launch.train ... --mesh 1xM
+fails without a card. --mesh DxM trains over ("data", "model") of (D, M)
+ranks, one process each, under
+  torchrun --nproc-per-node D*M -m repro_torch.launch.train ... --mesh DxM
 (launch/mesh.make_mesh; a process group already initialized is used as
-it is); only rank 0 prints. DxM with D > 1, "pod" and "multipod" (data
-parallelism) are ROADMAP A11 item 4 and raise.
+it is): the batch split over the D data ranks, the model over the M.
+"pod" is (16, 16) and "multipod" (2, 16, 16) over ("pod", "data",
+"model"), the reference's production meshes; a world of another size
+raises with both counts. Only rank 0 prints.
 """
 import argparse
 import os
@@ -45,7 +47,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--mesh", default=None,
-                    help="1xM: a 'model' axis of M ranks (under torchrun)")
+                    help="DxM: ('data', 'model') of (D, M) ranks; 'pod' "
+                    "(16x16) or 'multipod' (2x16x16); under torchrun")
     ap.add_argument("--lr", type=float, default=0.3)
     ap.add_argument("--ckpt", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
@@ -69,15 +72,23 @@ def main(argv=None):
 
 
 def make_train_mesh(spec: str, device):
-    """--mesh's DeviceMesh: "1xM" -> ("data", "model") of (1, M). A data
-    axis of more than one rank, "pod" and "multipod" raise."""
+    """--mesh's DeviceMesh, the reference's launcher's: "DxM" ->
+    ("data", "model") of (D, M); "pod" -> (16, 16) and "multipod" -> (2,
+    16, 16) over ("pod", "data", "model") (launch/mesh.py of the
+    reference). make_mesh raises when the world is another size."""
     from repro_torch.launch.mesh import make_mesh
-    d, m = (int(x) for x in spec.split("x")) if "x" in spec else (0, 0)
-    if d != 1 or m < 1:
-        raise NotImplementedError(
-            f"--mesh {spec}: only 1xM (a 'model' axis) trains; a data "
-            f"axis, 'pod' and 'multipod' are ROADMAP A11 item 4")
-    return make_mesh((1, m), ("data", "model"), device=device)
+    if spec == "pod":
+        return make_mesh((16, 16), ("data", "model"), device=device)
+    if spec == "multipod":
+        return make_mesh((2, 16, 16), ("pod", "data", "model"),
+                         device=device)
+    try:
+        d, m = (int(x) for x in spec.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {spec!r}: DxM, 'pod' or 'multipod'")
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {spec!r}: D and M are at least 1")
+    return make_mesh((d, m), ("data", "model"), device=device)
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.models.transformer import (forward_aux, init_tree,
                                             padded_vocab)
@@ -47,25 +48,38 @@ class FusedXent(torch.autograd.Function):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   z_loss: float = 1e-4,
-                  fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                  fused: bool = False, *,
+                  mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean loss, mean accuracy) over unmasked tokens. logits (B, S, V),
     labels (B, S) ints, mask (B, S) {0, 1}. The fused form adds no z-loss,
-    as in the reference."""
+    as in the reference. mesh: batch axes the rows are this rank's share
+    over; the means are then the global batch's (_masked_means)."""
     labels = labels.to(torch.long)
     if not fused:
-        return _cross_entropy_ref(logits, labels, mask, z_loss)
+        return _cross_entropy_ref(logits, labels, mask, z_loss, mesh)
     nll = FusedXent.apply(logits, labels)
     correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
-    return _masked_means(nll, correct, mask)
+    return _masked_means(nll, correct, mask, mesh)
 
 
-def _masked_means(nll, correct, mask):
+def _masked_means(nll, correct, mask, mesh=None):
+    """Masked means of nll and correct. Over batch axes (mesh) the
+    numerators and the denominator are summed over the batch group in
+    one collective before dividing, as the reference's one mean over the
+    global batch does: a mean of per-rank means differs wherever the
+    ranks' masks differ (span corruption). The sum's backward is the
+    identity (the loss is replicated): a rank's gradient is its rows'
+    part (train_step sums the parts)."""
     mask = torch.ones_like(nll) if mask is None else mask.to(torch.float32)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return (nll * mask).sum() / denom, (correct * mask).sum() / denom
+    sums = torch.stack([(nll * mask).sum(), (correct * mask).sum(),
+                        mask.sum()])
+    sums = sh.batch_sum(sums, mesh)
+    denom = torch.clamp(sums[2], min=1.0)
+    return sums[0] / denom, sums[1] / denom
 
 
-def _cross_entropy_ref(logits, labels, mask=None, z_loss: float = 1e-4):
+def _cross_entropy_ref(logits, labels, mask=None, z_loss: float = 1e-4,
+                       mesh=None):
     """Stable softmax cross entropy in f32 with an optional z-loss."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
@@ -74,7 +88,7 @@ def _cross_entropy_ref(logits, labels, mask=None, z_loss: float = 1e-4):
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
     correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
-    return _masked_means(nll, correct, mask)
+    return _masked_means(nll, correct, mask, mesh)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -91,7 +105,9 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     mesh: the "model" axis `params` are sharded over (shard_params'
     tree): every rank computes the loss from the whole logits, which the
     forward all-gathers, and the gradients are its part of the unsharded
-    ones."""
+    ones. Over batch axes the batch is this rank's rows and every mean is
+    the global batch's (cross_entropy(mesh=)); the gradients are then
+    this rank's rows' part of the global loss's."""
     logits, aux = forward_aux(params, cfg, batch["tokens"], train=True,
                               encoder_frames=batch.get("encoder_frames"),
                               extra_embeds=batch.get("extra_embeds"),
@@ -105,7 +121,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
         pad = torch.arange(Vp, device=logits.device) >= V
         logits = logits.masked_fill(pad, -1e30)
     loss, acc = cross_entropy(logits, batch["labels"], batch.get("mask"),
-                              fused=cfg.fused_xent)
+                              fused=cfg.fused_xent, mesh=mesh)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
     total = loss + aux_w * aux
     return total, {"loss": loss, "aux_loss": aux, "accuracy": acc}

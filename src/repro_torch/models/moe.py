@@ -1,8 +1,9 @@
-"""Sparse Mixture-of-Experts FFN with sort-based dispatch, single device.
-Port of `repro/models/moe.py`: shared (always-on) experts run dense,
-routed experts go through a stable sort of the (token, choice)
-assignments by expert, per-expert capacity buffers of (E, C, d) and
-grouped expert products.
+"""Sparse Mixture-of-Experts FFN with sort-based dispatch, on one device
+or expert-parallel over a mesh's "model" axis (two all-to-alls, the
+reference's `moe_ffn_ep`). Port of `repro/models/moe.py`: shared
+(always-on) experts run dense, routed experts go through a stable sort
+of the (token, choice) assignments by expert, per-expert capacity
+buffers of (E, C, d) and grouped expert products.
 
 The reference computes this with no Pallas kernel (routing, a sort, a
 scatter and grouped einsums), and so does the port: the grouped products
@@ -91,6 +92,13 @@ def aux_loss(moe: MoEConfig, f_e: torch.Tensor,
     return moe.num_experts * torch.sum(f_e * P_e)
 
 
+def _expert_counts(top_i: torch.Tensor, E: int) -> torch.Tensor:
+    """(E,) int64: the assignments to each expert."""
+    flat_e = top_i.reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.long, device=top_i.device)
+    return counts.scatter_add(0, flat_e, torch.ones_like(flat_e))
+
+
 def _dispatch_indices(top_i: torch.Tensor, E: int):
     """Sort-based dispatch bookkeeping. top_i: (n, k) expert ids. Returns
     order (n*k,), the stable permutation sorting assignments by expert;
@@ -99,43 +107,47 @@ def _dispatch_indices(top_i: torch.Tensor, E: int):
     flat_e = top_i.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     expert_sorted = flat_e[order]
-    counts = torch.zeros((E,), dtype=torch.long, device=top_i.device)
-    counts = counts.scatter_add(0, flat_e, torch.ones_like(flat_e))
+    counts = _expert_counts(top_i, E)
     starts = torch.cumsum(counts, dim=0) - counts
     slot = torch.arange(flat_e.numel(), device=top_i.device) - \
         starts[expert_sorted]
     return order, slot, expert_sorted
 
 
-def moe_ffn_local(p, moe: MoEConfig, x: torch.Tensor, capacity: int,
-                  first: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Single-device routed-experts FFN. x: (n, d) -> ((n, d), aux).
-
-    first: the global id of the first expert in p's w1 / w2 / w3, which
-    may hold a slice of the experts (a rank's, under a mesh): every
-    token is routed over all of them, and only the assignments to the
-    experts held contribute to the output, which is then a partial sum."""
-    n, d = x.shape
-    E, k, C = moe.padded_experts, moe.top_k, int(capacity)
-    El = p["w1"].shape[0]
-    top_p, top_i, (f_e, P_e) = router_probs(p, moe, x)
-    aux = aux_loss(moe, f_e, P_e)
+def _dispatch(x, top_i, E: int, C: int, first: int = 0, El=None,
+              offset=None):
+    """Tokens into per-expert capacity buffers. x (n, d), top_i (n, k).
+    Returns the (El, C, d) buffer of experts [first, first + El) (all E by
+    default) and the bookkeeping `_combine` reads. An assignment is kept
+    when its slot (plus offset[expert], the same expert's assignments on
+    earlier batch ranks, when given) is below C and its expert is held;
+    each kept (expert, slot) pair is unique, so the buffer is filled by
+    plain index assignment into C + 1 rows, row C taking the rest, then
+    dropped."""
+    d, k = x.shape[1], top_i.shape[1]
+    El = E if El is None else El
     order, slot, expert_sorted = _dispatch_indices(top_i, E)
     local = expert_sorted - first
     held = (local >= 0) & (local < El)
-    keep = (slot < C) & held
+    rank_slot = slot if offset is None else slot + offset[expert_sorted]
+    keep = (rank_slot < C) & held
     local = torch.where(held, local, torch.zeros_like(local))
-    tok_sorted = order // k
     row = torch.where(keep, slot, torch.full_like(slot, C))
-    # (El, C + 1, d): row C takes the dropped assignments (and those to
-    # experts not held), then goes
     buf = torch.zeros((El, C + 1, d), dtype=x.dtype, device=x.device)
-    buf[local, row] = x[tok_sorted]
-    buf = buf[:, :C]
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w1"].to(x.dtype)))
-    h = h * torch.einsum("ecd,edf->ecf", buf, p["w3"].to(x.dtype))
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["w2"].to(x.dtype))
-    y_sorted = out_buf[local, torch.clamp(slot, max=C - 1)]
+    buf[local, row] = x[order // k]
+    return buf[:, :C], (order, local, row, keep)
+
+
+def _combine(out_buf, book, top_p, top_i, x):
+    """The experts' (El, C, d) outputs back to the tokens: each kept
+    assignment's output times its renormalized router weight, summed over
+    a token's k choices in ascending expert id (the order in which the
+    reference's scatter meets them), from zero, in x's dtype."""
+    n, d = x.shape
+    k = top_i.shape[1]
+    order, local, row, keep = book
+    C = out_buf.shape[1]
+    y_sorted = out_buf[local, torch.clamp(row, max=C - 1)]
     y_sorted = torch.where(keep[:, None], y_sorted,
                            torch.zeros_like(y_sorted))
     w_sorted = top_p.reshape(-1)[order].to(x.dtype)
@@ -150,7 +162,74 @@ def moe_ffn_local(p, moe: MoEConfig, x: torch.Tensor, capacity: int,
     y = torch.zeros_like(x)
     for j in range(k):
         y = y + contrib[:, j]
-    return y, aux
+    return y
+
+
+def _experts(p, buf, dtype):
+    """The grouped expert FFN over (El, C', d) buffers."""
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w1"].to(dtype)))
+    h = h * torch.einsum("ecd,edf->ecf", buf, p["w3"].to(dtype))
+    return torch.einsum("ecf,efd->ecd", h, p["w2"].to(dtype))
+
+
+def moe_ffn_local(p, moe: MoEConfig, x: torch.Tensor, capacity: int,
+                  first: int = 0, batch_mesh=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-device routed-experts FFN. x: (n, d) -> ((n, d), aux).
+
+    first: the global id of the first expert in p's w1 / w2 / w3, which
+    may hold a slice of the experts (a rank's, under a mesh): every
+    token is routed over all of them, and only the assignments to the
+    experts held contribute to the output, which is then a partial sum.
+
+    batch_mesh: a mesh whose batch axes split the tokens of one routing
+    decision, in batch-rank order, over their ranks (model size 1): x is
+    this rank's share, `capacity` the whole batch's. The reference's
+    stable sort over the global token index puts the same expert's
+    assignments of earlier batch ranks first, so an assignment keeps its
+    slot when its local slot plus their count (one all-gather of the (E,)
+    counts) is below the capacity; f_e and P_e are averaged over the
+    ranks before the aux loss (a mean of products is not the product of
+    means)."""
+    E, C = moe.padded_experts, int(capacity)
+    top_p, top_i, (f_e, P_e) = router_probs(p, moe, x)
+    offset = None
+    if batch_mesh is not None:
+        counts = sh.batch_all_gather(_expert_counts(top_i, E)[None],
+                                     batch_mesh)
+        r = sh.batch_rank(batch_mesh)
+        offset = counts[:r].sum(0)
+        f_e, P_e = sh.mesh_mean(torch.stack([f_e, P_e]), batch_mesh)
+    aux = aux_loss(moe, f_e, P_e)
+    buf, book = _dispatch(x, top_i, E, C, first, p["w1"].shape[0], offset)
+    return _combine(_experts(p, buf, x.dtype), book, top_p, top_i, x), aux
+
+
+def moe_ffn_ep(p, moe: MoEConfig, x: torch.Tensor, capacity: int,
+               mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel routed FFN (the reference's moe_ffn_ep inside
+    shard_map). x: (n, d), this rank's tokens; p's w1 / w3 / w2 its E / M
+    experts (sharding.leaf_shards' dim 0), the router whole. Each rank
+    routes its tokens over all E experts into (E, C, d) buffers, sends
+    every model rank the buffers of its experts (all-to-all), runs its
+    experts over the M sources' C rows each, and sends the outputs back
+    (a second all-to-all). The aux loss takes f_e and P_e averaged over
+    every rank of the mesh. The router's gradient is the rank's tokens'
+    part, summed over "model" (an f) and over the batch axes (with every
+    gradient, train_step)."""
+    n, d = x.shape
+    E, C = moe.padded_experts, int(capacity)
+    M = sh.model_size(mesh)
+    El = E // M
+    router = sh.copy_to_model(p["router"], mesh)
+    top_p, top_i, (f_e, P_e) = router_probs({"router": router}, moe, x)
+    aux = aux_loss(moe, *sh.mesh_mean(torch.stack([f_e, P_e]), mesh))
+    buf, book = _dispatch(x, top_i, E, C)
+    recv = sh.model_all_to_all(buf.reshape(M, El, C, d), mesh)
+    g = recv.transpose(0, 1).reshape(El, M * C, d)
+    o = _experts(p, g, x.dtype).reshape(El, M, C, d).transpose(0, 1)
+    back = sh.model_all_to_all(o, mesh).reshape(E, C, d)
+    return _combine(back, book, top_p, top_i, x), aux
 
 
 def capacity_for(n_tokens_local: int, moe: MoEConfig) -> int:
@@ -159,37 +238,66 @@ def capacity_for(n_tokens_local: int, moe: MoEConfig) -> int:
     return max(c, 1)
 
 
+def check_ep(moe: MoEConfig, tokens: int, mesh) -> None:
+    """Raises where the reference's shard_map specs of moe_block over a
+    model axis of M > 1 ranks fail: M not dividing the (padded) experts,
+    or the batch and model ranks not dividing the global tokens of one
+    call (`tokens`, a batch rank's B * S times the batch ranks)."""
+    M, D = sh.model_size(mesh), sh.batch_size(mesh)
+    if moe.padded_experts % M:
+        raise ValueError(f"expert parallelism: {moe.padded_experts} "
+                         f"experts over {M} model ranks")
+    if tokens % (D * M):
+        raise ValueError(f"expert parallelism: {tokens} tokens over "
+                         f"{D} x {M} ranks")
+
+
 def moe_block(p, moe: MoEConfig, x: torch.Tensor, *, mesh=None,
               activation: str = "silu",
               capacity: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN sub-block on (B, S, d) activations -> ((B, S, d), aux).
 
-    Shared experts run dense; routed experts through moe_ffn_local at
-    `capacity` per expert (default capacity_for(B * S), with drops).
-    Decode passes capacity = B * S, which makes routing drop-free, so a
-    token's output does not depend on the other requests in the batch.
+    Shared experts run dense (column / row parallel over "model");
+    routed experts as the reference's moe_block routes them:
 
-    mesh: the "model" axis (sharding.py), drop-free only (capacity >= B *
-    S) over more than one rank. Tokens are whole on every rank, so each
-    rank routes all of them with the replicated router, runs the experts
-    it holds (the expert axis is sharded when the model size divides
-    it) and all-reduces the partial sum; the shared experts run column /
-    row parallel. The all-to-all expert parallelism with capacity drops
-    (moe_ffn_ep) is training's and raises."""
+    * capacity None (the forward's, with capacity_for's drops), over a
+      model axis of M > 1 ranks: expert-parallel (moe_ffn_ep). x is this
+      batch rank's rows, whole on every model rank; rank m takes the
+      m-th 1/M of their B * S tokens (the reference's flat token axis
+      over (*batch axes, "model")), at capacity_for(B * S / M) per
+      source, and the outputs are all-gathered back over "model";
+    * capacity None over batch axes alone: the whole batch's routing
+      (moe_ffn_local's batch_mesh) at capacity_for of its tokens;
+    * capacity None without a mesh: capacity_for(B * S);
+    * an explicit capacity (decode passes B * S, drop-free, so a token's
+      output does not depend on the other requests in the batch): the
+      call's own tokens. Over "model" each rank routes all of them with
+      the replicated router, runs the experts it holds (the expert axis
+      is sharded when the model size divides it) and all-reduces the
+      partial sum."""
     B, S, d = x.shape
-    cap = capacity if capacity is not None else capacity_for(B * S, moe)
-    if sh.model_size(mesh) > 1 and cap < B * S:
-        raise NotImplementedError(
-            "expert parallelism with capacity drops over a mesh "
-            "(moe_ffn_ep) is ROADMAP A11 item 4; serving routes drop-free "
-            "(capacity = B * S)")
-    ep = sh.sharded_over(moe.padded_experts, mesh)
-    first = sh.model_rank(ep) * p["w1"].shape[0]
-    y_flat, aux = moe_ffn_local(p, moe, x.reshape(B * S, d), cap, first)
-    out = y_flat.reshape(B, S, d)
-    if ep is not None:
-        out = sh.model_all_reduce(out, ep)
+    flat = x.reshape(B * S, d)
+    M, D = sh.model_size(mesh), sh.batch_size(mesh)
+    if capacity is None and M > 1:
+        check_ep(moe, B * S * D, mesh)
+        mine = sh.rank_share(flat, mesh, 0)
+        y, aux = moe_ffn_ep(p, moe, mine, capacity_for(B * S // M, moe),
+                            mesh)
+        out = sh.model_all_gather(y, mesh, 0).reshape(B, S, d)
+    elif capacity is None and D > 1:
+        y, aux = moe_ffn_local(p, moe, flat, capacity_for(B * S * D, moe),
+                               batch_mesh=mesh)
+        out = y.reshape(B, S, d)
+    else:
+        cap = capacity if capacity is not None else capacity_for(B * S,
+                                                                 moe)
+        ep = sh.sharded_over(moe.padded_experts, mesh)
+        first = sh.model_rank(ep) * p["w1"].shape[0]
+        y, aux = moe_ffn_local(p, moe, flat, cap, first)
+        out = y.reshape(B, S, d)
+        if ep is not None:
+            out = sh.model_all_reduce(out, ep)
     if moe.num_shared > 0:
         out = ffn_block(p["shared"], x, activation, mesh=sh.sharded_over(
             moe.num_shared * moe.d_shared, mesh)) + out

@@ -641,12 +641,14 @@ def forward(params, cfg: ModelConfig, tokens, *,
     reference's forward does (decode is drop-free).
 
     mesh: the "model" axis `params` are sharded over (sharding.py:
-    shard_params' tree), every family; with train=True the collectives
-    are autograd Functions (sharding.py's table) and the gradients are
-    each rank's part of the unsharded ones. An MoE layer's capacity
-    drops raise over more than one model rank (moe_block), and so does
-    training an MoE plan there: the reference's expert-parallel
-    all-to-all is ROADMAP A11 item 4."""
+    shard_params' tree), every family, and batch axes ("pod", "data")
+    that split the batch: `tokens` (and the other inputs) are this batch
+    rank's rows. With train=True the collectives are autograd Functions
+    (sharding.py's table) and the gradients are each rank's part of the
+    unsharded ones. An MoE layer routes as the reference's forward over
+    a mesh does, train or not: expert-parallel with capacity drops over
+    a model axis of more than one rank, over the whole batch's tokens
+    over batch axes alone (moe.moe_block)."""
     return forward_aux(params, cfg, tokens, wkv_kernel=wkv_kernel,
                        train=train, encoder_frames=encoder_frames,
                        extra_embeds=extra_embeds, mesh=mesh)[0]
@@ -658,15 +660,6 @@ def forward_aux(params, cfg: ModelConfig, tokens, *,
     """forward's (logits (B, S, V_pad), aux loss 0-d f32: the MoE
     load-balance loss summed over layers, 0 for the other families)."""
     kw = dict(encoder_frames=encoder_frames, extra_embeds=extra_embeds)
-    if train and cfg.moe is not None and sh.model_size(mesh) > 1:
-        raise NotImplementedError(
-            "training an MoE plan over more than one model rank: the "
-            "expert-parallel all-to-all with capacity drops (moe_ffn_ep) "
-            "is ROADMAP A11 item 4")
-    if train and sh.batch_size(mesh) > 1:
-        raise NotImplementedError(
-            "training over a batch axis of more than one rank: data "
-            "parallelism is ROADMAP A11 item 4")
     if not train:
         with torch.no_grad():
             return _forward(params, cfg, tokens, wkv_kernel=wkv_kernel,

@@ -1,2 +1,3 @@
-"""Optimizers and learning-rate schedules of the port (no torch.optim):
-ports of `repro/optim/{adafactor,adamw,schedules}.py`."""
+"""Optimizers, learning-rate schedules and gradient compression of the
+port (no torch.optim): ports of
+`repro/optim/{adafactor,adamw,schedules,compression}.py`."""

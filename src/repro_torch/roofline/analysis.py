@@ -18,7 +18,7 @@ port's own `layer_plan` and an H100 hardware model (config.H100_SXM):
   the caller counts them (chip_smoke.py counts each kernel's and each
   replayed step's).
 
-Not here, waiting for distribution and its dry run (ROADMAP A11):
+Not here, waiting for the dry run (ROADMAP A item 5):
 `cost_dict` and `memory_dict`, which read a compiled XLA program's cost
 and memory analysis, and `parse_collective_bytes` / `while_trip_counts`,
 which parse optimized HLO text. Their torch counterparts are

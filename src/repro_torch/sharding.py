@@ -12,7 +12,9 @@ by hand (Megatron-style): attention and the FFN are column- then
 row-parallel, with one all-reduce after `wo` and one after `w2`; the
 embedding is a masked lookup of the rank's vocab rows then an
 all-reduce, the logits an all-gather of the rank's vocab columns; an MoE
-layer runs the rank's experts on every token and all-reduces; AltUp,
+layer at decode's drop-free capacity runs the rank's experts on every
+token and all-reduces (the forward's, with capacity drops, is
+expert-parallel: two all-to-alls, models/moe.moe_ffn_ep); AltUp,
 norms, RoPE and the router are replicated. The recurrent blocks run on
 the rank's heads: RWKV-6's time mix (wr / twk / twv / wg and `u` by
 heads, `two` row-parallel) and channel mix (ck / cv), Mamba-2 (the rank's
@@ -90,6 +92,8 @@ group or split over it:
   all-reduce              rank-local   all-reduce     model_all_reduce_local
   all-gather              replicated   rank's slice   model_all_gather
   all-gather              rank-local   reduce-scatter gather_whole
+  all-to-all              rank-local   all-to-all     model_all_to_all
+  all-reduce, batch axes  replicated   identity       batch_sum, mesh_mean
 
 An f sits where a replicated tensor enters rank-local compute: the input
 of a column-parallel projection, the full k / v before select_kv (the
@@ -107,6 +111,13 @@ Every collective issued is counted by kind, direction and bytes
 The optimizer and clipping read each leaf's LeafShard (leaf_shards):
 reductions over a sharded dim are all-reduced over the group, Mamba-2's
 replicated B / C columns counted once (shard_sum).
+
+Training over the batch axes: a rank's batch is its rows, the loss's
+masked means sum their numerators and denominator over the batch group
+(batch_sum), so a rank's gradients are its rows' part of the global
+loss's, and batch_grad_sum adds the parts. The experts of an MoE layer
+over "model" exchange their capacity buffers by model_all_to_all
+(models/moe.moe_ffn_ep).
 
 A `mesh` below is a `torch.distributed.device_mesh.DeviceMesh` with a
 "model" dim, a batch dim or both; the placement functions also take the
@@ -484,6 +495,101 @@ def batch_broadcast(x: torch.Tensor, mesh, src: int) -> torch.Tensor:
     group = batch_group(mesh)
     dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
     return x
+
+
+# --------------------------------------------------------------------------
+# training over the batch axes, and the experts' all-to-all over "model"
+# --------------------------------------------------------------------------
+
+def mesh_group(mesh):
+    """The process group of every rank of the mesh (its dims flattened,
+    made once per mesh)."""
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    group = getattr(mesh, "_repro_mesh_group", None)
+    if group is None:
+        group = mesh._flatten().get_group()
+        mesh._repro_mesh_group = group
+    return group
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group` for a replicated consumer: the backward is the
+    identity under autograd (each rank's part of x gets the gradient of
+    the one replicated result), in place without it."""
+    if _tracks(x):
+        return _Reduce.apply(x, group, False)
+    return _all_reduce_(x, group)
+
+
+def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of x over the batch group ("pod" x "data"), replicated: a
+    masked mean's numerator and denominator over the global batch
+    (models/model.cross_entropy). x as it is over one batch rank."""
+    if batch_size(mesh) == 1:
+        return x
+    return _sum_over(x, batch_group(mesh))
+
+
+def mesh_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of x over every rank of the mesh, replicated (the
+    reference's pmean over all mesh axes): the backward hands each rank
+    the result's gradient divided by the number of ranks, once."""
+    n = mesh.size() if mesh is not None else 1
+    if n == 1:
+        return x
+    return _sum_over(x, mesh_group(mesh)) / n
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all over dim 0: chunk i of x goes to rank i of the group,
+    chunk i of the result came from rank i. Its own transpose, so the
+    backward is the same exchange of the gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group, "fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, "bwd"), None
+
+
+def _exchange(x: torch.Tensor, group, tag: str) -> torch.Tensor:
+    x = x.contiguous()
+    _count(f"all_to_all/{tag}", x)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def model_all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x (M, ...): x[i] to model rank i; returns (M, ...) whose [i] model
+    rank i sent here (the reference's all_to_all(split_axis=0,
+    concat_axis=0, tiled=False)). The backward sends the gradients
+    back the same way."""
+    if not _tp(mesh):
+        return x
+    if _tracks(x):
+        return _AllToAll.apply(x, mesh.get_group(MODEL))
+    return _exchange(x, mesh.get_group(MODEL), "fwd")
+
+
+def batch_grad_sum(grads, mesh):
+    """Each gradient summed over the batch group, in f32 and rounded once
+    to its dtype: one all-reduce of the leaves packed flat. A rank's
+    gradient of the global loss (masked means over the global batch,
+    batch_sum) holds its own rows' part; the sum is the whole gradient,
+    the same bits on every batch rank."""
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+    _count("all_reduce/grad", flat)
+    dist.all_reduce(flat, group=batch_group(mesh))
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view(g.shape).to(g.dtype))
+        off += g.numel()
+    return out
 
 
 def merge_partials(acc: torch.Tensor, m: torch.Tensor,

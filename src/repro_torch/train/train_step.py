@@ -13,6 +13,16 @@ state (sharding.leaf_shards, state_shards): the global norm sums each
 sharded leaf's squares over the group (one all-reduce), a replicated
 leaf and Mamba-2's replicated columns once; Adafactor all-reduces its
 means over sharded dims; AdamW is elementwise.
+
+Over batch axes ("pod", "data"), each rank's batch is its rows of the
+global batch (with microbatches, its share of each of the reference's
+microbatches: Trainer._batch), the loss's masked means are the global
+batch's (models/model.cross_entropy), and so are the metrics, on every
+rank. A rank's gradients are then its rows' part of the global loss's;
+after accumulating the microbatches they are summed over the batch group
+in f32 (sharding.batch_grad_sum, the reference's implicit all-reduce
+from batch_specs), before clipping, so every batch rank clips and
+updates the same bits.
 """
 from __future__ import annotations
 
@@ -111,8 +121,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     place; batch: {"tokens", "labels", "mask"} tensors on its device;
     metrics: 0-d f32 tensors ("loss", "aux_loss", "accuracy" averaged
     over microbatches, "grad_norm" when clipping, "lr"). mesh: a "model"
-    axis params are this rank's shard over (the module's docstring);
-    every rank gets the same batch and the same metrics."""
+    axis params are this rank's shard over, and batch axes the batch is
+    this rank's rows over (the module's docstring); every rank gets the
+    same metrics."""
     ocfg = tcfg.optimizer
     n_mb = tcfg.microbatches
     shards = sh.leaf_shards(cfg, mesh) if sh.model_size(mesh) > 1 else None
@@ -150,6 +161,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
             metrics = {k: v * inv for k, v in m_acc.items()}
         else:
             grads, metrics = grads_of(params, batch, leaves)
+        if sh.batch_size(mesh) > 1:
+            grads = sh.batch_grad_sum(grads, mesh)
         return tree_lib.from_paths(zip(paths, grads)), metrics
 
     def train_step(params, opt_state, batch, step):

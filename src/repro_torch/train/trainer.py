@@ -1,6 +1,6 @@
 """The training loop: checkpoint/restart, preemption handling, straggler
 watchdog, metrics log. Port of `repro/train/trainer.py`, on one device or
-over a "model" axis of N ranks (`Trainer(mesh=)`).
+over a mesh of ("pod",) "data" x "model" ranks (`Trainer(mesh=)`).
 
 Fault-tolerance model, as in the reference:
   * checkpoint every N steps (atomic, keep-K) and on SIGTERM
@@ -12,11 +12,13 @@ Fault-tolerance model, as in the reference:
     is logged with its index and kept in `stragglers`.
 Over a mesh (the reference's param_pspecs placement, applied to the
 optimizer state too) every rank holds its shard of the parameters
-(sharding.shard_params of the whole ones) and of the optimizer state and
-steps on the same batch; a checkpoint gathers both whole and rank 0
-writes it, and a restore cuts the whole arrays to the current model
-size, whatever size wrote them. A batch axis of more than one rank
-(data parallelism) is ROADMAP A11 item 4 and raises.
+(sharding.shard_params of the whole ones) and of the optimizer state;
+the ranks at one batch coordinate step on the same rows, the batch
+coordinates on their shares of the global batch (rank_rows), and every
+batch rank holds the same parameters after a step (train_step). A
+checkpoint gathers both trees whole and rank 0 writes it; a
+restore cuts the whole arrays to the current model size on every batch
+rank, whatever (data, model) size wrote them: an elastic restart.
 """
 from __future__ import annotations
 
@@ -44,23 +46,27 @@ class Trainer:
     without a card). params: a ParamTree on that device to start from
     (e.g. `bridge.params_from_numpy` of the reference's), which the
     trainer makes trainable and updates in place; None draws
-    `init_params(cfg, seed=tcfg.seed)`. mesh: a DeviceMesh whose only
-    dim of more than one rank is "model" (launch/mesh.make_mesh); params
-    (or the seeded draw) are then the WHOLE parameters, which every rank
-    holds the same and shards; `params` is the rank's shard."""
+    `init_params(cfg, seed=tcfg.seed)`. mesh: a DeviceMesh over
+    ("pod",) "data" x "model" (launch/mesh.make_mesh); params (or the
+    seeded draw) are then the WHOLE parameters, which every rank holds
+    the same and shards; `params` is the rank's shard. Over batch
+    axes ("pod", "data") of D ranks the global batch must split into D x
+    microbatches, and an MoE plan over M > 1 model ranks needs M to
+    divide its experts (the reference's shard_map specs; its tokens are
+    checked by moe.moe_block)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh=None, *,
                  device="cuda", params: Optional[ParamTree] = None,
                  straggler_factor: float = 3.0):
-        if sh.batch_size(mesh) > 1:
-            raise NotImplementedError(
-                "Trainer over a batch axis of more than one rank: data "
-                "parallelism is ROADMAP A11 item 4")
-        if cfg.moe is not None and sh.model_size(mesh) > 1:
-            raise NotImplementedError(
-                "training an MoE plan over more than one model rank: the "
-                "expert-parallel all-to-all (moe_ffn_ep) is ROADMAP A11 "
-                "item 4")
+        D, n_mb = sh.batch_size(mesh), tcfg.microbatches
+        if tcfg.global_batch % (D * n_mb):
+            raise ValueError(f"a global batch of {tcfg.global_batch} over "
+                             f"{D} batch ranks x {n_mb} microbatches")
+        if cfg.moe is not None and sh.model_size(mesh) > 1 and \
+                cfg.moe.padded_experts % sh.model_size(mesh):
+            raise ValueError(f"expert parallelism: "
+                             f"{cfg.moe.padded_experts} experts over "
+                             f"{sh.model_size(mesh)} model ranks")
         self.device = resolve_device(device)
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.straggler_factor = straggler_factor
@@ -124,19 +130,27 @@ class Trainer:
 
     def checkpoint(self):
         """Saves the whole parameters and optimizer state; over a mesh
-        every rank gathers them, rank 0 writes, and the ranks meet at a
-        barrier after."""
+        every rank gathers them, rank 0 writes, and the ranks
+        meet at a barrier after."""
         params, opt_state = self.whole()
         if self.mesh is None or dist.get_rank() == 0:
             ckpt_lib.save(self.tcfg.checkpoint_dir, self.step, params,
                           opt_state, keep=self.tcfg.keep_checkpoints)
-        if sh.model_size(self.mesh) > 1:
-            dist.barrier(group=self.mesh.get_group(sh.MODEL))
+        if self.mesh is not None and self.mesh.size() > 1:
+            dist.barrier(group=sh.mesh_group(self.mesh))
 
     # -- the loop ----------------------------------------------------------
     def _batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """The rank's rows of the step's global batch (all of it without
+        batch axes)."""
+        batch = make_batch(self.cfg, self.tcfg, step)
+        D = sh.batch_size(self.mesh)
+        if D > 1:
+            rows = rank_rows(self.tcfg.global_batch, sh.batch_rank(
+                self.mesh), D, self.tcfg.microbatches)
+            batch = {k: v[rows] for k, v in batch.items()}
         return {k: torch.from_numpy(v).to(self.device)
-                for k, v in make_batch(self.cfg, self.tcfg, step).items()}
+                for k, v in batch.items()}
 
     def run(self, log: Callable[[str], None] = print) -> Dict[str, Any]:
         tcfg = self.tcfg
@@ -171,3 +185,20 @@ class Trainer:
                 "stragglers": self.stragglers,
                 "final_loss": self.history[-1]["loss"] if self.history
                 else None}
+
+
+def rank_rows(B: int, rank: int, D: int, n_mb: int = 1) -> np.ndarray:
+    """The rows of a global batch of B that batch rank `rank` of D steps
+    on, microbatch by microbatch: its share of each of the reference's
+    n_mb microbatches (train_step's _microbatch: global rows j B / n_mb
+    to (j + 1) B / n_mb), in order, so the rank's own split into n_mb
+    gives its part of microbatch j. With one microbatch, the contiguous
+    host_slice of data/pipeline.py. Taken from the whole batch, not by
+    make_batch's host_index: the pipeline draws an encoder-decoder's
+    frames, a VLM's image embeddings and span corruption's masks per host
+    from the start of their streams, so a host's slice is not those rows
+    of the global batch."""
+    per = B // (D * n_mb)
+    return np.concatenate([np.arange(j * B // n_mb + rank * per,
+                                     j * B // n_mb + (rank + 1) * per)
+                           for j in range(n_mb)])

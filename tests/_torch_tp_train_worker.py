@@ -1,14 +1,20 @@
-"""The ranks of tests/test_torch_tp_train.py and test_torch_tp_train4.py:
-one process per rank of a gloo "model" mesh on the CPU, started by
-torch.multiprocessing.spawn. Imports no JAX: the parent hands each rank
-the port's configs, the reference's parameters (numpy) and the batches in
-a pickle; each rank writes its results to its own pickle.
+"""The ranks of tests/test_torch_tp_train.py, test_torch_tp_train4.py,
+test_torch_dp_train.py and test_torch_moe_ep.py: one process per rank of
+a gloo mesh on the CPU, started by torch.multiprocessing.spawn. Imports no
+JAX: the parent hands each rank the port's configs, the reference's
+parameters (numpy) and the batches in a pickle; each rank writes its
+results to its own pickle.
+
+The job's "mesh" is (shape, axes) of every case (default ((world,),
+("model",))); a case's own "mesh" overrides it. Over batch axes
+("pod", "data") a rank steps its rows of the batch (trainer.rank_rows).
 
 Cases ("kind"):
   grads   loss_fn(mesh=) over shard_params of the whole parameters: the
-          gradients gathered whole (rank 0's) beside the un-meshed port's
-          (rank 0 computes them), each rank's sha256 of every replicated
-          leaf's gradient and of the replicated B / C columns of Mamba-2's
+          gradients (summed over the batch axes) gathered whole (rank
+          0's) beside the un-meshed port's on the whole batch (rank 0
+          computes them), each rank's sha256 of every replicated leaf's
+          gradient and of the replicated B / C columns of Mamba-2's
           fused leaves, the loss, the collectives one step issued. With
           "cp": the same with cfg.context_parallel_attn set, and the
           logits' distance from the flag off.
@@ -18,8 +24,20 @@ Cases ("kind"):
           trainer checkpoints into at its end.
   restore Trainer(mesh=).maybe_resume() of a checkpoint: the step, the
           state gathered whole and one more step's loss.
-  launch  launch/train.main with --mesh 1xN over each argv of "runs" in
-          turn (a run, then one with --resume): what each printed.
+  launch  launch/train.main with --mesh "mesh_arg" (default 1xN) over
+          each argv of "runs" in turn (a run, then one with --resume):
+          what each printed.
+  moe     moe.moe_block over the mesh (expert-parallel over "model", the
+          whole batch's routing over batch axes alone) on the rank's
+          tokens of "x", and the gradients of sum(y * cot) + aux_w * aux:
+          the output and the x gradient gathered whole, the router's and
+          the experts' gradients summed over the batch axes and gathered,
+          the aux loss, the dropped (token, choice) assignments, the
+          output again under no_grad, the collectives.
+  compress optim/compression.compressed_psum over the batch group of the
+          rank's "g[r]" and "err[r]" in each of "modes" ((mode, frac,
+          key)), then "steps" top-k syncs with error feedback from zero
+          error: each mode's (synced, new error) and the syncs' mean.
 """
 import contextlib
 import copy
@@ -38,8 +56,9 @@ from repro_torch import sharding as sh
 from repro_torch import tree as tree_lib
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import loss_fn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import forward
-from repro_torch.train.trainer import Trainer
+from repro_torch.train.trainer import Trainer, rank_rows
 
 
 def _params(tree):
@@ -82,12 +101,25 @@ def replicated_digests(grads, shards, mesh):
     return out
 
 
+def rows_of(batch, mesh):
+    """The rank's rows of a whole batch over the mesh's batch axes."""
+    D = sh.batch_size(mesh)
+    if D == 1:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    rows = torch.from_numpy(rank_rows(B, sh.batch_rank(mesh), D))
+    return {k: v[rows] for k, v in batch.items()}
+
+
 def grads_case(cfg, tree, batch, mesh, rank):
     whole = _params(tree)
     shards = sh.leaf_shards(cfg, mesh)
     sh.reset_collective_counts()
     loss, grads = _grads(sh.shard_params(whole, cfg, mesh).requires_grad_(
-        True), cfg, batch, mesh)
+        True), cfg, rows_of(batch, mesh), mesh)
+    if sh.batch_size(mesh) > 1:
+        grads = dict(zip(grads, sh.batch_grad_sum(list(grads.values()),
+                                                  mesh)))
     counts = sh.collective_counts()
     gathered = {path: sh.gather_leaf(g, shards[path], mesh)
                 for path, g in grads.items()}
@@ -167,17 +199,102 @@ def restore_case(cfg, tree, tcfg, mesh, rank):
     return out
 
 
-def launch_case(runs, world):
+def launch_case(runs, mesh_arg):
     """launch/train.main over each argv of `runs` in turn, with --mesh
-    1x<world> --device cpu: what each printed."""
+    mesh_arg --device cpu: what each printed."""
     from repro_torch.launch import train as launcher
     lines = []
     for argv in runs:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            launcher.main(argv + ["--mesh", f"1x{world}", "--device", "cpu"])
+            launcher.main(argv + ["--mesh", mesh_arg, "--device", "cpu"])
         lines.append(buf.getvalue())
     return {"out": lines}
+
+
+def moe_case(case, mesh):
+    """The "moe" kind (the module's docstring). case: "moe" (MoEConfig),
+    "params" {router, w1, w3, w2} numpy whole, "x" / "cot" (B, S, d)
+    numpy, "aux_w"."""
+    moe, d = case["moe"], case["x"].shape[-1]
+    M, D = sh.model_size(mesh), sh.batch_size(mesh)
+    x_all = torch.from_numpy(case["x"])
+    x = rows_of({"x": x_all}, mesh)["x"].clone().requires_grad_(True)
+    cot = rows_of({"c": torch.from_numpy(case["cot"])}, mesh)["c"]
+    El = moe.padded_experts // M
+    m = sh.model_rank(mesh)
+    p = {k: torch.from_numpy(v.copy()) for k, v in case["params"].items()}
+    for k in ("w1", "w3", "w2"):
+        p[k] = p[k][m * El:(m + 1) * El].contiguous()
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    sh.reset_collective_counts()
+    y, aux = moe_lib.moe_block(p, moe, x, mesh=mesh)
+    total = sh.batch_sum((y * cot).sum(), mesh) + case["aux_w"] * aux
+    names = ("router", "w1", "w3", "w2")
+    grads = torch.autograd.grad(total, [x] + [p[k] for k in names])
+    counts = sh.collective_counts()
+    gp = list(grads[1:])
+    if D > 1:
+        gp = sh.batch_grad_sum(gp, mesh)
+    out = {"aux": float(aux.detach()), "collectives": counts}
+    experts = sh.LeafShard(0, moe.padded_experts)
+    for k, g in zip(names, gp):
+        out[f"grad_{k}"] = (g if k == "router" or M == 1 else
+                            sh.gather_leaf(g, experts, mesh)).numpy()
+    out["y"] = _batch_whole(y.detach(), mesh).numpy()
+    out["grad_x"] = _batch_whole(grads[0], mesh).numpy()
+    with torch.no_grad():
+        y0, aux0 = moe_lib.moe_block(p, moe, x.detach(), mesh=mesh)
+    out["y_no_grad"] = _batch_whole(y0, mesh).numpy()
+    out["aux_no_grad"] = float(aux0)
+    # the dropped (token, choice) pairs of the rank's routed tokens
+    B, S = x.shape[:2]
+    flat = x.detach().reshape(B * S, d)
+    if M > 1:
+        n = B * S // M
+        flat = flat[m * n:(m + 1) * n]
+        cap = moe_lib.capacity_for(n, moe)
+    else:
+        cap = moe_lib.capacity_for(B * S * D, moe)
+    top_i = moe_lib.router_probs(p, moe, flat)[1]
+    E = moe.padded_experts
+    offset = None
+    if D > 1 and M == 1:
+        counts_all = sh.batch_all_gather(
+            moe_lib._expert_counts(top_i, E)[None], mesh)
+        offset = counts_all[:sh.batch_rank(mesh)].sum(0)
+    _, book = moe_lib._dispatch(flat, top_i, E, cap, offset=offset)
+    order, _, _, keep = book
+    dropped = torch.zeros_like(keep)
+    dropped[order] = ~keep
+    out["dropped"] = dropped.view(-1, moe.top_k).numpy()
+    out["capacity"] = cap
+    return out
+
+
+def compress_case(case, mesh):
+    from repro_torch.optim import compression
+    r = sh.batch_rank(mesh)
+    g = torch.from_numpy(case["g"][r])
+    err = torch.from_numpy(case["err"][r])
+    out = {}
+    for mode, frac, key in case["modes"]:
+        synced, new_err = compression.compressed_psum(
+            g, err, mesh, mode=mode, frac=frac, key=key)
+        out[mode] = (synced.numpy(), new_err.numpy())
+    e, acc = torch.zeros_like(g), torch.zeros_like(g)
+    for _ in range(case["steps"]):
+        s, e = compression.compressed_psum(g, e, mesh, mode="topk",
+                                           frac=case["steps_frac"])
+        acc += s
+    out["mean_of_syncs"] = (acc / case["steps"]).numpy()
+    return out
+
+
+def _batch_whole(t, mesh):
+    """The batch group's rows of t, in batch-rank order."""
+    return sh.batch_all_gather(t.contiguous(), mesh) \
+        if sh.batch_size(mesh) > 1 else t
 
 
 def run(rank, world, store_path, job_path, out_dir):
@@ -187,13 +304,26 @@ def run(rank, world, store_path, job_path, out_dir):
     try:
         with open(job_path, "rb") as f:
             job = pickle.load(f)
-        mesh = make_mesh((world,), ("model",), device="cpu")
+        meshes = {}
+
+        def mesh_of(spec):
+            spec = (tuple(spec[0]), tuple(spec[1]))
+            if spec not in meshes:
+                meshes[spec] = make_mesh(*spec, device="cpu")
+            return meshes[spec]
+        default = job.get("mesh", ((world,), ("model",)))
         res = {"rank": dist.get_rank(), "cases": {}}
         for name, case in job["cases"].items():
             try:
                 kind = case["kind"]
                 if kind == "launch":
-                    res["cases"][name] = launch_case(case["runs"], world)
+                    res["cases"][name] = launch_case(
+                        case["runs"], case.get("mesh_arg", f"1x{world}"))
+                    continue
+                mesh = mesh_of(case.get("mesh", default))
+                if kind in ("moe", "compress"):
+                    fn = moe_case if kind == "moe" else compress_case
+                    res["cases"][name] = fn(case, mesh)
                     continue
                 cfg, tree = case["cfg"], case["tree"]
                 if kind in ("grads", "cp"):

@@ -233,20 +233,29 @@ def test_dispatch_reads_nothing_back_to_the_host():
 
 
 def test_moe_block_refuses_a_mesh():
-    """Over a model axis of two ranks, routing with capacity drops (the
-    all-to-all moe_ffn_ep of training) raises; drop-free serving runs
-    (tests/test_torch_tp_serve.py)."""
+    """Over a model axis of more than one rank the forward's routing is
+    expert-parallel (tests/test_torch_moe_ep.py), and it refuses what the
+    reference's shard_map specs refuse: a model size that does not
+    divide the experts, or batch and model ranks that do not divide the
+    tokens. Drop-free serving runs (tests/test_torch_tp_serve.py)."""
     _, tc, jp, tp = _smoke_params()
     _, tm = _layer0_moe(jp, tp)
+    E = tc.moe.padded_experts
 
-    class ModelAxis:                  # a DeviceMesh's "model" dim of 2
+    class ModelAxis:                  # a DeviceMesh's "model" dim of n
         mesh_dim_names = ("model",)
 
+        def __init__(self, n):
+            self.n = n
+
         def size(self, i):
-            return 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            return self.n
+    with pytest.raises(ValueError, match=f"{E} experts over {E + 1} "):
         tmoe.moe_block(tm, tc.moe, torch.zeros((1, 8, 64)),
-                       mesh=ModelAxis())
+                       mesh=ModelAxis(E + 1))
+    with pytest.raises(ValueError, match="7 tokens over 1 x 2 ranks"):
+        tmoe.moe_block(tm, tc.moe, torch.zeros((1, 7, 64)),
+                       mesh=ModelAxis(2))
 
 
 # ---------------------------------------------------------------------------

@@ -159,9 +159,23 @@ def test_float_kinds_are_plain_casts(name):
 
 
 def test_stochastic_rounding_raises_until_ported():
-    x = torch.ones(4, 8)
-    key = jax.random.PRNGKey(0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tq.int8_round(x, key=key)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tq.quantize(x, tq.resolve_kv_spec("int8", torch.float32), key=key)
+    """Stochastic rounding (key=), once refused, draws JAX's uniforms
+    (prng.uniform): int8_round's and quantize's codes are the
+    reference's for the same key, bit for bit, and differ from
+    round-to-nearest."""
+    x = np.random.default_rng(4).uniform(-3, 3, (4, 8, 16)).astype(
+        np.float32)
+    spec_t = tq.resolve_kv_spec("int8", torch.float32)
+    spec_j = jq.resolve_kv_spec("int8", jnp.float32)
+    for seed in (0, 7):
+        key = jax.random.PRNGKey(seed)
+        kd = np.asarray(key)
+        got = tq.int8_round(torch.from_numpy(x * 40), key=kd).numpy()
+        want = np.asarray(jq.int8_round(jnp.asarray(x * 40), key=key))
+        np.testing.assert_array_equal(got, want)
+        assert (got != tq.int8_round(torch.from_numpy(x * 40)).numpy()
+                ).any()
+        codes, scale = tq.quantize(torch.from_numpy(x), spec_t, key=kd)
+        jcodes, jscale = jq.quantize(jnp.asarray(x), spec_j, key=key)
+        np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))

@@ -383,16 +383,16 @@ def test_long_context_layout_splits_rows_over_the_head_group(case):
 
 
 def test_moe_with_capacity_drops_over_mesh_raises_a11():
+    """The expert-parallel routing with capacity drops over a model axis
+    refuses what the reference's shard_map specs cannot split: 4 experts
+    over 3 model ranks, 6 tokens over 2 x 2 ranks."""
     moe = tcfg.MoEConfig(num_experts=4, top_k=2, d_expert=8)
     p = tmoe.init_moe(16, moe, torch.float32, torch.Generator(), "cpu")
     x = torch.zeros(2, 3, 16)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 2}))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 2}), capacity=5)
-    with pytest.raises(NotImplementedError, match="A11 item 4"):
-        forward({"embed": torch.zeros(256, 64)}, _tiny("moe", moe=moe),
-                x[..., 0].long(), mesh=StandIn({"model": 2}), train=True)
+    with pytest.raises(ValueError, match="4 experts over 3 model ranks"):
+        tmoe.moe_block(p, moe, x, mesh=StandIn({"model": 3}))
+    with pytest.raises(ValueError, match="12 tokens over 2 x 4 ranks"):
+        tmoe.moe_block(p, moe, x, mesh=StandIn({"data": 2, "model": 4}))
 
 
 def test_moe_local_experts_sum_to_the_whole():

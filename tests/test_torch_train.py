@@ -330,16 +330,20 @@ class _Mesh:
 
 
 def test_trainer_refuses_a_mesh_and_a_missing_card():
-    """What a mesh still cannot train (ROADMAP A11 item 4): a batch axis
-    of more than one rank, an MoE plan over more than one model rank;
-    and no card without device="cpu"."""
+    """What the reference's shard_map specs cannot split over a mesh: a
+    global batch that the batch ranks x microbatches do not divide, an
+    MoE plan's experts that the model ranks do not divide; and no card
+    without device="cpu"."""
     _, tt = _tcfgs()
     _, tc = cfg_pair("qwen3-0.6b", 2, True)
-    with pytest.raises(NotImplementedError, match="A11 item 4"):
-        Trainer(tc, tt, mesh=_Mesh(data=2, model=1), device="cpu")
+    with pytest.raises(ValueError, match="4 over 3 batch ranks x 1"):
+        Trainer(tc, tt, mesh=_Mesh(data=3, model=1), device="cpu")
+    _, tt2 = _tcfgs(microbatches=4)
+    with pytest.raises(ValueError, match="4 over 2 batch ranks x 4"):
+        Trainer(tc, tt2, mesh=_Mesh(data=2, model=1), device="cpu")
     _, mc = cfg_pair("qwen2-moe-a2.7b", 2)
-    with pytest.raises(NotImplementedError, match="A11 item 4"):
-        Trainer(mc, tt, mesh=_Mesh(model=2), device="cpu")
+    with pytest.raises(ValueError, match="4 experts over 3 model ranks"):
+        Trainer(mc, tt, mesh=_Mesh(model=3), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(tc, tt)
@@ -358,10 +362,11 @@ def test_launcher_trains_resumes_and_refuses_a_mesh(tmp_path):
     res = _launch(tmp_path, "--steps", "2", "--seq", "16", "--batch", "4")
     assert res.returncode == 0, res.stderr
     assert "final: step=2 loss=" in res.stdout
-    # a data axis (2x2) is ROADMAP A11 item 4; 1xM trains over "model"
-    # (tests/test_torch_tp_train.py)
+    # a mesh needs its ranks (torchrun): alone, the launcher refuses with
+    # both counts (2x2 trains under 4 ranks: tests/test_torch_dp_train.py)
     res = _launch(tmp_path, "--mesh", "2x2")
-    assert res.returncode != 0 and "A11 item 4" in res.stderr
+    assert res.returncode != 0 and "needs 4 ranks" in res.stderr
+    assert "runs alone (1)" in res.stderr
 
 
 def test_moe_trainer_matches_jax_and_checkpoints_round_trip(tmp_path):
