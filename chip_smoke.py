@@ -7786,6 +7786,154 @@ def ttrain_two_ranks(torch, workdir):
     return out
 
 
+# the dry run's phase: Qwen3-0.6B + AltUp K=2 on the production meshes
+DRY_ARCH, DRY_K = "qwen3-0.6b", 2
+# the train program at 2 rows a rank of the 16 x 16 mesh (train_4k's 16
+# rows hold whole-vocabulary logits past the card's memory, PERF.md)
+DRY_TRAIN_B32 = ("train_4k_b32", 4096, 32, "train")
+# the card's peak allocation against the meta count's temp bytes: within
+# this share of the prediction plus DRY_MEM_SLACK bytes (PERF.md §6)
+DRY_MEM_RTOL = 0.05
+DRY_MEM_SLACK = 256 << 20
+
+
+def dryrun_phases(torch, ops):
+    """dryrun: launch/dryrun.py on Qwen3-0.6B + AltUp K=2. (a) meta counts
+    of train_4k and decode_32k on 16 x 16 and train_4k on 2 x 16 x 16
+    (and the train program at 2 rows a rank): the roofline terms, bound,
+    useful FLOPs share, collectives by kind, predicted memory. (b) the
+    16 x 16 cells and the 2-row train cell run on the card under the same
+    fake group (dryrun.card_run): FLOPs equal to the meta count's (a
+    difference named by op), the card's peak allocation within
+    DRY_MEM_RTOL of the predicted temp bytes, an OOM only where the
+    prediction exceeds the card; the step's device ms (collectives move
+    nothing) beside step_s_lower_bound. (c) the decode cell again with
+    the kernel levers at None: B1 (altup_predict_correct) and B2
+    (ragged_decode_attention) launched on the rank's shard, once a layer
+    each. (d) `python -m repro_torch.launch.dryrun` on decode_32k as a
+    user runs it on the card (dryrun.main): exit 0, the card's FLOPs and
+    peak as (b)'s gates hold them."""
+    import torch.distributed as dist
+    from repro_torch.config import SHAPES_BY_NAME, ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, production_shape
+    from repro_torch.models.transformer import layer_plan
+    t0 = time.perf_counter()
+    cfg = get_config(DRY_ARCH, altup_k=DRY_K)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    cells = [("train_4k", False), ("decode_32k", False), ("train_4k", True)]
+    pred = {}
+    for shape, mp in cells:
+        rec = dryrun.run_cell(DRY_ARCH, shape, multi_pod=mp, altup_k=DRY_K,
+                              analyze=False, device="meta", verbose=False)
+        assert rec["status"] == "ok", rec.get("error")
+        ro, mem = rec["roofline"], rec["memory"]
+        pred[(shape, mp)] = rec
+        line("dryrun-meta", cell=shape, mesh=list(production_shape(mp)[0]),
+             count_s=rec["compile_s"],
+             **{k: ro[k] for k in ("compute_s", "memory_s", "collective_s",
+                                   "bound", "step_s_lower_bound",
+                                   "useful_flops_frac")},
+             flops=rec["cost_raw"]["flops"],
+             bytes_accessed=rec["cost_raw"]["bytes accessed"],
+             collectives={k: v for k, v in rec["collectives_raw"].items()
+                          if k != "by_direction" and v},
+             memory=mem)
+    b32 = ShapeConfig(*DRY_TRAIN_B32)
+    shape16, axes16 = production_shape(False)
+    out = {}
+    with fake_mesh(shape16, axes16) as mesh:
+        c = dryrun.trace_cell(cfg, b32, mesh)
+        pred[(b32.name, False)] = {
+            "cost_raw": dryrun.cost_dict(c), "memory": dryrun.memory_dict(c),
+            "flops_by_op": c["flops_by_op"],
+            "roofline": dryrun.roofline_terms(
+                c["flops"], c["bytes accessed"],
+                dryrun.collective_bytes(c["collectives"])["total"],
+                n_chips=256)}
+        line("dryrun-meta", cell=b32.name, mesh=list(shape16),
+             flops=c["flops"], bytes_accessed=c["bytes accessed"],
+             memory=pred[(b32.name, False)]["memory"])
+        for name in ("train_4k", "decode_32k", b32.name):
+            shape = SHAPES_BY_NAME.get(name, b32)
+            p = pred[(name, False)]
+            mem = p["memory"]
+            need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            fits = need <= card_bytes
+            card = dryrun.card_run(cfg, shape, mesh)
+            res = {"cell": name, "status_card": card["status_card"],
+                   "predicted_fits": fits, "predicted_bytes": need,
+                   "card_bytes": card_bytes,
+                   "predicted_temp_bytes": mem["temp_size_in_bytes"]}
+            if card["status_card"] == "oom":
+                res["error"] = card["error"][:300]
+                line("dryrun-card", **res)
+                assert not fits, f"{name}: OOM where the count predicted " \
+                    f"{need} of the card's {card_bytes} bytes"
+                out[name] = res
+                continue
+            diff = {op: (card["flops_by_op"].get(op, 0),
+                         p["flops_by_op"].get(op, 0))
+                    for op in set(card["flops_by_op"]) | set(p["flops_by_op"])
+                    if card["flops_by_op"].get(op, 0) !=
+                    p["flops_by_op"].get(op, 0)}
+            err = card["peak_bytes"] - mem["temp_size_in_bytes"]
+            res.update(flops=card["flops"], flops_meta=p["cost_raw"]["flops"],
+                       flops_diff_by_op=diff, step_ms=card["ms"],
+                       step_s_lower_bound=p["roofline"]["step_s_lower_bound"],
+                       card_peak_bytes=card["peak_bytes"],
+                       argument_bytes=card["argument_bytes"],
+                       argument_bytes_meta=mem["argument_size_in_bytes"],
+                       mem_err_bytes=err,
+                       mem_err_rel=err / max(mem["temp_size_in_bytes"], 1.0),
+                       collectives=card["collectives"])
+            line("dryrun-card", **res)
+            assert fits, f"{name}: ran where the count predicted {need} " \
+                f"of the card's {card_bytes} bytes"
+            assert not diff, f"{name}: FLOPs differ by op (card, meta): " \
+                f"{diff}"
+            assert card["flops"] == p["cost_raw"]["flops"]
+            assert abs(err) <= DRY_MEM_RTOL * mem["temp_size_in_bytes"] + \
+                DRY_MEM_SLACK, f"{name}: card peak {card['peak_bytes']} " \
+                f"against the count's {mem['temp_size_in_bytes']}"
+            out[name] = res
+        # (c) the decode cell with the kernel levers at None
+        ops.reset_launch_counts()           # counts start at 0 right here
+        card = dryrun.card_run(cfg, SHAPES_BY_NAME["decode_32k"], mesh,
+                               kernels=True, timed=False)
+        counts = ops.launch_counts()        # read right after the run
+    assert not dist.is_initialized()
+    n_attn = sum(seg.n for seg in layer_plan(cfg) if seg.kind == "attn")
+    res = {"status_card": card["status_card"], "launches": counts,
+           "attn_layers": n_attn, "peak_bytes": card.get("peak_bytes"),
+           "flops": card.get("flops")}
+    line("dryrun-kernels", cell="decode_32k", **res)
+    assert card["status_card"] == "ok", card.get("error")
+    for name in ("altup_predict_correct", "ragged_decode_attention"):
+        assert counts.get(name, 0) == n_attn, (name, counts)
+    # (d) the command a user runs on the card: the meta count, its solve
+    # and the card's run of decode_32k in one record
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        path = Path(work) / "cell.json"
+        rc = dryrun.main(["--arch", DRY_ARCH, "--shape", "decode_32k",
+                          "--altup", str(DRY_K), "--out", str(path)])
+        rec = json.loads(path.read_text())[0]
+    line("dryrun-cli", rc=rc, status=rec["status"],
+         status_card=rec.get("status_card"),
+         memory_card=rec.get("memory_card"),
+         temp_bytes=rec["memory"]["temp_size_in_bytes"],
+         solve_rel_err=rec["cost"]["direct_rel_err"])
+    assert rc == 0 and rec["status_card"] == "ok", rec.get("error_card")
+    assert "flops_card" not in rec
+    temp = rec["memory"]["temp_size_in_bytes"]
+    assert abs(rec["memory_card"]["peak_bytes"] - temp) <= \
+        DRY_MEM_RTOL * temp + DRY_MEM_SLACK, rec["memory_card"]
+    line("dryrun-seconds", seconds=time.perf_counter() - t0)
+    return out
+
+
 def train_tp_phases(torch, workdir):
     """(t-train): (a), (b) with (c) over data 2 x model 1 in its ranks,
     then (c) over data 2 x model 2 and (d) in four ranks."""
@@ -8386,6 +8534,11 @@ def main(argv) -> int:
     # a checkpoint restored into the un-meshed Trainer
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         train_tp_phases(torch, Path(work))
+
+    # (dryrun) launch/dryrun.py: one rank of the 16 x 16 and 2 x 16 x 16
+    # production meshes counted on meta, then run on the card under the
+    # same fake group
+    dryrun_phases(torch, ops)
 
     # the main path's launch counts: the replayed runs (Engine as a user
     # calls it)

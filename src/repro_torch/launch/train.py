@@ -74,14 +74,11 @@ def main(argv=None):
 def make_train_mesh(spec: str, device):
     """--mesh's DeviceMesh, the reference's launcher's: "DxM" ->
     ("data", "model") of (D, M); "pod" -> (16, 16) and "multipod" -> (2,
-    16, 16) over ("pod", "data", "model") (launch/mesh.py of the
-    reference). make_mesh raises when the world is another size."""
-    from repro_torch.launch.mesh import make_mesh
-    if spec == "pod":
-        return make_mesh((16, 16), ("data", "model"), device=device)
-    if spec == "multipod":
-        return make_mesh((2, 16, 16), ("pod", "data", "model"),
-                         device=device)
+    16, 16) over ("pod", "data", "model") (make_production_mesh).
+    make_mesh raises when the world is another size."""
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    if spec in ("pod", "multipod"):
+        return make_production_mesh(spec == "multipod", device=device)
     try:
         d, m = (int(x) for x in spec.split("x"))
     except ValueError:

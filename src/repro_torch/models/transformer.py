@@ -142,6 +142,23 @@ def layer_slice(tree, i: int) -> Dict:
                 else v[i]) for n, v in tree.items()}
 
 
+def layer_slices(tree) -> List[Dict]:
+    """[layer_slice(tree, i) for every layer i], each stacked leaf
+    unbound once. Under autograd a leaf's gradient is then one stack of
+    its layers' gradients; a select per layer would write a zero-filled
+    gradient of the whole leaf for every layer (traffic quadratic in the
+    depth)."""
+    per: List[Dict] = []
+    for name, v in tree.items():
+        parts = (layer_slices(v) if isinstance(v, (Mapping, ParamTree))
+                 else torch.unbind(v))
+        if not per:
+            per = [{} for _ in parts]
+        for d, part in zip(per, parts):
+            d[name] = part
+    return per
+
+
 # --------------------------------------------------------------------------
 # segment plan
 # --------------------------------------------------------------------------
@@ -155,6 +172,11 @@ class Segment:
                          # mix; mamba has no FFN)
     layer_offset: int    # zero-based global index of the first layer
     window: int = 0      # static attention window (0 = full)
+
+    @property
+    def kind_key(self) -> str:
+        """The dry run's layer kind (launch/dryrun.kind_counts)."""
+        return f"{self.kind}/{self.ffn}/w{self.window}"
 
 
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
@@ -551,7 +573,7 @@ def remat_wrap(fn, remat: str):
 def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
                   k_pos, wkv_kernel: Optional[bool] = None,
                   remat: str = "none", enc_out=None, cross_stack=None,
-                  rel_bias=None, causal=None, mesh=None):
+                  rel_bias=None, causal=None, mesh=None, aux_total=None):
     """Run a full-sequence segment. x: (B, S, [K,] d). An rwkv segment
     starts every layer's recurrence from a zero state. remat: the policy
     around each layer body, AltUp included (remat_wrap). enc_out /
@@ -561,15 +583,19 @@ def apply_segment(p_seg, seg: Segment, cfg: ModelConfig, x, *, q_pos,
     A mamba segment, like an rwkv one, starts from a zero state. A
     shared_attn segment is one invocation of the hybrid's tied block:
     p_seg is `shared_blk` itself (unstacked). mesh: the "model" axis
-    the layers are sharded over. Returns (x, the segment's
-    aux loss summed over its layers; under AltUp a layer's aux is that of
-    the one block it computed)."""
+    the layers are sharded over. Returns (x, aux_total plus the
+    segment's aux loss summed over its layers; under AltUp a layer's aux
+    is that of the one block it computed); aux_total: the running sum of
+    the segments before (a zero 0-d f32 when None), so a plan's segments
+    add no bookkeeping of their own."""
     K = cfg.altup.K
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    p_layers = None if seg.kind == "shared_attn" else layer_slices(p_seg)
+    cross = None if cross_stack is None else layer_slices(cross_stack)
     for i in range(seg.n):
-        p_l = p_seg if seg.kind == "shared_attn" else layer_slice(p_seg, i)
-        cross_l = (None if cross_stack is None
-                   else layer_slice(cross_stack, seg.layer_offset + i))
+        p_l = p_seg if seg.kind == "shared_attn" else p_layers[i]
+        cross_l = None if cross is None else cross[seg.layer_offset + i]
 
         def layer_fn(xa, p_l=p_l, cross_l=cross_l):
             if seg.kind in ("rwkv", "mamba"):
@@ -696,12 +722,11 @@ def _forward(params, cfg: ModelConfig, tokens, *, wkv_kernel, remat,
         raise ValueError(f"encoder_frames given to family {cfg.family!r}")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
-        x, aux = apply_segment(segment_params(params, seg, si), seg, cfg,
-                               x, q_pos=q_pos, k_pos=q_pos,
-                               wkv_kernel=wkv_kernel, remat=remat,
-                               enc_out=enc_out, cross_stack=cross_stack,
-                               rel_bias=rel_bias, mesh=mesh)
-        aux_total = aux_total + aux
+        x, aux_total = apply_segment(
+            segment_params(params, seg, si), seg, cfg, x, q_pos=q_pos,
+            k_pos=q_pos, wkv_kernel=wkv_kernel, remat=remat,
+            enc_out=enc_out, cross_stack=cross_stack, rel_bias=rel_bias,
+            mesh=mesh, aux_total=aux_total)
     return unembed(params, cfg, x, mesh=mesh), aux_total
 
 
@@ -788,13 +813,14 @@ def encode_seq_reduced(params, cfg: ModelConfig, x, *,
         return attn_ffn_layer(p_l, cfg, xx, window=0, q_pos=pos, k_pos=pos,
                               bias=bias, causal=False, mesh=mesh)[0]
 
+    p_layers = layer_slices(enc["seg"])
     if sa.mode == "avgpool":
         x = seqalt.avgpool_reduce(x, sa.stride)
         for i in range(n):
-            x = run_layer(layer_slice(enc["seg"], i), x)
+            x = run_layer(p_layers[i], x)
         return x
     for i in range(n):
-        layer_fn = functools.partial(run_layer, layer_slice(enc["seg"], i))
+        layer_fn = functools.partial(run_layer, p_layers[i])
         if not lo <= i < hi:
             x = layer_fn(x)
         elif sa.mode == "altup":

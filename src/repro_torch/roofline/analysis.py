@@ -16,18 +16,29 @@ port's own `layer_plan` and an H100 hardware model (config.H100_SXM):
 
   The reference reads the FLOPs and bytes of a compiled XLA program; here
   the caller counts them (chip_smoke.py counts each kernel's and each
-  replayed step's).
+  replayed step's, launch/dryrun.py one rank's step);
+* the dry run's counters, the torch counterparts of the reference's XLA
+  readers: `count_step` runs a step once under
+  `torch.utils.flop_counter.FlopCounterMode` and a bytes mode (FLOPs,
+  bytes each aten op moves, peak live bytes); `cost_dict` and
+  `memory_dict` give the reference's keys from its count, and
+  `collective_bytes` maps `sharding.collective_counts()` onto the
+  reference's collective kinds (`parse_collective_bytes` reads them from
+  optimized HLO there).
 
-Not here, waiting for the dry run (ROADMAP A item 5):
-`cost_dict` and `memory_dict`, which read a compiled XLA program's cost
-and memory analysis, and `parse_collective_bytes` / `while_trip_counts`,
-which parse optimized HLO text. Their torch counterparts are
-`torch.utils.flop_counter.FlopCounterMode` and the CUDA caching
-allocator's statistics.
+`while_trip_counts` has no counterpart: the reference recovers the trip
+count of a scanned layer stack from HLO text because XLA's cost analysis
+counts a while body once; an eager program runs every layer, so nothing
+is counted once, and there is no HLO text to read.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.config import H100_SXM, HardwareConfig
 from repro_torch.models.transformer import layer_plan
@@ -204,4 +215,164 @@ def roofline_terms(flops: float, bytes_accessed: float,
         # useful compute time over the bound's step time
         out["roofline_frac"] = (useful / hw.peak_flops) / max(
             out["step_s_lower_bound"], 1e-30)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the dry run's counters (launch/dryrun.py)
+# --------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+# sharding.collective_counts' kinds -> the reference's HLO op names
+_KIND_NAMES = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+               "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
+# namespaces of the collectives' dispatcher ops: no memory traffic counted
+_COLLECTIVE_NS = ("c10d", "_c10d_functional", "c10d_functional")
+
+
+def _extent_bytes(t: torch.Tensor) -> int:
+    """Bytes of the elements a tensor reaches: a broadcast (stride 0) dim
+    counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def tensors_in(x):
+    """The tensors of a nested tree (dicts and ParamTrees, tuples,
+    lists)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from tensors_in(y)
+    elif hasattr(x, "items"):
+        for _, y in x.items():
+            yield from tensors_in(y)
+
+
+class _BytesMode(TorchDispatchMode):
+    """Bytes every aten op moves and the bytes live at once.
+
+    An op moves the bytes of its distinct input and output tensors (a
+    view's elements, each counted once); view ops, `empty*` and the
+    collectives' dispatcher ops move none. The live bytes are those of the
+    storages made under the mode and still alive: each new output storage
+    is added once and taken off when it is freed (a finalizer on the
+    storage, which torch keeps as one Python object while it lives), so
+    `peak` is the most memory the step held beyond what existed before
+    it: its arguments. Only ops with a tensor on `device`'s type count:
+    the host's bookkeeping (a DeviceMesh's coordinates, tables built on
+    the CPU before a copy) is not the device's traffic."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device = torch.device(device).type
+        self.bytes = 0
+        self.live = 0
+        self.peak = 0
+        self._alive: Dict[int, int] = {}
+
+    def _free(self, key: int) -> None:
+        self.live -= self._alive.pop(key, 0)
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._alive:
+            return
+        n = st.nbytes()
+        self._alive[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not any(t.device.type == self.device
+                for t in tensors_in((args, kwargs or {}, out))):
+            return out
+        name = func.name()
+        free = (func.is_view or name.split("::")[0] in _COLLECTIVE_NS
+                or name.split("::")[-1].startswith("empty"))
+        seen = set()
+        for t in tensors_in((args, kwargs or {}, out)):
+            if not free:
+                key = (t.untyped_storage()._cdata, t.storage_offset(),
+                       tuple(t.shape), tuple(t.stride()), t.dtype)
+                if key not in seen:
+                    seen.add(key)
+                    self.bytes += _extent_bytes(t)
+        if not func.is_view:
+            held = {t.untyped_storage()._cdata
+                    for t in tensors_in((args, kwargs or {}))}
+            for t in tensors_in(out):
+                if t.untyped_storage()._cdata not in held:  # not in place
+                    self._track(t)
+        return out
+
+
+def count_step(fn, *args, count_device, **kw):
+    """Run fn(*args, **kw) once under FlopCounterMode and the bytes mode
+    (count_device: the device whose ops count, _BytesMode's `device`).
+    Returns (fn's result, {"flops": FLOPs (matmuls, convolutions and
+    attention, FlopCounterMode's formulas), "flops_by_op": {op: FLOPs},
+    "bytes accessed": the bytes every aten op read and wrote, "peak_bytes":
+    the most bytes the step held at once beyond its arguments}).
+
+    The bytes are the unfused program's traffic: each op reads its inputs
+    from memory and writes its outputs back, so the count is an upper
+    bound of what a fused program moves (the reference reads XLA's count
+    after fusion). Runs on any device; on the meta device nothing is
+    computed or allocated, and the count is the same program's."""
+    flops = FlopCounterMode(display=False)
+    mode = _BytesMode(count_device)
+    with flops, mode:
+        out = fn(*args, **kw)
+    by_op = {str(op): int(n) for op, n in
+             flops.get_flop_counts().get("Global", {}).items()}
+    return out, {"flops": float(flops.get_total_flops()),
+                 "flops_by_op": by_op,
+                 "bytes accessed": float(mode.bytes),
+                 "peak_bytes": float(mode.peak)}
+
+
+def cost_dict(counted: Dict) -> Dict[str, float]:
+    """The reference's cost-analysis keys of a count (count_step's or a
+    dry-run record's counted dict)."""
+    return {"flops": float(counted["flops"]),
+            "bytes accessed": float(counted["bytes accessed"])}
+
+
+def memory_dict(counted: Dict) -> Dict[str, float]:
+    """The reference's five memory-analysis keys of a dry-run count:
+    argument and output bytes (the rank's parameters, optimizer state,
+    inputs and caches; exact sums), alias bytes (what the step updates in
+    place: parameters and optimizer state, or caches), temp bytes (the
+    peak live bytes beyond the arguments) and generated code (0: eager
+    PyTorch compiles nothing)."""
+    return {"generated_code_size_in_bytes": 0.0,
+            "argument_size_in_bytes": float(counted["argument_bytes"]),
+            "output_size_in_bytes": float(counted["output_bytes"]),
+            "temp_size_in_bytes": float(counted["peak_bytes"]),
+            "alias_size_in_bytes": float(counted["alias_bytes"])}
+
+
+def collective_bytes(counts: Dict) -> Dict:
+    """parse_collective_bytes' record from `sharding.collective_counts()`:
+    bytes by the reference's kind names ("all-gather", "all-reduce",
+    "reduce-scatter", "all-to-all", "collective-permute") and "total",
+    the bytes a rank sent into each collective; the port's split by
+    direction (fwd / bwd / grad / opt / whole) under "by_direction"."""
+    out: Dict = {k: 0.0 for k in COLLECTIVE_KINDS}
+    by_dir: Dict[str, float] = {}
+    for key, (_, b) in counts.items():
+        kind, _, tag = key.partition("/")
+        out[_KIND_NAMES[kind]] += float(b)
+        by_dir[key] = float(b)
+    out["total"] = sum(out[k] for k in COLLECTIVE_KINDS)
+    out["by_direction"] = by_dir
     return out

@@ -186,12 +186,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None, *, seq=None,
+                    wkv_kernel=None):
     """serve_step(params, caches, tokens, pos) -> (logits, caches): one
-    decode step, without autograd."""
+    decode step, without autograd. mesh / seq / wkv_kernel: decode_step's
+    (params and caches a rank's shards over the mesh; seq the long-context
+    layout of init_cache(seq=))."""
 
     @torch.no_grad()
     def serve_step(params, caches, tokens, pos):
-        return decode_step(params, cfg, caches, tokens, pos)
+        return decode_step(params, cfg, caches, tokens, pos, mesh=mesh,
+                           seq=seq, wkv_kernel=wkv_kernel)
 
     return serve_step
